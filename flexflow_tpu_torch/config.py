@@ -1,0 +1,124 @@
+"""FFConfig: run configuration + CLI flag surface.
+
+PyTorch counterpart of ``flexflow_tpu/config.py``: the same field names
+and defaults, so a configuration carries over between the two packages.
+This slice reads ``batch_size``, ``seed``, ``workers_per_node``,
+``search_budget`` and ``allow_mixed_precision``; the other fields are
+kept for the later slices that read them (training, search, meshes,
+checkpointing, observability). ``parse_args`` consumes the flags of the
+fields this slice reads and leaves every other flag to the application,
+as the reference leaves flags it does not know.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+from flexflow_tpu_torch.ffconst import CompMode
+
+
+@dataclasses.dataclass
+class FFConfig:
+    # training flags
+    epochs: int = 1
+    batch_size: int = 64
+    batch_size_explicit: bool = False  # True once -b/--batch-size is parsed
+    learning_rate: float = 0.01
+    weight_decay: float = 0.0001
+    iterations: int = 1
+    seed: int = 42
+
+    # machine shape: devices per host (0 = all visible), hosts
+    workers_per_node: int = 0
+    num_nodes: int = 1
+    coordinator_address: Optional[str] = None
+    node_rank: int = -1
+    slices: int = 1
+    memory_per_chip_mb: int = 16 * 1024
+    machine_model_version: int = 0
+    machine_model_file: Optional[str] = None
+
+    # auto-parallelization search
+    search_budget: int = 0
+    search_alpha: float = 0.05
+    only_data_parallel: bool = False
+    enable_sample_parallel: bool = True
+    enable_parameter_parallel: bool = False
+    enable_attribute_parallel: bool = False
+    enable_inplace_optimizations: bool = True
+    search_overlap_backward_update: bool = False
+    base_optimize_threshold: int = 10
+    enable_substitution: bool = True
+    enable_pipeline_parallel: bool = True
+    pipeline_microbatches: int = 0
+    pipeline_schedule: str = "auto"
+    pipeline_shard_queue: bool = True
+    substitution_json: Optional[str] = None
+    memory_search: bool = False
+    memory_threshold_mb: Optional[int] = None
+    search_measure_ops: bool = False
+    measured_cache_file: Optional[str] = None
+    search_trace: bool = False
+    export_strategy_file: Optional[str] = None
+    import_strategy_file: Optional[str] = None
+    export_strategy_computation_graph_file: Optional[str] = None
+    include_costs_dot_graph: bool = False
+
+    # execution
+    computation_mode: CompMode = CompMode.TRAINING
+    perform_fusion: bool = True
+    profiling: bool = False
+    # bf16 compute with f32 master params on the card; f32 on the CPU
+    allow_mixed_precision: bool = True
+    conv_compute_layout: str = "auto"
+    fold_conv_bn: bool = True
+    weight_update_sharding: str = "auto"
+    overlap_bucket_mb: str = "auto"
+    kernel_search: str = "auto"
+    remat_search: str = "auto"
+    lint: str = "off"
+    trace_dir: Optional[str] = None
+    profile_steps: Optional[str] = None
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    checkpoint_retain: int = 3
+    checkpoint_async: bool = True
+    resume: bool = False
+    grace_window_s: float = 0.0
+    watchdog_timeout_s: float = 0.0
+
+    @property
+    def num_devices(self) -> int:
+        """Explicit device count, or 0 meaning auto (use all visible)."""
+        return self.workers_per_node * self.num_nodes
+
+    def parse_args(self, argv: Sequence[str]) -> List[str]:
+        """Consume the flags this slice reads from ``argv``; return the
+        rest. Flag names are the reference's."""
+        rest: List[str] = []
+        args = list(argv)
+        i = 0
+
+        def take() -> str:
+            nonlocal i
+            i += 1
+            if i >= len(args):
+                raise ValueError(f"flag {args[i - 1]} expects a value")
+            return args[i]
+
+        while i < len(args):
+            a = args[i]
+            if a in ("-b", "--batch-size"):
+                self.batch_size = int(take())
+                self.batch_size_explicit = True
+            elif a == "--seed":
+                self.seed = int(take())
+            elif a in ("-ll:gpu", "-ll:tpu", "--workers-per-node"):
+                self.workers_per_node = int(take())
+            elif a in ("--budget", "--search-budget"):
+                self.search_budget = int(take())
+            else:
+                rest.append(a)
+            i += 1
+        return rest

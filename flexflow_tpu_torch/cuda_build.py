@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled for
+Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first use (the
+hash covers the source and the flags, so an edited source rebuilds) and
+loaded with ``ctypes``. A thread lock and a file lock around the build let
+the serving thread, other threads and other processes race to the first
+call safely. Nothing here runs at import time: the CPU-only test
+environment has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME")
+    candidates = ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home
+                  else []) + ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc")]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the port's CUDA kernels are built from source")
+
+
+def _paths(name: str):
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its current build exists; return
+    the shared library's path. nvcc's output (with ``-Xptxas -v``: the
+    registers, shared memory and spills of each kernel) is kept beside it
+    as ``.log``."""
+    src, out = _paths(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        try:
+            if out.exists():
+                return out
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True)
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {src.name} "
+                    f"(exit {proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock_file, fcntl.LOCK_UN)
+    return out
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current build of ``name`` ('' if none)."""
+    log = _paths(name)[1].with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,198 @@
+"""MultiHeadAttention.
+
+PyTorch counterpart of ``flexflow_tpu/ops/attention.py``. The four
+projections keep the head-first weight layout — wq/wk/wv ``[H, E, D]``,
+wo ``[H, D, E]`` — so the head axis stays a first-class shardable dim and
+parameters carry across from the JAX package unchanged. The attention
+core is the flash-attention kernel (``ops/flash_attention.py``) where its
+availability rule holds, else the einsum core
+``scaled_dot_product_attention``. ``kernel_impl="einsum"`` pins the
+einsum core; ``kernel_impl="flash"`` demands the kernel and raises where
+it cannot run — the port has no silent fallback.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flexflow_tpu_torch.ffconst import OperatorType
+from flexflow_tpu_torch.initializers import DefaultWeightInitializer
+from flexflow_tpu_torch.ops.base import DimRole, Op, OpContext, register_op
+from flexflow_tpu_torch.ops.flash_attention import (
+    SUPPORTED_HEAD_DIMS, flash_attention, flash_attention_available)
+
+
+def rotary_embedding(x: torch.Tensor, *, theta: float = 10000.0
+                     ) -> torch.Tensor:
+    """Apply RoPE to ``[B, H, S, D]`` (HF Llama rotate-half convention):
+    positions 0..S-1, inv_freq = theta^(-2i/D). (The decode path's
+    position offset comes with KV decode.)"""
+    b, h, s, d = x.shape
+    inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                             device=x.device) / d))
+    pos = torch.arange(s, dtype=torch.float32, device=x.device)
+    angles = pos[:, None] * inv_freq[None, :]
+    cos = torch.cat([torch.cos(angles)] * 2, dim=-1)  # [S, D]
+    sin = torch.cat([torch.sin(angles)] * 2, dim=-1)
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    rotated = torch.cat([-x2, x1], dim=-1)
+    return (x.float() * cos + rotated.float() * sin).to(x.dtype)
+
+
+def scaled_dot_product_attention(q, k, v, *, causal=False,
+                                 compute_dtype=torch.float32):
+    """The einsum core: q, k, v ``[B, H, S, D]`` -> ``[B, H, S, D]`` f32.
+    Operands are rounded to the compute dtype and multiplied with f32
+    accumulation and f32 output (JAX's ``preferred_element_type``); the
+    softmax is f32."""
+    cd = compute_dtype
+    d = q.shape[-1]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.to(cd).float(),
+                          k.to(cd).float()) / math.sqrt(d)
+    if causal:
+        s_q, s_k = scores.shape[-2], scores.shape[-1]
+        mask = torch.ones(s_q, s_k, dtype=torch.bool,
+                          device=q.device).tril(diagonal=s_k - s_q)
+        scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(cd).float(),
+                        v.to(cd).float())
+
+
+@register_op(OperatorType.MULTIHEAD_ATTENTION)
+class MultiHeadAttention(Op):
+    """inputs: query [B,Sq,E], key [B,Sk,E], value [B,Sk,E] -> [B,Sq,E]."""
+
+    def __init__(self, layer, input_shapes):
+        p = layer.properties
+        self.embed_dim = p["embed_dim"]
+        self.num_heads = p["num_heads"]
+        self.kdim = p.get("kdim") or self.embed_dim
+        self.vdim = p.get("vdim") or self.embed_dim
+        self.head_dim = self.embed_dim // self.num_heads
+        self.dropout = p.get("dropout", 0.0)
+        self.causal = p.get("causal", False)
+        self.use_bias = p.get("bias", True)
+        # grouped-query attention: kv heads repeat to H before the core
+        self.num_kv_heads = p.get("num_kv_heads") or self.num_heads
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(
+                f"attention '{layer.name}': num_heads ({self.num_heads}) "
+                f"must be a multiple of num_kv_heads ({self.num_kv_heads})")
+        self.rope = p.get("rope", False)
+        self.rope_theta = p.get("rope_theta", 10000.0)
+        self.qkv_bias = p.get("qkv_bias", False)
+        if p.get("seq_parallel"):
+            raise NotImplementedError(
+                f"attention '{layer.name}': seq_parallel (ring attention) "
+                f"comes with the ring-attention slice of the PyTorch port")
+        # None = availability-based pick; "flash" demands the kernel;
+        # "einsum" pins the einsum core
+        self.kernel_impl = p.get("kernel_impl", None)
+        if self.kernel_impl not in (None, "flash", "einsum"):
+            raise ValueError(f"attention '{layer.name}': kernel_impl "
+                             f"{self.kernel_impl!r} not in (None, 'flash', "
+                             f"'einsum')")
+        self.kernel_init = p.get("kernel_initializer") or DefaultWeightInitializer()
+        super().__init__(layer, input_shapes)
+
+    def compute_output_shapes(self):
+        b, sq, _ = self.input_shapes[0]
+        return [(b, sq, self.embed_dim)]
+
+    def init_params(self, generator):
+        h, e, d = self.num_heads, self.embed_dim, self.head_dim
+        hk = self.num_kv_heads
+        dev = generator.device
+        params = {
+            "wq": self.kernel_init(generator, (h, e, d)),
+            "wk": self.kernel_init(generator, (hk, self.kdim, d)),
+            "wv": self.kernel_init(generator, (hk, self.vdim, d)),
+            "wo": self.kernel_init(generator, (h, d, e)),
+        }
+        if self.use_bias:
+            params["bo"] = torch.zeros((e,), device=dev)
+            if self.qkv_bias:
+                params["bq"] = torch.zeros((h, d), device=dev)
+                params["bk"] = torch.zeros((hk, d), device=dev)
+                params["bv"] = torch.zeros((hk, d), device=dev)
+        return params
+
+    def forward(self, params, inputs, ctx: OpContext):
+        query, key, value = (inputs * 3)[:3] if len(inputs) == 1 else inputs
+        cd = ctx.compute_dtype
+        proj = lambda x, w: torch.einsum("bse,hed->bhsd", x.to(cd),
+                                         params[w].to(cd))
+        q, k, v = proj(query, "wq"), proj(key, "wk"), proj(value, "wv")
+        if self.qkv_bias and "bq" in params:
+            q = q.float() + params["bq"].float()[None, :, None, :]
+            k = k.float() + params["bk"].float()[None, :, None, :]
+            v = v.float() + params["bv"].float()[None, :, None, :]
+        if self.rope:
+            q = rotary_embedding(q, theta=self.rope_theta)
+            k = rotary_embedding(k, theta=self.rope_theta)
+        if self.num_kv_heads != self.num_heads:
+            rep = self.num_heads // self.num_kv_heads
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        if self.dropout > 0 and ctx.training:
+            raise NotImplementedError(
+                f"attention '{self.name}': attention-prob dropout is "
+                f"training, which comes with the training slice")
+        # the core consumes q/k/v in the compute dtype
+        q, k, v = q.to(cd), k.to(cd), v.to(cd)
+        if self._use_flash(q, k):
+            o = flash_attention(q, k, v, causal=self.causal)
+        else:
+            o = scaled_dot_product_attention(q, k, v, causal=self.causal,
+                                             compute_dtype=cd)
+        y = torch.einsum("bhsd,hde->bse", o.to(cd), params["wo"].to(cd)).float()
+        if self.use_bias:
+            y = y + params["bo"].float()
+        return [y.to(query.dtype)]
+
+    def _use_flash(self, q, k) -> bool:
+        if self.kernel_impl == "einsum":
+            return False
+        available = flash_attention_available(q, k)
+        if self.kernel_impl == "flash" and not available:
+            raise ValueError(
+                f"attention '{self.name}': kernel_impl='flash' but the "
+                f"kernel cannot run here (device={q.device.type}, "
+                f"Sq={q.shape[2]}, Sk={k.shape[2]}, head_dim={q.shape[3]})")
+        return available
+
+    def selected_impl(self, device: str = "cuda") -> str:
+        """Which core ``forward`` runs on ``device`` ('flash' | 'einsum'),
+        derived statically from the same rule as forward's dispatch."""
+        if self.kernel_impl == "einsum":
+            return "einsum"
+        b, s, e = self.input_shapes[0]
+        sk = self.input_shapes[1][1] if len(self.input_shapes) > 1 else s
+        if torch.device(device).type == "cuda" and s == sk \
+                and self.head_dim in SUPPORTED_HEAD_DIMS:
+            return "flash"
+        return "einsum"
+
+    def output_dim_roles(self):
+        return [(DimRole.SAMPLE, DimRole.SEQ, DimRole.CHANNEL)]
+
+    def flops(self):
+        b, sq, e = self.input_shapes[0]
+        sk = self.input_shapes[1][1] if len(self.input_shapes) > 1 else sq
+        h, d = self.num_heads, self.head_dim
+        hk = self.num_kv_heads
+        proj = (2 * b * h * d * (sq * e + sq * e)
+                + 2 * b * hk * d * (sk * self.kdim + sk * self.vdim))
+        core = 2 * b * h * sq * sk * d * 2
+        return proj + core
+
+    def params_elems(self):
+        h, e, d = self.num_heads, self.embed_dim, self.head_dim
+        hk = self.num_kv_heads
+        n = h * d * (e + e) + hk * d * (self.kdim + self.vdim)
+        if self.use_bias:
+            n += e + ((h + 2 * hk) * d if self.qkv_bias else 0)
+        return n

@@ -1,0 +1,58 @@
+"""Carry parameters across from the JAX package.
+
+JAX's PRNG has no torch twin, so parity between the two packages goes
+through the JAX model's initialized parameters, copied into the port. The
+layouts are identical by construction (dense ``kernel [in, out]`` and
+``bias [out]``, LayerNorm ``scale``/``bias``, attention ``wq/wk/wv
+[H, E, D]``, ``wo [H, D, E]``, ``bo [E]``), so the copy is a cast and a
+device move.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from flexflow_tpu_torch.executor import COMPUTE_PARAMS_KEY
+
+
+def from_jax_params(params: Mapping[str, Mapping[str, np.ndarray]],
+                    model=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``params``: the JAX model's parameter tree as numpy arrays,
+    ``{layer_name: {param_name: array}}`` (``np.asarray`` of each leaf of
+    ``ff.params``; a ``__compute_params__`` entry, the JAX state's compute
+    copy, is refused).
+
+    With ``model`` (a compiled port ``FFModel``): checks that the trees
+    match leaf for leaf — raising on a missing, extra or misshapen leaf —
+    copies every leaf into the model's parameters, refreshes the compute
+    copy, and returns ``model.params``. Without: returns the tree as CPU
+    f32 tensors."""
+    if COMPUTE_PARAMS_KEY in params:
+        raise ValueError(f"{COMPUTE_PARAMS_KEY!r} is the JAX state's compute "
+                         f"copy, not a parameter; pass ff.params")
+    if model is None:
+        return {layer: {name: torch.tensor(np.asarray(a), dtype=torch.float32)
+                        for name, a in sub.items()}
+                for layer, sub in params.items()}
+    ours = model.params
+    missing = sorted(f"{l}/{n}" for l, sub in ours.items() for n in sub
+                     if n not in params.get(l, {}))
+    extra = sorted(f"{l}/{n}" for l, sub in params.items() for n in sub
+                   if n not in ours.get(l, {}))
+    if missing or extra:
+        raise ValueError(f"parameter trees differ: missing {missing}, "
+                         f"extra {extra}")
+    for layer, sub in params.items():
+        for name, arr in sub.items():
+            want = tuple(ours[layer][name].shape)
+            if tuple(np.shape(arr)) != want:
+                raise ValueError(f"{layer}/{name}: shape {np.shape(arr)}, "
+                                 f"port expects {want}")
+    for layer, sub in params.items():
+        for name, arr in sub.items():
+            model.set_parameter(layer, np.asarray(arr), name)
+    model._refresh_compute_params()
+    return model.params

@@ -1,0 +1,93 @@
+"""PyTorch port: the package stands alone, and its entry points do not
+fall back to the CPU.
+
+``flexflow_tpu_torch`` must import neither jax nor anything of the JAX
+package ``flexflow_tpu`` (the machine with the card has no JAX), and an
+entry point asked for the card on a machine without one raises.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import flexflow_tpu_torch as P
+from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                   create_transformer)
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "flexflow_tpu_torch"
+
+
+def _forbidden(module: str) -> bool:
+    # mind the prefix: flexflow_tpu_torch itself starts with flexflow_tpu
+    return (module == "jax" or module.startswith("jax.")
+            or module == "flexflow_tpu" or module.startswith("flexflow_tpu."))
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "import flexflow_tpu_torch, flexflow_tpu_torch.serve, "
+        "flexflow_tpu_torch.weights, flexflow_tpu_torch.models, "
+        "flexflow_tpu_torch.cuda_build, flexflow_tpu_torch.serve.loadgen\n"
+        "print('\\n'.join(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    assert "flexflow_tpu_torch" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in list(PORT.rglob("*.py"))
+    + [REPO / "chip_smoke.py"]))
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse((REPO / path).read_text())
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.append(node.module)
+    assert [m for m in imported if _forbidden(m)] == []
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        P.FFModel(P.FFConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        P.FFModel(P.FFConfig(), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_transformer(TransformerConfig(num_layers=1, hidden_size=64,
+                                             num_heads=1, seq_length=8,
+                                             batch_size=2))
+    from flexflow_tpu_torch.serve.loadgen import build_serve_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_serve_model("transformer", on_cpu=True)
+
+
+def test_cpu_only_when_asked():
+    ff = P.FFModel(P.FFConfig(), device="cpu")
+    assert ff.device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        P.FFModel(P.FFConfig(), device="meta")
+
+
+def test_cpu_compute_dtype_is_f32():
+    ff = create_transformer(TransformerConfig(num_layers=1, hidden_size=64,
+                                              num_heads=1, seq_length=8,
+                                              batch_size=2), device="cpu")
+    ff.compile(None, P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, [],
+               comp_mode=P.CompMode.INFERENCE)
+    assert ff.executor.compute_dtype == torch.float32
+    assert "__compute_params__" not in ff.state
+    assert all(t.dtype == torch.float32 and t.device.type == "cpu"
+               for sub in ff.params.values() for t in sub.values())
