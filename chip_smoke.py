@@ -8,26 +8,51 @@ the kernels are built for sm_90a). Imports nothing of JAX or of the JAX
 package. Phases:
 
 1. card    — prints ``nvidia-smi``'s name and power limit; needs CUDA.
-2. build   — builds every kernel of the port from ``flexflow_tpu_torch/csrc``.
-3. kernels — holds each kernel against its plain PyTorch version on the card,
-             at the serving shape and at a ragged length, causal and not,
-             head dims 64 and 128, bf16 and f32; times the kernel, the plain
-             version and the library call that computes the same function.
+2. build   — builds every kernel of the port from ``flexflow_tpu_torch/csrc``,
+             one nvcc per source, all started together; prints each
+             kernel's registers, shared memory and spills.
+3. kernels — holds each kernel against its plain PyTorch version on the
+             card and times the kernel, the plain version and the library
+             call nearest to it:
+             K1 flash forward: the serving shape, ragged lengths, causal,
+               head dims 64 and 128, bf16 and f32;
+             K2/K3 flash backward: the training shape (BH 128, S 512), K3's
+               regime (BH 32, S 2048), causal, ragged S 1000, D 128, bf16
+               and f32, with g_lse zero and random;
+             K4 fused Adam: the 158 leaf shapes of the full-width model,
+               bit-equal, f32 and bf16 state, t 1 and 7, weight decay 0 and
+               0.01.
 4. serve   — builds the BERT-proxy transformer at full width
              (``TransformerConfig()``: 12 layers, hidden 1024, 16 heads, seq
              512, batch 8) with random weights from a seed, compiles it for
              inference and answers requests through the continuous-batching
              ``ServingEngine``: every bucket warmed (set-up), then 32
-             requests closed-loop at concurrency 4, the main path, over
-             which the kernel launches are counted. Checks the results, that
-             the kernel ran 12 times per batch of the closed loop, that a
-             full batch through the engine equals ``predict``, and that
-             ``predict`` agrees with the same model run with the einsum
-             attention core; breaks one batch-8 forward's device time down
-             by kernel kind (torch.profiler). Then the same model in f32
-             compute (``allow_mixed_precision=False``, the f32 kernel)
-             against the einsum core.
-5. report  — one JSON line ``{"kernels": [...]}``, then the final line
+             requests closed-loop at concurrency 4, over which K1's launches
+             are counted. Checks the results, that K1 ran 12 times per
+             batch, that a full batch through the engine equals ``predict``,
+             and that ``predict`` agrees with the einsum attention core;
+             breaks one batch-8 forward's device time down by kernel kind
+             (torch.profiler). Then the same model in f32 compute
+             (``allow_mixed_precision=False``, the f32 kernel) against the
+             einsum core.
+5. train   — (b) the full-width model compiled for training (Adam alpha
+             1e-4 with bf16 moments, MSE loss) with a strategy file that
+             gives attention ``dp_k:flash`` and every other op
+             ``dp_k:fused``: 2 warm-up ``fit`` steps, then 10 timed steps
+             on one seeded batch, over which every kernel's launches are
+             counted (K1 12, the backward 12 and K4 once a step); the loss
+             is finite at every step; step time, samples/s and the
+             device's busy share (torch.profiler) are printed. The 12
+             per-step losses follow the plain path's (einsum core, plain
+             Adam, same weights); at alpha 1e-6 the kernel path's loss
+             falls over 12 steps (at 1e-4 Adam's first steps overshoot on
+             both paths). Then, from one state, the gradients with the
+             flash core against the einsum core (bf16 and f32 compute), and
+             the fused update of those gradients against
+             ``AdamOptimizer.update``, bit for bit.
+             (a) 2 layers at S 2048 (K3's regime) without a strategy file:
+             3 steps, the backward launched twice a step.
+6. report  — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without printing the final line.
@@ -38,6 +63,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -71,6 +97,60 @@ MODEL_RTOL = 2e-2
 # the same in f32 compute: only the order of the sums differs
 MODEL_F32_RTOL = 1e-4
 SERVE_REQUESTS, SERVE_CONCURRENCY = 32, 4
+
+# flash backward: (bh, s, d, dtype name, causal, random g_lse); the first
+# is the training shape (batch 8 x 16 heads, seq 512, head dim 64), the
+# second K3's regime (batch 2 x 16 heads, seq 2048)
+BWD_CASES = [
+    (128, 512, 64, "bfloat16", False, False),
+    (32, 2048, 64, "bfloat16", False, False),
+    (128, 512, 64, "bfloat16", True, True),
+    (32, 2048, 64, "bfloat16", True, False),
+    (16, 1000, 64, "bfloat16", False, True),
+    (16, 1000, 64, "bfloat16", True, False),
+    (32, 512, 128, "bfloat16", False, True),
+    (16, 300, 128, "bfloat16", True, False),
+    (16, 256, 64, "float32", False, True),
+    (16, 1000, 64, "float32", True, False),
+    (8, 200, 128, "float32", True, True),
+]
+# dq, dk, dv against the plain version in f32 from the same (bf16) inputs,
+# as a share of each output's max |value|: bf16 rounds P, dS and the
+# outputs; f32 differs only in the order of the sums.
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# fused Adam: (state dtype name, t, weight decay); every case bit-equal
+ADAM_CASES = [(sdt, t, wd) for sdt in ("float32", "bfloat16")
+              for t in (1, 7) for wd in (0.0, 0.01)]
+ADAM_KW = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+# training (b): warm-up and timed fit steps on one batch
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# per-step loss of the kernel path against the plain path (einsum core,
+# plain Adam) from the same weights and batch, relative: the bf16
+# gradients differ by a few 1e-3 of a leaf's max (the gradient check
+# below) and Adam's first, sign-like steps carry that along the
+# trajectory; 12 steps stayed within 5.2e-3 (PERF.md, PR 2).
+TRAJECTORY_RTOL = 2e-2
+# a step size at which Adam's first steps do not overshoot on this
+# 12-layer random network, for the descent check (at the reference's
+# alpha 1e-4 the loss jumps to ~9e3 at step 2 on both paths)
+DESCENT_ALPHA = 1e-6
+# gradients of one backward from the initial weights, flash core vs einsum
+# core, as a share of each leaf's max |g|: bf16 compute carries the
+# forward's gap (2e-2 of the output, measured for serving) back through 12
+# layers; f32 differs only in the order of the sums. Some leaves are more
+# sensitive than that to any change of rounding (a ReLU whose input lies
+# within rounding of 0 flips; the query weights' gradient at a near-uniform
+# softmax is a difference of near-equal terms), so each leaf is also held
+# against its floor: the larger gap of the einsum core against itself with
+# the model input scaled by 1 + NUDGE and by 1 - NUDGE. A leaf passes
+# within GRAD_RTOL or within FLOOR_FACTOR times its floor; both are
+# printed.
+GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-3}
+NUDGE = 1e-6
+FLOOR_FACTOR = 2.0
+# training (a): K3's regime at a smaller depth
+TRAIN_A = dict(num_layers=2, seq_length=2048, batch_size=2)
+TRAIN_A_STEPS = 3
 
 
 class SmokeFailure(Exception):
@@ -136,19 +216,24 @@ def phase_card():
 
 
 def phase_build():
+    """Build every kernel source, one nvcc each, all started together."""
     from flexflow_tpu_torch import cuda_build
 
+    names = sorted(p.stem for p in cuda_build.SRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    cuda_build.build("flash_attn_fwd")
+    cuda_build.build_all(names)
     secs = time.perf_counter() - t0
-    print(f"[build] flash_attn_fwd built in {secs:.2f} s")
-    for line in cuda_build.build_log("flash_attn_fwd").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    print(f"[build] {', '.join(names)} built in {secs:.2f} s")
+    for name in names:
+        for line in cuda_build.build_log(name).splitlines():
+            if any(t in line for t in ("Compiling entry", "registers",
+                                       "spill")):
+                print(f"[build] {name}: {line.strip()}")
+    return names
 
 
 def phase_kernels():
-    """Kernel vs plain version on the card; returns the serving-shape
+    """K1 against its plain version on the card; returns the serving-shape
     entry of the kernels line (launches filled in later)."""
     import torch
     from flexflow_tpu_torch.ops.flash_attention import (flash_fwd,
@@ -322,12 +407,39 @@ def phase_serve():
     return launches
 
 
+KINDS = ("flash_attn_fwd", "flash_attn_bwd", "fused_adam", "gemm", "memcpy",
+         "other")
+
+
+def kernel_kind(name):
+    name = name.lower()
+    return ("flash_attn_fwd" if "flash_fwd" in name else
+            "flash_attn_bwd" if "flash_bwd" in name else
+            "fused_adam" if "fused_adam" in name else
+            "gemm" if any(t in name for t in ("gemm", "nvjet", "xmma",
+                                              "cutlass", "sm90")) else
+            "memcpy" if "memcpy" in name or "memset" in name else
+            "other")
+
+
+def device_events(prof):
+    """The profile's device events (kernels, copies, sets)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def by_kind(events):
+    out = dict.fromkeys(KINDS, 0.0)
+    for e in events:
+        out[kernel_kind(e.name)] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
 def profile_forward(ff, x):
     """Where the time of one full-batch predict goes on the device: kernel
     time by kind from torch.profiler's kernel events, against the wall
     time of the same (profiled) forward."""
-    import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
@@ -340,25 +452,14 @@ def profile_forward(ff, x):
         t0 = time.perf_counter()
         ff.predict(x)
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind = {"flash_attn_fwd": 0.0, "gemm": 0.0, "memcpy": 0.0,
-               "other": 0.0}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = e.name.lower()
-        kind = ("flash_attn_fwd" if "flash_fwd" in name else
-                "gemm" if any(t in name for t in ("gemm", "nvjet", "xmma",
-                                                  "cutlass", "sm90")) else
-                "memcpy" if "memcpy" in name or "memset" in name else
-                "other")
-        by_kind[kind] += e.time_range.elapsed_us() / 1e3
-    busy = sum(by_kind.values())
+    kinds = by_kind(device_events(prof))
+    busy = sum(kinds.values())
     print(f"[profile] batch-8 predict: wall {statistics.median(walls) * 1e3:.3f}"
           f" ms (median of 5, unprofiled); profiled forward {prof_wall_ms:.3f}"
           f" ms with device busy {busy:.3f} ms "
           f"({100 * busy / prof_wall_ms:.1f}%); "
           + ", ".join(f"{k} {v:.3f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
-                      for k, v in by_kind.items()))
+                      for k, v in kinds.items() if v))
     if busy <= 0:
         print("[profile] torch.profiler recorded no kernel: the breakdown is "
               "not measured")
@@ -396,6 +497,505 @@ def check_f32_model():
           "f32 flash-core predict disagrees with the einsum core")
 
 
+def bwd_bound(bh, s, d, itemsize, causal, with_glse, peaks):
+    """Least time (s) the card could take for one backward, and what
+    bounds it: q, k, v, o, dO read and dq, dk, dv written once, lse (and
+    g_lse) read once; five products of 2*D FLOPs per visible (query, key)
+    pair, on the tensor cores for bf16."""
+    nbytes = 8 * bh * s * d * itemsize + bh * s * 4 * (2 if with_glse else 1)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 10 * bh * pairs * d
+    rate = peaks["bf16"] if itemsize == 2 else peaks["f32"]
+    t_bytes, t_ops = nbytes / peaks["bytes"], flops / rate
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels_bwd():
+    """K2/K3 against the plain version on the card; returns the entries of
+    the kernels line for the training shape (K2) and K3's regime."""
+    import torch
+    from flexflow_tpu_torch.ops.flash_attention import (flash_bwd,
+                                                        flash_bwd_reference,
+                                                        flash_fwd)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entries = []
+    for bh, s, d, dname, causal, with_glse in BWD_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        glse = (torch.randn(bh, s, generator=gen, device="cuda")
+                if with_glse else None)
+        o, lse = flash_fwd(q, k, v, causal)
+        got = flash_bwd(q, k, v, o, lse, do, causal, glse)
+        torch.cuda.synchronize()
+        want = flash_bwd_reference(q.float(), k.float(), v.float(), o.float(),
+                                   lse, do.float(), causal, glse)
+        case = (bh, s, d, dname, causal, with_glse)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"non-finite backward at {case}")
+        errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
+        scales = [w.abs().max().item() for w in want]
+        tol = BWD_TOL[dname]
+        print(f"[kernels] flash_attn_bwd BH={bh} S={s} D={d} {dname} "
+              f"causal={causal} g_lse={'random' if with_glse else 0}: "
+              + ", ".join(f"{n} max_abs_err {e:.3e} ({e / sc:.2e} of max "
+                          f"{sc:.3e})" for n, e, sc in
+                          zip(("dq", "dk", "dv"), errs, scales))
+              + f" (tol {tol} of max)")
+        check(all(e <= tol * sc for e, sc in zip(errs, scales)),
+              f"backward kernel disagrees with its plain version at {case}")
+        if dname != "bfloat16" or causal or with_glse or s not in (512, 2048):
+            continue
+        # the training shapes: kernel, plain version, and the library's
+        # backward (fwd+bwd minus fwd of scaled_dot_product_attention)
+        b = bh // 16
+        lq, lk, lv = (x.view(b, 16, s, d).detach().requires_grad_()
+                      for x in (q, k, v))
+        ldo = do.view(b, 16, s, d)
+        ms = time_ms(lambda: flash_bwd(q, k, v, o, lse, do, causal))
+        plain_ms = time_ms(
+            lambda: flash_bwd_reference(q, k, v, o, lse, do, causal))
+        fwd_ms = time_ms(lambda: sdpa(lq, lk, lv))
+        fb_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa(lq, lk, lv), (lq, lk, lv), ldo))
+        bound_s, bound_by = bwd_bound(bh, s, d, q.element_size(), causal,
+                                      with_glse, H100_SXM_PEAKS)
+        k3 = s > 1024
+        entries.append(dict(
+            name="flash_attn_bwd" + ("@S2048" if k3 else ""), route="cuda",
+            source="flexflow_tpu_torch/csrc/flash_attn_bwd.cu",
+            replaces=("flexflow_tpu/ops/pallas_kernels.py:214 "
+                      "(_flash_bwd_blocked)" if k3 else
+                      "flexflow_tpu/ops/pallas_kernels.py:144 (_flash_bwd)"),
+            shape=f"BH={bh} S={s} D={d} {dname} causal={causal}",
+            launches=None, max_abs_err=max(errs),
+            rel_err=max(e / sc for e, sc in zip(errs, scales)),
+            ms=ms, plain_ms=plain_ms, library_ms=fb_ms - fwd_ms,
+            library_fwd_bwd_ms=fb_ms, library_fwd_ms=fwd_ms,
+            bound_ms=bound_s * 1e3, bound_by=bound_by))
+        print(f"[kernels] backward at BH={bh} S={s}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library (sdpa fwd+bwd {fb_ms:.4f} "
+              f"- fwd {fwd_ms:.4f}) {fb_ms - fwd_ms:.4f} ms, bound "
+              f"{bound_s * 1e6:.2f} us ({bound_by})")
+    check(len(entries) == 2, "missing a training-shape backward timing")
+    return entries
+
+
+def transformer_strategy(ff, path):
+    """Write the strategy file of training path (b) for ``ff``'s layers:
+    attention ops ``dp_k:flash``, every other op ``dp_k:fused``."""
+    from flexflow_tpu_torch import OperatorType
+
+    ops = {}
+    for layer in ff.layers:
+        if layer.op_type == OperatorType.INPUT:
+            continue
+        attn = layer.op_type == OperatorType.MULTIHEAD_ATTENTION
+        ops[layer.name] = dict(choice="dp_k:flash" if attn else "dp_k:fused",
+                               outputs=[None], params={})
+    with open(path, "w") as f:
+        json.dump(dict(version=1, mesh={"data": 1}, ops=ops), f, indent=1)
+
+
+def reset_launches():
+    from flexflow_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from flexflow_tpu_torch.ops.fused_update import fused_adam_multi
+
+    flash_fwd.launches = flash_bwd.launches = fused_adam_multi.launches = 0
+
+
+def read_launches():
+    from flexflow_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from flexflow_tpu_torch.ops.fused_update import fused_adam_multi
+
+    return dict(flash_attn_fwd=flash_fwd.launches,
+                flash_attn_bwd=flash_bwd.launches,
+                fused_adam=fused_adam_multi.launches)
+
+
+def training_batch(cfg, seed=0):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    x = rs.randn(cfg.batch_size, cfg.seq_length,
+                 cfg.hidden_size).astype(np.float32)
+    y = rs.randn(cfg.batch_size, cfg.seq_length, 1).astype(np.float32)
+    return x, y
+
+
+def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4):
+    """The BERT-proxy ``cfg`` on the card, compiled for training as the
+    reference's bert_proxy is (Adam alpha 1e-4 with bf16 moments, MSE
+    avg-reduce loss, MSE metric); with ``strategy_dir``, through the
+    strategy file of path (b) written there. The weights come from the
+    config's seed, so every call starts from the same weights."""
+    import torch
+    from flexflow_tpu_torch import FFConfig, LossType, MetricsType
+    from flexflow_tpu_torch.models.transformer import create_transformer
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
+    ff = create_transformer(cfg, FFConfig(batch_size=cfg.batch_size,
+                                          allow_mixed_precision=mixed),
+                            device="cuda")
+    if strategy_dir is not None:
+        path = os.path.join(strategy_dir, "strategy.json")
+        transformer_strategy(ff, path)
+        ff.config.import_strategy_file = path
+    ff.compile(AdamOptimizer(alpha=alpha, state_dtype=torch.bfloat16),
+               LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               [MetricsType.MEAN_SQUARED_ERROR])
+    return ff
+
+
+def phase_train_b(strategy_dir):
+    """Training path (b) at full width: the main path of this slice.
+    Returns (model, batch, launches over the timed steps, the losses of
+    the warm-up and timed steps)."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+
+    cfg = TransformerConfig()
+    t0 = time.perf_counter()
+    ff = compile_for_training(cfg, strategy_dir)
+    torch.cuda.synchronize()
+    attn = [n.op for n in ff.executor.nodes
+            if isinstance(n.op, MultiHeadAttention)]
+    fused = ff.executor.fused_update_ops & set(ff.params)
+    n_leaves = sum(len(ff.params[op]) for op in fused)
+    n_elems = sum(t.numel() for op in fused for t in ff.params[op].values())
+    print(f"[train b] model {cfg} compiled for training in "
+          f"{time.perf_counter() - t0:.2f} s; compute dtype "
+          f"{ff.executor.compute_dtype}; {len(fused)} fused ops, {n_leaves} "
+          f"leaves, {n_elems} elements through fused Adam")
+    check(len(attn) == cfg.num_layers and all(
+        op.kernel_impl == "flash" and op.selected_impl("cuda") == "flash"
+        for op in attn), "the strategy did not pin every attention to flash")
+    check(ff.kernel_choices and n_leaves == 8 * cfg.num_layers + 2,
+          f"expected 98 fused leaves, got {n_leaves}")
+    x, y = training_batch(cfg)
+    for _ in range(TRAIN_WARMUP):
+        ff.fit(x, y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    reset_launches()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        ff.fit(x, y, epochs=1, verbose=False)  # ends in a host read
+        step_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    losses = list(ff.epoch_losses)
+    print(f"[train b] loss per step: "
+          + ", ".join(f"{v:.6f}" for v in losses))
+    check(len(losses) == TRAIN_WARMUP + TRAIN_STEPS
+          and all(np.isfinite(losses)), "non-finite training loss")
+    want = dict(flash_attn_fwd=cfg.num_layers * TRAIN_STEPS,
+                flash_attn_bwd=cfg.num_layers * TRAIN_STEPS,
+                fused_adam=TRAIN_STEPS)
+    print(f"[train b] launches over {TRAIN_STEPS} steps: {launches} "
+          f"(expected {want}: per step {cfg.num_layers} forward, "
+          f"{cfg.num_layers} backward launches, each the dK/dV and the dQ "
+          f"kernel, and one fused Adam)")
+    check(launches == want, "kernel launches differ from the expected count")
+    from flexflow_tpu_torch.obs.registry import percentile
+
+    p50 = statistics.median(step_s)
+    p90 = percentile(sorted(step_s), 0.90)
+    print(f"[train b] step time (fit of one step, host clock, ends in the "
+          f"epoch's host read): p50 {p50 * 1e3:.3f} ms, p90 {p90 * 1e3:.3f} "
+          f"ms, {cfg.batch_size / p50:.2f} samples/s at p50; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_train(ff, x, y)
+    return ff, (x, y), launches, losses
+
+
+def phase_train_trajectory(losses, strategy_dir):
+    """The kernel path's per-step losses against the plain path's (einsum
+    core, plain Adam, no strategy) from the same weights and batch; then
+    the kernel path at a small step size, where the loss must fall."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+
+    cfg = TransformerConfig()
+    x, y = training_batch(cfg)
+    plain = compile_for_training(cfg)
+    for n in plain.executor.nodes:
+        if isinstance(n.op, MultiHeadAttention):
+            n.op.kernel_impl = "einsum"
+    plain.fit(x, y, epochs=len(losses), verbose=False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain.epoch_losses)]
+    print(f"[train trajectory] plain path (einsum core, plain Adam) losses: "
+          + ", ".join(f"{v:.6f}" for v in plain.epoch_losses)
+          + f"; kernel path vs plain: worst step {int(np.argmax(rel)) + 1} "
+          f"at {max(rel):.3e} relative (tol {TRAJECTORY_RTOL})")
+    check(max(rel) <= TRAJECTORY_RTOL,
+          "the kernel path's losses leave the plain path's")
+    del plain
+    small = compile_for_training(cfg, strategy_dir, alpha=DESCENT_ALPHA)
+    small.fit(x, y, epochs=len(losses), verbose=False)
+    print(f"[train trajectory] kernel path at alpha {DESCENT_ALPHA}: losses "
+          + ", ".join(f"{v:.6f}" for v in small.epoch_losses))
+    check(all(np.isfinite(small.epoch_losses))
+          and small.epoch_losses[-1] < small.epoch_losses[0],
+          f"the loss did not fall over {len(losses)} steps at alpha "
+          f"{DESCENT_ALPHA}")
+    del small
+    torch.cuda.empty_cache()
+
+
+def profile_train(ff, x, y, steps=2):
+    """Where the time of training steps goes on the device: kernel time by
+    kind, the top kernels, the busy share against the host clock, and the
+    largest idle gaps (named by the kernel that ended each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ff.fit(x, y, epochs=1, verbose=False)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    if not events:
+        print("[profile] torch.profiler recorded no kernel: the breakdown is "
+              "not measured")
+        return
+    kinds = by_kind(events)
+    busy = sum(kinds.values())
+    print(f"[profile] {steps} train steps: wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), idle "
+          f"{wall_ms - busy:.3f} ms; "
+          + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in kinds.items() if v))
+    totals = {}
+    for e in events:
+        t = totals.setdefault(e.name[:90], [0.0, 0])
+        t[0] += e.time_range.elapsed_us() / 1e3
+        t[1] += 1
+    for name, (ms, n) in sorted(totals.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[profile]   top: {ms:.3f} ms in {n} launches: {name}")
+    events.sort(key=lambda e: e.time_range.start)
+    gaps = [(b.time_range.start - a.time_range.end, a.name[:70])
+            for a, b in zip(events, events[1:])
+            if b.time_range.start > a.time_range.end]
+    gaps.sort(reverse=True)
+    print(f"[profile]   idle between device events: {len(gaps)} gaps, "
+          f"{sum(g for g, _ in gaps) / 1e3:.3f} ms; largest after: "
+          + "; ".join(f"{g / 1e3:.3f} ms after {n}" for g, n in gaps[:5]))
+
+
+def leaf_shares(ga, gb):
+    """{leaf: max |ga - gb| / max |gb|} over two gradient trees."""
+    return {f"{op}/{pn}": ((ga[op][pn].float() - w.float()).abs().max()
+                           / w.float().abs().max().clamp_min(1e-30)).item()
+            for op, sub in gb.items() for pn, w in sub.items()}
+
+
+def grads_of_core(ff, x, y, impl):
+    """One backward from the model's current state with every attention
+    op pinned to ``impl`` ("flash" or "einsum") -> grads."""
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+
+    ex = ff.executor
+    attn = [n.op for n in ex.nodes if isinstance(n.op, MultiHeadAttention)]
+    pins = [op.kernel_impl for op in attn]
+    ff._refresh_compute_params()
+    for op in attn:
+        op.kernel_impl = impl
+    try:
+        return ex.grads_of(ff.params, ff.state, ff._stage_inputs([x]),
+                           ff._stage_labels(y))[2]
+    finally:
+        for op, pin in zip(attn, pins):
+            op.kernel_impl = pin
+
+
+def check_grads(ff, x, y, dname):
+    """Flash gradients against einsum gradients from the model's state,
+    each leaf within GRAD_RTOL or within FLOOR_FACTOR times its floor (the
+    einsum core against itself with the input nudged)."""
+    g_plain = grads_of_core(ff, x, y, "einsum")
+    err = leaf_shares(grads_of_core(ff, x, y, "flash"), g_plain)
+    nudged = [leaf_shares(grads_of_core(ff, x * (1 + sign * NUDGE), y,
+                                        "einsum"), g_plain)
+              for sign in (1, -1)]
+    floor = {l: max(f[l] for f in nudged) for l in err}
+    tol = GRAD_RTOL[dname]
+    worst = max(err, key=err.get)
+    over = sorted((l for l in err if err[l] > tol), key=lambda l: -err[l])
+    bad = [l for l in over if err[l] > FLOOR_FACTOR * floor[l]]
+    print(f"[train grads] {dname} compute, initial weights, flash core vs "
+          f"einsum core: worst leaf {worst} at {err[worst]:.3e} of its max "
+          f"|g| (tol {tol}); its floor (einsum core, input scaled by 1 "
+          f"+- {NUDGE}) {floor[worst]:.3e}; largest floor "
+          f"{max(floor.values()):.3e}; {len(over)} of {len(err)} leaves "
+          f"above tol: "
+          + (", ".join(f"{l} {err[l]:.3e} (floor {floor[l]:.3e})"
+                       for l in over[:6]) or "none"))
+    check(not bad, f"{dname} gradients through the kernels disagree with "
+                   f"the einsum core beyond tol and {FLOOR_FACTOR}x the "
+                   f"floor: {bad[:5]}")
+
+
+def phase_train_grads(ff, batch, strategy_dir):
+    """The fused update of the trained model's flash gradients against
+    AdamOptimizer.update from its mid-training state, bit for bit; then,
+    from the initial weights, the flash core's gradients against the
+    einsum core's in bf16 and in f32 compute. (After the timed steps at
+    alpha 1e-4 the model is far from smooth: there the einsum core's
+    gradients move by ~6e-2 of a leaf's norm when its own input is nudged
+    by 1e-6, so the comparison is made where it can see the kernels.)"""
+    import torch
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.ops.fused_update import (fused_adam_multi,
+                                                     fused_optimizer_update)
+
+    g_flash = grads_of_core(ff, *batch, "flash")
+    clone = lambda tree: {op: {pn: t.clone() for pn, t in sub.items()}
+                          for op, sub in tree.items()}
+    opt, state = ff.optimizer, ff.opt_state
+    want_p, want_s = opt.update(g_flash, state, ff.params)
+    before = fused_adam_multi.launches
+    got_p, got_s = fused_optimizer_update(
+        opt, g_flash, dict(m=clone(state["m"]), v=clone(state["v"]),
+                           t=state["t"]), clone(ff.params),
+        ff.executor.fused_update_ops)
+    torch.cuda.synchronize()
+    check(fused_adam_multi.launches == before + 1,
+          "the fused update did not launch the kernel once")
+    differ = [f"{op}/{pn}" for op in ff.params for pn in ff.params[op]
+              if not (torch.equal(got_p[op][pn], want_p[op][pn])
+                      and torch.equal(got_s["m"][op][pn], want_s["m"][op][pn])
+                      and torch.equal(got_s["v"][op][pn], want_s["v"][op][pn]))]
+    n_fused = sum(len(ff.params[o]) for o in ff.executor.fused_update_ops
+                  if o in ff.params)
+    print(f"[train grads] fused update (one kernel launch over the {n_fused} "
+          f"fused leaves) vs AdamOptimizer.update at t = "
+          f"{int(state['t']) + 1}: {len(differ)} leaves differ (want 0)")
+    check(not differ, f"fused update not bit-equal: {differ[:5]}")
+    del want_p, want_s, got_p, got_s, g_flash
+
+    for mixed, dname in ((True, "bfloat16"), (False, "float32")):
+        fresh = compile_for_training(TransformerConfig(), strategy_dir,
+                                     mixed=mixed)
+        check(fresh.executor.compute_dtype == getattr(torch, dname),
+              f"expected {dname} compute")
+        check_grads(fresh, *batch, dname)
+        del fresh
+        torch.cuda.empty_cache()
+
+
+def adam_bound(n_elems, g_size, s_size, peaks):
+    """Least time (s) of one fused Adam step over ``n_elems`` elements:
+    p read and written (f32), g read, m and v read and written; 15 f32
+    operations an element (outside the tensor cores)."""
+    nbytes = n_elems * (8 + g_size + 4 * s_size)
+    t_bytes, t_ops = nbytes / peaks["bytes"], 15 * n_elems / peaks["f32"]
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels_adam(ff):
+    """K4 against its plain version over the 158 leaf shapes of the
+    full-width model, bit for bit; times it on the fused leaves of the
+    main path. Returns the entry of the kernels line."""
+    import torch
+    from flexflow_tpu_torch.ops.fused_update import (fused_adam_multi,
+                                                     fused_adam_reference)
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
+    leaves = [(op, pn) for op, sub in ff.params.items() for pn in sub]
+    shapes = [tuple(ff.params[op][pn].shape) for op, pn in leaves]
+    check(len(shapes) == 158, f"expected 158 leaves, got {len(shapes)}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    rnd = lambda shp, k=1.0: torch.randn(shp, generator=gen,
+                                         device="cuda") * k
+    ps = [rnd(s) for s in shapes]
+    gs = [rnd(s, 1e-2).bfloat16() for s in shapes]
+    for sdt_name, t, wd in ADAM_CASES:
+        sdt = getattr(torch, sdt_name)
+        ms = [rnd(s, 1e-2).to(sdt) for s in shapes]
+        vs = [(rnd(s, 1e-2) ** 2).to(sdt) for s in shapes]
+        _, alpha_t = AdamOptimizer(alpha=1e-4).step_scalars(
+            torch.tensor(t - 1, dtype=torch.int32, device="cuda"))
+        want = fused_adam_reference(ps, gs, ms, vs, alpha_t, wd=wd, **ADAM_KW)
+        kp = [p.clone() for p in ps]
+        fused_adam_multi(kp, gs, ms, vs, alpha_t, wd=wd, **ADAM_KW)
+        torch.cuda.synchronize()
+        differ = sum(int((a != b).sum()) for got, w in zip(zip(kp, ms, vs),
+                                                           want)
+                     for a, b in zip(got, w))
+        print(f"[kernels] fused_adam {len(shapes)} leaves, state {sdt_name}, "
+              f"t={t}, wd={wd}: {differ} elements differ from the plain "
+              f"version (want 0)")
+        check(differ == 0, "fused Adam is not bit-equal to its plain version")
+        del want
+    # times on the main path's fused leaves, bf16 state
+    fused = [i for i, (op, _) in enumerate(leaves)
+             if op in ff.executor.fused_update_ops]
+    fp = [ps[i] for i in fused]
+    fg = [gs[i] for i in fused]
+    fm = [rnd(shapes[i], 1e-2).bfloat16() for i in fused]
+    fv = [(rnd(shapes[i], 1e-2) ** 2).bfloat16() for i in fused]
+    alpha_t = torch.tensor(1e-4, device="cuda")
+    n = sum(p.numel() for p in fp)
+    ms = time_ms(lambda: fused_adam_multi(fp, fg, fm, fv, alpha_t, wd=0.0,
+                                          **ADAM_KW))
+    plain_ms = time_ms(lambda: fused_adam_reference(fp, fg, fm, fv, alpha_t,
+                                                    wd=0.0, **ADAM_KW))
+    lib_params = [torch.nn.Parameter(p.clone()) for p in fp]
+    for lp, g in zip(lib_params, fg):
+        lp.grad = g.float()
+    lib = torch.optim.Adam(lib_params, lr=1e-4, fused=True)
+    library_ms = time_ms(lib.step)
+    bound_s, bound_by = adam_bound(n, 2, 2, H100_SXM_PEAKS)
+    print(f"[kernels] fused_adam on the {len(fused)} fused leaves ({n} "
+          f"elements, bf16 g/m/v): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, library (torch.optim.Adam fused, f32 moments and grads: not "
+          f"the same function) {library_ms:.4f} ms, bound "
+          f"{bound_s * 1e3:.4f} ms ({bound_by})")
+    return dict(
+        name="fused_adam", route="cuda",
+        source="flexflow_tpu_torch/csrc/fused_adam.cu",
+        replaces="flexflow_tpu/ops/fused_update.py:78 (fused_adam_leaf)",
+        shape=f"{len(fused)} leaves, {n} elements, p f32, g/m/v bf16",
+        launches=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_s * 1e3, bound_by=bound_by)
+
+
+def phase_train_a():
+    """Training path (a) in K3's regime: 2 layers at S 2048, no strategy
+    file. Returns the launches of its steps."""
+    import numpy as np
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+
+    cfg = TransformerConfig(**TRAIN_A)
+    ff = compile_for_training(cfg)
+    check(ff.kernel_choices is None and all(
+        n.op.selected_impl("cuda") == "flash" for n in ff.executor.nodes
+        if isinstance(n.op, MultiHeadAttention)),
+        "path (a) does not pick flash by availability")
+    x, y = training_batch(cfg, seed=3)
+    reset_launches()
+    ff.fit(x, y, epochs=TRAIN_A_STEPS, verbose=False)
+    launches = read_launches()
+    want = dict(flash_attn_fwd=cfg.num_layers * TRAIN_A_STEPS,
+                flash_attn_bwd=cfg.num_layers * TRAIN_A_STEPS, fused_adam=0)
+    print(f"[train a] {cfg}: losses "
+          + ", ".join(f"{v:.6f}" for v in ff.epoch_losses)
+          + f"; launches {launches} (expected {want})")
+    check(all(np.isfinite(ff.epoch_losses)), "non-finite loss in path (a)")
+    check(launches == want, "path (a) launches differ from the expected")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -416,14 +1016,30 @@ def main() -> int:
     try:
         name = phase_card()
         phase_build()
-        entry = phase_kernels()
-        entry["launches"] = phase_serve()
+        fwd = phase_kernels()
+        bwd, bwd_k3 = phase_kernels_bwd()
+        serve_launches = phase_serve()
         check_f32_model()
+        with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
+            ff, batch, train_b, losses = phase_train_b(tmp)
+            phase_train_trajectory(losses, tmp)
+            phase_train_grads(ff, batch, tmp)
+        adam = phase_kernels_adam(ff)
+        del ff
+        torch.cuda.empty_cache()
+        train_a = phase_train_a()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [entry]}))
+    fwd["launches"] = train_b["flash_attn_fwd"]
+    fwd["launches_by_path"] = dict(serve=serve_launches,
+                                   train_b=train_b["flash_attn_fwd"],
+                                   train_a=train_a["flash_attn_fwd"])
+    bwd["launches"] = train_b["flash_attn_bwd"]
+    bwd_k3["launches"] = train_a["flash_attn_bwd"]
+    adam["launches"] = train_b["fused_adam"]
+    print(json.dumps({"kernels": [fwd, bwd, bwd_k3, adam]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

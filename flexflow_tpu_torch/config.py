@@ -2,10 +2,11 @@
 
 PyTorch counterpart of ``flexflow_tpu/config.py``: the same field names
 and defaults, so a configuration carries over between the two packages.
-This slice reads ``batch_size``, ``seed``, ``workers_per_node``,
-``search_budget`` and ``allow_mixed_precision``; the other fields are
-kept for the later slices that read them (training, search, meshes,
-checkpointing, observability). ``parse_args`` consumes the flags of the
+The port reads ``batch_size``, ``seed``, ``epochs``, ``workers_per_node``,
+``search_budget``, ``allow_mixed_precision``, ``import_strategy_file``
+and ``kernel_search`` (and refuses the tracing and checkpointing fields,
+which later slices bring); the other fields are kept for the later
+slices that read them (search, meshes, checkpointing, observability). ``parse_args`` consumes the flags of the
 fields this slice reads and leaves every other flag to the application,
 as the reference leaves flags it does not know.
 """
@@ -118,6 +119,14 @@ class FFConfig:
                 self.workers_per_node = int(take())
             elif a in ("--budget", "--search-budget"):
                 self.search_budget = int(take())
+            elif a in ("--import-strategy", "--import"):
+                self.import_strategy_file = take()
+            elif a == "--kernel-search":
+                v = take().lower()
+                if v not in ("auto", "off"):
+                    raise ValueError(
+                        f"--kernel-search expects auto|off, got {v!r}")
+                self.kernel_search = v
             else:
                 rest.append(a)
             i += 1

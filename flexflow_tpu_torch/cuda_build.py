@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled for
 Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first use (the
 hash covers the source and the flags, so an edited source rebuilds) and
-loaded with ``ctypes``. A thread lock and a file lock around the build let
-the serving thread, other threads and other processes race to the first
-call safely. Nothing here runs at import time: the CPU-only test
+loaded with ``ctypes``. A file lock per library around its build lets
+threads and processes race to the first call safely, and lets different
+libraries build at once (``build_all`` starts one ``nvcc`` per source,
+all together). Nothing here runs at import time: the CPU-only test
 environment has no ``nvcc``.
 """
 
@@ -18,8 +19,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -57,7 +59,7 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock_file:
+    with open(BUILD_DIR / f".lock-{name}", "w") as lock_file:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         try:
             if out.exists():
@@ -75,6 +77,13 @@ def build(name: str) -> Path:
         finally:
             fcntl.flock(lock_file, fcntl.LOCK_UN)
     return out
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Build several sources at once, one ``nvcc`` each, started together
+    (each waits on its own compiler, so threads overlap them)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def build_log(name: str) -> str:

@@ -69,6 +69,15 @@ class CompMode(enum.Enum):
     INFERENCE = 1
 
 
+class ParameterSyncType(enum.Enum):
+    """How gradients are synchronized across data-parallel replicas (the
+    names are kept for config parity; one device syncs nothing)."""
+
+    NONE = 0
+    PS = 1
+    NCCL = 2
+
+
 class OperatorType(enum.Enum):
     # The full list is kept in the JAX package's order: members are
     # enum.auto(), so their values depend on it.

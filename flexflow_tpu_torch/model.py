@@ -7,13 +7,18 @@ device is explicit: ``FFModel(config, device=...)`` runs on CUDA unless
 the caller asks for the CPU, and raises when no CUDA device is present
 rather than carry on on the CPU.
 
-In this slice ``compile`` places every op on the one device, with no
-search, no mesh and no weight-update sharding, and supports
-``CompMode.INFERENCE`` only; training comes with the next slice.
+``compile`` places every op on the one device, with no search, no mesh
+and no weight-update sharding. ``CompMode.TRAINING`` adds the optimizer
+state and ``fit`` / ``evaluate``; an imported strategy file
+(``FFConfig.import_strategy_file``) carries per-op kernel choices: ops
+whose choice is ``_k:fused`` update through the fused-Adam kernel, and
+attention ops are pinned to the flash core (``_k:flash``) or to the
+einsum core, as the JAX package pins them.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,8 +30,10 @@ from flexflow_tpu_torch.executor import (COMPUTE_PARAMS_KEY, GraphExecutor,
 from flexflow_tpu_torch.ffconst import (ActiMode, CompMode, DataType,
                                         LossType, MetricsType, OperatorType)
 from flexflow_tpu_torch.layer import Layer
+from flexflow_tpu_torch.metrics import Metrics, PerfMetrics
 from flexflow_tpu_torch.ops import OpRegistry
 from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+from flexflow_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
 from flexflow_tpu_torch.tensor import Tensor
 
 
@@ -58,6 +65,12 @@ class FFModel:
         self.executor: Optional[GraphExecutor] = None
         self.params: Dict[str, Dict[str, torch.Tensor]] = {}
         self.state: Dict[str, Any] = {}
+        self.opt_state: Any = None
+        self.kernel_choices: Optional[Dict[str, str]] = None
+        self._iter = 0
+        self._last_loss: Optional[float] = None
+        # the last step's loss of each epoch fit ran (one host read each)
+        self.epoch_losses: List[float] = []
         self._used_names = set()
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.config.seed)
@@ -204,17 +217,18 @@ class FFModel:
                 comp_mode: CompMode = CompMode.TRAINING,
                 machine_spec=None, mesh=None, outputs=None,
                 lint: Optional[str] = None) -> None:
-        """Materialize ops, place them on the model's device, initialize
-        parameters, and (on CUDA) build the attention kernel."""
+        """Materialize ops, place them on the model's device, apply the
+        kernel choices of an imported strategy, initialize parameters (and
+        the optimizer state for TRAINING), and (on CUDA) build the kernels
+        the compiled path runs."""
         cfg = self.config
-        if comp_mode != CompMode.INFERENCE:
-            raise NotImplementedError(
-                "the PyTorch port compiles comp_mode=CompMode.INFERENCE "
-                "only; training comes with the training slice (slice 2)")
         if cfg.search_budget:
             raise NotImplementedError(
                 f"search_budget={cfg.search_budget}: the strategy search "
                 f"comes with the search slice of the PyTorch port (slice 3)")
+        if cfg.export_strategy_file:
+            from flexflow_tpu_torch.search.unity import export_strategy_file
+            export_strategy_file(cfg.export_strategy_file)  # raises
         if machine_spec is not None or mesh is not None:
             raise NotImplementedError(
                 "machine_spec/mesh: multi-GPU execution comes with the "
@@ -223,6 +237,9 @@ class FFModel:
             raise NotImplementedError(
                 "lint: static analysis comes with a later slice of the "
                 "PyTorch port")
+        if comp_mode == CompMode.TRAINING and optimizer is None:
+            raise ValueError("compile(comp_mode=CompMode.TRAINING) needs an "
+                             "optimizer")
         cfg.computation_mode = comp_mode
         self.optimizer = optimizer
         self.loss_type = loss_type
@@ -238,20 +255,96 @@ class FFModel:
             out_t = out_t[0]
         self.outputs = out_t
         final_ref = self._select_final_ref(nodes, tensor_ref)
+        final_op = next(n.op for n in nodes if n.guid == final_ref[0])
+        final_is_softmax = final_op.op_type == OperatorType.SOFTMAX
 
+        self.kernel_choices = self._apply_kernel_choices(nodes, comp_mode)
         compute_dtype = (torch.bfloat16
                          if cfg.allow_mixed_precision and self.device.type == "cuda"
                          else torch.float32)
-        self.executor = GraphExecutor(nodes, input_names, final_ref,
-                                      self.device, compute_dtype=compute_dtype)
+        self.executor = GraphExecutor(
+            nodes, input_names, final_ref, self.device,
+            compute_dtype=compute_dtype, loss_type=loss_type,
+            metrics=Metrics(loss_type, list(metrics),
+                            preds_are_probs=final_is_softmax),
+            optimizer=optimizer, final_is_softmax=final_is_softmax,
+            kernel_choices=self.kernel_choices)
+        self.executor.comp_mode = comp_mode
         self.params, self.state = self.executor.init_params_and_state(
             self._generator)
-        if any(isinstance(n.op, MultiHeadAttention)
-               and n.op.selected_impl(self.device) == "flash" for n in nodes):
-            # build the kernel here rather than on the serving thread's
-            # first batch
+        self.opt_state = (optimizer.init(self.params)
+                          if comp_mode == CompMode.TRAINING else None)
+        self._iter = 0
+        if self.device.type == "cuda":
+            # build the kernels here rather than in the first step or on
+            # the serving thread's first batch
             from flexflow_tpu_torch import cuda_build
-            cuda_build.load("flash_attn_fwd")
+            names = self._kernels_of_path(nodes, comp_mode)
+            cuda_build.build_all(names)
+            for name in names:
+                cuda_build.load(name)
+
+    def _apply_kernel_choices(self, nodes, comp_mode
+                              ) -> Optional[Dict[str, str]]:
+        """Kernel choices of an imported strategy file: the one-device
+        part of the JAX package's strategy import and kernel-choice block.
+        Returns {op name -> impl}, or None when no choice carries ``_k:``
+        or ``kernel_search`` is off. Attention ops are pinned: to flash
+        where the choice says ``_k:flash``, and to the einsum core where
+        the choice carries no ``_k:`` but flash could have run (else the
+        availability rule would silently run a kernel the strategy did
+        not pick)."""
+        from flexflow_tpu_torch.search.unity import (import_strategy_file,
+                                                     kernel_choice_of)
+        cfg = self.config
+        choices: Dict[int, Optional[str]] = {}
+        if cfg.import_strategy_file:
+            _, choices = import_strategy_file(cfg.import_strategy_file, nodes)
+        kernel_on = (any("_k:" in (c or "") for c in choices.values())
+                     and str(cfg.kernel_search).lower() != "off")
+        if not kernel_on:
+            return None  # every op keeps its availability-based default
+        kernel_choices: Dict[str, str] = {}
+        for n in nodes:
+            ch = choices.get(n.op.guid) or ""
+            impl = kernel_choice_of(ch)
+            if impl is not None:
+                kernel_choices[n.op.name] = impl
+            elif n.op.op_type == OperatorType.MULTIHEAD_ATTENTION:
+                kernel_choices[n.op.name] = ("ring" if "_ring" in ch
+                                             else "einsum")
+        for op in (n.op for n in nodes
+                   if isinstance(n.op, MultiHeadAttention)):
+            impl = kernel_choices.get(op.name)
+            if impl == "flash":
+                op.kernel_impl = "flash"
+            elif impl == "einsum" and self._flash_could_run(op, comp_mode):
+                op.kernel_impl = "einsum"
+        return kernel_choices
+
+    def _flash_could_run(self, op: MultiHeadAttention, comp_mode) -> bool:
+        """The port's availability rule, read from the op's shapes: the
+        card, self-attention, a head dim the kernels take, and no
+        attention dropout in training."""
+        s, sk = op.input_shapes[0][1], op.input_shapes[1][1]
+        return (self.device.type == "cuda" and s == sk
+                and op.head_dim in SUPPORTED_HEAD_DIMS
+                and not (comp_mode == CompMode.TRAINING and op.dropout > 0))
+
+    def _kernels_of_path(self, nodes, comp_mode) -> List[str]:
+        """The CUDA kernel sources the compiled path launches."""
+        flash = any(isinstance(n.op, MultiHeadAttention)
+                    and n.op.selected_impl(self.device) == "flash"
+                    for n in nodes)
+        names = ["flash_attn_fwd"] if flash else []
+        if comp_mode == CompMode.TRAINING:
+            from flexflow_tpu_torch.optimizers import AdamOptimizer
+            if flash:
+                names.append("flash_attn_bwd")
+            if isinstance(self.optimizer, AdamOptimizer) and any(
+                    n in self.params for n in self.executor.fused_update_ops):
+                names.append("fused_adam")
+        return names
 
     # ======================= data staging ==================================
     def _stage_inputs(self, xs) -> Dict[str, torch.Tensor]:
@@ -264,6 +357,146 @@ class FFModel:
             raise ValueError(f"model has {len(names)} inputs, got {len(xs)} arrays")
         return {n: stage_array(x, self.device, self.executor.compute_dtype)
                 for n, x in zip(names, xs)}
+
+    def _stage_labels(self, y) -> torch.Tensor:
+        """Labels on the device, float labels in f32 (the loss is f32)."""
+        return stage_array(y, self.device, torch.float32)
+
+    # ======================= train / eval loops ============================
+    def _refuse_tracing(self, trace_dir=None, profile_steps=None) -> None:
+        cfg = self.config
+        if trace_dir or cfg.trace_dir or profile_steps or cfg.profile_steps:
+            raise NotImplementedError(
+                "trace_dir/profile_steps: step tracing and device-trace "
+                "capture come with slice 6 of the PyTorch port (ROADMAP.md "
+                "Queue 1 item 15)")
+
+    def _refuse_checkpointing(self, checkpoint_dir=None,
+                              checkpoint_every=None, resume=None) -> None:
+        cfg = self.config
+        if (checkpoint_dir or cfg.checkpoint_dir or checkpoint_every
+                or cfg.checkpoint_every or resume or cfg.resume
+                or cfg.grace_window_s or cfg.watchdog_timeout_s):
+            raise NotImplementedError(
+                "checkpoint_dir/checkpoint_every/resume and the runtime "
+                "health flags come with slice 6 of the PyTorch port "
+                "(ROADMAP.md Queue 1 item 14)")
+
+    def _run_epochs(self, next_batch, num_batches: int, bs: int,
+                    epochs: int, verbose: bool) -> float:
+        """Epoch loop: one train step per batch, metric sums added up on
+        the device and read once per epoch, the ELAPSED TIME / THROUGHPUT
+        report. ``next_batch(epoch, b)`` -> (inputs dict, labels).
+
+        Registry (``obs/registry.py``): ``train/step_latency_s`` observes
+        each step's host time since the previous step ended. Steps are
+        asynchronous on the card except the last of each epoch, which
+        includes the epoch's one read of the loss and metrics; with one
+        batch per epoch every observation is a whole step. The counters
+        ``flash_bwd.launches`` and ``fused_adam.launches`` grow by the
+        kernel launches of the run."""
+        from flexflow_tpu_torch.obs.registry import get_registry
+        from flexflow_tpu_torch.ops.flash_attention import flash_bwd
+        from flexflow_tpu_torch.ops.fused_update import fused_adam_multi
+
+        reg = get_registry()
+        train_step = self.executor.make_train_step()
+        self._refresh_compute_params()
+        launched = (flash_bwd.launches, fused_adam_multi.launches)
+        start = time.time()
+        executed = 0
+        for epoch in range(epochs):
+            self._metrics_acc = PerfMetrics()
+            mtotals = None
+            loss = None
+            t_prev = time.perf_counter()
+            for b in range(num_batches):
+                inputs, labels = next_batch(epoch, b)
+                (self.params, self.opt_state, self.state, loss,
+                 mvals) = train_step(self.params, self.opt_state, self.state,
+                                     inputs, labels, self._generator)
+                self._iter += 1
+                executed += 1
+                mtotals = mvals if mtotals is None else {
+                    k: mtotals[k] + v for k, v in mvals.items()}
+                if b + 1 < num_batches:
+                    now = time.perf_counter()
+                    reg.observe("train/step_latency_s", now - t_prev)
+                    t_prev = now
+            # the epoch's one host read
+            self._metrics_acc.update(mtotals or {}, bs * num_batches)
+            self._last_loss = float(loss)
+            self.epoch_losses.append(self._last_loss)
+            reg.observe("train/step_latency_s", time.perf_counter() - t_prev)
+            if verbose:
+                rep = self._metrics_acc.report()
+                print(f"epoch {epoch}: loss={self._last_loss:.4f} " +
+                      " ".join(f"{k}={v:.4f}" for k, v in rep.items()))
+        elapsed = time.time() - start
+        reg.inc("flash_bwd.launches", flash_bwd.launches - launched[0])
+        reg.inc("fused_adam.launches", fused_adam_multi.launches - launched[1])
+        thr = bs * executed / elapsed
+        if verbose:
+            print(f"ELAPSED TIME = {elapsed:.4f}s, THROUGHPUT = {thr:.2f} "
+                  f"samples/s")
+        return thr
+
+    def _batches(self, x, batch_size):
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        bs = batch_size or self.input_tensors[0].shape[0]
+        if xs[0].shape[0] // bs == 0:
+            raise ValueError(f"dataset of {xs[0].shape[0]} samples is "
+                             f"smaller than batch size {bs}")
+        return xs, bs, xs[0].shape[0] // bs
+
+    def fit(self, x=None, y=None, batch_size: Optional[int] = None,
+            epochs: Optional[int] = None, verbose: bool = True,
+            trace_dir: Optional[str] = None,
+            profile_steps: Optional[str] = None,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every: Optional[int] = None,
+            resume: Optional[bool] = None) -> float:
+        """Keras-style whole-dataset training loop, streaming batches from
+        the host; returns samples/s. Tracing, profiling, checkpointing and
+        resume (the arguments and their flags) come with slice 6 and
+        raise here."""
+        if self.executor is None:
+            raise ValueError("compile() the model before fit()")
+        self._refuse_tracing(trace_dir, profile_steps)
+        self._refuse_checkpointing(checkpoint_dir, checkpoint_every, resume)
+        epochs = epochs or self.config.epochs
+        xs, bs, num_batches = self._batches(x, batch_size)
+
+        def next_batch(epoch, b):
+            sl = slice(b * bs, (b + 1) * bs)
+            return (self._stage_inputs([xx[sl] for xx in xs]),
+                    self._stage_labels(y[sl]))
+
+        return self._run_epochs(next_batch, num_batches, bs, epochs, verbose)
+
+    def evaluate(self, x=None, y=None, batch_size: Optional[int] = None,
+                 trace_dir: Optional[str] = None) -> Dict[str, float]:
+        """Loss and metrics over the dataset -> {metric: mean, "loss":
+        mean batch loss}."""
+        if self.executor is None:
+            raise ValueError("compile() the model before evaluate()")
+        self._refuse_tracing(trace_dir)
+        xs, bs, num_batches = self._batches(x, batch_size)
+        eval_step = self.executor.make_eval_step()
+        self._refresh_compute_params()
+        acc = PerfMetrics()
+        loss_sum = 0.0
+        for b in range(num_batches):
+            sl = slice(b * bs, (b + 1) * bs)
+            loss, _, mvals = eval_step(
+                self.params, self.state,
+                self._stage_inputs([xx[sl] for xx in xs]),
+                self._stage_labels(y[sl]))
+            loss_sum += float(loss)
+            acc.update(mvals, bs)
+        rep = acc.report()
+        rep["loss"] = loss_sum / num_batches
+        return rep
 
     # ======================= inference =====================================
     def serve(self, batch_buckets=None, max_wait_ms: float = 5.0,

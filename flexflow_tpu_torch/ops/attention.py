@@ -6,9 +6,13 @@ wo ``[H, D, E]`` — so the head axis stays a first-class shardable dim and
 parameters carry across from the JAX package unchanged. The attention
 core is the flash-attention kernel (``ops/flash_attention.py``) where its
 availability rule holds, else the einsum core
-``scaled_dot_product_attention``. ``kernel_impl="einsum"`` pins the
-einsum core; ``kernel_impl="flash"`` demands the kernel and raises where
-it cannot run — the port has no silent fallback.
+``scaled_dot_product_attention``; with grad enabled the flash core runs
+through the ``FlashAttention`` autograd Function (forward and backward
+kernels). ``kernel_impl="einsum"`` pins the einsum core;
+``kernel_impl="flash"`` demands the flash core: on CUDA the kernels run
+or the call raises (the port has no silent fallback), and on the CPU it
+runs ``FlashAttention`` through the kernels' plain versions, the
+counterpart of the JAX package's Pallas interpret mode.
 """
 
 from __future__ import annotations
@@ -139,8 +143,9 @@ class MultiHeadAttention(Op):
             v = v.repeat_interleave(rep, dim=1)
         if self.dropout > 0 and ctx.training:
             raise NotImplementedError(
-                f"attention '{self.name}': attention-prob dropout is "
-                f"training, which comes with the training slice")
+                f"attention '{self.name}': attention-prob dropout in "
+                f"training comes with a later slice of the PyTorch port "
+                f"(ROADMAP.md)")
         # the core consumes q/k/v in the compute dtype
         q, k, v = q.to(cd), k.to(cd), v.to(cd)
         if self._use_flash(q, k):
@@ -156,6 +161,9 @@ class MultiHeadAttention(Op):
     def _use_flash(self, q, k) -> bool:
         if self.kernel_impl == "einsum":
             return False
+        if (self.kernel_impl == "flash" and q.device.type == "cpu"
+                and q.shape[2] == k.shape[2]):
+            return True  # the plain versions: the CPU's interpret mode
         available = flash_attention_available(q, k)
         if self.kernel_impl == "flash" and not available:
             raise ValueError(
@@ -171,10 +179,11 @@ class MultiHeadAttention(Op):
             return "einsum"
         b, s, e = self.input_shapes[0]
         sk = self.input_shapes[1][1] if len(self.input_shapes) > 1 else s
-        if torch.device(device).type == "cuda" and s == sk \
-                and self.head_dim in SUPPORTED_HEAD_DIMS:
-            return "flash"
-        return "einsum"
+        if s != sk:
+            return "einsum"
+        if torch.device(device).type == "cuda":
+            return "flash" if self.head_dim in SUPPORTED_HEAD_DIMS else "einsum"
+        return "flash" if self.kernel_impl == "flash" else "einsum"
 
     def output_dim_roles(self):
         return [(DimRole.SAMPLE, DimRole.SEQ, DimRole.CHANNEL)]

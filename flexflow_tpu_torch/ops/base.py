@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import enum
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,14 +32,16 @@ class DimRole(enum.Enum):
 
 
 class OpContext:
-    """Per-call context threaded through forward: training flag and compute
-    dtype. (The random generator that training's dropout draws from comes
-    with the training slice.)"""
+    """Per-call context threaded through forward: training flag, compute
+    dtype, and the ``torch.Generator`` that training-time randomness
+    (attention dropout, a later slice) draws from."""
 
     def __init__(self, training: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 rng: Optional[torch.Generator] = None):
         self.training = training
         self.compute_dtype = compute_dtype
+        self.rng = rng
 
 
 class Op:

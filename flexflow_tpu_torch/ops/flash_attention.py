@@ -1,27 +1,33 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions and
+the autograd Function that joins them.
 
 PyTorch counterpart of ``flexflow_tpu/ops/pallas_kernels.py``'s forward
-(``_flash_fwd`` and ``flash_attention``). The kernel is CUDA C++ for
-Hopper, ``csrc/flash_attn_fwd.cu``, built by ``cuda_build`` and bound with
-``ctypes``.
+(``_flash_fwd``), backward (``_flash_bwd`` and ``_flash_bwd_blocked``,
+one kernel here) and the ``_flash`` custom_vjp. The kernels are CUDA C++
+for Hopper, ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``,
+built by ``cuda_build`` and bound with ``ctypes``.
 
-``flash_fwd`` on a CUDA tensor launches the kernel or raises; it never
-gives way to the plain version. On a CPU tensor it runs
-``flash_fwd_reference``, the plain PyTorch version of the same function,
-which is also what the card's kernel is held against. ``flash_fwd.launches``
-counts kernel launches (CUDA only).
+``flash_fwd`` / ``flash_bwd`` on CUDA tensors launch the kernel or raise;
+they never give way to the plain version. On CPU tensors they run
+``flash_fwd_reference`` / ``flash_bwd_reference``, the plain PyTorch
+versions of the same functions, which are also what the card's kernels
+are held against. ``flash_fwd.launches`` / ``flash_bwd.launches`` count
+kernel launches (CUDA only; one ``flash_bwd`` launch runs the backward's
+two kernels, dK/dV and dQ).
 
 The port's availability rule replaces the TPU's tuning gates (``BLK_Q``,
-``MIN_SEQ_FOR_FLASH``, ``head_dim % 8``): the tensors are on CUDA, the
-attention is self-attention (Sq == Sk), there is no dropout (the forward
-is inference only), and the head dim is one the kernel supports.
+``MIN_SEQ_FOR_FLASH``, ``head_dim % 8``, ``MAX_BWD_SEQ``): the tensors
+are on CUDA, the attention is self-attention (Sq == Sk) and the head dim
+is one the kernels support. The backward streams its tiles, so it has no
+length limit and the JAX package's long-sequence einsum recompute has no
+counterpart.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,15 +35,25 @@ from flexflow_tpu_torch import cuda_build
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-_MAX_BH = 65535  # the kernel's grid puts batch*heads on grid.y
+_MAX_BH = 65535  # the kernels' grids put batch*heads on grid.y
 
 
 def flash_attention_available(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Whether ``MultiHeadAttention`` runs its core through the kernel:
-    q, k are ``[B, H, S, D]``. (Attention dropout exists only in
-    training, which the forward refuses before it asks.)"""
+    q, k are ``[B, H, S, D]``. (Attention dropout has no kernel path;
+    the attention op refuses it before it asks.)"""
     return (q.device.type == "cuda" and q.shape[2] == k.shape[2]
             and q.shape[3] in SUPPORTED_HEAD_DIMS)
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' working dtype: f32, or f64 for f64 inputs (so
+    that ``torch.autograd.gradcheck`` can run them)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _causal_mask(s: int, device) -> torch.Tensor:
+    return torch.ones(s, s, dtype=torch.bool, device=device).tril()
 
 
 def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,25 +61,88 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: q, k, v ``[BH, S, D]`` -> (o ``[BH, S, D]`` in q's
     dtype, lse ``[BH, S]`` f32), with dense f32 scores."""
-    s = q.shape[1]
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    acc = _acc_dtype(q)
+    scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
     scores = scores / math.sqrt(q.shape[-1])
     if causal:
-        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+        scores = scores.masked_fill(~_causal_mask(q.shape[1], q.device),
+                                    torch.finfo(acc).min)
     lse = torch.logsumexp(scores, dim=-1)
     p = torch.exp(scores - lse[..., None])
-    o = torch.matmul(p, v.float()).to(q.dtype)
+    o = torch.matmul(p, v.to(acc)).to(q.dtype)
     return o, lse
 
 
-def _kernel():
-    lib = cuda_build.load("flash_attn_fwd")
-    fn = lib.ff_flash_attn_fwd
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = False,
+                        glse: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward, the math of ``_flash_bwd_kernel``:
+    P is recomputed from the saved lse, then dV = P^T dO,
+    dS = P * (dO V^T - delta + g_lse), dQ = dS K scale, dK = dS^T Q scale,
+    with delta = rowsum(dO * O). q, k, v, o, do ``[BH, S, D]``; lse and
+    ``glse`` (the upstream gradient of lse; None is zero) ``[BH, S]``.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    acc = _acc_dtype(q)
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    qf, kf, vf, dof = (x.to(acc) for x in (q, k, v, do))
+    delta = torch.sum(dof * o.to(acc), dim=-1)
+    if glse is None:
+        glse = torch.zeros_like(delta)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_mask(q.shape[1], q.device), -math.inf)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None] + glse.to(acc)[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_panels(fn: str, *xs: torch.Tensor) -> None:
+    """What the kernels take: CUDA tensors of one ``[BH, S, D]`` shape and
+    one kernel dtype, contiguous, with a supported head dim."""
+    q = xs[0]
+    if any(x.dim() != 3 or x.shape != q.shape for x in xs):
+        raise ValueError(f"{fn}: panels must share one [BH, S, D] shape, "
+                         f"got {[tuple(x.shape) for x in xs]}")
+    if q.shape[2] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {q.shape[2]} not supported "
+                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
+    if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype for x in xs):
+        raise ValueError(f"{fn}: dtypes {[x.dtype for x in xs]} not "
+                         f"supported (one of {KERNEL_DTYPES} for all)")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{fn}: panels must be contiguous")
+    if any(x.device != q.device for x in xs):
+        raise ValueError(f"{fn}: panels on different devices")
+    if q.shape[0] > _MAX_BH:
+        raise ValueError(f"{fn}: batch*heads {q.shape[0]} > {_MAX_BH}")
+
+
+def _check_rows(fn: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
+    """lse-shaped ``[BH, S]`` f32 rows beside the ``[BH, S, D]`` panels."""
+    for r in rows:
+        if (tuple(r.shape) != tuple(q.shape[:2]) or r.dtype != torch.float32
+                or not r.is_contiguous() or r.device != q.device):
+            raise ValueError(f"{fn}: row tensors must be contiguous f32 "
+                             f"[BH, S] = {tuple(q.shape[:2])} on "
+                             f"{q.device}, got {tuple(r.shape)} {r.dtype}")
+
+
+def _entry(lib_name: str, symbol: str, argtypes):
+    fn = getattr(cuda_build.load(lib_name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,33 +154,19 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_fwd_reference(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: no kernel for device {q.device}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_fwd: q, k, v must share one [BH, S, D] "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    _check_panels("flash_fwd", q, k, v)
     bh, s, d = q.shape
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {d} not supported "
-                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_fwd: dtypes {q.dtype}, {k.dtype}, {v.dtype} "
-                         f"not supported (one of {KERNEL_DTYPES} for all)")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd: q, k, v must be contiguous")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_fwd: q, k, v on different devices")
-    if bh > _MAX_BH:
-        raise ValueError(f"flash_fwd: batch*heads {bh} > {_MAX_BH}")
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    fn = _kernel()
+    fn = _entry("flash_attn_fwd", "ff_flash_attn_fwd",
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), bh, s, d, int(q.dtype == torch.bfloat16),
-                int(causal), stream)
+                int(causal), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error "
                            f"{rc} (BH={bh}, S={s}, D={d}, {q.dtype})")
@@ -112,12 +177,78 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool = False, glse: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward: q, k, v, o, do ``[BH, S, D]``, lse and ``glse``
+    (None = zero) ``[BH, S]`` f32 -> (dq, dk, dv) in the input dtype.
+    delta = rowsum(dO * O) is formed here in f32, outside the kernel, as
+    the JAX package forms it outside its ``pallas_call``. CUDA tensors
+    run the kernel (two kernels, dK/dV and dQ, in one launch); CPU
+    tensors the plain version."""
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, o, lse, do, causal, glse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd: no kernel for device {q.device}")
+    _check_panels("flash_bwd", q, k, v, o, do)
+    _check_rows("flash_bwd", q, lse, *(() if glse is None else (glse,)))
+    bh, s, d = q.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    fn = _entry("flash_attn_bwd", "ff_flash_attn_bwd",
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(),
+                None if glse is None else glse.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d,
+                int(q.dtype == torch.bfloat16), int(causal), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
+                           f"{rc} (BH={bh}, S={s}, D={d}, {q.dtype})")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over folded ``[BH, S, D]`` panels,
+    the counterpart of the ``_flash`` custom_vjp: the forward saves
+    (q, k, v, o, lse); the backward hands dO to ``flash_bwd`` with a zero
+    lse gradient (only o is consumed)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """q, k, v ``[B, H, S, D]`` -> o ``[B, H, S, D]`` (self-attention).
     Folds batch and heads; the projections' einsum results may be strided
-    views, so the fold makes them contiguous explicitly."""
+    views, so the fold makes them contiguous explicitly (autograd carries
+    the gradients back through the fold to the caller's layout). With
+    grad enabled it runs through ``FlashAttention``; under
+    ``inference_mode`` or ``no_grad`` it calls the bare forward."""
     b, h, s, d = q.shape
     fold = lambda x: x.reshape(b * h, s, d).contiguous()
-    o, _ = flash_fwd(fold(q), fold(k), fold(v), causal)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        o = FlashAttention.apply(fold(q), fold(k), fold(v), causal)
+    else:
+        o, _ = flash_fwd(fold(q), fold(k), fold(v), causal)
     return o.view(b, h, s, d)

@@ -1,4 +1,4 @@
-"""Carry parameters across from the JAX package.
+"""Carry parameters and optimizer state across from the JAX package.
 
 JAX's PRNG has no torch twin, so parity between the two packages goes
 through the JAX model's initialized parameters, copied into the port. The
@@ -56,3 +56,52 @@ def from_jax_params(params: Mapping[str, Mapping[str, np.ndarray]],
             model.set_parameter(layer, np.asarray(arr), name)
     model._refresh_compute_params()
     return model.params
+
+
+def _tensor_like(arr, like: torch.Tensor, where: str) -> torch.Tensor:
+    """A numpy array (bf16 arrays as ``ml_dtypes.bfloat16``) as a tensor of
+    ``like``'s dtype and device, bit for bit: the dtypes must agree."""
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"{where}: shape {arr.shape}, port expects "
+                         f"{tuple(like.shape)}")
+    if arr.dtype.name == "bfloat16":
+        src = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        src = torch.from_numpy(arr.copy())
+    if src.dtype != like.dtype:
+        raise ValueError(f"{where}: dtype {arr.dtype}, port state is "
+                         f"{like.dtype}")
+    return src.to(like.device)
+
+
+def from_jax_opt_state(opt_state: Mapping, model) -> Dict:
+    """Carry the JAX package's optimizer state into a compiled port
+    ``FFModel`` (``model.opt_state``) so that both packages continue from
+    one mid-training state: Adam ``{"m": tree, "v": tree, "t": int}`` or
+    SGD ``{"v": tree}`` / ``{}``, every leaf a numpy array (``np.asarray``
+    of the JAX leaves). m and v keep their bits (bf16 moments stay bf16)
+    and ``t`` becomes the port's int32 device counter, so bias correction
+    resumes at the same step. Returns ``model.opt_state``."""
+    ours = model.opt_state
+    if ours is None:
+        raise ValueError("the model has no optimizer state: compile it with "
+                         "CompMode.TRAINING first")
+    if set(opt_state) != set(ours):
+        raise ValueError(f"optimizer state keys differ: {sorted(opt_state)} "
+                         f"vs the port's {sorted(ours)}")
+    new = {}
+    for key, val in opt_state.items():
+        if key == "t":
+            new["t"] = torch.tensor(int(np.asarray(val)), dtype=torch.int32,
+                                    device=ours["t"].device)
+            continue
+        tree = ours[key]
+        if {l: set(sub) for l, sub in val.items()} != \
+                {l: set(sub) for l, sub in tree.items()}:
+            raise ValueError(f"optimizer state {key!r}: trees differ")
+        new[key] = {l: {n: _tensor_like(a, tree[l][n], f"{key}/{l}/{n}")
+                        for n, a in sub.items()}
+                    for l, sub in val.items()}
+    model.opt_state = new
+    return new

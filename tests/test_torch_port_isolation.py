@@ -34,7 +34,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import flexflow_tpu_torch, flexflow_tpu_torch.serve, "
         "flexflow_tpu_torch.weights, flexflow_tpu_torch.models, "
-        "flexflow_tpu_torch.cuda_build, flexflow_tpu_torch.serve.loadgen\n"
+        "flexflow_tpu_torch.cuda_build, flexflow_tpu_torch.serve.loadgen, "
+        "flexflow_tpu_torch.optimizers, flexflow_tpu_torch.losses, "
+        "flexflow_tpu_torch.metrics, flexflow_tpu_torch.search.unity, "
+        "flexflow_tpu_torch.ops.fused_update\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

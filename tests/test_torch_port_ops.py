@@ -93,6 +93,36 @@ def test_forward_matches_jax(case):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
+def test_vjp_matches_jax(case):
+    """Training-mode forward and its gradients: jax.vjp against torch
+    autograd with the same cotangent, for every input and parameter (f32,
+    atol/rtol 1e-5 of each gradient's max |value|). MHA runs its einsum
+    core on both sides here."""
+    op_type, shapes, props = CASES[case]
+    jop, pop, params, inputs = _pair(op_type, shapes, props, seed=len(case))
+    jctx = JContext(training=True, compute_dtype=jnp.float32)
+    if op_type == "MULTIHEAD_ATTENTION":
+        jop.kernel_impl = "einsum"
+    want, vjp = jax.vjp(
+        lambda p, xs: jop.forward(p, xs, jctx)[0],
+        {k: jnp.asarray(v) for k, v in params.items()},
+        [jnp.asarray(x) for x in inputs])
+    cot = np.random.RandomState(1).randn(*want.shape).astype(np.float32)
+    want_gp, want_gx = vjp(jnp.asarray(cot))
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
+    tx = [torch.from_numpy(x).requires_grad_() for x in inputs]
+    (got,) = pop.forward(tp, tx, PContext(training=True,
+                                          compute_dtype=torch.float32))
+    got.backward(torch.from_numpy(cot))
+    pairs = [(tp[k].grad, want_gp[k]) for k in params]
+    pairs += [(x.grad, g) for x, g in zip(tx, want_gx)]
+    for g, w in pairs:
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=RTOL,
+                                   atol=ATOL * max(np.abs(w).max(), 1.0))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_search_metadata_matches_jax(case):
     op_type, shapes, props = CASES[case]
     jop, pop, params, _ = _pair(op_type, shapes, props)
@@ -115,14 +145,21 @@ def test_mha_projections_keep_head_first_layout():
 
 
 def test_mha_kernel_impl_flash_raises_where_kernel_cannot_run():
-    """No silent fallback: a forced flash core on the CPU raises."""
+    """No silent fallback: a forced flash core raises where flash cannot
+    run (cross-attention, Sq != Sk). On the CPU a forced flash core on
+    self-attention runs FlashAttention through the plain versions."""
     _, pop, params, inputs = _pair(
-        "MULTIHEAD_ATTENTION", [(2, 16, 128)] * 3,
+        "MULTIHEAD_ATTENTION", [(2, 16, 128), (2, 12, 128), (2, 12, 128)],
         dict(embed_dim=128, num_heads=2, kernel_impl="flash"))
     with pytest.raises(ValueError, match="kernel cannot run"):
         pop.forward({k: torch.from_numpy(v) for k, v in params.items()},
                     [torch.from_numpy(x) for x in inputs], PContext())
     assert pop.selected_impl("cpu") == "einsum"
+    assert pop.selected_impl("cuda") == "einsum"
+    _, pop, params, inputs = _pair(
+        "MULTIHEAD_ATTENTION", [(2, 16, 128)] * 3,
+        dict(embed_dim=128, num_heads=2, kernel_impl="flash"))
+    assert pop.selected_impl("cpu") == "flash"
     assert pop.selected_impl("cuda") == "flash"
 
 

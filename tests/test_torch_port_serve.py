@@ -134,8 +134,9 @@ def test_search_budget_raises(models):
 
 
 def test_training_compile_raises():
+    """Training compiles now; without an optimizer it raises."""
     ff = create_transformer(TransformerConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="needs an optimizer"):
         ff.compile(None, P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, [])
 
 
