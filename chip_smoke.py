@@ -10,15 +10,27 @@ package. Phases:
 1. card    — prints ``nvidia-smi``'s name and power limit; needs CUDA.
 2. build   — builds every kernel of the port from ``flexflow_tpu_torch/csrc``,
              one nvcc per source, all started together; prints each
-             kernel's registers, shared memory and spills.
+             kernel's registers, shared memory and spills (the template
+             arguments in each name give the tiles and CTA shape), and
+             fails if ptxas spills any backward kernel.
 3. kernels — holds each kernel against its plain PyTorch version on the
              card and times the kernel, the plain version and the library
-             call nearest to it:
+             call nearest to it, each as runs of back-to-back calls between
+             two CUDA events over their count (``time_calls``); K1 and its
+             library call, whose host time matches their device time, by
+             the profiler's device time (``timed_by`` in the kernels line):
              K1 flash forward: the serving shape, ragged lengths, causal,
                head dims 64 and 128, bf16 and f32;
              K2/K3 flash backward: the training shape (BH 128, S 512), K3's
                regime (BH 32, S 2048), causal, ragged S 1000, D 128, bf16
-               and f32, with g_lse zero and random;
+               and f32, with g_lse zero and random; the bf16 kernels' tile
+               edges (S 1, 63, 65, 127, 129, causal and not, D 64 and 128,
+               g_lse zero and random); two runs bit-equal; at the training
+               shapes the kernels timed by their own entry point (the
+               launch ``flash_bwd`` makes, without its allocations) and
+               the library's backward by its autograd node called
+               directly, both back to back, and both also by the
+               profiler's device time;
              K4 fused Adam: the 158 leaf shapes of the full-width model,
                bit-equal, f32 and bf16 state, t 1 and 7, weight decay 0 and
                0.01.
@@ -60,6 +72,7 @@ Any failed check exits non-zero without printing the final line.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -100,7 +113,9 @@ SERVE_REQUESTS, SERVE_CONCURRENCY = 32, 4
 
 # flash backward: (bh, s, d, dtype name, causal, random g_lse); the first
 # is the training shape (batch 8 x 16 heads, seq 512, head dim 64), the
-# second K3's regime (batch 2 x 16 heads, seq 2048)
+# second K3's regime (batch 2 x 16 heads, seq 2048); then the tile edges
+# of the bf16 kernels (64-row warpgroups, 64-row ring tiles, 128-row CTAs)
+BWD_EDGE_LENGTHS = (1, 63, 65, 127, 129)
 BWD_CASES = [
     (128, 512, 64, "bfloat16", False, False),
     (32, 2048, 64, "bfloat16", False, False),
@@ -113,11 +128,30 @@ BWD_CASES = [
     (16, 256, 64, "float32", False, True),
     (16, 1000, 64, "float32", True, False),
     (8, 200, 128, "float32", True, True),
+] + [(4, s, d, "bfloat16", causal, glse) for s in BWD_EDGE_LENGTHS
+     for d in (64, 128) for causal in (False, True) for glse in (False, True)]
+# the backward run twice on the same inputs must give the same bits
+BWD_DETERMINISM_CASES = [
+    (128, 512, 64, "bfloat16", False, False),
+    (16, 1000, 64, "bfloat16", True, True),
+    (16, 300, 128, "bfloat16", True, False),
 ]
+# the times of the chip run before the backward moved to wgmma (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md's kernel table): one call between two
+# CUDA events, host work inside the call included. Not measured by this
+# run, so printed on a text line of their own and kept out of the kernels
+# line.
+EARLIER_MS = {"flash_attn_fwd": 0.1467, "flash_attn_bwd": 0.3782,
+              "flash_attn_bwd@S2048": 1.1938, "fused_adam": 1.1168}
 # dq, dk, dv against the plain version in f32 from the same (bf16) inputs,
 # as a share of each output's max |value|: bf16 rounds P, dS and the
-# outputs; f32 differs only in the order of the sums.
+# outputs; f32 differs only in the order of the sums. An output's max is
+# floored at BWD_SCALE_FLOOR of the largest of the three outputs' max: at
+# S 1, P is 1 and dS = dP - delta is 0 up to the order of the sums, so the
+# plain dq and dk are 0 or rounding noise (1e-7 against a dv of 3), and a
+# share of their own max would compare noise with noise.
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+BWD_SCALE_FLOOR = 1e-3
 # fused Adam: (state dtype name, t, weight decay); every case bit-equal
 ADAM_CASES = [(sdt, t, wd) for sdt in ("float32", "bfloat16")
               for t in (1, 7) for wd in (0.0, 0.01)]
@@ -162,23 +196,76 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, reps=30, warmup=5):
-    """Median over ``reps`` runs of one call, in ms, by CUDA events."""
+def time_calls(fn, target_ms=25.0, repeats=3, warmup=3):
+    """(device ms a call, host ms a call): runs of back-to-back calls
+    between two CUDA events, each run's elapsed time over its count, the
+    median of ``repeats`` runs; the count makes a run last about
+    ``target_ms``. The host figure is the host clock over the same calls
+    before the closing synchronize: where it comes near the device figure,
+    the host, not the card, set the pace. The calls reuse their inputs, so
+    whatever of them fits the 50 MB L2 stays there: warm-L2 times."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    n = max(3, min(500, int(target_ms / max(one_ms, 1e-3))))
+    dev, host = [], []
+    for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
+        host.append((time.perf_counter() - h0) * 1e3 / n)
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        dev.append(start.elapsed_time(end) / n)
+    return statistics.median(dev), statistics.median(host)
+
+
+def time_ms(fn):
+    """Device ms a call (``time_calls``)."""
+    return time_calls(fn)[0]
+
+
+def profiled_ms(fn, n=20, label=None, attempts=3):
+    """The card's own time for one call: the summed duration of the
+    device events (kernels, copies, sets) that ``n`` calls issue, by
+    torch.profiler, over ``n``; None if the profiler recorded none in
+    ``attempts`` tries (it sometimes returns a profile without device
+    events). With ``label``, prints each event name's share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            break
+    if not events:
+        return None
+    if label:
+        by_name = {}
+        for e in events:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / n)
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+            print(f"[profile] {label}: {ms:.4f} ms a call in {name[:100]}")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / n
 
 
 def flash_bound(bh, s, d, itemsize, causal, peaks):
@@ -229,6 +316,12 @@ def phase_build():
             if any(t in line for t in ("Compiling entry", "registers",
                                        "spill")):
                 print(f"[build] {name}: {line.strip()}")
+    # the backward's kernels keep their accumulators in registers: ptxas
+    # reports no spill for any of them
+    spills = [line.strip() for line in
+              cuda_build.build_log("flash_attn_bwd").splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    check(not spills, f"flash_attn_bwd: ptxas reports spills: {spills}")
     return names
 
 
@@ -266,9 +359,20 @@ def phase_kernels():
             lib = lambda: torch.nn.functional.scaled_dot_product_attention(
                 q.view(b, h, s, d), k.view(b, h, s, d), v.view(b, h, s, d),
                 is_causal=causal)
-            ms = time_ms(lambda: flash_fwd(q, k, v, causal))
+            # the library's call, one SDPA forward of about 0.03 ms on the
+            # card, takes as long on the host, so back to back it reads
+            # the host: both sides are given by the profiler's device time
+            # (back to back beside it, and in its place if the profiler
+            # records nothing)
+            kernel = lambda: flash_fwd(q, k, v, causal)
+            b2b_ms, host_ms = time_calls(kernel)
             plain_ms = time_ms(lambda: flash_fwd_reference(q, k, v, causal))
-            library_ms = time_ms(lib)
+            library_b2b_ms, library_host_ms = time_calls(lib)
+            dev_ms = profiled_ms(kernel)
+            lib_dev_ms = profiled_ms(lib)
+            profiled = dev_ms is not None and lib_dev_ms is not None
+            ms, library_ms = ((dev_ms, lib_dev_ms) if profiled
+                              else (b2b_ms, library_b2b_ms))
             bound_s, bound_by = flash_bound(bh, s, d, q.element_size(),
                                             causal, H100_SXM_PEAKS)
             entry = dict(
@@ -277,12 +381,18 @@ def phase_kernels():
                 replaces="flexflow_tpu/ops/pallas_kernels.py:70 (_flash_fwd)",
                 shape=f"BH={bh} S={s} D={d} {dname} causal={causal}",
                 launches=None, max_abs_err=err_o, lse_max_abs_err=err_lse,
-                ms=ms, kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_s * 1e3, bound_us=bound_s * 1e6,
-                bound_by=bound_by)
-            print(f"[kernels] serving shape: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, "
-                  f"bound {bound_s * 1e6:.2f} us ({bound_by})")
+                ms=ms, timed_by="profiler" if profiled else "back to back",
+                b2b_ms=b2b_ms, host_ms=host_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_b2b_ms=library_b2b_ms,
+                library_host_ms=library_host_ms, bound_ms=bound_s * 1e3,
+                bound_us=bound_s * 1e6, bound_by=bound_by)
+            fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+            print(f"[kernels] serving shape: kernel profiled {fmt(dev_ms)}, "
+                  f"{b2b_ms:.4f} ms back to back (host {host_ms:.4f} ms); "
+                  f"plain {plain_ms:.4f} ms; library (sdpa) profiled "
+                  f"{fmt(lib_dev_ms)}, {library_b2b_ms:.4f} ms back to back "
+                  f"(host {library_host_ms:.4f} ms); bound "
+                  f"{bound_s * 1e6:.2f} us ({bound_by})")
     return entry
 
 
@@ -510,34 +620,75 @@ def bwd_bound(bh, s, d, itemsize, causal, with_glse, peaks):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bwd_inputs(gen, bh, s, d, dname, causal, with_glse):
+    """Seeded q, k, v, dO (and g_lse) of one backward case on the card, and
+    the forward's o and lse for them."""
+    import torch
+    from flexflow_tpu_torch.ops.flash_attention import flash_fwd
+
+    dtype = getattr(torch, dname)
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    glse = (torch.randn(bh, s, generator=gen, device="cuda")
+            if with_glse else None)
+    o, lse = flash_fwd(q, k, v, causal)
+    return q, k, v, o, lse, do, glse
+
+
+def bwd_entry_launch(q, k, v, o, lse, do, causal, want):
+    """A function that launches the backward's kernels through their
+    entry point with the arguments ``flash_bwd`` gives it, into outputs
+    and a scratch allocated once: the launch ``flash_bwd`` makes, without
+    its allocations, and not counted. Checks that one launch gives
+    ``want`` (``flash_bwd``'s dq, dk, dv) bit for bit."""
+    import ctypes
+
+    import torch
+    from flexflow_tpu_torch import cuda_build
+    from flexflow_tpu_torch.ops.flash_attention import (BWD_ARGTYPES,
+                                                        bwd_launch_args)
+
+    fn = cuda_build.load("flash_attn_bwd").ff_flash_attn_bwd
+    fn.argtypes, fn.restype = BWD_ARGTYPES, ctypes.c_int
+    out = [torch.empty_like(x) for x in (q, k, v)]
+    dlt = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    args = bwd_launch_args(q, k, v, o, lse, do, None, *out, dlt, causal,
+                           torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        check(fn(*args) == 0, "flash_attn_bwd entry point: launch failed")
+
+    launch()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, want)),
+          "the entry point's launch differs from flash_bwd's")
+    return launch
+
+
 def phase_kernels_bwd():
-    """K2/K3 against the plain version on the card; returns the entries of
-    the kernels line for the training shape (K2) and K3's regime."""
+    """K2/K3 against the plain version on the card, every case of
+    BWD_CASES; bit-equal results from two runs; returns the entries of the
+    kernels line for the training shape (K2) and K3's regime."""
     import torch
     from flexflow_tpu_torch.ops.flash_attention import (flash_bwd,
-                                                        flash_bwd_reference,
-                                                        flash_fwd)
+                                                        flash_bwd_reference)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     entries = []
-    for bh, s, d, dname, causal, with_glse in BWD_CASES:
-        dtype = getattr(torch, dname)
-        q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
-                       .to(dtype) for _ in range(4))
-        glse = (torch.randn(bh, s, generator=gen, device="cuda")
-                if with_glse else None)
-        o, lse = flash_fwd(q, k, v, causal)
+    for case in BWD_CASES:
+        bh, s, d, dname, causal, with_glse = case
+        q, k, v, o, lse, do, glse = bwd_inputs(gen, *case)
         got = flash_bwd(q, k, v, o, lse, do, causal, glse)
         torch.cuda.synchronize()
         want = flash_bwd_reference(q.float(), k.float(), v.float(), o.float(),
                                    lse, do.float(), causal, glse)
-        case = (bh, s, d, dname, causal, with_glse)
         check(all(bool(torch.isfinite(g).all()) for g in got),
               f"non-finite backward at {case}")
         errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
         scales = [w.abs().max().item() for w in want]
+        scales = [max(sc, BWD_SCALE_FLOOR * max(scales)) for sc in scales]
         tol = BWD_TOL[dname]
         print(f"[kernels] flash_attn_bwd BH={bh} S={s} D={d} {dname} "
               f"causal={causal} g_lse={'random' if with_glse else 0}: "
@@ -549,23 +700,42 @@ def phase_kernels_bwd():
               f"backward kernel disagrees with its plain version at {case}")
         if dname != "bfloat16" or causal or with_glse or s not in (512, 2048):
             continue
-        # the training shapes: kernel, plain version, and the library's
-        # backward (fwd+bwd minus fwd of scaled_dot_product_attention)
+        # the training shapes. The kernels are timed through their entry
+        # point with the arguments flash_bwd gives it (the wrapper's
+        # allocations and checks, timed beside it, take about as long on
+        # the host as the kernels on the card at S 512); the library by
+        # scaled_dot_product_attention's backward node called directly on
+        # its saved forward: the op autograd runs, without the engine.
+        launch = bwd_entry_launch(q, k, v, o, lse, do, causal, got)
+        ms, host_ms = time_calls(launch)
+        wrapper_ms, wrapper_host_ms = time_calls(
+            lambda: flash_bwd(q, k, v, o, lse, do, causal))
+        plain_ms = time_ms(
+            lambda: flash_bwd_reference(q, k, v, o, lse, do, causal))
         b = bh // 16
         lq, lk, lv = (x.view(b, 16, s, d).detach().requires_grad_()
                       for x in (q, k, v))
         ldo = do.view(b, 16, s, d)
-        ms = time_ms(lambda: flash_bwd(q, k, v, o, lse, do, causal))
-        plain_ms = time_ms(
-            lambda: flash_bwd_reference(q, k, v, o, lse, do, causal))
-        fwd_ms = time_ms(lambda: sdpa(lq, lk, lv))
-        fb_ms = time_ms(lambda: torch.autograd.grad(
-            sdpa(lq, lk, lv), (lq, lk, lv), ldo))
+        node = sdpa(lq, lk, lv).grad_fn
+        lib = lambda: node(ldo)
+        lib_errs = [(g.reshape(bh, s, d).float() - w).abs().max().item() / sc
+                    for g, w, sc in zip(lib(), want, scales)]
+        print(f"[kernels] library backward {node.name()} at S={s}: dq, dk, "
+              f"dv against the plain version "
+              + ", ".join(f"{e:.2e}" for e in lib_errs) + " of max")
+        check(len(lib_errs) == 3 and max(lib_errs) <= tol,
+              f"the library's backward node does not give dq, dk, dv at {case}")
+        library_ms, library_host_ms = time_calls(lib)
+        _, fb_host_ms = time_calls(
+            lambda: torch.autograd.grad(sdpa(lq, lk, lv), (lq, lk, lv), ldo))
+        dev_ms = profiled_ms(launch, label=f"kernel S={s}")
+        lib_dev_ms = profiled_ms(lib, label=f"library backward S={s}")
         bound_s, bound_by = bwd_bound(bh, s, d, q.element_size(), causal,
                                       with_glse, H100_SXM_PEAKS)
         k3 = s > 1024
+        name = "flash_attn_bwd" + ("@S2048" if k3 else "")
         entries.append(dict(
-            name="flash_attn_bwd" + ("@S2048" if k3 else ""), route="cuda",
+            name=name, route="cuda",
             source="flexflow_tpu_torch/csrc/flash_attn_bwd.cu",
             replaces=("flexflow_tpu/ops/pallas_kernels.py:214 "
                       "(_flash_bwd_blocked)" if k3 else
@@ -573,14 +743,32 @@ def phase_kernels_bwd():
             shape=f"BH={bh} S={s} D={d} {dname} causal={causal}",
             launches=None, max_abs_err=max(errs),
             rel_err=max(e / sc for e, sc in zip(errs, scales)),
-            ms=ms, plain_ms=plain_ms, library_ms=fb_ms - fwd_ms,
-            library_fwd_bwd_ms=fb_ms, library_fwd_ms=fwd_ms,
+            ms=ms, timed_by="back to back", host_ms=host_ms,
+            device_ms=dev_ms, wrapper_ms=wrapper_ms,
+            wrapper_host_ms=wrapper_host_ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_host_ms=library_host_ms,
+            library_device_ms=lib_dev_ms,
+            library_fwd_bwd_host_ms=fb_host_ms,
             bound_ms=bound_s * 1e3, bound_by=bound_by))
-        print(f"[kernels] backward at BH={bh} S={s}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library (sdpa fwd+bwd {fb_ms:.4f} "
-              f"- fwd {fwd_ms:.4f}) {fb_ms - fwd_ms:.4f} ms, bound "
-              f"{bound_s * 1e6:.2f} us ({bound_by})")
+        fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+        print(f"[kernels] backward at BH={bh} S={s}: kernels {ms:.4f} ms a "
+              f"launch back to back (host {host_ms:.4f} ms), profiled device "
+              f"time {fmt(dev_ms)}; through flash_bwd {wrapper_ms:.4f} ms "
+              f"(host {wrapper_host_ms:.4f} ms); plain {plain_ms:.4f} ms; "
+              f"library backward {library_ms:.4f} ms back to back (host "
+              f"{library_host_ms:.4f} ms), profiled {fmt(lib_dev_ms)}; "
+              f"library fwd+bwd through autograd: host {fb_host_ms:.4f} ms "
+              f"a call; bound {bound_s * 1e6:.2f} us ({bound_by})")
     check(len(entries) == 2, "missing a training-shape backward timing")
+    for case in BWD_DETERMINISM_CASES:
+        q, k, v, o, lse, do, glse = bwd_inputs(gen, *case)
+        first = flash_bwd(q, k, v, o, lse, do, case[4], glse)
+        second = flash_bwd(q, k, v, o, lse, do, case[4], glse)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        print(f"[kernels] flash_attn_bwd determinism {case}: dq, dk, dv "
+              f"bit-equal over two runs: {same}")
+        check(all(same), f"two backward runs differ at {case}")
     return entries
 
 
@@ -966,7 +1154,8 @@ def phase_kernels_adam(ff):
         replaces="flexflow_tpu/ops/fused_update.py:78 (fused_adam_leaf)",
         shape=f"{len(fused)} leaves, {n} elements, p f32, g/m/v bf16",
         launches=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_s * 1e3, bound_by=bound_by)
+        timed_by="back to back", library_ms=library_ms,
+        bound_ms=bound_s * 1e3, bound_by=bound_by)
 
 
 def phase_train_a():
@@ -1039,6 +1228,10 @@ def main() -> int:
     bwd["launches"] = train_b["flash_attn_bwd"]
     bwd_k3["launches"] = train_a["flash_attn_bwd"]
     adam["launches"] = train_b["fused_adam"]
+    print("[kernels] earlier times, not measured by this run (mma.sync "
+          "backward's chip run, NVIDIA H100 80GB HBM3, 700 W, one call "
+          "between two CUDA events): "
+          + ", ".join(f"{n} {t} ms" for n, t in EARLIER_MS.items()))
     print(json.dumps({"kernels": [fwd, bwd, bwd_k3, adam]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,47 +3,70 @@
 // Replaces the TPU kernels flexflow_tpu/ops/pallas_kernels.py:_flash_bwd
 // (body _flash_bwd_kernel, S <= 1024) and :_flash_bwd_blocked (body
 // _flash_bwd_blocked_kernel, 1024 < S <= 16384) with one backward that
-// takes any S. For q, k, v, dO of shape [BH, S, D], the forward's lse
-// [BH, S], delta = rowsum(dO * O) [BH, S] (formed by the caller) and an
-// optional upstream lse gradient g_lse [BH, S] (null = zero):
+// takes any S, and forms inside it the delta = rowsum(dO * O) that the JAX
+// package forms outside its pallas_call. For q, k, v, o, dO of shape
+// [BH, S, D], the forward's lse [BH, S] and an optional upstream lse
+// gradient g_lse [BH, S] (null = zero):
 //   P  = exp(q k^T / sqrt(D) - lse)            (recomputed, never stored)
 //   dV = P^T dO
-//   dS = P * (dO V^T - delta + g_lse)
+//   dS = P * (dO V^T - delta + g_lse),  delta = rowsum(dO * O)
 //   dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D)
-// dq, dk, dv come out in the inputs' dtype; every sum is f32.
+// dq, dk, dv come out in the inputs' dtype; every sum is f32; no atomics,
+// so every run gives the same bits.
 //
-// What bounds it on an H100 SXM: at the training shape (BH = 128, S = 512,
-// D = 64, bf16, non-causal) it moves 67.6 MB (q, k, v, o, dO read and dq,
-// dk, dv written once each, plus lse and delta: ~20 us at 3.35 TB/s) and
-// does 5 products of 2*S^2*D a head = 21.5 GFLOP (~22 us at 989 TFLOP/s
-// dense bf16); at S = 2048 the FLOPs grow 4x per head and bound it. So it
-// sits at the ridge or above it: the tensor cores are what it must keep
-// busy. The TPU kernels held whole [S, D] panels in VMEM (one grid cell per
-// batch*head) and the blocked one carried dQ across its in-order grid; a
-// CTA has at most 227 KB of shared memory and CTAs run in no order, so
-// neither carries over. The design here is two kernels, deterministic and
-// free of atomics:
-//   dK/dV kernel: one CTA per (batch*head, 64-row K/V tile); K and V stay
-//     in shared memory, Q and dO stream through it tile by tile (row-major
-//     and transposed copies, for the two kinds of B operand), P and dS are
-//     recomputed per tile and dK, dV accumulate in registers.
-//   dQ kernel: one CTA per (batch*head, 64-row Q tile); Q and dO fragments
-//     stay in registers, K (row-major and transposed) and V stream through
-//     shared memory, and dQ accumulates in registers.
-// P is recomputed twice, once per kernel; nothing is accumulated across
-// CTAs. Causal runs skip the tiles on the masked side of the diagonal and
-// the ragged last tile is masked, so S has no limit.
+// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s), bf16,
+// non-causal: at the training shape (BH 128, S 512, D 64) it must move
+// 67.4 MB (q, k, v, o, dO read, dq, dk, dv written, lse read once: 20.1 us)
+// and do 5 products of 2*S^2*D a head (21.5 GFLOP: 21.7 us), at the
+// ridge; in K3's regime (BH 32, S 2048) the same 67.4 MB and 85.9 GFLOP
+// (86.9 us): the tensor cores bound it. So the design keeps the tensor
+// cores fed: every product is a wgmma, every operand arrives by an
+// asynchronous copy, and nothing is transposed or staged through memory.
 //
-// bf16: four warps, 16 rows each, on mma.sync m16n8k16 (bf16 in, f32
-// accumulate). The accumulators of one product are re-packed in registers
-// as the A operand of the next (P^T and dS^T in the dK/dV kernel, dS in
-// the dQ kernel), so P and dS never touch shared or device memory. Shared
-// rows are padded by 8 elements so fragment loads are free of bank
-// conflicts. f32: simple FMA kernels, four threads per row, for
-// allow_mixed_precision=False on the card.
+// Two kernels, the dQ kernel first; each CTA is NW warpgroups of 64 rows:
+//   dQ kernel: a CTA owns 64*NW query rows; Q and dO stay in shared
+//     memory; K and V tiles of BC rows stream through the ring. It first
+//     reads O once for its rows, forms delta - g_lse in f32 (four threads
+//     a row, summed in a fixed order), writes it to a [BH, S] scratch row,
+//     then: S = Q K^T, dP = dO V^T (wgmma, both operands K-major from
+//     shared memory), dS = P * (dP - delta + g_lse) in registers, and
+//     dQ += dS K with dS as the register A operand and K read MN-major
+//     through the descriptor's transpose bit.
+//   dK/dV kernel: a CTA owns 64*NW key rows; K and V stay in shared
+//     memory; Q, dO tiles of BR rows and their rows' lse and delta - g_lse
+//     stream through the ring. S^T = K Q^T and dP^T = V dO^T from shared
+//     memory; the accumulator of S^T becomes P^T and then dS^T in
+//     registers, each re-packed to bf16 as the register A operand of
+//     dV += P^T dO and dK += dS^T Q, with dO and Q read through the
+//     transpose bit.
+// The ring: all threads issue 16-byte cp.async copies (zero-filled past S)
+// into STAGES stages laid out as 128-byte swizzling lays them out, which
+// the wgmma descriptors name; tile `it + STAGES - 1` is in flight while
+// tile `it` is computed. cp.async needs no tensor maps (no
+// cuTensorMapEncodeTiled, no host work per call) and no producer
+// warpgroup, so every warp of a CTA computes; with one warpgroup a CTA,
+// three CTAs share an SM at D 64 and one's score pass (exp2, masks) runs
+// beside another's wgmmas. setmaxnreg has nothing to rebalance without a
+// producer warpgroup: a thread may hold up to 255 registers. A tile's
+// scores are checked against the causal mask and S only at the diagonal
+// or the sequence's end; causal runs skip the tiles on the masked side.
+// P is recomputed in both kernels (7 products where a fused kernel with
+// atomic dQ needs 5), which keeps the result deterministic.
 //
-// Simple and correct first: wgmma, TMA, cp.async pipelining and a fused
-// single-kernel backward are for a later change.
+// Chosen on the card (chip_smoke.py's backward phase on an NVIDIA H100
+// 80GB HBM3 at 700 W; the times are in PERF.md): one warpgroup a CTA, two
+// stages, BC 64, BR 64 at D 64 and 32 at D 128. Two warpgroups a CTA,
+// three stages, BR 32 at D 64, and a loop that keeps one tile's
+// accumulating products in flight under the next tile's score products
+// were slower or no faster: the last needs more registers (fewer CTAs an
+// SM) and ptxas serialises its dK/dV wgmmas (C7515). nvcc -Xptxas -v: dQ
+// 158 registers at D 64 and 204 at D 128, dK/dV 168 (held there for three
+// CTAs an SM; 194 unbounded) and 215; no spills, no stack; dynamic shared
+// memory dQ 50,176 / 99,328 bytes and dK/dV 51,200 / 67,072 bytes at
+// D 64 / 128 (1 KB of it alignment slack).
+//
+// f32 inputs (allow_mixed_precision=False): simple FMA kernels, four
+// threads a row, behind a small kernel that forms delta - g_lse.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,18 +79,131 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
 
-// ---- bf16 tensor-core kernels ---------------------------------------------------
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kTileRows = 64;  // rows a CTA owns: 4 warps x 16
-constexpr int kPad = 8;        // bf16 elements of padding per shared-memory row
+// ---- shared memory and cp.async -------------------------------------------------
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; with
+// `bytes` = 0 nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// the same for 4 bytes (one f32)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's completed shared-memory writes before later reads
+// by wgmma, which reads shared memory through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Tiles in shared memory are [rows][D] bf16 in the layout of 128-byte
+// swizzling: D/64 column panels of [rows][64], 128 bytes a row, 16-byte
+// chunk c of row r stored at chunk c ^ (r % 8), every tile on a 1024-byte
+// boundary (one swizzle atom is 8 rows). This is the byte offset of chunk c
+// (columns 8c..8c+7) of row r.
+__device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
+  return static_cast<uint32_t>((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// Rows [r0, r0 + ROWS) of a [S, D] bf16 panel into the tile at shared
+// address `dst`, 16 bytes a copy over the CTA's NT threads (neighbouring
+// threads on neighbouring chunks of a row); rows past S are zero-filled.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__ src, int r0,
+                                          int S) {
+  constexpr int kPerRow = D / 8;
+  constexpr int kChunks = ROWS * kPerRow;
+  static_assert(kChunks % NT == 0, "a tile's chunks split evenly over the threads");
+#pragma unroll
+  for (int i = 0; i < kChunks / NT; ++i) {
+    const int ch = static_cast<int>(threadIdx.x) + i * NT;
+    const int r = ch / kPerRow, c = ch % kPerRow;
+    const bool in = r0 + r < S;
+    cp_async16(dst + swz(ROWS, r, c), src + static_cast<size_t>(in ? r0 + r : 0) * D + c * 8,
+               in ? 16 : 0);
+  }
+}
+
+// Entries [r0, r0 + ROWS) of an [S] f32 row into shared memory (0 past S).
+template <int ROWS, int NT>
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* __restrict__ src, int r0,
+                                          int S) {
+  for (int i = static_cast<int>(threadIdx.x); i < ROWS; i += NT) {
+    const bool in = r0 + i < S;
+    cp_async4(dst + 4 * i, src + (in ? r0 + i : 0), in ? 4 : 0);
+  }
+}
+
+// ---- wgmma ----------------------------------------------------------------------
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the wait that completes it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Descriptor of a 128-byte-swizzled operand at shared address `addr`
+// (layout type 1; the atom's base is 1024-aligned, so base offset 0):
+// SBO = 1024 bytes (the next 8 rows), LBO as given.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024u >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (the reduction runs along a row, as D does in Q K^T):
+// 16-wide reduction step kk of a tile of `rows` rows, from row `row0` (a
+// multiple of 8). The step moves 32 bytes within a row, or to the next
+// column panel; LBO is unused by this layout.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows, int row0, int kk) {
+  return desc_sw128(tile + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32, 16);
+}
+
+// MN-major operand (the reduction runs down the rows, as the key index
+// does in dS K; the transpose bit reads it): 16-row reduction step kk of a
+// tile of `rows` rows. The step moves 16 rows (2048 bytes); the N extent
+// crosses column panels at LBO = the panel's size.
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows, int kk) {
+  return desc_sw128(tile + kk * 16 * 128, rows * 128);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -75,318 +211,454 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 x 16, row-major) from a shared-memory tile with row stride
-// `ld`: rows r and r + 8, columns c..c+1 and c+8..c+9 (r = 16-row base + g,
-// c = 16-column base + 2t).
-__device__ __forceinline__ void lda(uint32_t (&a)[4], const bf16* tile, int ld,
-                                    int r, int c) {
-  a[0] = ld32(tile + r * ld + c);
-  a[1] = ld32(tile + (r + 8) * ld + c);
-  a[2] = ld32(tile + r * ld + c + 8);
-  a[3] = ld32(tile + (r + 8) * ld + c + 8);
-}
-
-// The C fragments of two adjacent 16x8 products, rounded to bf16 as the A
-// fragment of a 16x16 chunk along their column axis (the layouts coincide).
-__device__ __forceinline__ void repack(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Rows [r0, r0 + ROWS) of a [S, D] panel into shared memory: row-major with
-// stride D + kPad (if `rm`), and/or transposed, [D][ROWS + kPad] (if `tr`).
-// Rows past S are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ src, int r0, int S,
-                                          bf16* rm, bf16* tr) {
-  constexpr int kChunks = ROWS * D / 8;  // 16-byte chunks
-  for (int ch = threadIdx.x; ch < kChunks; ch += kThreads) {
-    const int r = ch / (D / 8), c = (ch % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * D + c);
-    if (rm) *reinterpret_cast<uint4*>(rm + r * (D + kPad) + c) = x;
-    if (tr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&x);
+// The accumulator of an m64nN product (N/2 f32 a thread) rounded to bf16
+// as the register A operand of a following product whose reduction runs
+// over those N columns, 16 columns a step kk. The two layouts coincide
+// (lane = 4g + t of warp w of the warpgroup):
+//   accumulator: d[4j + e] holds row 16w + g + 8 (e / 2), column 8j + 2t + e % 2
+//   A fragment:  a[0] (row g, cols 2t, 2t+1), a[1] (row g + 8, same cols),
+//                a[2] (row g, cols 2t + 8, 2t + 9), a[3] (row g + 8, same)
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(c + i) * (ROWS + kPad) + r] = e[i];
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  }
+}
+
+// 2^x on the special-function unit (results below 2^-126 flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D[64 x N] (+)= A B with f32 accumulators: A and B bf16, both K-major
+// from shared memory (wgmma_ss; scale_d = 0 overwrites D), or A from
+// registers (acc_to_a) and B MN-major from shared memory (wgmma_rs_tb,
+// transpose bit set, always accumulating).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// ---- bf16 kernels: cp.async ring + wgmma ------------------------------------------
+// Each CTA has NW consumer warpgroups of 64 rows; all NW * 128 threads issue
+// the ring's copies, so no warpgroup is set aside as a producer.
+
+// dS = P * (dP - (delta - g_lse)) in place of the dQ kernel's scores S
+// (64 rows x BC keys): P = exp2(S scale log2(e) - lse log2(e)), one FMA and
+// one ex2 a score. This thread holds rows r0 and r0 + 8 (lse and delta in
+// l2, dl) and key columns col0 + 8j + {0, 1}. MASK: the tile crosses the
+// causal diagonal or the end of the sequence, so each score is checked.
+template <bool MASK, int BC>
+__device__ __forceinline__ void dq_scores(float (&s)[BC / 2], const float (&dp)[BC / 2],
+                                          const float (&l2)[2], const float (&dl)[2], int r0,
+                                          int col0, int S, int causal, float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < BC / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    float p = fast_exp2(fmaf(s[i], scale_log2, -l2[h]));
+    if (MASK) {
+      const int col = col0 + 8 * (i >> 2) + (i & 1);
+      if (col >= S || (causal && col > r0 + 8 * h)) p = 0.f;
+    }
+    s[i] = p * (dp[i] - dl[h]);
+  }
+}
+
+// P^T in place of the dK/dV kernel's transposed scores S^T (64 keys x BR
+// queries) and dS^T = P^T * (dP^T - (delta - g_lse)) in place of dP^T. This
+// thread holds key rows kr0 and kr0 + 8 and query columns q0 + 8j + {0, 1},
+// whose lse and delta - g_lse it reads from the tile's rows in shared
+// memory. MASK as for dq_scores.
+template <bool MASK, int BR>
+__device__ __forceinline__ void dkdv_scores(float (&pt)[BR / 2], float (&dpt)[BR / 2],
+                                            const float* lse_t, const float* dl_t, int t,
+                                            int q0, int kr0, int S, int causal,
+                                            float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < BR / 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse_t + 8 * j + 2 * t);
+    const float2 d = *reinterpret_cast<const float2*>(dl_t + 8 * j + 2 * t);
+    const float l2[2] = {l.x * kLog2e, l.y * kLog2e}, dl[2] = {d.x, d.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float p = fast_exp2(fmaf(pt[i], scale_log2, -l2[e & 1]));
+      if (MASK) {
+        const int qi = q0 + 8 * j + 2 * t + (e & 1), kv = kr0 + 8 * (e >> 1);
+        if (qi >= S || (causal && kv > qi)) p = 0.f;
+      }
+      pt[i] = p;
+      dpt[i] = p * (dpt[i] - dl[e & 1]);
     }
   }
 }
+
+template <int D, int BC, int NW, int STAGES>
+constexpr int dq_smem_bytes() {
+  // alignment slack, Q and dO of the CTA's rows, STAGES x {K, V} tiles
+  return 1024 + 2 * (64 * NW) * D * 2 + STAGES * 2 * BC * D * 2;
+}
+
+// dQ of one (batch*head, 64*NW-row Q tile), launched before the dK/dV
+// kernel. It first forms delta - g_lse of its rows, uses it, and writes it
+// to `dlt` for the dK/dV kernel. Q and dO of the rows stay in shared
+// memory; K and V stream through a ring of STAGES tiles of BC rows.
+template <int D, int BC, int NW, int STAGES>
+__global__ void __launch_bounds__(NW * 128, 1)
+    flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ o,
+                      const bf16* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ glse, float* __restrict__ dlt,
+                      bf16* __restrict__ dq, int S, float scale, int causal) {
+  constexpr int NT = NW * 128;
+  constexpr int kRows = 64 * NW;
+  constexpr uint32_t kPanel = kRows * D * 2;  // Q or dO of the CTA's rows
+  constexpr uint32_t kTile = BC * D * 2;      // one K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t q_s = smem_u32(sm), do_s = q_s + kPanel, ring = do_s + kPanel;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y;
+  // causal: the last tiles have the longest rows; they start first
+  const int m0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;
+  const size_t pan = static_cast<size_t>(bh) * S * D;
+  const size_t rw = static_cast<size_t>(bh) * S;
+  const int lr = 64 * wg + 16 * warp + g;  // this thread's rows in the tile: lr, lr + 8
+  const int r0 = m0 + lr;
+  const float scale_log2 = scale * kLog2e;
+
+  // causal: key tiles past the CTA's last row are wholly masked
+  const int kv_end = causal ? min(S, m0 + kRows) : S;
+  const int n_tiles = (kv_end + BC - 1) / BC;
+  auto load_kv = [&](int it) {
+    const uint32_t st = ring + (it % STAGES) * 2 * kTile;
+    load_tile<D, BC, NT>(st, k + pan, it * BC, S);
+    load_tile<D, BC, NT>(st + kTile, v + pan, it * BC, S);
+  };
+  load_tile<D, kRows, NT>(q_s, q + pan, m0, S);
+  load_tile<D, kRows, NT>(do_s, dout + pan, m0, S);
+  cp_async_commit();
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles) load_kv(i);
+    cp_async_commit();
+  }
+
+  // delta - g_lse of rows r0 and r0 + 8: rowsum(dO * O) in f32, each of a
+  // quad's four threads over D/4 columns (O from device memory, dO from the
+  // tile), then summed across the quad in a fixed order
+  constexpr int kQ = D / 32;  // 16-byte chunks a thread reads of a row
+  uint4 ov[2][kQ];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+      ov[h][j] = r0 + 8 * h < S ? *reinterpret_cast<const uint4*>(
+                                      o + pan + static_cast<size_t>(r0 + 8 * h) * D +
+                                      (t * kQ + j) * 8)
+                                : make_uint4(0u, 0u, 0u, 0u);
+  cp_async_wait<STAGES - 1>();  // Q and dO have landed
+  __syncthreads();
+  float l2[2], dl[2];  // lse (log2 domain) and delta - g_lse of the two rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const uint4 dv = *reinterpret_cast<const uint4*>(sm + kPanel +
+                                                       swz(kRows, lr + 8 * h, t * kQ + j));
+      const bf16* a = reinterpret_cast<const bf16*>(&ov[h][j]);
+      const bf16* b = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(__bfloat162float(a[e]), __bfloat162float(b[e]), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    const int row = r0 + 8 * h;
+    const bool in = row < S;
+    dl[h] = in ? (glse ? acc - glse[rw + row] : acc) : 0.f;
+    l2[h] = in ? lse[rw + row] * kLog2e : 0.f;
+    if (t == 0 && in) dlt[rw + row] = dl[h];
+  }
+
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  const int w_last = m0 + 64 * wg + 63;  // this warpgroup's last row
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + STAGES - 1 < n_tiles) load_kv(it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // key tile `it` has landed
+    fence_proxy_async();
+    __syncthreads();
+    const int n0 = it * BC;
+    const uint32_t ks = ring + (it % STAGES) * 2 * kTile, vs = ks + kTile;
+    // causal: skip a key tile wholly above this warpgroup's rows
+    if (!causal || n0 <= w_last) {
+      // S = Q K^T and dP = dO V^T: 64 rows x BC keys
+      float s[BC / 2], dp[BC / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(s, desc_kmajor(q_s, kRows, 64 * wg, kk), desc_kmajor(ks, BC, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, desc_kmajor(do_s, kRows, 64 * wg, kk), desc_kmajor(vs, BC, 0, kk), kk);
+      wg_commit();
+      wg_wait_all();
+      reg_fence(s);
+      reg_fence(dp);
+      // dS = P * (dP - (delta - g_lse)), P recomputed from the lse; only a
+      // tile at the diagonal or the sequence's end checks each score
+      if (n0 + BC > S || (causal && n0 + BC - 1 > m0 + 64 * wg))
+        dq_scores<true, BC>(s, dp, l2, dl, r0, n0 + 2 * t, S, causal, scale_log2);
+      else
+        dq_scores<false, BC>(s, dp, l2, dl, r0, n0 + 2 * t, S, causal, scale_log2);
+      // dQ += dS K: dS from registers, K read through the transpose bit
+      uint32_t a[BC / 16][4];
+      acc_to_a<BC>(a, s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) wgmma_rs_tb(dqa, a[kk], desc_mnmajor(ks, BC, kk));
+      wg_commit();
+      wg_wait_all();
+      reg_fence(dqa);
+      reg_fence(a);
+    }
+    __syncthreads();  // every warpgroup is done with the stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+  bf16* dqb = dq + pan;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(dqb + static_cast<size_t>(r0) * D + c) =
+          pack_bf16(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+    if (r0 + 8 < S)
+      *reinterpret_cast<uint32_t*>(dqb + static_cast<size_t>(r0 + 8) * D + c) =
+          pack_bf16(dqa[4 * j + 2] * scale, dqa[4 * j + 3] * scale);
+  }
+}
+
+template <int D, int BR, int NW, int STAGES>
+constexpr int dkdv_smem_bytes() {
+  // alignment slack, K and V of the CTA's rows, STAGES x {Q, dO} tiles,
+  // STAGES x {lse, delta - g_lse} of a tile's rows
+  return 1024 + 2 * (64 * NW) * D * 2 + STAGES * 2 * BR * D * 2 + STAGES * 2 * BR * 4;
+}
+
+// dK, dV of one (batch*head, 64*NW-row K/V tile). K and V of the rows stay
+// in shared memory; Q, dO and the lse and delta - g_lse of their rows (the
+// dQ kernel's `dlt`) stream through a ring of STAGES tiles of BR rows. At
+// D 64 the launch bound holds it to 168 registers, so three CTAs share an
+// SM (ptxas spills nothing there).
+template <int D, int BR, int NW, int STAGES>
+__global__ void __launch_bounds__(NW * 128, D == 64 ? 3 : 1)
+    flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ dlt,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
+                        int causal) {
+  constexpr int NT = NW * 128;
+  constexpr int kRows = 64 * NW;
+  constexpr uint32_t kPanel = kRows * D * 2;  // K or V of the CTA's rows
+  constexpr uint32_t kTile = BR * D * 2;      // one Q or dO tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t k_s = smem_u32(sm), v_s = k_s + kPanel, ring = v_s + kPanel;
+  const uint32_t rows_s = ring + STAGES * 2 * kTile;  // [STAGES][lse, dlt][BR] f32
+  const float* rows_f = reinterpret_cast<const float*>(sm + 2 * kPanel + STAGES * 2 * kTile);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y;
+  const int n0 = blockIdx.x * kRows;  // causal: the first tiles do the most work
+  const size_t pan = static_cast<size_t>(bh) * S * D;
+  const size_t rw = static_cast<size_t>(bh) * S;
+  const int w_first = n0 + 64 * wg;               // this warpgroup's first key row
+  const int kr0 = w_first + 16 * warp + g;        // this thread's key rows: kr0, kr0 + 8
+  const float scale_log2 = scale * kLog2e;
+
+  // causal: query rows before the CTA's first key see none of its keys
+  const int m_begin = causal ? (n0 / BR) * BR : 0;
+  const int n_tiles = (S - m_begin + BR - 1) / BR;
+  auto load_qdo = [&](int it) {
+    const int st = it % STAGES, m = m_begin + it * BR;
+    load_tile<D, BR, NT>(ring + st * 2 * kTile, q + pan, m, S);
+    load_tile<D, BR, NT>(ring + st * 2 * kTile + kTile, dout + pan, m, S);
+    load_rows<BR, NT>(rows_s + st * 2 * BR * 4, lse + rw, m, S);
+    load_rows<BR, NT>(rows_s + st * 2 * BR * 4 + BR * 4, dlt + rw, m, S);
+  };
+  load_tile<D, kRows, NT>(k_s, k + pan, n0, S);
+  load_tile<D, kRows, NT>(v_s, v + pan, n0, S);
+  cp_async_commit();
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles) load_qdo(i);
+    cp_async_commit();
+  }
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + STAGES - 1 < n_tiles) load_qdo(it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // K, V and query tile `it` have landed
+    fence_proxy_async();
+    __syncthreads();
+    const int m0 = m_begin + it * BR, st = it % STAGES;
+    const uint32_t qs = ring + st * 2 * kTile, dos = qs + kTile;
+    const float* lse_t = rows_f + st * 2 * BR;
+    const float* dl_t = lse_t + BR;
+    // causal: skip a query tile wholly before this warpgroup's keys
+    if (!causal || m0 + BR - 1 >= w_first) {
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x BR queries
+      float pt[BR / 2], dpt[BR / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(pt, desc_kmajor(k_s, kRows, 64 * wg, kk), desc_kmajor(qs, BR, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dpt, desc_kmajor(v_s, kRows, 64 * wg, kk), desc_kmajor(dos, BR, 0, kk), kk);
+      wg_commit();
+      wg_wait_all();
+      reg_fence(pt);
+      reg_fence(dpt);
+      // P^T from the lse, dS^T = P^T * (dP^T - (delta - g_lse)); only a
+      // tile at the diagonal or the sequence's end checks each score
+      if (m0 + BR > S || (causal && w_first + 63 > m0))
+        dkdv_scores<true, BR>(pt, dpt, lse_t, dl_t, t, m0, kr0, S, causal, scale_log2);
+      else
+        dkdv_scores<false, BR>(pt, dpt, lse_t, dl_t, t, m0, kr0, S, causal, scale_log2);
+      // dV += P^T dO and dK += dS^T Q: P^T, dS^T from registers, dO and Q
+      // read through the transpose bit
+      uint32_t ap[BR / 16][4], as[BR / 16][4];
+      acc_to_a<BR>(ap, pt);
+      acc_to_a<BR>(as, dpt);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk) wgmma_rs_tb(dva, ap[kk], desc_mnmajor(dos, BR, kk));
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk) wgmma_rs_tb(dka, as[kk], desc_mnmajor(qs, BR, kk));
+      wg_commit();
+      wg_wait_all();
+      reg_fence(dva);
+      reg_fence(dka);
+      reg_fence(ap);
+      reg_fence(as);
+    }
+    __syncthreads();  // every warpgroup is done with the stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+  bf16* dkb = dk + pan;
+  bf16* dvb = dv + pan;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = kr0 + 8 * h;
+      if (row < S) {
+        *reinterpret_cast<uint32_t*>(dkb + static_cast<size_t>(row) * D + c) =
+            pack_bf16(dka[4 * j + 2 * h] * scale, dka[4 * j + 2 * h + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvb + static_cast<size_t>(row) * D + c) =
+            pack_bf16(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// ---- f32 FMA kernels, for allow_mixed_precision=False -----------------------------
+// They take delta - g_lse (`dlt`) from flash_bwd_delta_f32.
 
 // lse in the log2 domain, and delta - g_lse, of row i (0 past S).
 __device__ __forceinline__ float lse2_of(const float* lse, int i, int S) {
   return i < S ? lse[i] * kLog2e : 0.f;
 }
-__device__ __forceinline__ float dlt_of(const float* delta, const float* glse, int i,
-                                        int S) {
-  if (i >= S) return 0.f;
-  return glse ? delta[i] - glse[i] : delta[i];
+__device__ __forceinline__ float dlt_of(const float* dlt, int i, int S) {
+  return i < S ? dlt[i] : 0.f;
 }
 
-template <int D, int BR>
-constexpr int dkdv_smem_bytes() {
-  return (2 * kTileRows * (D + kPad) + 2 * BR * (D + kPad) + 2 * D * (BR + kPad)) *
-             static_cast<int>(sizeof(bf16)) +
-         2 * BR * static_cast<int>(sizeof(float));
-}
-
-// dK, dV of one (batch*head, 64-row K/V tile); Q/dO stream in BR-row tiles.
-// Fragment layout of mma.m16n8k16 for lane = 4*g + t: see flash_attn_fwd.cu.
-template <int D, int BR>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const float* __restrict__ glse, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int S, float scale, int causal) {
-  constexpr int LD = D + kPad;   // row-major stride
-  constexpr int LT = BR + kPad;  // transposed stride
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [64][LD]
-  bf16* vs = ks + kTileRows * LD;            // [64][LD]
-  bf16* qs = vs + kTileRows * LD;            // [BR][LD]
-  bf16* qt = qs + BR * LD;                   // [D][LT]
-  bf16* dos = qt + D * LT;                   // dO, [BR][LD]
-  bf16* dot = dos + BR * LD;                 // dO transposed, [D][LT]
-  float* lse2 = reinterpret_cast<float*>(dot + D * LT);  // [BR]
-  float* dlt = lse2 + BR;                                 // [BR]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y;
-  const int n0 = blockIdx.x * kTileRows;
-  const size_t base = static_cast<size_t>(bh) * S * D;
-  const float* lb = lse + static_cast<size_t>(bh) * S;
-  const float* db = delta + static_cast<size_t>(bh) * S;
-  const float* gb = glse ? glse + static_cast<size_t>(bh) * S : nullptr;
-  // this thread's two K/V rows within the tile, and their sequence index
-  const int kr = warp * 16 + g;
-  const int kv0 = n0 + kr, kv1 = kv0 + 8;
-  const float scale_log2 = scale * kLog2e;
-
-  load_tile<D, kTileRows>(k + base, n0, S, ks, nullptr);
-  load_tile<D, kTileRows>(v + base, n0, S, vs, nullptr);
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  // causal: query rows before this tile see none of its keys
-  const int m_begin = causal ? (n0 / BR) * BR : 0;
-  for (int m0 = m_begin; m0 < S; m0 += BR) {
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<D, BR>(q + base, m0, S, qs, qt);
-    load_tile<D, BR>(dout + base, m0, S, dos, dot);
-    for (int i = tid; i < BR; i += kThreads) {
-      lse2[i] = lse2_of(lb, m0 + i, S);
-      dlt[i] = dlt_of(db, gb, m0 + i, S);
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 K/V rows x BR queries
-    float st[BR / 8][4], dp[BR / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BR / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      lda(ak, ks, LD, kr, kk * 16 + 2 * t);
-      lda(av, vs, LD, kr, kk * 16 + 2 * t);
-#pragma unroll
-      for (int nt = 0; nt < BR / 8; ++nt) {
-        const bf16* qr = qs + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_16816(st[nt], ak, ld32(qr), ld32(qr + 8));
-        const bf16* dr = dos + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_16816(dp[nt], av, ld32(dr), ld32(dr + 8));
-      }
-    }
-
-    // P^T from the lse, masked
-#pragma unroll
-    for (int nt = 0; nt < BR / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const int qi = m0 + col;
-        const int kv = (e >> 1) ? kv1 : kv0;
-        const bool masked = qi >= S || (causal && kv > qi);
-        st[nt][e] = masked ? 0.f : exp2f(st[nt][e] * scale_log2 - lse2[col]);
-      }
-    }
-    // dV += P^T dO, with B from the transposed dO tile
-#pragma unroll
-    for (int jj = 0; jj < BR / 16; ++jj) {
-      uint32_t ap[4];
-      repack(ap, st[2 * jj], st[2 * jj + 1]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const bf16* dr = dot + (j * 8 + g) * LT + jj * 16 + 2 * t;
-        mma_16816(dva[j], ap, ld32(dr), ld32(dr + 8));
-      }
-    }
-    // dS^T = P^T * (dP^T - (delta - g_lse)), in place of P^T
-#pragma unroll
-    for (int nt = 0; nt < BR / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        st[nt][e] *= dp[nt][e] - dlt[nt * 8 + 2 * t + (e & 1)];
-    // dK += dS^T Q, with B from the transposed Q tile
-#pragma unroll
-    for (int jj = 0; jj < BR / 16; ++jj) {
-      uint32_t as[4];
-      repack(as, st[2 * jj], st[2 * jj + 1]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const bf16* qr = qt + (j * 8 + g) * LT + jj * 16 + 2 * t;
-        mma_16816(dka[j], as, ld32(qr), ld32(qr + 8));
-      }
-    }
-  }
-
-  bf16* dkb = dk + base;
-  bf16* dvb = dv + base;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (kv0 < S) {
-      *reinterpret_cast<uint32_t*>(dkb + static_cast<size_t>(kv0) * D + c) =
-          pack_bf16(dka[j][0] * scale, dka[j][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + static_cast<size_t>(kv0) * D + c) =
-          pack_bf16(dva[j][0], dva[j][1]);
-    }
-    if (kv1 < S) {
-      *reinterpret_cast<uint32_t*>(dkb + static_cast<size_t>(kv1) * D + c) =
-          pack_bf16(dka[j][2] * scale, dka[j][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + static_cast<size_t>(kv1) * D + c) =
-          pack_bf16(dva[j][2], dva[j][3]);
-    }
-  }
-}
-
-// dQ of one (batch*head, 64-row Q tile); K/V stream in BC-row tiles.
-template <int D, int BC>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      const float* __restrict__ glse, bf16* __restrict__ dq, int S,
-                      float scale, int causal) {
-  __shared__ __align__(16) bf16 ks[BC][D + kPad];
-  __shared__ __align__(16) bf16 kt[D][BC + kPad];
-  __shared__ __align__(16) bf16 vs[BC][D + kPad];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y;
-  const int m0 = blockIdx.x * kTileRows;
-  const size_t base = static_cast<size_t>(bh) * S * D;
-  const bf16* qb = q + base;
-  const bf16* db = dout + base;
-  const float* lb = lse + static_cast<size_t>(bh) * S;
-  const float* deb = delta + static_cast<size_t>(bh) * S;
-  const float* gb = glse ? glse + static_cast<size_t>(bh) * S : nullptr;
-  // this thread's two query rows: r0 and r0 + 8
-  const int r0 = m0 + warp * 16 + g;
-  const bool row0 = r0 < S, row1 = r0 + 8 < S;
-  const float scale_log2 = scale * kLog2e;
-
-  // Q and dO fragments (A operands of Q K^T and dO V^T), held for the loop
-  uint32_t qf[D / 16][4], df[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    const size_t o0 = static_cast<size_t>(r0) * D + c, o1 = o0 + 8 * D;
-    qf[kk][0] = row0 ? ld32(qb + o0) : 0u;
-    qf[kk][1] = row1 ? ld32(qb + o1) : 0u;
-    qf[kk][2] = row0 ? ld32(qb + o0 + 8) : 0u;
-    qf[kk][3] = row1 ? ld32(qb + o1 + 8) : 0u;
-    df[kk][0] = row0 ? ld32(db + o0) : 0u;
-    df[kk][1] = row1 ? ld32(db + o1) : 0u;
-    df[kk][2] = row0 ? ld32(db + o0 + 8) : 0u;
-    df[kk][3] = row1 ? ld32(db + o1 + 8) : 0u;
-  }
-  const float l2[2] = {lse2_of(lb, r0, S), lse2_of(lb, r0 + 8, S)};
-  const float dl[2] = {dlt_of(deb, gb, r0, S), dlt_of(deb, gb, r0 + 8, S)};
-
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
-
-  // causal: key tiles past this query tile's last row are fully masked
-  const int kv_end = causal ? min(S, m0 + kTileRows) : S;
-  for (int n0 = 0; n0 < kv_end; n0 += BC) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, BC>(k + base, n0, S, &ks[0][0], &kt[0][0]);
-    load_tile<D, BC>(v + base, n0, S, &vs[0][0], nullptr);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 query rows x BC keys
-    float s[BC / 8][4], dp[BC / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* kr = &ks[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(s[nt], qf[kk], ld32(kr), ld32(kr + 8));
-        const bf16* vr = &vs[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(dp[nt], df[kk], ld32(vr), ld32(vr + 8));
-      }
-    }
-    // dS = P * (dP - (delta - g_lse)), P recomputed from the lse and masked
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + nt * 8 + 2 * t + (e & 1);
-        const int h = e >> 1;
-        const int row = r0 + h * 8;
-        const bool masked = col >= S || (causal && col > row);
-        const float p = masked ? 0.f : exp2f(s[nt][e] * scale_log2 - l2[h]);
-        s[nt][e] = p * (dp[nt][e] - dl[h]);
-      }
-    }
-    // dQ += dS K, with B from the transposed K tile
-#pragma unroll
-    for (int jj = 0; jj < BC / 16; ++jj) {
-      uint32_t as[4];
-      repack(as, s[2 * jj], s[2 * jj + 1]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const bf16* kr = &kt[j * 8 + g][jj * 16 + 2 * t];
-        mma_16816(dqa[j], as, ld32(kr), ld32(kr + 8));
-      }
-    }
-  }
-
-  bf16* dqb = dq + base;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (row0)
-      *reinterpret_cast<uint32_t*>(dqb + static_cast<size_t>(r0) * D + c) =
-          pack_bf16(dqa[j][0] * scale, dqa[j][1] * scale);
-    if (row1)
-      *reinterpret_cast<uint32_t*>(dqb + static_cast<size_t>(r0 + 8) * D + c) =
-          pack_bf16(dqa[j][2] * scale, dqa[j][3] * scale);
-  }
-}
-
-// ---- f32 FMA kernels ------------------------------------------------------------
 constexpr int kPartsF32 = 4;   // threads per row; element i <-> column i*4 + part
 constexpr int kRowsDkdvF32 = 32;  // K/V rows per dK/dV CTA
 constexpr int kRowsDqF32 = 64;    // Q rows per dQ CTA
@@ -406,8 +678,8 @@ __global__ void __launch_bounds__(kThreadsDkdvF32)
     flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       const float* __restrict__ glse, float* __restrict__ dk,
-                       float* __restrict__ dv, int S, float scale, int causal) {
+                       float* __restrict__ dk, float* __restrict__ dv, int S, float scale,
+                       int causal) {
   constexpr int kSlice = D / kPartsF32;
   __shared__ float qs[kTileF32][D];
   __shared__ float dos[kTileF32][D];
@@ -422,7 +694,6 @@ __global__ void __launch_bounds__(kThreadsDkdvF32)
   const size_t base = static_cast<size_t>(bh) * S * D;
   const float* lb = lse + static_cast<size_t>(bh) * S;
   const float* db = delta + static_cast<size_t>(bh) * S;
-  const float* gb = glse ? glse + static_cast<size_t>(bh) * S : nullptr;
   const float scale_log2 = scale * kLog2e;
 
   float kr[kSlice], vr[kSlice], dka[kSlice], dva[kSlice];
@@ -446,7 +717,7 @@ __global__ void __launch_bounds__(kThreadsDkdvF32)
     }
     for (int i = tid; i < kTileF32; i += kThreadsDkdvF32) {
       lse2[i] = lse2_of(lb, m0 + i, S);
-      dlt[i] = dlt_of(db, gb, m0 + i, S);
+      dlt[i] = dlt_of(db, m0 + i, S);
     }
     __syncthreads();
     for (int j = 0; j < kTileF32; ++j) {
@@ -484,8 +755,7 @@ __global__ void __launch_bounds__(kThreadsDqF32)
     flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ glse, float* __restrict__ dq, int S,
-                     float scale, int causal) {
+                     float* __restrict__ dq, int S, float scale, int causal) {
   constexpr int kSlice = D / kPartsF32;
   __shared__ float ks[kTileF32][D];
   __shared__ float vs[kTileF32][D];
@@ -497,9 +767,8 @@ __global__ void __launch_bounds__(kThreadsDqF32)
   const bool live = row < S;
   const int bh = blockIdx.y;
   const size_t base = static_cast<size_t>(bh) * S * D;
-  const float* gb = glse ? glse + static_cast<size_t>(bh) * S : nullptr;
   const float l2 = lse2_of(lse + static_cast<size_t>(bh) * S, row, S);
-  const float dl = dlt_of(delta + static_cast<size_t>(bh) * S, gb, row, S);
+  const float dl = dlt_of(delta + static_cast<size_t>(bh) * S, row, S);
   const float scale_log2 = scale * kLog2e;
 
   float qr[kSlice], dr[kSlice], dqa[kSlice];
@@ -546,71 +815,119 @@ __global__ void __launch_bounds__(kThreadsDqF32)
   }
 }
 
+// delta - g_lse of every one of `rows` rows for the f32 kernels:
+// rowsum(dO * O), four threads a row, summed across them in a fixed order.
+constexpr int kThreadsDeltaF32 = 128;
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsDeltaF32)
+    flash_bwd_delta_f32(const float* __restrict__ o, const float* __restrict__ dout,
+                        const float* __restrict__ glse, float* __restrict__ dlt, int rows) {
+  const int row = blockIdx.x * (kThreadsDeltaF32 / kPartsF32) + threadIdx.x / kPartsF32;
+  const int part = threadIdx.x % kPartsF32;
+  float acc = 0.f;
+  if (row < rows) {
+    const size_t base = static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int i = 0; i < D / kPartsF32; ++i)
+      acc = fmaf(o[base + i * kPartsF32 + part], dout[base + i * kPartsF32 + part], acc);
+  }
+  acc = group_sum(acc);
+  if (part == 0 && row < rows) dlt[row] = glse ? acc - glse[row] : acc;
+}
+
+// The bf16 kernels' tiles and CTA shape for head dim D: BC key rows a ring
+// stage of the dQ kernel, BR query rows a ring stage of the dK/dV kernel,
+// NW consumer warpgroups (64 rows each) a CTA, STAGES ring stages.
+template <int D>
+struct Bf16Config;
+template <>
+struct Bf16Config<64> {
+  static constexpr int BC = 64, BR = 64, NW = 1, STAGES = 2;
+};
+template <>
+struct Bf16Config<128> {
+  static constexpr int BC = 64, BR = 32, NW = 1, STAGES = 2;
+};
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, const float* glse, void* dq,
+                   const void* o, const float* lse, const float* glse, float* dlt, void* dq,
                    void* dk, void* dv, int bh, int s, int is_bf16, int causal,
                    cudaStream_t stream) {
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   cudaError_t err;
   if (is_bf16) {
-    // query rows per step of the dK/dV kernel, key rows per step of the dQ
-    // kernel: fewer at D = 128 to keep the accumulators in registers
-    constexpr int BR = D == 64 ? 64 : 32;
-    constexpr int BC = D == 64 ? 64 : 32;
-    constexpr int smem = dkdv_smem_bytes<D, BR>();
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16<D, BR>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    typedef Bf16Config<D> C;
+    const auto dq_kernel = flash_bwd_dq_bf16<D, C::BC, C::NW, C::STAGES>;
+    const auto dkdv_kernel = flash_bwd_dkdv_bf16<D, C::BR, C::NW, C::STAGES>;
+    constexpr int dq_smem = dq_smem_bytes<D, C::BC, C::NW, C::STAGES>();
+    constexpr int dkdv_smem = dkdv_smem_bytes<D, C::BR, C::NW, C::STAGES>();
+    err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dq_smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((s + kTileRows - 1) / kTileRows, bh);
+    err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dkdv_smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((s + 64 * C::NW - 1) / (64 * C::NW), bh);
     const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
                *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
-    flash_bwd_dkdv_bf16<D, BR><<<grid, kThreads, smem, stream>>>(
-        qb, kb, vb, db, lse, delta, glse, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+    // the dQ kernel first: it writes the delta - g_lse that dK/dV reads
+    dq_kernel<<<grid, 128 * C::NW, dq_smem, stream>>>(
+        qb, kb, vb, static_cast<const bf16*>(o), db, lse, glse, dlt, static_cast<bf16*>(dq),
         s, scale, causal);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_bf16<D, BC><<<grid, kThreads, 0, stream>>>(
-        qb, kb, vb, db, lse, delta, glse, static_cast<bf16*>(dq), s, scale, causal);
+    dkdv_kernel<<<grid, 128 * C::NW, dkdv_smem, stream>>>(
+        qb, kb, vb, db, lse, dlt, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, scale,
+        causal);
   } else {
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
+    const int rows = bh * s;
+    const int rows_per_cta = kThreadsDeltaF32 / kPartsF32;
+    flash_bwd_delta_f32<D><<<(rows + rows_per_cta - 1) / rows_per_cta, kThreadsDeltaF32, 0,
+                             stream>>>(static_cast<const float*>(o), df, glse, dlt, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
     flash_bwd_dkdv_f32<D><<<dim3((s + kRowsDkdvF32 - 1) / kRowsDkdvF32, bh),
                             kThreadsDkdvF32, 0, stream>>>(
-        qf, kf, vf, df, lse, delta, glse, static_cast<float*>(dk), static_cast<float*>(dv),
-        s, scale, causal);
+        qf, kf, vf, df, lse, dlt, static_cast<float*>(dk), static_cast<float*>(dv), s,
+        scale, causal);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     flash_bwd_dq_f32<D><<<dim3((s + kRowsDqF32 - 1) / kRowsDqF32, bh), kThreadsDqF32, 0,
-                          stream>>>(qf, kf, vf, df, lse, delta, glse,
-                                    static_cast<float*>(dq), s, scale, causal);
+                          stream>>>(qf, kf, vf, df, lse, dlt, static_cast<float*>(dq), s,
+                                    scale, causal);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, dout, dq, dk, dv: [bh, s, d] contiguous, bf16 (is_bf16 = 1) or
-// f32 (is_bf16 = 0); lse, delta and glse: [bh, s] f32, glse may be null
-// (zero). Launches the dK/dV kernel, then the dQ kernel, on `stream` and
-// returns the CUDA error code of the launches (0 = cudaSuccess); does not
-// synchronise.
+// q, k, v, dout, o, dq, dk, dv: [bh, s, d] contiguous, bf16 (is_bf16 = 1) or
+// f32 (is_bf16 = 0); lse and glse: [bh, s] f32, glse may be null (zero);
+// dlt: [bh, s] f32 scratch, written with delta - g_lse. Launches the
+// backward's kernels on `stream` (bf16: dQ, then dK/dV; f32: delta, dK/dV,
+// dQ) and returns the CUDA error code of the launches (0 = cudaSuccess);
+// does not synchronise.
 extern "C" int ff_flash_attn_bwd(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse, const void* delta,
-                                 const void* glse, void* dq, void* dk, void* dv, int bh,
-                                 int s, int d, int is_bf16, int causal, void* stream) {
+                                 const void* dout, const void* lse, const void* o,
+                                 const void* glse, void* dlt, void* dq, void* dk, void* dv,
+                                 int bh, int s, int d, int is_bf16, int causal,
+                                 void* stream) {
   if (bh <= 0 || bh > 65535 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* de = static_cast<const float*>(delta);
   const float* gl = static_cast<const float*>(glse);
+  float* dl = static_cast<float*>(dlt);
   switch (d) {
     case 64:
       return static_cast<int>(
-          launch<64>(q, k, v, dout, l, de, gl, dq, dk, dv, bh, s, is_bf16, causal, st));
+          launch<64>(q, k, v, dout, o, l, gl, dl, dq, dk, dv, bh, s, is_bf16, causal, st));
     case 128:
       return static_cast<int>(
-          launch<128>(q, k, v, dout, l, de, gl, dq, dk, dv, bh, s, is_bf16, causal, st));
+          launch<128>(q, k, v, dout, o, l, gl, dl, dq, dk, dv, bh, s, is_bf16, causal, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

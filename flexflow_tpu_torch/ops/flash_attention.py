@@ -13,7 +13,7 @@ they never give way to the plain version. On CPU tensors they run
 versions of the same functions, which are also what the card's kernels
 are held against. ``flash_fwd.launches`` / ``flash_bwd.launches`` count
 kernel launches (CUDA only; one ``flash_bwd`` launch runs the backward's
-two kernels, dK/dV and dQ).
+kernels: in bf16 the dQ kernel, which also forms delta, then dK/dV).
 
 The port's availability rule replaces the TPU's tuning gates (``BLK_Q``,
 ``MIN_SEQ_FOR_FLASH``, ``head_dim % 8``, ``MAX_BWD_SEQ``): the tensors
@@ -177,39 +177,61 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
+BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def bwd_launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                    glse: Optional[torch.Tensor], dq: torch.Tensor,
+                    dk: torch.Tensor, dv: torch.Tensor, dlt: torch.Tensor,
+                    causal: bool, stream: int) -> tuple:
+    """The arguments of ``ff_flash_attn_bwd`` (types ``BWD_ARGTYPES``), in
+    its order, after checking that the kernels take these tensors: q, k,
+    v, dO, lse, O, g_lse (None = zero), the ``[BH, S]`` f32 scratch
+    ``dlt`` that the dQ kernel fills with delta - g_lse for the dK/dV
+    kernel, dq, dk, dv, then BH, S, D, bf16 or not, causal, and the
+    stream. Raises ValueError on a shape, dtype,
+    layout or device the kernels do not take."""
+    _check_panels("flash_bwd", q, k, v, o, do, dq, dk, dv)
+    _check_rows("flash_bwd", q, lse, dlt,
+                *(() if glse is None else (glse,)))
+    bh, s, d = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), o.data_ptr(),
+            None if glse is None else glse.data_ptr(), dlt.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d,
+            int(q.dtype == torch.bfloat16), int(causal), stream)
+
+
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
               causal: bool = False, glse: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash backward: q, k, v, o, do ``[BH, S, D]``, lse and ``glse``
     (None = zero) ``[BH, S]`` f32 -> (dq, dk, dv) in the input dtype.
-    delta = rowsum(dO * O) is formed here in f32, outside the kernel, as
-    the JAX package forms it outside its ``pallas_call``. CUDA tensors
-    run the kernel (two kernels, dK/dV and dQ, in one launch); CPU
-    tensors the plain version."""
+    CUDA tensors run the kernels, one launch: in bf16 the dQ kernel forms
+    delta = rowsum(dO * O) of its rows itself and leaves delta - g_lse in
+    a scratch row for the dK/dV kernel that follows it (in f32 a small
+    kernel forms it first); nothing else runs around them but the
+    allocation of the outputs and the scratch. CPU tensors run the plain
+    version."""
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, o, lse, do, causal, glse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: no kernel for device {q.device}")
-    _check_panels("flash_bwd", q, k, v, o, do)
-    _check_rows("flash_bwd", q, lse, *(() if glse is None else (glse,)))
-    bh, s, d = q.shape
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    dlt = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    args = bwd_launch_args(q, k, v, o, lse, do, glse, dq, dk, dv, dlt,
+                           causal, _stream(q))
     if q.numel() == 0:
         return dq, dk, dv
-    delta = torch.sum(do.float() * o.float(), dim=-1)
-    fn = _entry("flash_attn_bwd", "ff_flash_attn_bwd",
-                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                + [ctypes.c_void_p])
+    fn = _entry("flash_attn_bwd", "ff_flash_attn_bwd", BWD_ARGTYPES)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(),
-                None if glse is None else glse.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d,
-                int(q.dtype == torch.bfloat16), int(causal), _stream(q))
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
-                           f"{rc} (BH={bh}, S={s}, D={d}, {q.dtype})")
+                           f"{rc} ([BH, S, D] = {list(q.shape)}, {q.dtype})")
     flash_bwd.launches += 1
     return dq, dk, dv
 
