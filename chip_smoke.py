@@ -10,9 +10,10 @@ package. Phases:
 1. card    — prints ``nvidia-smi``'s name and power limit; needs CUDA.
 2. build   — builds every kernel of the port from ``flexflow_tpu_torch/csrc``,
              one nvcc per source, all started together; prints each
-             kernel's registers, shared memory and spills (the template
-             arguments in each name give the tiles and CTA shape), and
-             fails if ptxas spills any backward kernel.
+             kernel's registers, shared memory, spills, ptxas warnings and
+             performance notes (the template arguments in each name give
+             the tiles and CTA shape), and fails if ptxas spills any
+             flash-attention kernel.
 3. kernels — holds each kernel against its plain PyTorch version on the
              card and times the kernel, the plain version and the library
              call nearest to it, each as runs of back-to-back calls between
@@ -20,7 +21,12 @@ package. Phases:
              library call, whose host time matches their device time, by
              the profiler's device time (``timed_by`` in the kernels line):
              K1 flash forward: the serving shape, ragged lengths, causal,
-               head dims 64 and 128, bf16 and f32;
+               head dims 64 and 128, bf16 and f32; the bf16 kernel's tile
+               edges (S 1, 63, 65, 127, 129, 255, causal and not, D 64 and
+               128); two runs bit-equal; timed at the serving shape and, by
+               the profiler's device time beside the library's, at every
+               other shape the main paths launch (FWD_BUCKET_SHAPES), each
+               also held against the plain version;
              K2/K3 flash backward: the training shape (BH 128, S 512), K3's
                regime (BH 32, S 2048), causal, ragged S 1000, D 128, bf16
                and f32, with g_lse zero and random; the bf16 kernels' tile
@@ -86,7 +92,9 @@ import traceback
 H100_SXM_PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12}
 
 # (bh, s, d, dtype name, causal); the first is the serving shape: batch 8
-# x 16 heads, seq 512, head dim 64
+# x 16 heads, seq 512, head dim 64; then the bf16 kernel's tile edges
+# (64-row warpgroups, 64- or 128-row key tiles and CTAs)
+FWD_EDGE_LENGTHS = (1, 63, 65, 127, 129, 255)
 KERNEL_CASES = [
     (128, 512, 64, "bfloat16", False),
     (128, 512, 64, "bfloat16", True),
@@ -96,7 +104,20 @@ KERNEL_CASES = [
     (64, 300, 128, "bfloat16", True),
     (16, 256, 64, "float32", False),
     (16, 200, 128, "float32", True),
+] + [(4, s, d, "bfloat16", causal) for s in FWD_EDGE_LENGTHS
+     for d in (64, 128) for causal in (False, True)]
+# the forward run twice on the same inputs must give the same bits
+FWD_DETERMINISM_CASES = [
+    (128, 512, 64, "bfloat16", False),
+    (64, 512, 64, "bfloat16", False),
+    (16, 1000, 64, "bfloat16", True),
+    (4, 129, 128, "bfloat16", True),
 ]
+# (bh, s) of K1's other launches on the main paths, D 64, bf16: the serving
+# buckets 1, 2 and 4 (16 heads each) and training path (a) (batch 2, seq
+# 2048); FWD_SHAPES adds the serving shape (bucket 8 and the training step)
+FWD_BUCKET_SHAPES = ((16, 512), (32, 512), (64, 512), (32, 2048))
+FWD_SHAPES = ((128, 512),) + FWD_BUCKET_SHAPES
 # o: the kernel stores o in bf16, so it differs from the f32 plain version
 # by bf16 output rounding (half an ulp is <= 7.8e-3 for |o| < 4) plus the
 # bf16 rounding of P before P @ V; lse is f32 on both sides from the same
@@ -136,12 +157,12 @@ BWD_DETERMINISM_CASES = [
     (16, 1000, 64, "bfloat16", True, True),
     (16, 300, 128, "bfloat16", True, False),
 ]
-# the times of the chip run before the backward moved to wgmma (NVIDIA
-# H100 80GB HBM3, 700 W; PERF.md's kernel table): one call between two
-# CUDA events, host work inside the call included. Not measured by this
-# run, so printed on a text line of their own and kept out of the kernels
-# line.
-EARLIER_MS = {"flash_attn_fwd": 0.1467, "flash_attn_bwd": 0.3782,
+# times of earlier designs (NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel
+# table): the mma.sync forward's profiled device time at the serving shape,
+# and the mma.sync backward's and K4's one call between two CUDA events,
+# host work inside the call included. Not measured by this run, so printed
+# on a text line of their own and kept out of the kernels line.
+EARLIER_MS = {"flash_attn_fwd": 0.0889, "flash_attn_bwd": 0.3782,
               "flash_attn_bwd@S2048": 1.1938, "fused_adam": 1.1168}
 # dq, dk, dv against the plain version in f32 from the same (bf16) inputs,
 # as a share of each output's max |value|: bf16 rounds P, dS and the
@@ -314,24 +335,27 @@ def phase_build():
     for name in names:
         for line in cuda_build.build_log(name).splitlines():
             if any(t in line for t in ("Compiling entry", "registers",
-                                       "spill")):
+                                       "spill", "warning", "Performance")):
                 print(f"[build] {name}: {line.strip()}")
-    # the backward's kernels keep their accumulators in registers: ptxas
-    # reports no spill for any of them
-    spills = [line.strip() for line in
-              cuda_build.build_log("flash_attn_bwd").splitlines()
-              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
-    check(not spills, f"flash_attn_bwd: ptxas reports spills: {spills}")
+    # the flash kernels keep their accumulators in registers: ptxas reports
+    # no spill for any of them
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        spills = [line.strip() for line in
+                  cuda_build.build_log(name).splitlines()
+                  if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+        check(not spills, f"{name}: ptxas reports spills: {spills}")
     return names
 
 
 def phase_kernels():
-    """K1 against its plain version on the card; returns the serving-shape
-    entry of the kernels line (launches filled in later)."""
+    """K1 against its plain version on the card, two runs bit-equal, and
+    its times at the main paths' shapes; returns the serving-shape entry of
+    the kernels line (launches filled in later)."""
     import torch
     from flexflow_tpu_torch.ops.flash_attention import (flash_fwd,
                                                         flash_fwd_reference)
 
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     entry = None
@@ -386,13 +410,52 @@ def phase_kernels():
                 library_ms=library_ms, library_b2b_ms=library_b2b_ms,
                 library_host_ms=library_host_ms, bound_ms=bound_s * 1e3,
                 bound_us=bound_s * 1e6, bound_by=bound_by)
-            fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
             print(f"[kernels] serving shape: kernel profiled {fmt(dev_ms)}, "
                   f"{b2b_ms:.4f} ms back to back (host {host_ms:.4f} ms); "
                   f"plain {plain_ms:.4f} ms; library (sdpa) profiled "
                   f"{fmt(lib_dev_ms)}, {library_b2b_ms:.4f} ms back to back "
                   f"(host {library_host_ms:.4f} ms); bound "
                   f"{bound_s * 1e6:.2f} us ({bound_by})")
+    for case in FWD_DETERMINISM_CASES:
+        bh, s, d, dname, causal = case
+        q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                   .to(getattr(torch, dname)) for _ in range(3))
+        first = flash_fwd(q, k, v, causal)
+        second = flash_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        print(f"[kernels] flash_attn_fwd determinism {case}: o, lse "
+              f"bit-equal over two runs: {same}")
+        check(all(same), f"two forward runs differ at {case}")
+    # the other shapes the main paths launch (some run the kernel's other
+    # D-64 tile config): held against the plain version like
+    # KERNEL_CASES, then timed; there the wrapper's host work outlasts the
+    # kernel, so both sides by the profiler's device time
+    tol = TOL["bfloat16"]
+    for bh, s in FWD_BUCKET_SHAPES:
+        d = 64
+        q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(3))
+        o, lse = flash_fwd(q, k, v)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = flash_fwd_reference(q.float(), k.float(), v.float())
+        err_o = (o.float() - ref_o).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        print(f"[kernels] flash_attn_fwd BH={bh} S={s} D={d} bfloat16 "
+              f"causal=False: o max_abs_err {err_o:.3e} (tol {tol['o']}), "
+              f"lse max_abs_err {err_lse:.3e} (tol {tol['lse']})")
+        check(bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+              and err_o <= tol["o"] and err_lse <= tol["lse"],
+              f"kernel disagrees with its plain version at BH={bh} S={s}")
+        b = bh // 16
+        dev_ms = profiled_ms(lambda: flash_fwd(q, k, v))
+        lib_dev_ms = profiled_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *(x.view(b, 16, s, d) for x in (q, k, v))))
+        bound_s, bound_by = flash_bound(bh, s, d, 2, False, H100_SXM_PEAKS)
+        print(f"[kernels] flash_attn_fwd BH={bh} S={s} D={d} bfloat16: "
+              f"kernel profiled {fmt(dev_ms)}; library (sdpa) profiled "
+              f"{fmt(lib_dev_ms)}; bound {bound_s * 1e6:.2f} us ({bound_by})")
     return entry
 
 
@@ -1228,9 +1291,10 @@ def main() -> int:
     bwd["launches"] = train_b["flash_attn_bwd"]
     bwd_k3["launches"] = train_a["flash_attn_bwd"]
     adam["launches"] = train_b["fused_adam"]
-    print("[kernels] earlier times, not measured by this run (mma.sync "
-          "backward's chip run, NVIDIA H100 80GB HBM3, 700 W, one call "
-          "between two CUDA events): "
+    print("[kernels] earlier times, not measured by this run (the mma.sync "
+          "kernels' chip runs, NVIDIA H100 80GB HBM3, 700 W; the forward by "
+          "profiled device time, the rest one call between two CUDA "
+          "events): "
           + ", ".join(f"{n} {t} ms" for n, t in EARLIER_MS.items()))
     print(json.dumps({"kernels": [fwd, bwd, bwd_k3, adam]}))
     print(json.dumps({"ok": True, "device": {

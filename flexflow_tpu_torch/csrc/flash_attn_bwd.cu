@@ -68,249 +68,9 @@
 // f32 inputs (allow_mixed_precision=False): simple FMA kernels, four
 // threads a row, behind a small kernel that forms delta - g_lse.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper_wgmma.cuh"
 
 namespace {
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-typedef __nv_bfloat16 bf16;
-
-// ---- shared memory and cp.async -------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device memory into shared memory, asynchronously; with
-// `bytes` = 0 nothing is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-// the same for 4 bytes (one f32)
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Orders this thread's completed shared-memory writes before later reads
-// by wgmma, which reads shared memory through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Tiles in shared memory are [rows][D] bf16 in the layout of 128-byte
-// swizzling: D/64 column panels of [rows][64], 128 bytes a row, 16-byte
-// chunk c of row r stored at chunk c ^ (r % 8), every tile on a 1024-byte
-// boundary (one swizzle atom is 8 rows). This is the byte offset of chunk c
-// (columns 8c..8c+7) of row r.
-__device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
-  return static_cast<uint32_t>((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-}
-
-// Rows [r0, r0 + ROWS) of a [S, D] bf16 panel into the tile at shared
-// address `dst`, 16 bytes a copy over the CTA's NT threads (neighbouring
-// threads on neighbouring chunks of a row); rows past S are zero-filled.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__ src, int r0,
-                                          int S) {
-  constexpr int kPerRow = D / 8;
-  constexpr int kChunks = ROWS * kPerRow;
-  static_assert(kChunks % NT == 0, "a tile's chunks split evenly over the threads");
-#pragma unroll
-  for (int i = 0; i < kChunks / NT; ++i) {
-    const int ch = static_cast<int>(threadIdx.x) + i * NT;
-    const int r = ch / kPerRow, c = ch % kPerRow;
-    const bool in = r0 + r < S;
-    cp_async16(dst + swz(ROWS, r, c), src + static_cast<size_t>(in ? r0 + r : 0) * D + c * 8,
-               in ? 16 : 0);
-  }
-}
-
-// Entries [r0, r0 + ROWS) of an [S] f32 row into shared memory (0 past S).
-template <int ROWS, int NT>
-__device__ __forceinline__ void load_rows(uint32_t dst, const float* __restrict__ src, int r0,
-                                          int S) {
-  for (int i = static_cast<int>(threadIdx.x); i < ROWS; i += NT) {
-    const bool in = r0 + i < S;
-    cp_async4(dst + 4 * i, src + (in ? r0 + i : 0), in ? 4 : 0);
-  }
-}
-
-// ---- wgmma ----------------------------------------------------------------------
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the wait that completes it.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Descriptor of a 128-byte-swizzled operand at shared address `addr`
-// (layout type 1; the atom's base is 1024-aligned, so base offset 0):
-// SBO = 1024 bytes (the next 8 rows), LBO as given.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(1024u >> 4) << 32) | (1ull << 62);
-}
-
-// K-major operand (the reduction runs along a row, as D does in Q K^T):
-// 16-wide reduction step kk of a tile of `rows` rows, from row `row0` (a
-// multiple of 8). The step moves 32 bytes within a row, or to the next
-// column panel; LBO is unused by this layout.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows, int row0, int kk) {
-  return desc_sw128(tile + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32, 16);
-}
-
-// MN-major operand (the reduction runs down the rows, as the key index
-// does in dS K; the transpose bit reads it): 16-row reduction step kk of a
-// tile of `rows` rows. The step moves 16 rows (2048 bytes); the N extent
-// crosses column panels at LBO = the panel's size.
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows, int kk) {
-  return desc_sw128(tile + kk * 16 * 128, rows * 128);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The accumulator of an m64nN product (N/2 f32 a thread) rounded to bf16
-// as the register A operand of a following product whose reduction runs
-// over those N columns, 16 columns a step kk. The two layouts coincide
-// (lane = 4g + t of warp w of the warpgroup):
-//   accumulator: d[4j + e] holds row 16w + g + 8 (e / 2), column 8j + 2t + e % 2
-//   A fragment:  a[0] (row g, cols 2t, 2t+1), a[1] (row g + 8, same cols),
-//                a[2] (row g, cols 2t + 8, 2t + 9), a[3] (row g + 8, same)
-template <int N>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
-  }
-}
-
-// 2^x on the special-function unit (results below 2^-126 flush to 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// D[64 x N] (+)= A B with f32 accumulators: A and B bf16, both K-major
-// from shared memory (wgmma_ss; scale_d = 0 overwrites D), or A from
-// registers (acc_to_a) and B MN-major from shared memory (wgmma_rs_tb,
-// transpose bit set, always accumulating).
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 
 // ---- bf16 kernels: cp.async ring + wgmma ------------------------------------------
 // Each CTA has NW consumer warpgroups of 64 rows; all NW * 128 threads issue

@@ -1,234 +1,215 @@
 // Flash-attention forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel flexflow_tpu/ops/pallas_kernels.py:_flash_fwd
-// (body _flash_fwd_kernel). Computes, for q, k, v of shape [BH, S, D]:
+// (launcher at :70, body _flash_fwd_kernel at :46, pallas_call at :77).
+// Computes, for q, k, v of shape [BH, S, D]:
 //   o   = softmax(q k^T / sqrt(D)) v          (optionally causal), in q's dtype
 //   lse = logsumexp of each row of the scores, f32, shape [BH, S]
 // Scores, the running max and the running sum are f32.
 //
-// What bounds it on an H100 SXM: at the serving shape (BH = 128, S = 512,
-// D = 64, bf16, non-causal) the call moves 33.8 MB (q, k, v, o and lse
-// once each: ~10 us at 3.35 TB/s) and does 4*BH*S^2*D = 8.6 GFLOP (~8.7 us
-// at 989 TFLOP/s dense bf16), so it sits on the memory side of the ridge,
-// close to it. The design keeps the S x S scores out of device memory
-// altogether: each CTA owns one (batch*head, 64-row query tile), keeps its
-// Q fragments and O accumulators in registers, and streams K/V through
-// shared memory in 64-row tiles with the FlashAttention-2 online-softmax
-// rescale, so device memory sees each input once per query tile and the
-// sequence length is not bounded by shared memory. The TPU kernel instead
-// held all of K/V resident in VMEM for each 128-row Q block; that does not
-// fit the 227 KB a CTA may use and is not carried over.
+// What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16): at the
+// serving shape (BH 128, S 512, D 64, bf16, non-causal) the call must move
+// 33.8 MB (q, k, v read and o, lse written once: 10.1 us) and do
+// 4 BH S^2 D = 8.6 GFLOP (8.7 us on the tensor cores), at the ridge; its
+// BH S^2 = 33.6 M exponentials take as long again on the special-function
+// units (16 a clock an SM, about 3.9 T/s: 8.6 us). So the design keeps the
+// S x S scores out of memory and the tensor cores and the exponentials
+// fed: a CTA owns one (batch*head, 64-row query tile) and one warpgroup;
+// Q stays in shared memory; K and V tiles arrive through a two-stage
+// cp.async ring (the backward's, hopper_wgmma.cuh: no tensor maps to encode
+// on the host each call as TMA needs, and no warp set aside to produce)
+// into 128-byte-swizzled tiles that wgmma reads directly; S = Q K^T is a
+// wgmma with both operands K-major from shared memory; each score costs
+// one FFMA and one ex2 (masks only on a tile at the diagonal or the
+// sequence's end); P is re-packed from the score accumulators as the
+// register A operand of O += P V, and V is read MN-major through the
+// descriptor's transpose bit, so nothing is transposed or staged. Causal
+// runs skip the masked tiles and start the longest rows first.
 //
-// bf16: four warps, 16 query rows each, on mma.sync m16n8k16 (bf16 in,
-// f32 accumulate). The score accumulators of Q K^T are re-packed in
-// registers as the A operand of P V (their register layouts coincide), so
-// P never touches shared memory. V is stored transposed in shared memory
-// so that the B fragments of P V are single 32-bit loads; rows are padded
-// by 8 elements so the fragment loads are free of bank conflicts.
-// f32: a simple FMA kernel, four threads per query row, each owning a
-// quarter of the head dimension. It serves allow_mixed_precision=False on
-// the card; the serving path runs bf16.
+// Chosen on the card (an NVIDIA H100 80GB HBM3 at 700 W; the runs and
+// times are in PERF.md): D 64 takes 128-key tiles, two stages and three
+// CTAs an SM ("Wide64"), or 64-key tiles at four CTAs an SM ("Narrow64")
+// for a grid that four CTAs an SM finish in one wave and three do not (of
+// the main paths' shapes, BH 64 at S 512, serving bucket 4: 0.0149 against
+// 0.0170 ms); D 128 takes 64-key tiles and two stages. Slower or no faster
+// at the main paths' shapes: two or four warpgroups a CTA (with or without
+// a ping-pong turn for Q K^T), two 64-row blocks a warpgroup, persistent
+// CTAs, a third stage, 32-key tiles, P V issued in parts, and the next
+// tile's Q K^T issued before this tile's P V (254 registers at 128-key
+// tiles: fewer CTAs an SM). Timing ablations (one part of the loop taken
+// out at a time) show no one part dominating: each CTA's serial chain (load, Q K^T, softmax, P V) is long
+// against the little work of a 512-key row, and the CTAs on an SM overlap
+// it only in part. nvcc -Xptxas -v: Wide64 166 registers, Narrow64 113,
+// D 128 165; no spills, no stack; dynamic shared memory 74,752 / 41,984 /
+// 82,944 bytes (1 KB of it alignment slack).
 //
-// Simple and correct first: wgmma, TMA and warp specialisation are for a
-// later change.
+// f32 inputs (allow_mixed_precision=False): a simple FMA kernel, four
+// threads per query row, each owning a quarter of the head dimension.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper_wgmma.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// ---- bf16 tensor-core kernel ------------------------------------------------
-constexpr int kBlockM = 64;  // query rows per CTA: 4 warps x 16 rows
-constexpr int kBlockN = 64;  // key/value rows per shared-memory tile
-constexpr int kThreads = 128;
-constexpr int kPad = 8;  // bf16 elements of padding per shared-memory row
+// ---- bf16 kernel: cp.async ring + wgmma -------------------------------------------
+// One warpgroup a CTA; its 128 threads also issue the ring's copies, so no
+// warp is set aside as a producer.
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int D, int BN, int STAGES>
+constexpr int fwd_smem_bytes() {
+  // alignment slack, Q of the CTA's 64 rows, STAGES x {K, V} tiles
+  return 1024 + 64 * D * 2 + STAGES * 2 * BN * D * 2;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// The running max of one key tile for this thread's rows r0 and r0 + 8. s
+// holds the tile's raw scores q.k (64 rows x BN keys; this thread's columns
+// col0 + 8j + {0, 1}). MASK: the tile crosses the causal diagonal or the
+// end of the sequence, so each score is checked and a masked one set to
+// -inf. Updates m (the running max of the raw scores) and gives ms = m
+// scale_log2 (0 while a row has seen no key) and alpha, the factor by which
+// the row's sum l (rescaled here) and O must be rescaled.
+template <bool MASK, int BN>
+__device__ __forceinline__ void tile_max(float (&s)[BN / 2], float (&m)[2], float (&l)[2],
+                                         float (&ms)[2], float (&alpha)[2], int r0, int col0,
+                                         int S, int causal, float scale_log2) {
+  float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};  // two chains a row
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    if (MASK) {
+      const int col = col0 + 8 * (i >> 2) + (i & 1);
+      if (col >= S || (causal && col > r0 + 8 * h)) s[i] = -INFINITY;
+    }
+    mx[h][i & 1] = fmaxf(mx[h][i & 1], s[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float x = fmaxf(mx[h][0], mx[h][1]);
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[h], x);
+    ms[h] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+    alpha[h] = fast_exp2(fmaf(m[h], scale_log2, -ms[h]));
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// P = exp2(s scale_log2 - ms) in place of the scores, one FFMA and one ex2
+// a score; their sums are added to l.
+template <int BN>
+__device__ __forceinline__ void tile_exp(float (&s)[BN / 2], const float (&ms)[2],
+                                         float (&l)[2], float scale_log2) {
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // two partial sums a row
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] = fast_exp2(fmaf(s[i], scale_log2, -ms[h]));
+    sum[h][i & 1] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] += sum[h][0] + sum[h][1];
 }
 
-// Fragment layout of mma.m16n8k16 for lane = 4*g + t:
-//   A (16x16, row-major): {row g, cols 2t..2t+1}, {row g+8, cols 2t..},
-//                         {row g, cols 2t+8..}, {row g+8, cols 2t+8..}
-//   B (16x8, k x n):      {k 2t..2t+1, col g}, {k 2t+8..2t+9, col g}
-//   C (16x8):             {row g, cols 2t, 2t+1}, {row g+8, cols 2t, 2t+1}
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+// o and lse of one (batch*head, 64-row query tile). Q of the rows stays in
+// shared memory; K and V stream through a ring of STAGES stages, each a K
+// and a V tile of BN rows. Per key tile: S = Q K^T (wgmma, both operands
+// K-major from shared memory), the online softmax in registers, then
+// O += P V with P re-packed from the score accumulators as the register A
+// operand and V read MN-major through the descriptor's transpose bit.
+template <int D, int BN, int STAGES, int MINB>
+__global__ void __launch_bounds__(128, MINB)
+    flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                    int S, float scale_log2, int causal) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockN][D + kPad];
-  __shared__ __align__(16) __nv_bfloat16 vt[D][kBlockN + kPad];
+  constexpr uint32_t kTile = BN * D * 2;  // one K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t q_s = smem_u32(sm), ring = q_s + 64 * D * 2;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y;
-  const int m0 = blockIdx.x * kBlockM;
-  const size_t base = static_cast<size_t>(bh) * S * D;
-  const __nv_bfloat16* qb = q + base;
-  const __nv_bfloat16* kb = k + base;
-  const __nv_bfloat16* vb = v + base;
-  // this thread's two query rows: r0 and r0 + 8
-  const int r0 = m0 + warp * 16 + g;
-  const bool row0 = r0 < S, row1 = r0 + 8 < S;
+  // causal: the last tiles have the longest rows; they start first
+  const int m0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * 64;
+  const size_t pan = static_cast<size_t>(bh) * S * D;
+  const int r0 = m0 + 16 * warp + g;  // this thread's rows: r0, r0 + 8
 
-  // Q fragments (A operand of Q K^T), held in registers for the whole loop
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = row0 ? ld32(qb + static_cast<size_t>(r0) * D + c) : 0u;
-    qf[kk][1] = row1 ? ld32(qb + static_cast<size_t>(r0 + 8) * D + c) : 0u;
-    qf[kk][2] = row0 ? ld32(qb + static_cast<size_t>(r0) * D + c + 8) : 0u;
-    qf[kk][3] = row1 ? ld32(qb + static_cast<size_t>(r0 + 8) * D + c + 8) : 0u;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  // running max (log2 domain) and this thread's share of the running sum
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  // causal: tiles past this query tile's last row are fully masked
-  const int kv_end = causal ? min(S, m0 + kBlockM) : S;
-  for (int n0 = 0; n0 < kv_end; n0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous tile
-    constexpr int kChunks = kBlockN * D / 8;  // 16-byte chunks per tile
-    // K row-major: consecutive threads read consecutive chunks of a row
-    for (int ch = tid; ch < kChunks; ch += kThreads) {
-      const int r = ch / (D / 8), c = (ch % (D / 8)) * 8;
-      uint4 k4 = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < S)
-        k4 = *reinterpret_cast<const uint4*>(kb + static_cast<size_t>(n0 + r) * D + c);
-      *reinterpret_cast<uint4*>(&ks[r][c]) = k4;
+  // causal: key tiles past the CTA's last row are wholly masked
+  const int n_tiles = ((causal ? min(S, m0 + 64) : S) + BN - 1) / BN;
+  // K and V tiles of key tile `it` in the ring
+  auto k_at = [&](int it) { return ring + (it % STAGES) * 2 * kTile; };
+  auto v_at = [&](int it) { return k_at(it) + kTile; };
+  // copy group i: key tile i's K and V (none past the last); group 0 also
+  // holds Q
+  auto load_group = [&](int i) {
+    if (i < n_tiles) {
+      load_tile<D, BN, 128>(k_at(i), k + pan, i * BN, S);
+      load_tile<D, BN, 128>(v_at(i), v + pan, i * BN, S);
     }
-    // V transposed: consecutive threads take consecutive rows of one
-    // 8-column chunk, so the 2-byte transposed stores are contiguous
-    for (int ch = tid; ch < kChunks; ch += kThreads) {
-      const int r = ch % kBlockN, c = (ch / kBlockN) * 8;
-      uint4 v4 = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < S)
-        v4 = *reinterpret_cast<const uint4*>(vb + static_cast<size_t>(n0 + r) * D + c);
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&v4);
+    cp_async_commit();
+  };
+  load_tile<D, 64, 128>(q_s, q + pan, m0, S);
+  for (int i = 0; i < STAGES - 1; ++i) load_group(i);
+
+  float oa[D / 2];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) vt[c + i][r] = ve[i];
-    }
+  for (int i = 0; i < D / 2; ++i) oa[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    load_group(it + STAGES - 1);
+    cp_async_wait<STAGES - 1>();  // copy group `it` has landed
+    fence_proxy_async();
     __syncthreads();
-
-    // scores of this warp's 16 rows against the tile's 64 keys
-    float s[kBlockN / 8][4];
+    const int n0 = it * BN;
+    float s[BN / 2];
+    wg_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_kmajor(q_s, 64, 0, kk), desc_kmajor(k_at(it), BN, 0, kk), kk);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(s);
+    float ms[2], alpha[2];
+    // only a tile at the diagonal or the sequence's end checks each score
+    if (n0 + BN > S || (causal && n0 + BN - 1 > m0))
+      tile_max<true, BN>(s, m, l, ms, alpha, r0, n0 + 2 * t, S, causal, scale_log2);
+    else
+      tile_max<false, BN>(s, m, l, ms, alpha, r0, n0 + 2 * t, S, causal, scale_log2);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(s[nt], qf[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // scale into the log2 domain, mask, and reduce the tile's row maxima
-    float mx[2] = {-INFINITY, -INFINITY};
+    for (int i = 0; i < D / 2; ++i) oa[i] *= alpha[(i >> 1) & 1];
+    tile_exp<BN>(s, ms, l, scale_log2);
+    uint32_t a[BN / 16][4];
+    acc_to_a<BN>(a, s);
+    wg_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + nt * 8 + 2 * t + (e & 1);
-        const int row = r0 + (e >> 1) * 8;
-        float x = s[nt][e] * scale_log2;
-        if (col >= S || (causal && col > row)) x = -INFINITY;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float m_use[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_run[h], mx[h]);
-      // a row with no visible key yet keeps exponent base 0: exp2(-inf) = 0
-      m_use[h] = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m_run[h] - m_use[h]);
-      m_run[h] = m_new;
-      l_run[h] *= alpha;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        acc[dt][2 * h] *= alpha;
-        acc[dt][2 * h + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_use[e >> 1]);
-        s[nt][e] = p;
-        l_run[e >> 1] += p;
-      }
-    }
-
-    // O += P V, with P re-packed from the score accumulators
-#pragma unroll
-    for (int jj = 0; jj < kBlockN / 16; ++jj) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * jj][0], s[2 * jj][1]),
-                              pack_bf16(s[2 * jj][2], s[2 * jj][3]),
-                              pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]),
-                              pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vr = &vt[dt * 8 + g][jj * 16 + 2 * t];
-        mma_16816(acc[dt], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tb(oa, a[kk], desc_mnmajor(v_at(it), BN, kk));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(oa);
+    reg_fence(a);
+    __syncthreads();  // every warp is done with the stage before it is refilled
   }
+  cp_async_wait<0>();
 
-  // the four threads of a row group hold disjoint parts of the row sums
+  bf16* ob = o + pan;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
-  }
-  const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
-  __nv_bfloat16* ob = o + base;
+    // the four threads of a row group hold disjoint parts of the row sums
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int row = r0 + 8 * h;
+    if (row >= S) continue;
+    const float inv = 1.f / lt;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (row0)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r0) * D + c) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (row1)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r0 + 8) * D + c) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
-  }
-  if (t == 0) {
-    float* lb = lse + static_cast<size_t>(bh) * S;
-    if (row0) lb[r0] = (m_run[0] + log2f(l_run[0])) * kLn2;
-    if (row1) lb[r0 + 8] = (m_run[1] + log2f(l_run[1])) * kLn2;
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(row) * D + 8 * j + 2 * t) =
+          pack_bf16(oa[4 * j + 2 * h] * inv, oa[4 * j + 2 * h + 1] * inv);
+    if (t == 0) lse[static_cast<size_t>(bh) * S + row] = (m[h] * scale_log2 + log2f(lt)) * kLn2;
   }
 }
 
@@ -315,22 +296,66 @@ __global__ void __launch_bounds__(kThreadsF32)
   }
 }
 
+// The bf16 kernel's configs: BN key rows a ring stage, STAGES ring stages,
+// MINB the CTAs an SM that the launch bound asks ptxas to fit (and that the
+// shared memory holds). D 64 has two: Wide (128-key tiles, 3 CTAs an SM)
+// and Narrow (64-key tiles, 4 CTAs an SM); launch takes Narrow only for a
+// grid that 4 CTAs an SM finish in one wave and 3 do not. D 128 has one.
+template <int BN_, int STAGES_, int MINB_>
+struct FwdConfig {
+  static constexpr int BN = BN_, STAGES = STAGES_, MINB = MINB_;
+};
+typedef FwdConfig<128, 2, 3> Wide64;
+typedef FwdConfig<64, 2, 4> Narrow64;
+typedef FwdConfig<64, 2, 1> Config128;
+
+template <int D, class C>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int bh, int s, int causal, cudaStream_t stream) {
+  const auto kernel = flash_fwd_bf16<D, C::BN, C::STAGES, C::MINB>;
+  constexpr int smem = fwd_smem_bytes<D, C::BN, C::STAGES>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + 63) / 64, bh);
+  kernel<<<grid, 128, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, s, kLog2e / sqrtf(static_cast<float>(D)), causal);
+  return cudaGetLastError();
+}
+
+// The SM count of the device current at the first bf16 D-64 launch, read
+// once (the port's nodes hold one kind of card); 0 if the query failed,
+// which leaves every grid to Wide64.
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return n;
+  }();
+  return sms;
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int bh, int s, int is_bf16, int causal, cudaStream_t stream) {
-  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
   if (is_bf16) {
-    const dim3 grid((s + kBlockM - 1) / kBlockM, bh);
-    flash_fwd_bf16<D><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, s,
-        scale_log2, causal);
-  } else {
-    const dim3 grid((s + kRowsF32 - 1) / kRowsF32, bh);
-    flash_fwd_f32<D><<<grid, kThreadsF32, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, s, scale_log2, causal);
+    if constexpr (D != 64) {
+      return launch_bf16<D, Config128>(q, k, v, o, lse, bh, s, causal, stream);
+    } else {
+      const long sms = sm_count();
+      const long ctas = static_cast<long>(bh) * ((s + 63) / 64);
+      if (ctas > Wide64::MINB * sms && ctas <= Narrow64::MINB * sms)
+        return launch_bf16<D, Narrow64>(q, k, v, o, lse, bh, s, causal, stream);
+      return launch_bf16<D, Wide64>(q, k, v, o, lse, bh, s, causal, stream);
+    }
   }
+  const dim3 grid((s + kRowsF32 - 1) / kRowsF32, bh);
+  flash_fwd_f32<D><<<grid, kThreadsF32, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, s, kLog2e / sqrtf(static_cast<float>(D)), causal);
   return cudaGetLastError();
 }
 

@@ -2,12 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled for
 Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first use (the
-hash covers the source and the flags, so an edited source rebuilds) and
-loaded with ``ctypes``. A file lock per library around its build lets
-threads and processes race to the first call safely, and lets different
-libraries build at once (``build_all`` starts one ``nvcc`` per source,
-all together). Nothing here runs at import time: the CPU-only test
-environment has no ``nvcc``.
+hash covers the source, every ``csrc/*.cuh`` header and the flags, so an
+edited source or header rebuilds) and loaded with ``ctypes``. A file lock
+per library around its build lets threads and processes race to the first
+call safely, and lets different libraries build at once (``build_all``
+starts one ``nvcc`` per source, all together). Nothing here runs at
+import time: the CPU-only test environment has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -44,17 +44,22 @@ def nvcc_path() -> str:
 
 
 def _paths(name: str):
+    """The source of ``name`` and the library its current build goes to:
+    the digest covers the source, the headers it may include (every
+    ``csrc/*.cuh``, in name order) and the flags."""
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its current build exists; return
-    the shared library's path. nvcc's output (with ``-Xptxas -v``: the
-    registers, shared memory and spills of each kernel) is kept beside it
-    as ``.log``."""
+    """Compile ``csrc/<name>.cu`` (with ``-I csrc/`` for its headers)
+    unless its current build exists; return the shared library's path.
+    nvcc's output (with ``-Xptxas -v``: the registers, shared memory and
+    spills of each kernel) is kept beside it as ``.log``."""
     src, out = _paths(name)
     if out.exists():
         return out
@@ -66,7 +71,8 @@ def build(name: str) -> Path:
                 return out
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [nvcc_path(), *NVCC_FLAGS, f"-I{SRC_DIR}", "-o", str(tmp),
+                 str(src)],
                 capture_output=True, text=True)
             out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             if proc.returncode != 0:

@@ -145,6 +145,25 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def fwd_launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, causal: bool,
+                    stream: int) -> tuple:
+    """The arguments of ``ff_flash_attn_fwd`` (types ``FWD_ARGTYPES``), in
+    its order, after checking that the kernels take these tensors: q, k,
+    v, the outputs o and lse, then BH, S, D, bf16 or not, causal, and the
+    stream. Raises ValueError on a shape, dtype, layout or device the
+    kernels do not take."""
+    _check_panels("flash_fwd", q, k, v, o)
+    _check_rows("flash_fwd", q, lse)
+    bh, s, d = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, s, d, int(q.dtype == torch.bfloat16),
+            int(causal), stream)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k, v ``[BH, S, D]`` -> (o ``[BH, S, D]`` in q's dtype, lse
@@ -154,22 +173,17 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_fwd_reference(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: no kernel for device {q.device}")
-    _check_panels("flash_fwd", q, k, v)
-    bh, s, d = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    args = fwd_launch_args(q, k, v, o, lse, causal, _stream(q))
     if q.numel() == 0:
         return o, lse
-    fn = _entry("flash_attn_fwd", "ff_flash_attn_fwd",
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                + [ctypes.c_void_p])
+    fn = _entry("flash_attn_fwd", "ff_flash_attn_fwd", FWD_ARGTYPES)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), bh, s, d, int(q.dtype == torch.bfloat16),
-                int(causal), _stream(q))
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error "
-                           f"{rc} (BH={bh}, S={s}, D={d}, {q.dtype})")
+                           f"{rc} ([BH, S, D] = {list(q.shape)}, {q.dtype})")
     flash_fwd.launches += 1
     return o, lse
 

@@ -6,7 +6,14 @@ the JAX package's own tests run it on the CPU. Inputs are made from a
 seed with numpy and handed to both.
 
 Tolerance: atol 1e-5, rtol 1e-5 — f32 on both sides; only the order of
-the sums differs.
+the sums differs. Where the port's plain version takes bf16 inputs, its o
+is rounded to bf16 once at the end: within half a bf16 ulp (rtol 2^-8) of
+the f32 attention of the same (bf16) values.
+
+The card's kernels are held against the plain version at the bf16
+kernel's tile edges (S 1, 63, 65, 127, 129, 255); here the plain version
+is held against the JAX package's einsum attention and logsumexp at those
+lengths, which the Pallas kernel does not take (S % 128).
 """
 
 import types
@@ -20,12 +27,17 @@ import torch
 from flexflow_tpu.ops.attention import (
     scaled_dot_product_attention as jax_sdpa)
 from flexflow_tpu.ops.pallas_kernels import _flash_fwd
-from flexflow_tpu_torch.ops.flash_attention import (flash_attention,
+from flexflow_tpu_torch.ops.flash_attention import (FWD_ARGTYPES,
+                                                    FlashAttention,
+                                                    flash_attention,
                                                     flash_attention_available,
                                                     flash_fwd,
-                                                    flash_fwd_reference)
+                                                    flash_fwd_reference,
+                                                    fwd_launch_args)
 
 ATOL = RTOL = 1e-5
+BF16_RTOL = 2.0 ** -8  # half a bf16 ulp, relative
+EDGE_LENGTHS = (1, 63, 65, 127, 129)
 
 
 def _qkv(bh, s, d, seed):
@@ -77,6 +89,138 @@ def test_ragged_length_matches_jax_attention(causal):
                                atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
                                atol=ATOL, rtol=RTOL)
+
+
+def _jax_attention_lse(q, k, v, causal):
+    """The JAX package's einsum attention and the logsumexp of its scores,
+    q, k, v ``[BH, S, D]`` numpy f32."""
+    s, d = q.shape[1], q.shape[2]
+    o = jax_sdpa(*(jnp.asarray(x)[:, None] for x in (q, k, v)),
+                 causal=causal)[:, 0]
+    scores = jnp.einsum("bqd,bkd->bqk", q, k) / jnp.sqrt(jnp.float32(d))
+    if causal:
+        mask = jnp.tril(jnp.ones((s, s), bool))
+        scores = jnp.where(mask, scores, jnp.finfo(jnp.float32).min)
+    return np.asarray(o), np.asarray(jax.scipy.special.logsumexp(scores,
+                                                                 axis=-1))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", EDGE_LENGTHS)
+def test_plain_version_at_tile_edges_matches_jax_attention(s, causal, d):
+    """The card checks' tile edges: the plain version (what the kernel is
+    held to there) against the einsum attention and logsumexp, f32."""
+    q, k, v = _qkv(3, s, d, seed=11 * s + d + causal)
+    want_o, want_lse = _jax_attention_lse(q, k, v, causal)
+    o, lse = flash_fwd(*(torch.from_numpy(x) for x in (q, k, v)), causal)
+    assert o.shape == (3, s, d) and lse.shape == (3, s)
+    np.testing.assert_allclose(o.numpy(), want_o, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", EDGE_LENGTHS)
+def test_plain_version_in_bf16_rounds_o_once(s, causal, d):
+    """bf16 inputs, as the kernel takes them: o comes out in bf16, within
+    half an ulp of the f32 einsum attention of the same bf16 values; lse
+    stays f32 (1e-5)."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(3, s, d, seed=13 * s + d + causal))
+    want_o, want_lse = _jax_attention_lse(
+        *(x.float().numpy() for x in (q, k, v)), causal)
+    o, lse = flash_fwd(q, k, v, causal)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().numpy(), want_o, atol=1e-6,
+                               rtol=BF16_RTOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_matches_pallas_flash_fwd_head_dim_128(monkeypatch, s, causal):
+    monkeypatch.setenv("FLEXFLOW_TPU_PALLAS", "interpret")
+    q, k, v = _qkv(2, s, 128, seed=3 * s + causal)
+    want_o, want_lse = _flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal, True)
+    o, lse = flash_fwd(*(torch.from_numpy(x) for x in (q, k, v)), causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[:, 0, :],
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_function_saves_what_the_backward_reads(causal):
+    """FlashAttention's forward saves (q, k, v, o, lse): o is what it
+    returns and lse the forward's logsumexp."""
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(2, 40, 16, seed=21 + causal))
+    out = FlashAttention.apply(q, k, v, causal)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5
+    for a, b in zip(saved[:3], (q, k, v)):
+        assert torch.equal(a, b)
+    want_o, want_lse = flash_fwd_reference(q.detach(), k.detach(),
+                                           v.detach(), causal)
+    assert torch.equal(saved[3], out.detach())
+    assert torch.equal(saved[3], want_o) and torch.equal(saved[4], want_lse)
+
+
+def _fwd_tensors(dtype=torch.bfloat16, bh=2, s=96, d=64):
+    g = torch.Generator().manual_seed(0)
+    q, k, v, o = (torch.randn(bh, s, d, generator=g).to(dtype)
+                  for _ in range(4))
+    return dict(q=q, k=k, v=v, o=o, lse=torch.randn(bh, s, generator=g))
+
+
+def test_launch_args_follow_the_entry_point():
+    """``fwd_launch_args`` gives ``ff_flash_attn_fwd`` its arguments in
+    order: q, k, v, o, lse, BH, S, D, bf16, causal and the stream; one per
+    entry of ``FWD_ARGTYPES``."""
+    x = _fwd_tensors()
+    args = fwd_launch_args(*x.values(), causal=True, stream=7)
+    assert len(args) == len(FWD_ARGTYPES) == 11
+    assert args[:5] == tuple(x[n].data_ptr() for n in ("q", "k", "v", "o",
+                                                       "lse"))
+    assert args[5:] == (2, 96, 64, 1, 1, 7)
+    x32 = _fwd_tensors(torch.float32, d=128)
+    assert fwd_launch_args(*x32.values(), causal=False,
+                           stream=0)[5:] == (2, 96, 128, 0, 0, 0)
+
+
+@pytest.mark.parametrize("name,bad", [
+    ("k", lambda x: x.float()),                  # dtype differs from q
+    ("q", lambda x: x.double()),                 # no kernel dtype
+    ("v", lambda x: x[:, :-1]),                  # shape differs from q
+    ("k", lambda x: x[:1]),                      # batch*heads differ
+    ("q", lambda x: x.reshape(2, 96, 2, 32)),    # not [BH, S, D]
+    ("o", lambda x: x.transpose(-1, -2).contiguous().transpose(-1, -2)),
+    ("o", lambda x: x.float()),                  # o in another dtype
+    ("lse", lambda x: x.bfloat16()),             # lse must be f32
+    ("lse", lambda x: x[:, :-1]),                # lse must be [BH, S]
+    ("lse", lambda x: x.t().contiguous().t()),   # lse must be contiguous
+], ids=["k-dtype", "q-dtype", "v-shape", "k-bh", "q-rank", "o-layout",
+        "o-dtype", "lse-dtype", "lse-shape", "lse-layout"])
+def test_launch_args_refuse_what_the_kernel_does_not_take(name, bad):
+    x = _fwd_tensors()
+    x[name] = bad(x[name])
+    with pytest.raises(ValueError):
+        fwd_launch_args(*x.values(), causal=False, stream=0)
+
+
+def test_launch_args_refuse_unsupported_head_dim():
+    x = _fwd_tensors(d=32)
+    with pytest.raises(ValueError, match="head dim 32"):
+        fwd_launch_args(*x.values(), causal=False, stream=0)
+
+
+def test_launch_args_refuse_more_rows_than_the_grid_takes():
+    """batch*heads lies on grid.y, at most 65535."""
+    x = _fwd_tensors(bh=65536, s=1)
+    with pytest.raises(ValueError, match="batch\\*heads 65536"):
+        fwd_launch_args(*x.values(), causal=False, stream=0)
 
 
 def test_fold_takes_strided_views():
@@ -151,3 +295,26 @@ def test_kernel_wrapper_raises_on_unsupported_input(cuda_card):
                     dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_fwd(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", EDGE_LENGTHS + (255,))
+def test_kernel_at_tile_edges_on_card(cuda_card, s, causal, d):
+    """On the card: the bf16 kernel at its tile edges (64-row warpgroups,
+    64- or 128-row key tiles) against its plain version in f32 from the
+    same inputs (o 2e-2, lse 1e-3, as above); a second launch gives the
+    same bits."""
+    g = torch.Generator(device="cuda").manual_seed(s + d)
+    q, k, v = (torch.randn(4, s, d, generator=g, device="cuda").bfloat16()
+               for _ in range(3))
+    before = flash_fwd.launches
+    o, lse = flash_fwd(q, k, v, causal)
+    o2, lse2 = flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rl = flash_fwd_reference(q.float(), k.float(), v.float(), causal)
+    assert (o.float() - ro).abs().max().item() <= 2e-2
+    assert (lse - rl).abs().max().item() <= 1e-3
