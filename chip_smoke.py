@@ -39,7 +39,13 @@ package. Phases:
                profiler's device time;
              K4 fused Adam: the 158 leaf shapes of the full-width model,
                bit-equal, f32 and bf16 state, t 1 and 7, weight decay 0 and
-               0.01.
+               0.01;
+             K5 flash_attention_lse (bf16 q, k, v, o in f32; its backward
+               from f32 O and dO with g_lse zero and random): the tile
+               edges (S 1, 63, 65, 127, 128, 129, 512, causal and not, D 64
+               and 128), two runs bit-equal, timed at the ring steps'
+               shapes (BH 512 S 128, BH 32 S 512) beside the bounds and
+               the nearest library calls (not the same function).
 4. serve   — builds the BERT-proxy transformer at full width
              (``TransformerConfig()``: 12 layers, hidden 1024, 16 heads, seq
              512, batch 8) with random weights from a seed, compiles it for
@@ -70,7 +76,20 @@ package. Phases:
              ``AdamOptimizer.update``, bit for bit.
              (a) 2 layers at S 2048 (K3's regime) without a strategy file:
              3 steps, the backward launched twice a step.
-6. report  — one JSON line ``{"kernels": [...]}``, then the final line
+6. ring    — ring attention on a ``{"seq": 4}`` mesh in one process (all
+             four ring positions on the card), B 8 H 16 S 512 and the
+             causal B 2 H 16 S 2048: o and the q/k/v gradients against
+             K1/K2 over the whole sequence, K5's launches against the
+             launch plan (4 forward and 4 backward a call), times of both.
+7. train c — the slice's path: ``TransformerConfig(seq_parallel="seq")``
+             at full width compiled for training on ``make_mesh(4,
+             {"seq": 4})`` (Adam alpha 1e-4, no strategy file), 3 ``fit``
+             steps and a ``predict``, against the same seeded weights
+             without ``seq_parallel`` (the K1 path): predict and per-step
+             losses, K5's launches = 12 x 3 x 4 each way, K1/K2/K4 none;
+             step p50 and the device-busy share. Then the same for 2
+             causal layers at S 2048, batch 2.
+8. report  — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without printing the final line.
@@ -207,6 +226,63 @@ FLOOR_FACTOR = 2.0
 TRAIN_A = dict(num_layers=2, seq_length=2048, batch_size=2)
 TRAIN_A_STEPS = 3
 
+# K5 (flash_attention_lse): (bh, s, d, causal) at the bf16 kernels' tile
+# edges, then at every shape the ring's steps give it on the main paths
+# (D 64): the full-width step (BH 512 = 4 positions x batch 8 x 16 heads,
+# S 128), and the causal S 2048 ring's steps (BH 32 a position, S 512:
+# the diagonal over all 4 positions, then the 3, 2 and 1 visible ones),
+# which between them run both forward configurations of the bf16 kernel
+# (Narrow64 at BH 64). The forward is held against its plain version
+# element by element: o is stored in f32, so only the bf16 rounding of P
+# before P @ V (l sums the unrounded P) and the order of the sums differ,
+# and rounding each P to bf16 (unit roundoff 2^-8) moves o by at most
+# 2^-8 of P @ |V|, the plain version's o of |V|; LSE_TOL["o"] adds room
+# for the order of the sums. A kernel that rounded o to bf16 fails the
+# second check outright: the share of o's elements that a bf16 holds
+# exactly, at most the rows that are one bf16 value v_0 (a causal row 0:
+# 1/S of them) plus LSE_BF16_EXACT_SLACK. The backward with
+# BWD_TOL["bfloat16"] (dO is rounded to bf16 as an MMA operand, beside P
+# and dS), g_lse zero and random.
+LSE_EDGE_LENGTHS = (1, 63, 65, 127, 128, 129, 512)
+LSE_RING_STEPS = [(512, 128, 64, False), (128, 512, 64, True),
+                  (96, 512, 64, False), (64, 512, 64, False),
+                  (32, 512, 64, False)]
+LSE_CASES = [(4, s, d, causal) for s in LSE_EDGE_LENGTHS for d in (64, 128)
+             for causal in (False, True)] + LSE_RING_STEPS
+LSE_TOL = {"o_rel": 2.0 ** -8, "o": 1e-4, "lse": 1e-3}
+LSE_BF16_EXACT_SLACK = 0.01
+LSE_DETERMINISM_CASES = [(512, 128, 64, False), (128, 512, 64, True),
+                         (4, 129, 128, True)]
+# (label, bh, s) of the ring steps timed, D 64, not causal: the full-width
+# ring (batch 8 x 16 heads x 4 positions of S 512 / 4) and one position
+# of the S 2048 ring (batch 2 x 16 heads, S 2048 / 4)
+LSE_SHAPES = (("full-width ring step", 512, 128),
+              ("S 2048 ring, one position", 32, 512))
+# ring attention on a {"seq": 4} mesh in one process (LocalRing(4)):
+# (b, h, s, d, causal), held against K1 over the whole sequence. Both
+# store o in bf16 (the ring after an f32 merge of four f32 blocks), so
+# each element of o may differ by one bf16 ulp of the larger of the two
+# (at most 2^-7 of it) plus RING_TOL["o"] for the bf16 rounding of P,
+# which both round against other running maxima (K5 alone reads up to
+# 4.6e-3 against f32, PERF.md); the first run read 1.95e-3 at most. A
+# wrong merge reads 0.15 to 3.1 at these shapes (one block dropped, or
+# the four blocks averaged: PERF.md). The q/k/v gradients at 2e-2 of each
+# gradient's max (BWD_TOL's; the first run read 9.9e-3 at most, and a
+# dropped block's dK/dV are all wrong): the ring's backward rounds its
+# f32 dO to bf16 once per block, K2's gets a bf16 dO.
+RING_MESH = {"seq": 4}
+# K5 launches of one ring attention call on it, forward and backward: one
+# a ring step over the step's active positions (ring_attention_blocks),
+# and every step has one (position n - 1 sees every block, causal or not)
+RING_LAUNCHES = RING_MESH["seq"]
+RING_SHAPES = ((8, 16, 512, 64, False), (2, 16, 2048, 64, True))
+RING_TOL = {"o": 5e-3, "grad": 2e-2}
+# training (c): the slice's path, seq-parallel BERT-proxy on RING_MESH;
+# the full width, then a 2-layer causal run at S 2048
+TRAIN_C_STEPS = 3
+TRAIN_C_CAUSAL = dict(num_layers=2, seq_length=2048, batch_size=2,
+                      causal=True)
+
 
 class SmokeFailure(Exception):
     pass
@@ -289,11 +365,13 @@ def profiled_ms(fn, n=20, label=None, attempts=3):
     return sum(e.time_range.elapsed_us() for e in events) / 1e3 / n
 
 
-def flash_bound(bh, s, d, itemsize, causal, peaks):
+def flash_bound(bh, s, d, itemsize, causal, peaks, o_itemsize=None):
     """Least time (s) the card could take for one call, and what bounds
-    it: q, k, v read once and o, lse written once; 4*D FLOPs per visible
-    (query, key) pair, on the tensor cores for bf16."""
-    nbytes = 4 * bh * s * d * itemsize + bh * s * 4
+    it: q, k, v read once and o (``o_itemsize`` bytes an element, default
+    the inputs') and lse written once; 4*D FLOPs per visible (query, key)
+    pair, on the tensor cores for bf16."""
+    nbytes = (bh * s * d * (3 * itemsize + (o_itemsize or itemsize))
+              + bh * s * 4)
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * bh * pairs * d
     rate = peaks["bf16"] if itemsize == 2 else peaks["f32"]
@@ -670,12 +748,15 @@ def check_f32_model():
           "f32 flash-core predict disagrees with the einsum core")
 
 
-def bwd_bound(bh, s, d, itemsize, causal, with_glse, peaks):
+def bwd_bound(bh, s, d, itemsize, causal, with_glse, peaks,
+              od_itemsize=None):
     """Least time (s) the card could take for one backward, and what
-    bounds it: q, k, v, o, dO read and dq, dk, dv written once, lse (and
+    bounds it: q, k, v, o, dO read and dq, dk, dv written once (o and dO
+    ``od_itemsize`` bytes an element, default the inputs'), lse (and
     g_lse) read once; five products of 2*D FLOPs per visible (query, key)
     pair, on the tensor cores for bf16."""
-    nbytes = 8 * bh * s * d * itemsize + bh * s * 4 * (2 if with_glse else 1)
+    nbytes = (bh * s * d * (6 * itemsize + 2 * (od_itemsize or itemsize))
+              + bh * s * 4 * (2 if with_glse else 1))
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 10 * bh * pairs * d
     rate = peaks["bf16"] if itemsize == 2 else peaks["f32"]
@@ -700,27 +781,32 @@ def bwd_inputs(gen, bh, s, d, dname, causal, with_glse):
 
 def bwd_entry_launch(q, k, v, o, lse, do, causal, want):
     """A function that launches the backward's kernels through their
-    entry point with the arguments ``flash_bwd`` gives it, into outputs
-    and a scratch allocated once: the launch ``flash_bwd`` makes, without
-    its allocations, and not counted. Checks that one launch gives
-    ``want`` (``flash_bwd``'s dq, dk, dv) bit for bit."""
+    entry point, ``ff_flash_attn_bwd``, with the arguments ``flash_bwd``
+    gives it (K5's for an f32 o beside bf16 q), into outputs and scratch
+    allocated once: the launch ``flash_bwd`` makes, without its
+    allocations, and not counted. Checks that one launch gives ``want``
+    (``flash_bwd``'s dq, dk, dv) bit for bit."""
     import ctypes
 
     import torch
     from flexflow_tpu_torch import cuda_build
-    from flexflow_tpu_torch.ops.flash_attention import (BWD_ARGTYPES,
-                                                        bwd_launch_args)
+    from flexflow_tpu_torch.ops.flash_attention import (
+        BWD_ARGTYPES, bwd_launch_args, bwd_scratch)
 
     fn = cuda_build.load("flash_attn_bwd").ff_flash_attn_bwd
     fn.argtypes, fn.restype = BWD_ARGTYPES, ctypes.c_int
     out = [torch.empty_like(x) for x in (q, k, v)]
-    dlt = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    args = bwd_launch_args(q, k, v, o, lse, do, None, *out, dlt, causal,
-                           torch.cuda.current_stream().cuda_stream)
+    scratch = bwd_scratch(q, o)
+    args = bwd_launch_args(q, k, v, o, lse, do, None, *out, *scratch,
+                           causal=causal,
+                           stream=torch.cuda.current_stream().cuda_stream)
 
     def launch():
         check(fn(*args) == 0, "flash_attn_bwd entry point: launch failed")
 
+    # the entry point writes through raw pointers: the outputs and scratch
+    # live as long as the function that launches into them
+    launch.buffers = (out, scratch)
     launch()
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(out, want)),
@@ -835,6 +921,327 @@ def phase_kernels_bwd():
     return entries
 
 
+def lse_inputs(gen, bh, s, d, causal):
+    """Seeded bf16 q, k, v, K5's f32 o and lse for them, an f32 dO and a
+    g_lse on the card."""
+    import torch
+    from flexflow_tpu_torch.ops.flash_attention import flash_fwd
+
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    o, lse = flash_fwd(q, k, v, causal, out_dtype=torch.float32)
+    do = torch.randn(bh, s, d, generator=gen, device="cuda")
+    glse = torch.randn(bh, s, generator=gen, device="cuda")
+    return q, k, v, o, lse, do, glse
+
+
+def phase_kernels_lse():
+    """K5 (flash_attention_lse) against its plain version on the card: the
+    forward's f32 o and lse, and the backward from f32 O and dO with
+    g_lse zero and random, at the tile edges (LSE_CASES); bit-equal over
+    two runs; both timed at the ring steps' shapes (LSE_SHAPES) by the
+    profiler's device time (and the backward back to back through its
+    entry point) beside the plain versions, the bounds and the nearest
+    library calls. Returns the kernels line's K5 entries (forward,
+    backward)."""
+    import torch
+    from flexflow_tpu_torch.ops.flash_attention import (flash_bwd,
+                                                        flash_bwd_reference,
+                                                        flash_fwd,
+                                                        flash_lse_reference)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    tol, btol = LSE_TOL, BWD_TOL["bfloat16"]
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    worst = dict(o=0.0, lse=0.0, grad=0.0, grad_rel=0.0)
+    for bh, s, d, causal in LSE_CASES:
+        q, k, v, o, lse, do, glse = lse_inputs(gen, bh, s, d, causal)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = flash_lse_reference(q.float(), k.float(), v.float(),
+                                             causal)
+        check(o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+              and bool(torch.isfinite(lse).all()),
+              f"K5 forward: non-finite or not f32 at {(bh, s, d, causal)}")
+        ref_pv, _ = flash_lse_reference(q.float(), k.float(), v.float().abs(),
+                                        causal)
+        diff = (o - ref_o).abs()
+        err_o = diff.max().item()
+        ratio_o = (diff / (ref_pv * tol["o_rel"] + tol["o"])).max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        worst["o"], worst["lse"] = (max(worst["o"], err_o),
+                                    max(worst["lse"], err_lse))
+        exact = (o.bfloat16().float() == o).float().mean().item()
+        exact_max = ((1 / s if causal else 0.0) + LSE_BF16_EXACT_SLACK
+                     if s > 1 else 1.0)
+        line = (f"[kernels] K5 BH={bh} S={s} D={d} causal={causal}: forward o "
+                f"max_abs_err {err_o:.3e}, worst element at {ratio_o:.3f} of "
+                f"its bound (2^-8 P|V| + {tol['o']}), lse {err_lse:.3e} "
+                f"(tol {tol['lse']}), share of o a bf16 holds exactly "
+                f"{exact:.4f} (at most {exact_max:.4f}); backward")
+        check(ratio_o <= 1.0 and err_lse <= tol["lse"],
+              f"K5 forward disagrees with its plain version at "
+              f"{(bh, s, d, causal)}")
+        check(exact <= exact_max, f"K5's o is not f32 at {(bh, s, d, causal)}")
+        for g in (None, glse):
+            got = flash_bwd(q, k, v, o, lse, do, causal, g)
+            torch.cuda.synchronize()
+            want = flash_bwd_reference(q.float(), k.float(), v.float(), o, lse,
+                                       do, causal, g)
+            errs = [(a.float() - w).abs().max().item()
+                    for a, w in zip(got, want)]
+            scales = [w.abs().max().item() for w in want]
+            scales = [max(sc, BWD_SCALE_FLOOR * max(scales)) for sc in scales]
+            rel = max(e / sc for e, sc in zip(errs, scales))
+            worst["grad"] = max(worst["grad"], *errs)
+            worst["grad_rel"] = max(worst["grad_rel"], rel)
+            line += (f" g_lse={'random' if g is not None else 0}: "
+                     f"{rel:.2e} of max")
+            check(all(bool(torch.isfinite(a).all()) for a in got)
+                  and rel <= btol,
+                  f"K5 backward disagrees with its plain version at "
+                  f"{(bh, s, d, causal, g is not None)}")
+        print(line + f" (tol {btol})")
+    for bh, s, d, causal in LSE_DETERMINISM_CASES:
+        q, k, v, o, lse, do, glse = lse_inputs(gen, bh, s, d, causal)
+        again = flash_fwd(q, k, v, causal, out_dtype=torch.float32)
+        first = flash_bwd(q, k, v, o, lse, do, causal, glse)
+        second = flash_bwd(q, k, v, o, lse, do, causal, glse)
+        torch.cuda.synchronize()
+        same = ([torch.equal(a, b) for a, b in zip((o, lse), again)]
+                + [torch.equal(a, b) for a, b in zip(first, second)])
+        print(f"[kernels] K5 determinism {(bh, s, d, causal)}: o, lse, dq, "
+              f"dk, dv bit-equal over two runs: {same}")
+        check(all(same), f"two K5 runs differ at {(bh, s, d, causal)}")
+
+    sdpa_flash = torch.ops.aten._scaled_dot_product_flash_attention
+    entries = {}
+    for label, bh, s in LSE_SHAPES:
+        d, causal = 64, False
+        q, k, v, o, lse, do, _ = lse_inputs(gen, bh, s, d, causal)
+        b4 = lambda x: x.view(bh // 16, 16, s, d)
+        fwd = lambda: flash_fwd(q, k, v, causal, out_dtype=torch.float32)
+        fwd_ms = profiled_ms(fwd)
+        fwd_b2b, fwd_host = time_calls(fwd)
+        fwd_plain = time_ms(lambda: flash_lse_reference(q, k, v, causal))
+        lib_fwd = lambda: sdpa_flash(b4(q), b4(k), b4(v))
+        lib_fwd_ms = profiled_ms(lib_fwd)
+        fb, fb_by = flash_bound(bh, s, d, 2, causal, H100_SXM_PEAKS,
+                                o_itemsize=4)
+        got = flash_bwd(q, k, v, o, lse, do, causal)
+        launch = bwd_entry_launch(q, k, v, o, lse, do, causal, got)
+        bwd_ms, bwd_host = time_calls(launch)
+        bwd_dev = profiled_ms(launch, label=f"K5 backward {label}")
+        bwd_plain = time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do,
+                                                        causal))
+        lq, lk, lv = (b4(x).detach().requires_grad_() for x in (q, k, v))
+        node = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv).grad_fn
+        ldo = b4(do).bfloat16()
+        lib_bwd = lambda: node(ldo)
+        lib_bwd_ms = time_calls(lib_bwd)[0]
+        lib_bwd_dev = profiled_ms(lib_bwd)
+        bb, bb_by = bwd_bound(bh, s, d, 2, causal, False, H100_SXM_PEAKS,
+                              od_itemsize=4)
+        print(f"[kernels] K5 {label} (BH={bh} S={s} D={d} bf16 in, f32 o): "
+              f"forward profiled {fmt(fwd_ms)}, {fwd_b2b:.4f} ms back to back "
+              f"(host {fwd_host:.4f} ms), plain {fwd_plain:.4f} ms, library "
+              f"(aten._scaled_dot_product_flash_attention, o in bf16: not the "
+              f"same function) profiled {fmt(lib_fwd_ms)}, bound "
+              f"{fb * 1e6:.2f} us ({fb_by}); backward {bwd_ms:.4f} ms back "
+              f"to back (host {bwd_host:.4f} ms), profiled {fmt(bwd_dev)}, "
+              f"plain {bwd_plain:.4f} ms, library backward node (bf16 o and "
+              f"dO: not the same function) {lib_bwd_ms:.4f} ms, profiled "
+              f"{fmt(lib_bwd_dev)}, bound {bb * 1e6:.2f} us ({bb_by})")
+        if label == LSE_SHAPES[0][0]:
+            shape = f"BH={bh} S={s} D={d} bf16 in, f32 o, causal={causal}"
+            entries["fwd"] = dict(
+                name="flash_attention_lse_fwd", route="cuda",
+                source="flexflow_tpu_torch/csrc/flash_attn_fwd.cu",
+                replaces=("flexflow_tpu/ops/pallas_kernels.py:290 "
+                          "(flash_attention_lse, via _flash_fwd)"),
+                shape=shape, launches=None, max_abs_err=worst["o"],
+                lse_max_abs_err=worst["lse"],
+                ms=fwd_ms if fwd_ms is not None else fwd_b2b,
+                timed_by="profiler" if fwd_ms is not None else "back to back",
+                b2b_ms=fwd_b2b, host_ms=fwd_host, plain_ms=fwd_plain,
+                library_ms=lib_fwd_ms,
+                library_note="aten._scaled_dot_product_flash_attention: o "
+                             "in bf16, not the same function",
+                bound_ms=fb * 1e3, bound_by=fb_by)
+            entries["bwd"] = dict(
+                name="flash_attention_lse_bwd", route="cuda",
+                source="flexflow_tpu_torch/csrc/flash_attn_bwd.cu",
+                replaces=("flexflow_tpu/ops/pallas_kernels.py:307 "
+                          "(_flash_lse_vjp_bwd, via _flash_bwd with g_lse)"),
+                shape=shape + ", f32 dO", launches=None,
+                max_abs_err=worst["grad"], rel_err=worst["grad_rel"],
+                ms=bwd_ms, timed_by="back to back", host_ms=bwd_host,
+                device_ms=bwd_dev, plain_ms=bwd_plain, library_ms=lib_bwd_ms,
+                library_device_ms=lib_bwd_dev,
+                library_note="scaled_dot_product_attention's backward node: "
+                             "bf16 o and dO, no g_lse, not the same function",
+                bound_ms=bb * 1e3, bound_by=bb_by)
+    return entries["fwd"], entries["bwd"]
+
+
+def phase_ring():
+    """Ring attention on a {"seq": 4} mesh in one process, at full width
+    and on the causal S 2048 ring (RING_SHAPES): o and the q/k/v gradients
+    against K1/K2 over the whole sequence, K5's launches against the
+    launch plan, and the times of both. Returns K5's launches by shape."""
+    import torch
+    from flexflow_tpu_torch.machine import make_mesh
+    from flexflow_tpu_torch.ops.flash_attention import flash_attention
+    from flexflow_tpu_torch.parallel.ring_attention import ring_attention
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    mesh = make_mesh(4, RING_MESH)
+    out = {}
+    for b, h, s, d, causal in RING_SHAPES:
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                       .bfloat16().requires_grad_(i < 3) for i in range(4))
+        reset_launches()
+        o = ring_attention(q, k, v, mesh, causal=causal)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        plan = RING_LAUNCHES
+        want = dict(flash_attn_fwd=0, flash_attn_bwd=0, fused_adam=0,
+                    flash_lse_fwd=plan, flash_lse_bwd=plan)
+        print(f"[ring] B={b} H={h} S={s} D={d} causal={causal} on "
+              f"{RING_MESH}: launches {launches} (expected {want}: K5 "
+              f"{plan} forward and {plan} backward a call, one a step with "
+              f"an active position)")
+        check(launches == want, "ring launches differ from the launch plan")
+        o1 = flash_attention(q, k, v, causal=causal)
+        grads1 = torch.autograd.grad(o1, (q, k, v), do)
+        diff = (o.float() - o1.float()).abs()
+        bound = (torch.maximum(o.float().abs(), o1.float().abs()) * 2.0 ** -7
+                 + RING_TOL["o"])
+        err_o, worst_o = diff.max().item(), (diff / bound).max().item()
+        rel = [((a.float() - w.float()).abs().max()
+                / w.float().abs().max()).item() for a, w in zip(grads, grads1)]
+        print(f"[ring] against K1/K2 over the whole sequence: o max_abs_err "
+              f"{err_o:.3e} (max |o| {o1.float().abs().max().item():.4f}; "
+              f"worst element at {worst_o:.3f} of its bound, 2^-7 |o| + "
+              f"{RING_TOL['o']}), dq, dk, dv "
+              + ", ".join(f"{r:.2e}" for r in rel)
+              + f" of max (tol {RING_TOL['grad']})")
+        check(bool(torch.isfinite(o).all()) and worst_o <= 1.0
+              and max(rel) <= RING_TOL["grad"],
+              f"ring attention disagrees with K1/K2 at {(b, h, s, causal)}")
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        with torch.inference_mode():
+            ring_fwd = profiled_ms(lambda: ring_attention(qd, kd, vd, mesh,
+                                                          causal=causal))
+            k1_fwd = profiled_ms(lambda: flash_attention(qd, kd, vd,
+                                                         causal=causal))
+
+        def step(fn):
+            return lambda: torch.autograd.grad(fn(q, k, v), (q, k, v), do)
+
+        ring_fb, ring_fb_host = time_calls(step(
+            lambda *a: ring_attention(*a, mesh, causal=causal)))
+        k1_fb, k1_fb_host = time_calls(step(
+            lambda *a: flash_attention(*a, causal=causal)))
+        fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+        print(f"[ring] times: forward profiled, ring {fmt(ring_fwd)} vs K1 "
+              f"{fmt(k1_fwd)}; forward + backward back to back, ring "
+              f"{ring_fb:.4f} ms (host {ring_fb_host:.4f}) vs K1/K2 "
+              f"{k1_fb:.4f} ms (host {k1_fb_host:.4f})")
+        out[f"B{b}_S{s}_{'causal' if causal else 'full'}"] = launches[
+            "flash_lse_fwd"]
+    return out
+
+
+def phase_train_c(cfg_kw, label):
+    """Training path (c), the slice's path: the seq-parallel BERT-proxy
+    (``cfg_kw`` over ``TransformerConfig``) compiled for training on a
+    {"seq": 4} mesh, no strategy file, against the same seeded weights
+    without ``seq_parallel`` (the K1 path): ``predict`` within the ring's
+    tolerance, TRAIN_C_STEPS per-step losses within TRAJECTORY_RTOL,
+    K5's launches = layers x steps x the launch plan and no K1/K2/K4
+    launch; then a ``predict``, the step's p50 and the device-busy share.
+    Returns the launches of the timed steps."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.machine import make_mesh
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.obs.registry import percentile
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+
+    cfg = TransformerConfig(seq_parallel="seq", **cfg_kw)
+    mesh = make_mesh(4, RING_MESH)
+    t0 = time.perf_counter()
+    ring = compile_for_training(cfg, mesh=mesh)
+    plain = compile_for_training(TransformerConfig(**cfg_kw))
+    torch.cuda.synchronize()
+    attn = [n.op for n in ring.executor.nodes
+            if isinstance(n.op, MultiHeadAttention)]
+    check(len(attn) == cfg.num_layers and all(
+        op.selected_impl("cuda", mesh.shape, training=True) == "ring"
+        for op in attn), f"[train c {label}] attention does not take the ring")
+    check(all(torch.equal(ring.params[o][n], plain.params[o][n])
+              for o in plain.params for n in plain.params[o]),
+          f"[train c {label}] the two models' seeded weights differ")
+    print(f"[train c {label}] {cfg} on mesh {mesh.shape}: compiled with the "
+          f"K1-path twin in {time.perf_counter() - t0:.2f} s")
+    x, y = training_batch(cfg, seed=5)
+    p_ring, p_plain = ring.predict(x), plain.predict(x)
+    err = float(np.abs(p_ring - p_plain).max())
+    scale = float(np.abs(p_plain).max())
+    print(f"[train c {label}] predict, ring vs K1 path: max_abs_err "
+          f"{err:.4e}, max |output| {scale:.4e}, ratio {err / scale:.3e} "
+          f"(tol {MODEL_RTOL})")
+    check(np.isfinite(p_ring).all() and err <= MODEL_RTOL * scale,
+          f"[train c {label}] ring predict disagrees with the K1 path")
+    torch.cuda.synchronize()
+    reset_launches()
+    step_s = []
+    for _ in range(TRAIN_C_STEPS):
+        t0 = time.perf_counter()
+        ring.fit(x, y, epochs=1, verbose=False)  # ends in a host read
+        step_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    plan = cfg.num_layers * TRAIN_C_STEPS * RING_LAUNCHES
+    want = dict(flash_attn_fwd=0, flash_attn_bwd=0, fused_adam=0,
+                flash_lse_fwd=plan, flash_lse_bwd=plan)
+    print(f"[train c {label}] launches over {TRAIN_C_STEPS} steps: "
+          f"{launches} (expected {want}: {cfg.num_layers} layers x "
+          f"{TRAIN_C_STEPS} steps x {RING_LAUNCHES} K5 launches a ring call, "
+          f"forward and backward)")
+    check(launches == want, f"[train c {label}] launches differ from the "
+                            f"expected count")
+    plain.fit(x, y, epochs=TRAIN_C_STEPS, verbose=False)
+    rel = [abs(a - b) / abs(b)
+           for a, b in zip(ring.epoch_losses, plain.epoch_losses)]
+    print(f"[train c {label}] losses, ring: "
+          + ", ".join(f"{v:.6f}" for v in ring.epoch_losses)
+          + "; K1 path: " + ", ".join(f"{v:.6f}" for v in plain.epoch_losses)
+          + f"; worst {max(rel):.3e} relative (tol {TRAJECTORY_RTOL})")
+    check(len(ring.epoch_losses) == TRAIN_C_STEPS
+          and all(np.isfinite(ring.epoch_losses))
+          and max(rel) <= TRAJECTORY_RTOL,
+          f"[train c {label}] the ring's losses leave the K1 path's")
+    out = ring.predict(x)
+    check(out.shape == (cfg.batch_size, cfg.seq_length, 1)
+          and np.isfinite(out).all(),
+          f"[train c {label}] predict after training: {out.shape}")
+    p50 = statistics.median(step_s)
+    print(f"[train c {label}] step time (fit of one step, host clock, ends in "
+          f"the epoch's host read): p50 {p50 * 1e3:.3f} ms over "
+          f"{TRAIN_C_STEPS} steps ("
+          + ", ".join(f"{t * 1e3:.3f}" for t in step_s)
+          + f" ms), {cfg.batch_size / p50:.2f} samples/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del plain
+    torch.cuda.empty_cache()
+    profile_train(ring, x, y)
+    return launches
+
+
 def transformer_strategy(ff, path):
     """Write the strategy file of training path (b) for ``ff``'s layers:
     attention ops ``dp_k:flash``, every other op ``dp_k:fused``."""
@@ -856,15 +1263,20 @@ def reset_launches():
     from flexflow_tpu_torch.ops.fused_update import fused_adam_multi
 
     flash_fwd.launches = flash_bwd.launches = fused_adam_multi.launches = 0
+    flash_fwd.lse_launches = flash_bwd.lse_launches = 0
 
 
 def read_launches():
+    """Every kernel's launches since ``reset_launches``: K1, K2/K3, K4,
+    and K5's forward and backward."""
     from flexflow_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from flexflow_tpu_torch.ops.fused_update import fused_adam_multi
 
     return dict(flash_attn_fwd=flash_fwd.launches,
                 flash_attn_bwd=flash_bwd.launches,
-                fused_adam=fused_adam_multi.launches)
+                fused_adam=fused_adam_multi.launches,
+                flash_lse_fwd=flash_fwd.lse_launches,
+                flash_lse_bwd=flash_bwd.lse_launches)
 
 
 def training_batch(cfg, seed=0):
@@ -877,12 +1289,14 @@ def training_batch(cfg, seed=0):
     return x, y
 
 
-def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4):
+def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4,
+                         mesh=None):
     """The BERT-proxy ``cfg`` on the card, compiled for training as the
     reference's bert_proxy is (Adam alpha 1e-4 with bf16 moments, MSE
     avg-reduce loss, MSE metric); with ``strategy_dir``, through the
-    strategy file of path (b) written there. The weights come from the
-    config's seed, so every call starts from the same weights."""
+    strategy file of path (b) written there; over ``mesh`` if given. The
+    weights come from the config's seed, so every call starts from the
+    same weights."""
     import torch
     from flexflow_tpu_torch import FFConfig, LossType, MetricsType
     from flexflow_tpu_torch.models.transformer import create_transformer
@@ -897,7 +1311,7 @@ def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4):
         ff.config.import_strategy_file = path
     ff.compile(AdamOptimizer(alpha=alpha, state_dtype=torch.bfloat16),
                LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
-               [MetricsType.MEAN_SQUARED_ERROR])
+               [MetricsType.MEAN_SQUARED_ERROR], mesh=mesh)
     return ff
 
 
@@ -924,7 +1338,8 @@ def phase_train_b(strategy_dir):
           f"{ff.executor.compute_dtype}; {len(fused)} fused ops, {n_leaves} "
           f"leaves, {n_elems} elements through fused Adam")
     check(len(attn) == cfg.num_layers and all(
-        op.kernel_impl == "flash" and op.selected_impl("cuda") == "flash"
+        op.kernel_impl == "flash"
+        and op.selected_impl("cuda", training=True) == "flash"
         for op in attn), "the strategy did not pin every attention to flash")
     check(ff.kernel_choices and n_leaves == 8 * cfg.num_layers + 2,
           f"expected 98 fused leaves, got {n_leaves}")
@@ -946,7 +1361,7 @@ def phase_train_b(strategy_dir):
           and all(np.isfinite(losses)), "non-finite training loss")
     want = dict(flash_attn_fwd=cfg.num_layers * TRAIN_STEPS,
                 flash_attn_bwd=cfg.num_layers * TRAIN_STEPS,
-                fused_adam=TRAIN_STEPS)
+                fused_adam=TRAIN_STEPS, flash_lse_fwd=0, flash_lse_bwd=0)
     print(f"[train b] launches over {TRAIN_STEPS} steps: {launches} "
           f"(expected {want}: per step {cfg.num_layers} forward, "
           f"{cfg.num_layers} backward launches, each the dK/dV and the dQ "
@@ -1231,15 +1646,16 @@ def phase_train_a():
     cfg = TransformerConfig(**TRAIN_A)
     ff = compile_for_training(cfg)
     check(ff.kernel_choices is None and all(
-        n.op.selected_impl("cuda") == "flash" for n in ff.executor.nodes
-        if isinstance(n.op, MultiHeadAttention)),
+        n.op.selected_impl("cuda", training=True) == "flash"
+        for n in ff.executor.nodes if isinstance(n.op, MultiHeadAttention)),
         "path (a) does not pick flash by availability")
     x, y = training_batch(cfg, seed=3)
     reset_launches()
     ff.fit(x, y, epochs=TRAIN_A_STEPS, verbose=False)
     launches = read_launches()
     want = dict(flash_attn_fwd=cfg.num_layers * TRAIN_A_STEPS,
-                flash_attn_bwd=cfg.num_layers * TRAIN_A_STEPS, fused_adam=0)
+                flash_attn_bwd=cfg.num_layers * TRAIN_A_STEPS, fused_adam=0,
+                flash_lse_fwd=0, flash_lse_bwd=0)
     print(f"[train a] {cfg}: losses "
           + ", ".join(f"{v:.6f}" for v in ff.epoch_losses)
           + f"; launches {launches} (expected {want})")
@@ -1270,6 +1686,7 @@ def main() -> int:
         phase_build()
         fwd = phase_kernels()
         bwd, bwd_k3 = phase_kernels_bwd()
+        lse_fwd, lse_bwd = phase_kernels_lse()
         serve_launches = phase_serve()
         check_f32_model()
         with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
@@ -1280,6 +1697,9 @@ def main() -> int:
         del ff
         torch.cuda.empty_cache()
         train_a = phase_train_a()
+        ring = phase_ring()
+        train_c = phase_train_c({}, "full width")
+        train_c_causal = phase_train_c(TRAIN_C_CAUSAL, "causal S 2048")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -1291,12 +1711,19 @@ def main() -> int:
     bwd["launches"] = train_b["flash_attn_bwd"]
     bwd_k3["launches"] = train_a["flash_attn_bwd"]
     adam["launches"] = train_b["fused_adam"]
+    for entry, key in ((lse_fwd, "flash_lse_fwd"), (lse_bwd, "flash_lse_bwd")):
+        entry["launches"] = train_c[key]
+        entry["launches_by_path"] = dict(
+            train_c=train_c[key], train_c_causal=train_c_causal[key],
+            **({f"ring_{k}": v for k, v in ring.items()}
+               if key == "flash_lse_fwd" else {}))
     print("[kernels] earlier times, not measured by this run (the mma.sync "
           "kernels' chip runs, NVIDIA H100 80GB HBM3, 700 W; the forward by "
           "profiled device time, the rest one call between two CUDA "
           "events): "
           + ", ".join(f"{n} {t} ms" for n, t in EARLIER_MS.items()))
-    print(json.dumps({"kernels": [fwd, bwd, bwd_k3, adam]}))
+    print(json.dumps({"kernels": [fwd, bwd, bwd_k3, adam, lse_fwd,
+                                  lse_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -14,6 +14,25 @@
 // dq, dk, dv come out in the inputs' dtype; every sum is f32; no atomics,
 // so every run gives the same bits.
 //
+// It also replaces the backward of flash_attention_lse (:307-320, the same
+// pallas_calls), which ring attention runs on every block: bf16 q, k, v
+// beside the f32 o the forward wrote and an f32 dO, with a nonzero g_lse
+// (the merge weights are functions of each block's lse). For it (io 2)
+// the entry ff_flash_attn_bwd runs flash_bwd_delta_f32 first: it rounds dO to
+// bf16 into a scratch copy, because the bf16 kernels take dO as a wgmma
+// operand through the byte-copying cp.async ring, which cannot convert;
+// and it forms delta - g_lse in f32 from the f32 O and that rounded dO,
+// the reference's delta (pallas_kernels.py:148-151) of the dO the products
+// see. Then the bf16 dQ kernel (reading that delta - g_lse instead of
+// forming it) and the dK/dV kernel run as below. dO's rounding to bf16 is
+// the one difference from the plain version (flash_bwd_reference, f32
+// throughout): the kernels compute the plain backward of the rounded dO,
+// with P and dS rounded to bf16 as operands as in K2/K3. Delta from the f32
+// dO instead would not match dP = dO V^T of the rounded dO, and where the
+// two cancel (a row of one key: dS = P (dP - delta) = 0) the mismatch would
+// be all of dS. The card's checks hold the kernels to the bf16 tolerance,
+// 2e-2 of each output's max, as K2/K3.
+//
 // What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s), bf16,
 // non-causal: at the training shape (BH 128, S 512, D 64) it must move
 // 67.4 MB (q, k, v, o, dO read, dq, dk, dv written, lse read once: 20.1 us)
@@ -66,7 +85,7 @@
 // D 64 / 128 (1 KB of it alignment slack).
 //
 // f32 inputs (allow_mixed_precision=False): simple FMA kernels, four
-// threads a row, behind a small kernel that forms delta - g_lse.
+// threads a row, behind the small kernel that forms delta - g_lse.
 
 #include "hopper_wgmma.cuh"
 
@@ -134,9 +153,11 @@ constexpr int dq_smem_bytes() {
 
 // dQ of one (batch*head, 64*NW-row Q tile), launched before the dK/dV
 // kernel. It first forms delta - g_lse of its rows, uses it, and writes it
-// to `dlt` for the dK/dV kernel. Q and dO of the rows stay in shared
-// memory; K and V stream through a ring of STAGES tiles of BC rows.
-template <int D, int BC, int NW, int STAGES>
+// to `dlt` for the dK/dV kernel; with DLT_IN (flash_attention_lse's
+// backward) it reads them from `dlt` instead, and `o` and `glse` are
+// unused. Q and dO of the rows stay in shared memory; K and V stream
+// through a ring of STAGES tiles of BC rows.
+template <int D, int BC, int NW, int STAGES, bool DLT_IN>
 __global__ void __launch_bounds__(NW * 128, 1)
     flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -179,41 +200,52 @@ __global__ void __launch_bounds__(NW * 128, 1)
     cp_async_commit();
   }
 
-  // delta - g_lse of rows r0 and r0 + 8: rowsum(dO * O) in f32, each of a
-  // quad's four threads over D/4 columns (O from device memory, dO from the
-  // tile), then summed across the quad in a fixed order
-  constexpr int kQ = D / 32;  // 16-byte chunks a thread reads of a row
-  uint4 ov[2][kQ];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int j = 0; j < kQ; ++j)
-      ov[h][j] = r0 + 8 * h < S ? *reinterpret_cast<const uint4*>(
-                                      o + pan + static_cast<size_t>(r0 + 8 * h) * D +
-                                      (t * kQ + j) * 8)
-                                : make_uint4(0u, 0u, 0u, 0u);
-  cp_async_wait<STAGES - 1>();  // Q and dO have landed
-  __syncthreads();
   float l2[2], dl[2];  // lse (log2 domain) and delta - g_lse of the two rows
+  if constexpr (DLT_IN) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < kQ; ++j) {
-      const uint4 dv = *reinterpret_cast<const uint4*>(sm + kPanel +
-                                                       swz(kRows, lr + 8 * h, t * kQ + j));
-      const bf16* a = reinterpret_cast<const bf16*>(&ov[h][j]);
-      const bf16* b = reinterpret_cast<const bf16*>(&dv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc = fmaf(__bfloat162float(a[e]), __bfloat162float(b[e]), acc);
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      const bool in = row < S;
+      dl[h] = in ? dlt[rw + row] : 0.f;
+      l2[h] = in ? lse[rw + row] * kLog2e : 0.f;
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    const int row = r0 + 8 * h;
-    const bool in = row < S;
-    dl[h] = in ? (glse ? acc - glse[rw + row] : acc) : 0.f;
-    l2[h] = in ? lse[rw + row] * kLog2e : 0.f;
-    if (t == 0 && in) dlt[rw + row] = dl[h];
+  } else {
+    // delta - g_lse of rows r0 and r0 + 8: rowsum(dO * O) in f32, each of a
+    // quad's four threads over D/4 columns (O from device memory, dO from
+    // the tile), then summed across the quad in a fixed order
+    constexpr int kQ = D / 32;  // 16-byte chunks a thread reads of a row
+    uint4 ov[2][kQ];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < kQ; ++j)
+        ov[h][j] = r0 + 8 * h < S ? *reinterpret_cast<const uint4*>(
+                                        o + pan + static_cast<size_t>(r0 + 8 * h) * D +
+                                        (t * kQ + j) * 8)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+    cp_async_wait<STAGES - 1>();  // Q and dO have landed
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const uint4 dv = *reinterpret_cast<const uint4*>(sm + kPanel +
+                                                         swz(kRows, lr + 8 * h, t * kQ + j));
+        const bf16* a = reinterpret_cast<const bf16*>(&ov[h][j]);
+        const bf16* b = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc = fmaf(__bfloat162float(a[e]), __bfloat162float(b[e]), acc);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      const int row = r0 + 8 * h;
+      const bool in = row < S;
+      dl[h] = in ? (glse ? acc - glse[rw + row] : acc) : 0.f;
+      l2[h] = in ? lse[rw + row] * kLog2e : 0.f;
+      if (t == 0 && in) dlt[rw + row] = dl[h];
+    }
   }
 
   float dqa[D / 2];
@@ -575,22 +607,46 @@ __global__ void __launch_bounds__(kThreadsDqF32)
   }
 }
 
-// delta - g_lse of every one of `rows` rows for the f32 kernels:
-// rowsum(dO * O), four threads a row, summed across them in a fixed order.
+// The two bf16 values packed in u (pack_bf16's layout) as floats.
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// delta - g_lse of every one of `rows` rows from f32 O and dO (for the f32
+// kernels, and for flash_attention_lse's backward): rowsum(dO * O), four
+// threads a row, each over four columns in every 16 (16-byte loads, a
+// warp's neighbouring threads on neighbouring addresses), summed across
+// them in a fixed order. With `do16` (flash_attention_lse's backward) it
+// writes dO rounded to bf16 there, the operand the bf16 kernels read, and
+// forms delta from that rounded dO.
 constexpr int kThreadsDeltaF32 = 128;
 
 template <int D>
 __global__ void __launch_bounds__(kThreadsDeltaF32)
     flash_bwd_delta_f32(const float* __restrict__ o, const float* __restrict__ dout,
-                        const float* __restrict__ glse, float* __restrict__ dlt, int rows) {
+                        const float* __restrict__ glse, float* __restrict__ dlt,
+                        bf16* __restrict__ do16, int rows) {
   const int row = blockIdx.x * (kThreadsDeltaF32 / kPartsF32) + threadIdx.x / kPartsF32;
   const int part = threadIdx.x % kPartsF32;
   float acc = 0.f;
   if (row < rows) {
     const size_t base = static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int i = 0; i < D / kPartsF32; ++i)
-      acc = fmaf(o[base + i * kPartsF32 + part], dout[base + i * kPartsF32 + part], acc);
+    for (int i = 0; i < D / 16; ++i) {
+      const size_t c = base + 16 * i + 4 * part;
+      const float4 a = *reinterpret_cast<const float4*>(o + c);
+      float4 b = *reinterpret_cast<const float4*>(dout + c);
+      if (do16) {
+        const uint2 r = make_uint2(pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+        *reinterpret_cast<uint2*>(do16 + c) = r;
+        const float2 lo = unpack_bf16(r.x), hi = unpack_bf16(r.y);
+        b = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
+    }
   }
   acc = group_sum(acc);
   if (part == 0 && row < rows) dlt[row] = glse ? acc - glse[row] : acc;
@@ -610,73 +666,101 @@ struct Bf16Config<128> {
   static constexpr int BC = 64, BR = 32, NW = 1, STAGES = 2;
 };
 
+// The bf16 kernels: dQ (forming delta - g_lse into dlt, or with DLT_IN
+// reading it from there), then dK/dV.
+template <int D, bool DLT_IN>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
+                        const void* o, const float* lse, const float* glse, float* dlt,
+                        void* dq, void* dk, void* dv, int bh, int s, int causal,
+                        cudaStream_t stream) {
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  typedef Bf16Config<D> C;
+  const auto dq_kernel = flash_bwd_dq_bf16<D, C::BC, C::NW, C::STAGES, DLT_IN>;
+  const auto dkdv_kernel = flash_bwd_dkdv_bf16<D, C::BR, C::NW, C::STAGES>;
+  constexpr int dq_smem = dq_smem_bytes<D, C::BC, C::NW, C::STAGES>();
+  constexpr int dkdv_smem = dkdv_smem_bytes<D, C::BR, C::NW, C::STAGES>();
+  cudaError_t err =
+      cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dkdv_smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + 64 * C::NW - 1) / (64 * C::NW), bh);
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+  // the dQ kernel first: it writes the delta - g_lse that dK/dV reads
+  dq_kernel<<<grid, 128 * C::NW, dq_smem, stream>>>(
+      qb, kb, vb, static_cast<const bf16*>(o), db, lse, glse, dlt, static_cast<bf16*>(dq),
+      s, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<<<grid, 128 * C::NW, dkdv_smem, stream>>>(
+      qb, kb, vb, db, lse, dlt, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+// delta - g_lse (and, with do16, dO in bf16) of every row from f32 O and dO
+template <int D>
+cudaError_t launch_delta(const void* o, const void* dout, const float* glse, float* dlt,
+                         void* do16, int rows, cudaStream_t stream) {
+  const int rows_per_cta = kThreadsDeltaF32 / kPartsF32;
+  flash_bwd_delta_f32<D><<<(rows + rows_per_cta - 1) / rows_per_cta, kThreadsDeltaF32, 0,
+                           stream>>>(static_cast<const float*>(o),
+                                     static_cast<const float*>(dout), glse, dlt,
+                                     static_cast<bf16*>(do16), rows);
+  return cudaGetLastError();
+}
+
+// io: 0 all f32, 1 all bf16, 2 flash_attention_lse's mix (bf16 q, k, v,
+// dq, dk, dv beside f32 O and dO: delta - g_lse and dO in bf16 from the
+// f32 O and dO, then the bf16 kernels on that copy of dO)
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const void* o, const float* lse, const float* glse, float* dlt, void* dq,
-                   void* dk, void* dv, int bh, int s, int is_bf16, int causal,
-                   cudaStream_t stream) {
+                   const void* o, const float* lse, const float* glse, float* dlt,
+                   void* do16, void* dq, void* dk, void* dv, int bh, int s, int io,
+                   int causal, cudaStream_t stream) {
+  if (io == 1)
+    return launch_bf16<D, false>(q, k, v, dout, o, lse, glse, dlt, dq, dk, dv, bh, s, causal,
+                                 stream);
+  cudaError_t err = launch_delta<D>(o, dout, glse, dlt, do16, bh * s, stream);
+  if (err != cudaSuccess) return err;
+  if (io == 2)
+    return launch_bf16<D, true>(q, k, v, do16, nullptr, lse, nullptr, dlt, dq, dk, dv, bh, s,
+                                causal, stream);
   const float scale = 1.f / sqrtf(static_cast<float>(D));
-  cudaError_t err;
-  if (is_bf16) {
-    typedef Bf16Config<D> C;
-    const auto dq_kernel = flash_bwd_dq_bf16<D, C::BC, C::NW, C::STAGES>;
-    const auto dkdv_kernel = flash_bwd_dkdv_bf16<D, C::BR, C::NW, C::STAGES>;
-    constexpr int dq_smem = dq_smem_bytes<D, C::BC, C::NW, C::STAGES>();
-    constexpr int dkdv_smem = dkdv_smem_bytes<D, C::BR, C::NW, C::STAGES>();
-    err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dq_smem);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dkdv_smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((s + 64 * C::NW - 1) / (64 * C::NW), bh);
-    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
-    // the dQ kernel first: it writes the delta - g_lse that dK/dV reads
-    dq_kernel<<<grid, 128 * C::NW, dq_smem, stream>>>(
-        qb, kb, vb, static_cast<const bf16*>(o), db, lse, glse, dlt, static_cast<bf16*>(dq),
-        s, scale, causal);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    dkdv_kernel<<<grid, 128 * C::NW, dkdv_smem, stream>>>(
-        qb, kb, vb, db, lse, dlt, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, scale,
-        causal);
-  } else {
-    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-                *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
-    const int rows = bh * s;
-    const int rows_per_cta = kThreadsDeltaF32 / kPartsF32;
-    flash_bwd_delta_f32<D><<<(rows + rows_per_cta - 1) / rows_per_cta, kThreadsDeltaF32, 0,
-                             stream>>>(static_cast<const float*>(o), df, glse, dlt, rows);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_f32<D><<<dim3((s + kRowsDkdvF32 - 1) / kRowsDkdvF32, bh),
-                            kThreadsDkdvF32, 0, stream>>>(
-        qf, kf, vf, df, lse, dlt, static_cast<float*>(dk), static_cast<float*>(dv), s,
-        scale, causal);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_f32<D><<<dim3((s + kRowsDqF32 - 1) / kRowsDqF32, bh), kThreadsDqF32, 0,
-                          stream>>>(qf, kf, vf, df, lse, dlt, static_cast<float*>(dq), s,
-                                    scale, causal);
-  }
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
+  flash_bwd_dkdv_f32<D><<<dim3((s + kRowsDkdvF32 - 1) / kRowsDkdvF32, bh),
+                          kThreadsDkdvF32, 0, stream>>>(
+      qf, kf, vf, df, lse, dlt, static_cast<float*>(dk), static_cast<float*>(dv), s,
+      scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32<D><<<dim3((s + kRowsDqF32 - 1) / kRowsDqF32, bh), kThreadsDqF32, 0,
+                        stream>>>(qf, kf, vf, df, lse, dlt, static_cast<float*>(dq), s,
+                                  scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, dout, o, dq, dk, dv: [bh, s, d] contiguous, bf16 (is_bf16 = 1) or
-// f32 (is_bf16 = 0); lse and glse: [bh, s] f32, glse may be null (zero);
-// dlt: [bh, s] f32 scratch, written with delta - g_lse. Launches the
-// backward's kernels on `stream` (bf16: dQ, then dK/dV; f32: delta, dK/dV,
-// dQ) and returns the CUDA error code of the launches (0 = cudaSuccess);
-// does not synchronise.
+// q, k, v, dq, dk, dv: [bh, s, d] contiguous, f32 (io 0) or bf16 (io 1,
+// 2); dout and o: the same, in q's dtype (io 0, 1) or f32 (io 2,
+// flash_attention_lse's backward); lse and glse: [bh, s] f32, glse may be
+// null (zero); dlt: [bh, s] f32 scratch, written with delta - g_lse; do16:
+// a [bh, s, d] bf16 scratch for io 2, written with dout rounded to bf16,
+// and null otherwise. Launches the backward's kernels on `stream` (bf16:
+// dQ, then dK/dV; f32: delta, dK/dV, dQ; io 2: delta, dQ, dK/dV) and
+// returns the CUDA error code of the launches (0 = cudaSuccess); does not
+// synchronise.
 extern "C" int ff_flash_attn_bwd(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* o,
-                                 const void* glse, void* dlt, void* dq, void* dk, void* dv,
-                                 int bh, int s, int d, int is_bf16, int causal,
+                                 const void* glse, void* dlt, void* do16, void* dq, void* dk,
+                                 void* dv, int bh, int s, int d, int io, int causal,
                                  void* stream) {
-  if (bh <= 0 || bh > 65535 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bh <= 0 || bh > 65535 || s <= 0 || io < 0 || io > 2 || (io == 2) != (do16 != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* gl = static_cast<const float*>(glse);
@@ -684,10 +768,10 @@ extern "C" int ff_flash_attn_bwd(const void* q, const void* k, const void* v,
   switch (d) {
     case 64:
       return static_cast<int>(
-          launch<64>(q, k, v, dout, o, l, gl, dl, dq, dk, dv, bh, s, is_bf16, causal, st));
+          launch<64>(q, k, v, dout, o, l, gl, dl, do16, dq, dk, dv, bh, s, io, causal, st));
     case 128:
       return static_cast<int>(
-          launch<128>(q, k, v, dout, o, l, gl, dl, dq, dk, dv, bh, s, is_bf16, causal, st));
+          launch<128>(q, k, v, dout, o, l, gl, dl, do16, dq, dk, dv, bh, s, io, causal, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

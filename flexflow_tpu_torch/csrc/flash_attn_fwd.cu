@@ -1,11 +1,15 @@
 // Flash-attention forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel flexflow_tpu/ops/pallas_kernels.py:_flash_fwd
-// (launcher at :70, body _flash_fwd_kernel at :46, pallas_call at :77).
-// Computes, for q, k, v of shape [BH, S, D]:
-//   o   = softmax(q k^T / sqrt(D)) v          (optionally causal), in q's dtype
+// (launcher at :70, body _flash_fwd_kernel at :46, pallas_call at :77),
+// and the forward of flash_attention_lse (:290, the same pallas_call with
+// out_dtype=f32), which ring attention merges block by block. Computes, for
+// q, k, v of shape [BH, S, D]:
+//   o   = softmax(q k^T / sqrt(D)) v          (optionally causal), in q's dtype,
+//         or in f32 from bf16 inputs (flash_attention_lse)
 //   lse = logsumexp of each row of the scores, f32, shape [BH, S]
-// Scores, the running max and the running sum are f32.
+// Scores, the running max and the running sum are f32; the f32 output is
+// the same accumulator, normalised and stored without rounding to bf16.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16): at the
 // serving shape (BH 128, S 512, D 64, bf16, non-causal) the call must move
@@ -42,6 +46,12 @@
 // it only in part. nvcc -Xptxas -v: Wide64 166 registers, Narrow64 113,
 // D 128 165; no spills, no stack; dynamic shared memory 74,752 / 41,984 /
 // 82,944 bytes (1 KB of it alignment slack).
+//
+// f32 o from bf16 inputs (flash_attention_lse): the same kernel with an
+// epilogue that stores f32 pairs. At ring attention's step shape (BH 512,
+// S 128, D 64) it must move 42.2 MB (q, k, v bf16, o f32, lse: 12.6 us at
+// 3.35 TB/s) against 2.1 GFLOP (2.2 us): the bytes bound it, and the f32
+// o is 40% of them.
 //
 // f32 inputs (allow_mixed_precision=False): a simple FMA kernel, four
 // threads per query row, each owning a quarter of the head dimension.
@@ -112,16 +122,25 @@ __device__ __forceinline__ void tile_exp(float (&s)[BN / 2], const float (&ms)[2
   for (int h = 0; h < 2; ++h) l[h] += sum[h][0] + sum[h][1];
 }
 
-// o and lse of one (batch*head, 64-row query tile). Q of the rows stays in
+// Two adjacent output columns of a row, in o's dtype.
+__device__ __forceinline__ void store_pair(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+// o (OutT: bf16, or f32 for flash_attention_lse) and lse of one
+// (batch*head, 64-row query tile). Q of the rows stays in
 // shared memory; K and V stream through a ring of STAGES stages, each a K
 // and a V tile of BN rows. Per key tile: S = Q K^T (wgmma, both operands
 // K-major from shared memory), the online softmax in registers, then
 // O += P V with P re-packed from the score accumulators as the register A
 // operand and V read MN-major through the descriptor's transpose bit.
-template <int D, int BN, int STAGES, int MINB>
+template <int D, int BN, int STAGES, int MINB, class OutT>
 __global__ void __launch_bounds__(128, MINB)
     flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                   const bf16* __restrict__ v, OutT* __restrict__ o, float* __restrict__ lse,
                    int S, float scale_log2, int causal) {
   constexpr uint32_t kTile = BN * D * 2;  // one K or V tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -195,7 +214,7 @@ __global__ void __launch_bounds__(128, MINB)
   }
   cp_async_wait<0>();
 
-  bf16* ob = o + pan;
+  OutT* ob = o + pan;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     // the four threads of a row group hold disjoint parts of the row sums
@@ -207,8 +226,8 @@ __global__ void __launch_bounds__(128, MINB)
     const float inv = 1.f / lt;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(row) * D + 8 * j + 2 * t) =
-          pack_bf16(oa[4 * j + 2 * h] * inv, oa[4 * j + 2 * h + 1] * inv);
+      store_pair(ob + static_cast<size_t>(row) * D + 8 * j + 2 * t, oa[4 * j + 2 * h] * inv,
+                 oa[4 * j + 2 * h + 1] * inv);
     if (t == 0) lse[static_cast<size_t>(bh) * S + row] = (m[h] * scale_log2 + log2f(lt)) * kLn2;
   }
 }
@@ -309,10 +328,10 @@ typedef FwdConfig<128, 2, 3> Wide64;
 typedef FwdConfig<64, 2, 4> Narrow64;
 typedef FwdConfig<64, 2, 1> Config128;
 
-template <int D, class C>
+template <int D, class C, class OutT>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                         int bh, int s, int causal, cudaStream_t stream) {
-  const auto kernel = flash_fwd_bf16<D, C::BN, C::STAGES, C::MINB>;
+  const auto kernel = flash_fwd_bf16<D, C::BN, C::STAGES, C::MINB, OutT>;
   constexpr int smem = fwd_smem_bytes<D, C::BN, C::STAGES>();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -320,7 +339,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   const dim3 grid((s + 63) / 64, bh);
   kernel<<<grid, 128, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, s, kLog2e / sqrtf(static_cast<float>(D)), causal);
+      static_cast<OutT*>(o), lse, s, kLog2e / sqrtf(static_cast<float>(D)), causal);
   return cudaGetLastError();
 }
 
@@ -338,20 +357,26 @@ int sm_count() {
   return sms;
 }
 
+template <int D, class OutT>
+cudaError_t launch_bf16_for(const void* q, const void* k, const void* v, void* o, float* lse,
+                            int bh, int s, int causal, cudaStream_t stream) {
+  if constexpr (D != 64) {
+    return launch_bf16<D, Config128, OutT>(q, k, v, o, lse, bh, s, causal, stream);
+  } else {
+    const long sms = sm_count();
+    const long ctas = static_cast<long>(bh) * ((s + 63) / 64);
+    if (ctas > Wide64::MINB * sms && ctas <= Narrow64::MINB * sms)
+      return launch_bf16<D, Narrow64, OutT>(q, k, v, o, lse, bh, s, causal, stream);
+    return launch_bf16<D, Wide64, OutT>(q, k, v, o, lse, bh, s, causal, stream);
+  }
+}
+
+// io: 0 f32 in and out, 1 bf16 in and out, 2 bf16 in and f32 out
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int bh, int s, int is_bf16, int causal, cudaStream_t stream) {
-  if (is_bf16) {
-    if constexpr (D != 64) {
-      return launch_bf16<D, Config128>(q, k, v, o, lse, bh, s, causal, stream);
-    } else {
-      const long sms = sm_count();
-      const long ctas = static_cast<long>(bh) * ((s + 63) / 64);
-      if (ctas > Wide64::MINB * sms && ctas <= Narrow64::MINB * sms)
-        return launch_bf16<D, Narrow64>(q, k, v, o, lse, bh, s, causal, stream);
-      return launch_bf16<D, Wide64>(q, k, v, o, lse, bh, s, causal, stream);
-    }
-  }
+                   int bh, int s, int io, int causal, cudaStream_t stream) {
+  if (io == 1) return launch_bf16_for<D, bf16>(q, k, v, o, lse, bh, s, causal, stream);
+  if (io == 2) return launch_bf16_for<D, float>(q, k, v, o, lse, bh, s, causal, stream);
   const dim3 grid((s + kRowsF32 - 1) / kRowsF32, bh);
   flash_fwd_f32<D><<<grid, kThreadsF32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -361,20 +386,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 }  // namespace
 
-// q, k, v, o: [bh, s, d] contiguous, bf16 (is_bf16 = 1) or f32 (is_bf16 = 0);
-// lse: [bh, s] f32. Launches on `stream` and returns the CUDA error code of
-// the launch (0 = cudaSuccess); does not synchronise.
+// q, k, v, o: [bh, s, d] contiguous; io names their dtypes: 0 all f32,
+// 1 all bf16, 2 q, k, v bf16 and o f32 (flash_attention_lse); lse: [bh, s]
+// f32. Launches on `stream` and returns the CUDA error code of the launch
+// (0 = cudaSuccess); does not synchronise.
 extern "C" int ff_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                 void* lse, int bh, int s, int d, int is_bf16,
-                                 int causal, void* stream) {
-  if (bh <= 0 || bh > 65535 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                 void* lse, int bh, int s, int d, int io, int causal,
+                                 void* stream) {
+  if (bh <= 0 || bh > 65535 || s <= 0 || io < 0 || io > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (d) {
     case 64:
-      return static_cast<int>(launch<64>(q, k, v, o, l, bh, s, is_bf16, causal, st));
+      return static_cast<int>(launch<64>(q, k, v, o, l, bh, s, io, causal, st));
     case 128:
-      return static_cast<int>(launch<128>(q, k, v, o, l, bh, s, is_bf16, causal, st));
+      return static_cast<int>(launch<128>(q, k, v, o, l, bh, s, io, causal, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,7 +13,10 @@ regime: the gradients of the bf16 compute copy), updates the f32 master
 parameters and the optimizer state, then re-derives the compute copy from
 the new parameters: the JAX step's order. Ops whose strategy choice is
 ``_k:fused`` update through the fused pass (``ops/fused_update.py``).
-Meshes, sharding, remat and multi-step scans come with later slices.
+A mesh reaches the ops through ``OpContext.mesh``: one process runs a
+mesh whose one axis above 1 is ring attention's sequence axis, every ring
+position on this device. Sharding, remat and multi-step scans come with
+later slices.
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ class GraphExecutor:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  loss_type: Optional[LossType] = None, metrics=None,
                  optimizer=None, final_is_softmax: bool = False,
-                 kernel_choices: Optional[Dict[str, str]] = None):
+                 kernel_choices: Optional[Dict[str, str]] = None,
+                 mesh=None):
         self.nodes = nodes
         self.input_names = input_names
         # (guid, out_idx) of the user-designated model output
@@ -79,6 +83,12 @@ class GraphExecutor:
         self.fused_update_ops = {
             n for n, impl in (self.kernel_choices or {}).items()
             if impl == "fused"}
+        # the compiled mesh (machine.Mesh or None), handed to every op
+        self.mesh = mesh
+
+    def _ctx(self, training: bool, rng=None) -> OpContext:
+        return OpContext(training=training, compute_dtype=self.compute_dtype,
+                         rng=rng, mesh=self.mesh)
 
     # ---- parameter / state initialization ---------------------------------
     def init_params_and_state(self, generator: torch.Generator
@@ -126,8 +136,7 @@ class GraphExecutor:
         autograd graph back to the parameters it was given)."""
 
         def fwd(params, state, inputs, rng=None):
-            ctx = OpContext(training=training,
-                            compute_dtype=self.compute_dtype, rng=rng)
+            ctx = self._ctx(training, rng)
             cparams = state.get(COMPUTE_PARAMS_KEY, params)
             if training:
                 with torch.enable_grad():
@@ -178,8 +187,7 @@ class GraphExecutor:
                   for op, sub in cparams.items()}
         flat = [(op, pn) for op, sub in leaves.items() for pn, t in sub.items()
                 if t.requires_grad]
-        ctx = OpContext(training=True, compute_dtype=self.compute_dtype,
-                        rng=rng)
+        ctx = self._ctx(True, rng)
         with torch.enable_grad():
             logits = self.run_graph(leaves, inputs, ctx)[self.final_ref]
             loss = self._loss_value(logits, labels)
@@ -225,7 +233,7 @@ class GraphExecutor:
         metric sums)``, under ``torch.inference_mode``."""
 
         def eval_step(params, state, inputs, labels):
-            ctx = OpContext(training=False, compute_dtype=self.compute_dtype)
+            ctx = self._ctx(False)
             with torch.inference_mode():
                 logits = self.run_graph(state.get(COMPUTE_PARAMS_KEY, params),
                                         inputs, ctx)[self.final_ref]

@@ -7,9 +7,11 @@ device is explicit: ``FFModel(config, device=...)`` runs on CUDA unless
 the caller asks for the CPU, and raises when no CUDA device is present
 rather than carry on on the CPU.
 
-``compile`` places every op on the one device, with no search, no mesh
-and no weight-update sharding. ``CompMode.TRAINING`` adds the optimizer
-state and ``fit`` / ``evaluate``; an imported strategy file
+``compile`` places every op on the one device, with no search and no
+weight-update sharding. A mesh (``machine.make_mesh``) may name one axis
+above 1, the sequence axis of the model's ring attention: all its ring
+positions then run on the one device. ``CompMode.TRAINING`` adds the
+optimizer state and ``fit`` / ``evaluate``; an imported strategy file
 (``FFConfig.import_strategy_file``) carries per-op kernel choices: ops
 whose choice is ``_k:fused`` update through the fused-Adam kernel, and
 attention ops are pinned to the flash core (``_k:flash``) or to the
@@ -30,10 +32,10 @@ from flexflow_tpu_torch.executor import (COMPUTE_PARAMS_KEY, GraphExecutor,
 from flexflow_tpu_torch.ffconst import (ActiMode, CompMode, DataType,
                                         LossType, MetricsType, OperatorType)
 from flexflow_tpu_torch.layer import Layer
+from flexflow_tpu_torch.machine import Mesh, local_ring_axis
 from flexflow_tpu_torch.metrics import Metrics, PerfMetrics
 from flexflow_tpu_torch.ops import OpRegistry
 from flexflow_tpu_torch.ops.attention import MultiHeadAttention
-from flexflow_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
 from flexflow_tpu_torch.tensor import Tensor
 
 
@@ -67,6 +69,7 @@ class FFModel:
         self.state: Dict[str, Any] = {}
         self.opt_state: Any = None
         self.kernel_choices: Optional[Dict[str, str]] = None
+        self.mesh: Optional[Mesh] = None
         self._iter = 0
         self._last_loss: Optional[float] = None
         # the last step's loss of each epoch fit ran (one host read each)
@@ -220,7 +223,10 @@ class FFModel:
         """Materialize ops, place them on the model's device, apply the
         kernel choices of an imported strategy, initialize parameters (and
         the optimizer state for TRAINING), and (on CUDA) build the kernels
-        the compiled path runs."""
+        the compiled path runs. ``mesh`` (``machine.Mesh``) may have one
+        axis above 1, a ring-attention sequence axis (``seq``, or an
+        attention's ``seq_parallel``), whose ring positions all run on the
+        model's device; any other axis above 1 raises."""
         cfg = self.config
         if cfg.search_budget:
             raise NotImplementedError(
@@ -229,10 +235,13 @@ class FFModel:
         if cfg.export_strategy_file:
             from flexflow_tpu_torch.search.unity import export_strategy_file
             export_strategy_file(cfg.export_strategy_file)  # raises
-        if machine_spec is not None or mesh is not None:
+        if machine_spec is not None:
             raise NotImplementedError(
-                "machine_spec/mesh: multi-GPU execution comes with the "
-                "multi-GPU slice of the PyTorch port (slice 4)")
+                "machine_spec: the machine model comes with the search "
+                "slice of the PyTorch port (ROADMAP.md Queue 1 item 1)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a flexflow_tpu_torch.machine.Mesh "
+                            f"(machine.make_mesh), got {type(mesh).__name__}")
         if (lint or cfg.lint or "off") != "off":
             raise NotImplementedError(
                 "lint: static analysis comes with a later slice of the "
@@ -248,6 +257,10 @@ class FFModel:
         nodes, input_names, tensor_ref = self._materialize_nodes()
         if not nodes:
             raise ValueError("model has no layers")
+        local_ring_axis(mesh, {"seq"} | {
+            n.op.seq_parallel for n in nodes
+            if isinstance(n.op, MultiHeadAttention) and n.op.seq_parallel})
+        self.mesh = mesh
         out_t = outputs if outputs is not None else getattr(self, "outputs", None)
         if isinstance(out_t, (list, tuple)):
             if len(out_t) != 1:
@@ -268,7 +281,7 @@ class FFModel:
             metrics=Metrics(loss_type, list(metrics),
                             preds_are_probs=final_is_softmax),
             optimizer=optimizer, final_is_softmax=final_is_softmax,
-            kernel_choices=self.kernel_choices)
+            kernel_choices=self.kernel_choices, mesh=mesh)
         self.executor.comp_mode = comp_mode
         self.params, self.state = self.executor.init_params_and_state(
             self._generator)
@@ -322,19 +335,26 @@ class FFModel:
                 op.kernel_impl = "einsum"
         return kernel_choices
 
+    def _selected_impl(self, op: MultiHeadAttention, comp_mode) -> str:
+        """``op.selected_impl`` for this model's device, mesh and mode."""
+        return op.selected_impl(
+            self.device, self.mesh.shape if self.mesh is not None else None,
+            training=comp_mode == CompMode.TRAINING)
+
     def _flash_could_run(self, op: MultiHeadAttention, comp_mode) -> bool:
-        """The port's availability rule, read from the op's shapes: the
-        card, self-attention, a head dim the kernels take, and no
-        attention dropout in training."""
-        s, sk = op.input_shapes[0][1], op.input_shapes[1][1]
-        return (self.device.type == "cuda" and s == sk
-                and op.head_dim in SUPPORTED_HEAD_DIMS
-                and not (comp_mode == CompMode.TRAINING and op.dropout > 0))
+        """The port's availability rule, read from the op's shapes, mesh
+        and mode: the card, no ring, self-attention, a head dim the
+        kernels take, and no attention dropout in training."""
+        return (self.device.type == "cuda"
+                and self._selected_impl(op, comp_mode) == "flash")
 
     def _kernels_of_path(self, nodes, comp_mode) -> List[str]:
-        """The CUDA kernel sources the compiled path launches."""
+        """The CUDA kernel sources the compiled path launches: the flash
+        sources for a flash or ring attention (the ring's inner block is
+        K5, in the same sources), the backward's only in training."""
         flash = any(isinstance(n.op, MultiHeadAttention)
-                    and n.op.selected_impl(self.device) == "flash"
+                    and self._selected_impl(n.op, comp_mode)
+                    in ("flash", "ring")
                     for n in nodes)
         names = ["flash_attn_fwd"] if flash else []
         if comp_mode == CompMode.TRAINING:

@@ -12,7 +12,7 @@ import dataclasses
 from typing import Optional
 
 from flexflow_tpu_torch.config import FFConfig
-from flexflow_tpu_torch.ffconst import ActiMode
+from flexflow_tpu_torch.ffconst import ActiMode, LossType, MetricsType
 from flexflow_tpu_torch.model import FFModel
 
 
@@ -27,7 +27,7 @@ class TransformerConfig:
     dropout: float = 0.0
     layer_norm: bool = True  # False = exact reference block structure
     causal: bool = False
-    seq_parallel: Optional[str] = None  # ring attention: a later slice
+    seq_parallel: Optional[str] = None  # ring attention's mesh axis ("seq")
 
 
 def create_transformer(cfg: TransformerConfig, ff_config: FFConfig = None,
@@ -50,4 +50,19 @@ def create_transformer(cfg: TransformerConfig, ff_config: FFConfig = None,
         h = ff.dense(h, cfg.hidden_size, name=f"ffn2_{i}")
         t = ff.add(t, h, name=f"res2_{i}")
     t = ff.dense(t, 1, name="head")
+    return ff
+
+
+def compile_transformer(cfg: TransformerConfig, ff_config: FFConfig = None,
+                        optimizer=None, mesh=None, device=None) -> FFModel:
+    """Build and compile for training (SGD lr 0.01 unless ``optimizer``,
+    MSE loss) on ``device`` (None = the card), over ``mesh``
+    (``machine.make_mesh``; a ``{"seq": n}`` mesh runs ``seq_parallel``
+    attention as a ring of n positions on the one device)."""
+    from flexflow_tpu_torch.optimizers import SGDOptimizer
+
+    ff = create_transformer(cfg, ff_config, device=device)
+    ff.compile(optimizer or SGDOptimizer(lr=0.01),
+               LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               [MetricsType.MEAN_SQUARED_ERROR], mesh=mesh)
     return ff

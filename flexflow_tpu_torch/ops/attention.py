@@ -4,7 +4,9 @@ PyTorch counterpart of ``flexflow_tpu/ops/attention.py``. The four
 projections keep the head-first weight layout — wq/wk/wv ``[H, E, D]``,
 wo ``[H, D, E]`` — so the head axis stays a first-class shardable dim and
 parameters carry across from the JAX package unchanged. The attention
-core is the flash-attention kernel (``ops/flash_attention.py``) where its
+core is ring attention (``parallel/ring_attention.py``) when the op's
+``seq_parallel`` axis is above 1 in the compiled mesh; else the
+flash-attention kernel (``ops/flash_attention.py``) where its
 availability rule holds, else the einsum core
 ``scaled_dot_product_attention``; with grad enabled the flash core runs
 through the ``FlashAttention`` autograd Function (forward and backward
@@ -12,12 +14,16 @@ kernels). ``kernel_impl="einsum"`` pins the einsum core;
 ``kernel_impl="flash"`` demands the flash core: on CUDA the kernels run
 or the call raises (the port has no silent fallback), and on the CPU it
 runs ``FlashAttention`` through the kernels' plain versions, the
-counterpart of the JAX package's Pallas interpret mode.
+counterpart of the JAX package's Pallas interpret mode. The ring keeps
+the reference's rule for its inner block (K5 wherever the kernel takes
+the shape, else einsum) whatever ``kernel_impl`` says; only on the CPU
+does ``kernel_impl="flash"`` give it K5's plain versions.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 
@@ -26,6 +32,7 @@ from flexflow_tpu_torch.initializers import DefaultWeightInitializer
 from flexflow_tpu_torch.ops.base import DimRole, Op, OpContext, register_op
 from flexflow_tpu_torch.ops.flash_attention import (
     SUPPORTED_HEAD_DIMS, flash_attention, flash_attention_available)
+from flexflow_tpu_torch.parallel.ring_attention import ring_attention
 
 
 def rotary_embedding(x: torch.Tensor, *, theta: float = 10000.0
@@ -88,10 +95,14 @@ class MultiHeadAttention(Op):
         self.rope = p.get("rope", False)
         self.rope_theta = p.get("rope_theta", 10000.0)
         self.qkv_bias = p.get("qkv_bias", False)
-        if p.get("seq_parallel"):
-            raise NotImplementedError(
-                f"attention '{layer.name}': seq_parallel (ring attention) "
-                f"comes with the ring-attention slice of the PyTorch port")
+        # sequence parallelism: run the core as ring attention over this
+        # mesh axis when the compiled mesh has it above 1
+        self.seq_parallel = p.get("seq_parallel", None)
+        # head-parallel mesh axis (the reference's search sets it); the
+        # ring keeps heads on it, so a mesh with it above 1 needs more
+        # than one device (ROADMAP.md Queue 1 item 3)
+        self.head_parallel = p.get("head_parallel", None)
+        self._warned_dropout = False
         # None = availability-based pick; "flash" demands the kernel;
         # "einsum" pins the einsum core
         self.kernel_impl = p.get("kernel_impl", None)
@@ -141,14 +152,28 @@ class MultiHeadAttention(Op):
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
-        if self.dropout > 0 and ctx.training:
+        # the core consumes q/k/v in the compute dtype
+        q, k, v = q.to(cd), k.to(cd), v.to(cd)
+        dropout = self.dropout if ctx.training else 0.0
+        if self._is_ring(ctx.mesh_axes) and q.shape[2] == k.shape[2]:
+            if dropout > 0 and not self._warned_dropout:
+                warnings.warn(
+                    f"attention '{self.name}': attention-prob dropout "
+                    f"(rate={dropout}) is not applied under seq_parallel "
+                    f"ring attention; training proceeds without it",
+                    stacklevel=2)
+                self._warned_dropout = True
+            o = ring_attention(q, k, v, ctx.mesh, seq_axis=self.seq_parallel,
+                               head_axis=self.head_parallel,
+                               causal=self.causal,
+                               interpret=(self.kernel_impl == "flash"
+                                          and q.device.type == "cpu"))
+        elif dropout > 0:
             raise NotImplementedError(
                 f"attention '{self.name}': attention-prob dropout in "
                 f"training comes with a later slice of the PyTorch port "
                 f"(ROADMAP.md)")
-        # the core consumes q/k/v in the compute dtype
-        q, k, v = q.to(cd), k.to(cd), v.to(cd)
-        if self._use_flash(q, k):
+        elif self._use_flash(q, k):
             o = flash_attention(q, k, v, causal=self.causal)
         else:
             o = scaled_dot_product_attention(q, k, v, causal=self.causal,
@@ -172,10 +197,21 @@ class MultiHeadAttention(Op):
                 f"Sq={q.shape[2]}, Sk={k.shape[2]}, head_dim={q.shape[3]})")
         return available
 
-    def selected_impl(self, device: str = "cuda") -> str:
-        """Which core ``forward`` runs on ``device`` ('flash' | 'einsum'),
-        derived statically from the same rule as forward's dispatch."""
-        if self.kernel_impl == "einsum":
+    def _is_ring(self, mesh_axes) -> bool:
+        return bool(self.seq_parallel
+                    and (mesh_axes or {}).get(self.seq_parallel, 1) > 1)
+
+    def selected_impl(self, device: str = "cuda", mesh_axes=None,
+                      training: bool = False) -> str:
+        """Which core ``forward`` runs on ``device`` over a mesh with
+        ``mesh_axes`` ('ring' | 'flash' | 'einsum'), derived statically
+        from the same rule as forward's dispatch, in the reference's
+        order: the ring on a sequence axis above 1; the einsum core when
+        pinned or for attention dropout in training; else the port's
+        availability rule."""
+        if self._is_ring(mesh_axes):
+            return "ring"
+        if self.kernel_impl == "einsum" or (training and self.dropout > 0):
             return "einsum"
         b, s, e = self.input_shapes[0]
         sk = self.input_shapes[1][1] if len(self.input_shapes) > 1 else s

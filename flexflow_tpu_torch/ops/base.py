@@ -33,15 +33,22 @@ class DimRole(enum.Enum):
 
 class OpContext:
     """Per-call context threaded through forward: training flag, compute
-    dtype, and the ``torch.Generator`` that training-time randomness
-    (attention dropout, a later slice) draws from."""
+    dtype, the ``torch.Generator`` that training-time randomness
+    (attention dropout, a later slice) draws from, and the mesh the model
+    was compiled on (``machine.Mesh`` or None), whose axes decide whether
+    attention runs as a ring (the reference's ``ctx.mesh``)."""
 
     def __init__(self, training: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 rng: Optional[torch.Generator] = None):
+                 rng: Optional[torch.Generator] = None, mesh=None):
         self.training = training
         self.compute_dtype = compute_dtype
         self.rng = rng
+        self.mesh = mesh
+
+    @property
+    def mesh_axes(self) -> Dict[str, int]:
+        return dict(self.mesh.shape) if self.mesh is not None else {}
 
 
 class Op:

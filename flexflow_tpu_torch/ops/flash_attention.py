@@ -3,17 +3,24 @@ the autograd Function that joins them.
 
 PyTorch counterpart of ``flexflow_tpu/ops/pallas_kernels.py``'s forward
 (``_flash_fwd``), backward (``_flash_bwd`` and ``_flash_bwd_blocked``,
-one kernel here) and the ``_flash`` custom_vjp. The kernels are CUDA C++
-for Hopper, ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``,
-built by ``cuda_build`` and bound with ``ctypes``.
+one kernel here), the ``_flash`` custom_vjp, and ``flash_attention_lse``
+(K5: the same kernels with o in f32 and an lse gradient, the block that
+ring attention merges). The kernels are CUDA C++ for Hopper,
+``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``, built by
+``cuda_build`` and bound with ``ctypes``.
 
 ``flash_fwd`` / ``flash_bwd`` on CUDA tensors launch the kernel or raise;
 they never give way to the plain version. On CPU tensors they run
 ``flash_fwd_reference`` / ``flash_bwd_reference``, the plain PyTorch
 versions of the same functions, which are also what the card's kernels
-are held against. ``flash_fwd.launches`` / ``flash_bwd.launches`` count
-kernel launches (CUDA only; one ``flash_bwd`` launch runs the backward's
-kernels: in bf16 the dQ kernel, which also forms delta, then dK/dV).
+are held against. Kernel launches are counted (CUDA only) by what they
+compute: ``flash_fwd.launches`` / ``flash_bwd.launches`` for K1 and
+K2/K3 (o in q's dtype), ``flash_fwd.lse_launches`` /
+``flash_bwd.lse_launches`` for K5 (bf16 q, k, v with an f32 o, and in
+the backward an f32 dO). One ``flash_bwd`` launch runs the backward's
+kernels: in bf16 the dQ kernel, which also forms delta, then dK/dV; for
+K5 first a kernel that forms delta from the f32 O and dO and rounds dO
+to bf16.
 
 The port's availability rule replaces the TPU's tuning gates (``BLK_Q``,
 ``MIN_SEQ_FOR_FLASH``, ``head_dim % 8``, ``MAX_BWD_SEQ``): the tensors
@@ -27,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -57,10 +64,11 @@ def _causal_mask(s: int, device) -> torch.Tensor:
 
 
 def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = False
+                        causal: bool = False, out_dtype=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: q, k, v ``[BH, S, D]`` -> (o ``[BH, S, D]`` in q's
-    dtype, lse ``[BH, S]`` f32), with dense f32 scores."""
+    """Plain version: q, k, v ``[BH, S, D]`` -> (o ``[BH, S, D]`` in
+    ``out_dtype``, None = q's dtype, lse ``[BH, S]`` f32), with dense f32
+    scores."""
     acc = _acc_dtype(q)
     scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
     scores = scores / math.sqrt(q.shape[-1])
@@ -69,8 +77,19 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     torch.finfo(acc).min)
     lse = torch.logsumexp(scores, dim=-1)
     p = torch.exp(scores - lse[..., None])
-    o = torch.matmul(p, v.to(acc)).to(q.dtype)
+    o = torch.matmul(p, v.to(acc)).to(out_dtype or q.dtype)
     return o, lse
+
+
+def flash_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5's forward (``flash_attention_lse``): q, k, v
+    ``[BH, S, D]`` -> (o ``[BH, S, D]`` f32, or f64 for f64 inputs, lse
+    ``[BH, S]``). Plain PyTorch ops, so autograd differentiates it; its
+    VJP with an lse gradient is ``flash_bwd_reference(..., glse=g_lse)``,
+    dS = P * (dO V^T - delta + g_lse)."""
+    return flash_fwd_reference(q, k, v, causal, out_dtype=_acc_dtype(q))
 
 
 def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,9 +121,12 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_panels(fn: str, *xs: torch.Tensor) -> None:
-    """What the kernels take: CUDA tensors of one ``[BH, S, D]`` shape and
-    one kernel dtype, contiguous, with a supported head dim."""
+def _check_panels(fn: str, *xs: torch.Tensor, f32: Sequence = ()) -> None:
+    """What the kernels take: CUDA tensors of one ``[BH, S, D]`` shape,
+    contiguous and 16-byte aligned, with a supported head dim, and one
+    kernel dtype for all, except K5's mix: the panels named in ``f32``
+    (by identity: its o, and in the backward its dO) are f32 while the
+    others are bf16."""
     q = xs[0]
     if any(x.dim() != 3 or x.shape != q.shape for x in xs):
         raise ValueError(f"{fn}: panels must share one [BH, S, D] shape, "
@@ -112,11 +134,17 @@ def _check_panels(fn: str, *xs: torch.Tensor) -> None:
     if q.shape[2] not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{fn}: head dim {q.shape[2]} not supported "
                          f"(kernel takes {SUPPORTED_HEAD_DIMS})")
-    if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype for x in xs):
-        raise ValueError(f"{fn}: dtypes {[x.dtype for x in xs]} not "
-                         f"supported (one of {KERNEL_DTYPES} for all)")
+    want = ([torch.float32 if any(x is y for y in f32) else torch.bfloat16
+             for x in xs] if f32 else [q.dtype] * len(xs))
+    if q.dtype not in KERNEL_DTYPES or [x.dtype for x in xs] != want:
+        raise ValueError(
+            f"{fn}: dtypes {[x.dtype for x in xs]} not supported (one of "
+            f"{KERNEL_DTYPES} for all, or K5's bf16 panels with f32 o and "
+            f"dO)")
     if not all(x.is_contiguous() for x in xs):
         raise ValueError(f"{fn}: panels must be contiguous")
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError(f"{fn}: panels must be 16-byte aligned")
     if any(x.device != q.device for x in xs):
         raise ValueError(f"{fn}: panels on different devices")
     if q.shape[0] > _MAX_BH:
@@ -148,34 +176,46 @@ def _stream(x: torch.Tensor) -> int:
 FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
+def _is_lse_mix(q: torch.Tensor, o: torch.Tensor) -> bool:
+    """K5's dtypes: bf16 q with an f32 o."""
+    return q.dtype == torch.bfloat16 and o.dtype == torch.float32
+
+
 def fwd_launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     o: torch.Tensor, lse: torch.Tensor, causal: bool,
-                    stream: int) -> tuple:
+                    stream: int, out_dtype=None) -> tuple:
     """The arguments of ``ff_flash_attn_fwd`` (types ``FWD_ARGTYPES``), in
     its order, after checking that the kernels take these tensors: q, k,
-    v, the outputs o and lse, then BH, S, D, bf16 or not, causal, and the
-    stream. Raises ValueError on a shape, dtype, layout or device the
-    kernels do not take."""
-    _check_panels("flash_fwd", q, k, v, o)
+    v, the outputs o and lse, then BH, S, D, the dtypes (0 all f32, 1 all
+    bf16, 2 bf16 q, k, v with an f32 o: K5), causal, and the stream. o
+    is in ``out_dtype`` (None = q's dtype). Raises ValueError on a shape,
+    dtype, layout or device the kernels do not take."""
+    if o.dtype != (out_dtype or q.dtype):
+        raise ValueError(f"flash_fwd: o is {o.dtype}, asked for "
+                         f"{out_dtype or q.dtype}")
+    mix = _is_lse_mix(q, o)
+    _check_panels("flash_fwd", q, k, v, o, f32=(o,) if mix else ())
     _check_rows("flash_fwd", q, lse)
     bh, s, d = q.shape
+    io = 2 if mix else int(q.dtype == torch.bfloat16)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, s, d, int(q.dtype == torch.bfloat16),
-            int(causal), stream)
+            lse.data_ptr(), bh, s, d, io, int(causal), stream)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q, k, v ``[BH, S, D]`` -> (o ``[BH, S, D]`` in q's dtype, lse
-    ``[BH, S]`` f32). CUDA tensors run the kernel; CPU tensors the plain
+              causal: bool = False, out_dtype=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k, v ``[BH, S, D]`` -> (o ``[BH, S, D]`` in ``out_dtype``, None =
+    q's dtype, lse ``[BH, S]`` f32). An f32 o from bf16 inputs is K5's
+    forward. CUDA tensors run the kernel; CPU tensors the plain
     version."""
     if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, causal)
+        return flash_fwd_reference(q, k, v, causal, out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: no kernel for device {q.device}")
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    args = fwd_launch_args(q, k, v, o, lse, causal, _stream(q))
+    args = fwd_launch_args(q, k, v, o, lse, causal, _stream(q), out_dtype)
     if q.numel() == 0:
         return o, lse
     fn = _entry("flash_attn_fwd", "ff_flash_attn_fwd", FWD_ARGTYPES)
@@ -183,38 +223,62 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error "
-                           f"{rc} ([BH, S, D] = {list(q.shape)}, {q.dtype})")
-    flash_fwd.launches += 1
+                           f"{rc} ([BH, S, D] = {list(q.shape)}, {q.dtype} -> "
+                           f"{o.dtype})")
+    if _is_lse_mix(q, o):
+        flash_fwd.lse_launches += 1
+    else:
+        flash_fwd.launches += 1
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.lse_launches = 0
 
 
-BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def bwd_scratch(q: torch.Tensor, o: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The scratch of one backward launch: ``dlt`` ``[BH, S]`` f32, which
+    the kernels fill with delta - g_lse, and, for K5 (bf16 q with an f32
+    o), ``do16`` ``[BH, S, D]`` bf16 for dO rounded to bf16 (else
+    None)."""
+    dlt = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    do16 = (torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+            if _is_lse_mix(q, o) else None)
+    return dlt, do16
 
 
 def bwd_launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                     glse: Optional[torch.Tensor], dq: torch.Tensor,
                     dk: torch.Tensor, dv: torch.Tensor, dlt: torch.Tensor,
-                    causal: bool, stream: int) -> tuple:
+                    do16: Optional[torch.Tensor] = None, *, causal: bool,
+                    stream: int) -> tuple:
     """The arguments of ``ff_flash_attn_bwd`` (types ``BWD_ARGTYPES``), in
     its order, after checking that the kernels take these tensors: q, k,
-    v, dO, lse, O, g_lse (None = zero), the ``[BH, S]`` f32 scratch
-    ``dlt`` that the dQ kernel fills with delta - g_lse for the dK/dV
-    kernel, dq, dk, dv, then BH, S, D, bf16 or not, causal, and the
-    stream. Raises ValueError on a shape, dtype,
-    layout or device the kernels do not take."""
-    _check_panels("flash_bwd", q, k, v, o, do, dq, dk, dv)
+    v, dO, lse, O, g_lse (None = zero), the scratch ``dlt`` and ``do16``
+    (``bwd_scratch``: do16 is given for K5 and only for it), dq, dk, dv,
+    then BH, S, D, the dtypes (0 all f32, 1 all bf16, 2 bf16 q, k, v with
+    f32 O and dO: K5), causal, and the stream. Raises ValueError on a
+    shape, dtype, layout or device the kernels do not take."""
+    mix = _is_lse_mix(q, o)
+    if mix != (do16 is not None):
+        raise ValueError("flash_bwd: the bf16 dO scratch is K5's (bf16 q "
+                         "with f32 O and dO) and only K5's")
+    _check_panels("flash_bwd", q, k, v, o, do, dq, dk, dv,
+                  *((do16,) if mix else ()), f32=(o, do) if mix else ())
     _check_rows("flash_bwd", q, lse, dlt,
                 *(() if glse is None else (glse,)))
     bh, s, d = q.shape
+    io = 2 if mix else int(q.dtype == torch.bfloat16)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), o.data_ptr(),
             None if glse is None else glse.data_ptr(), dlt.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d,
-            int(q.dtype == torch.bfloat16), int(causal), stream)
+            None if do16 is None else do16.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, s, d, io, int(causal), stream)
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -222,11 +286,13 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, glse: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash backward: q, k, v, o, do ``[BH, S, D]``, lse and ``glse``
-    (None = zero) ``[BH, S]`` f32 -> (dq, dk, dv) in the input dtype.
-    CUDA tensors run the kernels, one launch: in bf16 the dQ kernel forms
+    (None = zero) ``[BH, S]`` f32 -> (dq, dk, dv) in q's dtype. o and do
+    are in q's dtype, or f32 beside bf16 q, k, v (K5's backward). CUDA
+    tensors run the kernels, one launch: in bf16 the dQ kernel forms
     delta = rowsum(dO * O) of its rows itself and leaves delta - g_lse in
-    a scratch row for the dK/dV kernel that follows it (in f32 a small
-    kernel forms it first); nothing else runs around them but the
+    a scratch row for the dK/dV kernel that follows it (in f32, and for
+    K5, a small kernel forms it first; for K5 it also rounds dO to bf16
+    into a second scratch); nothing else runs around them but the
     allocation of the outputs and the scratch. CPU tensors run the plain
     version."""
     if q.device.type == "cpu":
@@ -235,9 +301,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_bwd: no kernel for device {q.device}")
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    dlt = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    args = bwd_launch_args(q, k, v, o, lse, do, glse, dq, dk, dv, dlt,
-                           causal, _stream(q))
+    dlt, do16 = bwd_scratch(q, o)
+    args = bwd_launch_args(q, k, v, o, lse, do, glse, dq, dk, dv, dlt, do16,
+                           causal=causal, stream=_stream(q))
     if q.numel() == 0:
         return dq, dk, dv
     fn = _entry("flash_attn_bwd", "ff_flash_attn_bwd", BWD_ARGTYPES)
@@ -245,12 +311,17 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
-                           f"{rc} ([BH, S, D] = {list(q.shape)}, {q.dtype})")
-    flash_bwd.launches += 1
+                           f"{rc} ([BH, S, D] = {list(q.shape)}, {q.dtype}, "
+                           f"O and dO {o.dtype})")
+    if do16 is not None:
+        flash_bwd.lse_launches += 1
+    else:
+        flash_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.lse_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -288,3 +359,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         o, _ = flash_fwd(fold(q), fold(k), fold(v), causal)
     return o.view(b, h, s, d)
+
+
+class FlashAttentionLSE(torch.autograd.Function):
+    """K5, the counterpart of ``flash_attention_lse``'s custom_vjp, over
+    folded ``[BH, S, D]`` panels: the forward returns (o, lse) with o in
+    f32 (f64 for f64 inputs) and saves (q, k, v, o, lse); the backward
+    takes (dO, d lse) and hands them to ``flash_bwd`` as dO and g_lse. A
+    None gradient (an output the caller did not use) is zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_fwd(q, k, v, causal, out_dtype=_acc_dtype(q))
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        glse = None if dlse is None else dlse.contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, glse)
+        return dq, dk, dv, None
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k, v ``[BH, S, D]`` -> (o ``[BH, S, D]`` f32, lse ``[BH, S]``),
+    the counterpart of ``pallas_kernels.py:flash_attention_lse``: the
+    streaming-merge primitive of ring attention, differentiable in both
+    outputs. With grad enabled it runs through ``FlashAttentionLSE``;
+    under ``inference_mode`` or ``no_grad`` it calls the bare forward."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionLSE.apply(q, k, v, causal)
+    return flash_fwd(q, k, v, causal, out_dtype=_acc_dtype(q))
+

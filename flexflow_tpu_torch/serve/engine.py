@@ -114,8 +114,9 @@ class ServingEngine:
         final_ref = ff._select_final_ref(nodes, tensor_ref)
         full = ff.executor
         ex = GraphExecutor(nodes, input_names, final_ref, full.device,
-                           compute_dtype=full.compute_dtype)
-        kernel_choices = {n.op.name: n.op.selected_impl(full.device)
+                           compute_dtype=full.compute_dtype, mesh=full.mesh)
+        mesh_axes = full.mesh.shape if full.mesh is not None else None
+        kernel_choices = {n.op.name: n.op.selected_impl(full.device, mesh_axes)
                           for n in nodes if hasattr(n.op, "selected_impl")}
         be = BucketExecutor(bucket=bucket, executor=ex,
                             objective="reused-training-strategy",

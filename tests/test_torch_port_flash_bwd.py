@@ -138,21 +138,22 @@ def _bwd_tensors(dtype=torch.bfloat16, bh=2, s=96, d=64):
 def test_launch_args_pass_o_in_place_of_delta():
     """``bwd_launch_args`` gives the kernel entry its arguments in order:
     q, k, v, dO, lse, then O (the kernels form delta from it), g_lse (None
-    when zero), the delta scratch, dq, dk, dv, BH, S, D, bf16, causal and
-    the stream; one per entry of ``BWD_ARGTYPES``."""
+    when zero), the delta scratch, the bf16 dO scratch (None outside K5),
+    dq, dk, dv, BH, S, D, the dtypes (1 bf16, 0 f32), causal and the
+    stream; one per entry of ``BWD_ARGTYPES``."""
     x = _bwd_tensors()
     args = bwd_launch_args(*x.values(), causal=True, stream=7)
-    assert len(args) == len(BWD_ARGTYPES) == 17
+    assert len(args) == len(BWD_ARGTYPES) == 18
     ptr = lambda n: x[n].data_ptr()
-    assert args[:11] == (ptr("q"), ptr("k"), ptr("v"), ptr("do"), ptr("lse"),
-                         ptr("o"), ptr("glse"), ptr("dlt"), ptr("dq"),
+    assert args[:12] == (ptr("q"), ptr("k"), ptr("v"), ptr("do"), ptr("lse"),
+                         ptr("o"), ptr("glse"), ptr("dlt"), None, ptr("dq"),
                          ptr("dk"), ptr("dv"))
-    assert args[11:] == (2, 96, 64, 1, 1, 7)
+    assert args[12:] == (2, 96, 64, 1, 1, 7)
     x["glse"] = None
     assert bwd_launch_args(*x.values(), causal=False, stream=0)[6] is None
     x32 = _bwd_tensors(torch.float32, d=128)
     assert bwd_launch_args(*x32.values(), causal=False,
-                           stream=0)[11:16] == (2, 96, 128, 0, 0)
+                           stream=0)[12:17] == (2, 96, 128, 0, 0)
 
 
 def _transposed(x):
