@@ -76,6 +76,26 @@ package. Phases:
              ``AdamOptimizer.update``, bit for bit.
              (a) 2 layers at S 2048 (K3's regime) without a strategy file:
              3 steps, the backward launched twice a step.
+   search  — (after train (b) and K4) the Unity search on the card.
+             [search train]: detect the machine (printed with the card's
+             name and power limit) and take its two measured constants'
+             readings (a full-width dense's share of the bf16 peak, one
+             launch's time); ``compile(search_budget=SEARCH_BUDGET)`` of the
+             full-width model with Adam, exporting the strategy: the
+             search's wall time, mesh (one device), choices by name,
+             predicted step time and cost model; every attention the
+             search gave ``_k:flash`` launches K1 and K2 once a step and no
+             other op claims a kernel; 2 warm-up and 10 timed steps, their
+             p50 beside the predicted time, the losses within
+             TRAJECTORY_RTOL of train (b)'s plain path; a fresh model
+             through ``--import-strategy`` on the exported file runs the
+             same kernels and gives a bit-equal first-step loss.
+             [search serve]: ``serve(search_budget=SEARCH_BUDGET)``: every
+             bucket's objective is the latency objective; each bucket
+             timed over SEARCH_BUCKET_BATCHES batches (predicted latency
+             beside the measured p50), K1 launched once a batch per flash
+             attention, and the served rows against ``predict`` (the full
+             batch exactly).
 6. ring    — ring attention on a ``{"seq": 4}`` mesh in one process (all
              four ring positions on the card), B 8 H 16 S 512 and the
              causal B 2 H 16 S 2048: o and the q/k/v gradients against
@@ -96,6 +116,7 @@ Any failed check exits non-zero without printing the final line.
 """
 
 import json
+import math
 import os
 import re
 import statistics
@@ -282,6 +303,11 @@ RING_TOL = {"o": 5e-3, "grad": 2e-2}
 TRAIN_C_STEPS = 3
 TRAIN_C_CAUSAL = dict(num_layers=2, seq_length=2048, batch_size=2,
                       causal=True)
+# the searched path: the README quick start's search budget; the searched
+# training takes train (b)'s warm-up and timed steps, and each serving
+# bucket is timed over this many full batches of its size
+SEARCH_BUDGET = 30
+SEARCH_BUCKET_BATCHES = 10
 
 
 class SmokeFailure(Exception):
@@ -403,13 +429,25 @@ def phase_card():
 
 def phase_build():
     """Build every kernel source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from flexflow_tpu_torch import cuda_build
+    from flexflow_tpu_torch.search import native
+
+    def build_search_core():
+        t = time.perf_counter()
+        return native.build(), time.perf_counter() - t
 
     names = sorted(p.stem for p in cuda_build.SRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    cuda_build.build_all(names)
-    secs = time.perf_counter() - t0
+    # the native search core's g++ runs beside the nvcc builds
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        core = pool.submit(build_search_core)
+        cuda_build.build_all(names)
+        secs = time.perf_counter() - t0
+        core_path, core_secs = core.result()
     print(f"[build] {', '.join(names)} built in {secs:.2f} s")
+    print(f"[build] search core {os.path.relpath(core_path)} built in "
+          f"{core_secs:.2f} s beside them ({native.ffs_version()})")
     for name in names:
         for line in cuda_build.build_log(name).splitlines():
             if any(t in line for t in ("Compiling entry", "registers",
@@ -1382,7 +1420,8 @@ def phase_train_b(strategy_dir):
 def phase_train_trajectory(losses, strategy_dir):
     """The kernel path's per-step losses against the plain path's (einsum
     core, plain Adam, no strategy) from the same weights and batch; then
-    the kernel path at a small step size, where the loss must fall."""
+    the kernel path at a small step size, where the loss must fall.
+    Returns the plain path's losses."""
     import numpy as np
     import torch
     from flexflow_tpu_torch.models.transformer import TransformerConfig
@@ -1395,6 +1434,7 @@ def phase_train_trajectory(losses, strategy_dir):
         if isinstance(n.op, MultiHeadAttention):
             n.op.kernel_impl = "einsum"
     plain.fit(x, y, epochs=len(losses), verbose=False)
+    plain_losses = list(plain.epoch_losses)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain.epoch_losses)]
     print(f"[train trajectory] plain path (einsum core, plain Adam) losses: "
           + ", ".join(f"{v:.6f}" for v in plain.epoch_losses)
@@ -1413,6 +1453,7 @@ def phase_train_trajectory(losses, strategy_dir):
           f"{DESCENT_ALPHA}")
     del small
     torch.cuda.empty_cache()
+    return plain_losses
 
 
 def profile_train(ff, x, y, steps=2):
@@ -1664,6 +1705,293 @@ def phase_train_a():
     return launches
 
 
+def nvidia_smi_line():
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "?"
+
+
+def machine_readings(peaks):
+    """The H100 entry's two measured constants: the achieved share of the
+    bf16 peak of the full-width FFN dense's GEMM ([8 x 512, 1024] @
+    [1024, 4096] in bf16, ``mxu_efficiency``), and one launch of a
+    one-element elementwise kernel (the smallest op the port's eager
+    executor issues), back to back (``min_op_time``). Both by
+    ``time_calls``; returns (efficiency, seconds a launch, host ms a
+    launch)."""
+    import torch
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig()
+    tokens = cfg.batch_size * cfg.seq_length
+    ffn = cfg.hidden_size * cfg.ffn_mult
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(tokens, cfg.hidden_size, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    w = torch.randn(cfg.hidden_size, ffn, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    gemm_ms, _ = time_calls(lambda: torch.matmul(x, w))
+    eff = 2 * tokens * cfg.hidden_size * ffn / (gemm_ms * 1e-3) / peaks["bf16"]
+    one = torch.zeros(1, device="cuda")
+    launch_ms, launch_host_ms = time_calls(lambda: one.add_(1.0),
+                                           target_ms=5.0)
+    print(f"[search train] machine readings: the FFN GEMM {gemm_ms:.4f} ms "
+          f"= {eff:.4f} of the bf16 peak; a one-element launch "
+          f"{launch_ms * 1e3:.3f} us back to back (host "
+          f"{launch_host_ms * 1e3:.3f} us a call)")
+    return eff, launch_ms * 1e-3, launch_host_ms
+
+
+def phase_search_train(plain_losses):
+    """The searched path of training at full width: detect the machine,
+    ``compile(search_budget=SEARCH_BUDGET)`` with Adam (the strategy
+    exported through ``--export-strategy``), train TRAIN_WARMUP + TRAIN_STEPS
+    steps from train (b)'s weights and batch, and hold the kernels the
+    strategy chose to their launches; then compile a fresh model through
+    ``--import-strategy`` on the exported file: the same kernel choices
+    and a bit-equal first-step loss. Returns the launches over the timed
+    steps."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import FFConfig, LossType, MetricsType
+    from flexflow_tpu_torch.machine import CHIP_SPECS, detect_machine_spec
+    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       create_transformer)
+    from flexflow_tpu_torch.obs.registry import percentile
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+    from flexflow_tpu_torch.search.unity import (executed_kernel_choices,
+                                                 machine_to_json)
+
+    card = nvidia_smi_line()
+    spec = detect_machine_spec(1, device="cuda")
+    print(f"[search train] card {card}; machine {spec.chip}: "
+          f"{json.dumps(machine_to_json(spec, 1, comm_bytes_factor=0.5))}")
+    eff, launch_s, _ = machine_readings(H100_SXM_PEAKS)
+    entry = CHIP_SPECS[spec.chip]
+    print(f"[search train] the table's mxu_efficiency {entry['mxu_efficiency']}"
+          f" and min_op_time {entry['min_op_time']:.3e} s; this run's "
+          f"readings {eff:.4f} and {launch_s:.3e} s ({card})")
+
+    cfg = TransformerConfig()
+    x, y = training_batch(cfg)
+
+    def build(argv):
+        fcfg = FFConfig(batch_size=cfg.batch_size)
+        check(fcfg.parse_args(argv) == [], f"unread flags in {argv}")
+        ff = create_transformer(cfg, fcfg, device="cuda")
+        ff.compile(AdamOptimizer(alpha=1e-4, state_dtype=torch.bfloat16),
+                   LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+                   [MetricsType.MEAN_SQUARED_ERROR])
+        return ff
+
+    with tempfile.TemporaryDirectory(prefix="ff_search_") as tmp:
+        path = os.path.join(tmp, "searched.json")
+        t0 = time.perf_counter()
+        ff = build(["--budget", str(SEARCH_BUDGET), "--export-strategy", path])
+        compile_s = time.perf_counter() - t0
+        info = ff.search_info
+        choices = Counter(st.choice for st in ff.strategy.values())
+        predicted = info["predicted_time"]
+        print(f"[search train] compile(search_budget={SEARCH_BUDGET}): search "
+              f"{info['search_wall_s']:.3f} s wall (whole compile "
+              f"{compile_s:.2f} s); mesh {ff.mesh.shape}; choices "
+              f"{dict(choices)}; predicted_time {predicted * 1e3:.3f} ms, "
+              f"predicted_memory {info['predicted_memory']}, cost model "
+              f"{info['cost_model']}, objective {info['objective']}, "
+              f"{len(info['rewrites'])} rewrites")
+        check(ff.mesh.size == 1, f"the search chose {ff.mesh.shape}, not one "
+              f"device")
+        check(info["objective"] == "step_time" and predicted > 0,
+              f"search info {info['objective']}, {predicted}")
+        attn = [n.op for n in ff.executor.nodes
+                if isinstance(n.op, MultiHeadAttention)]
+        kc = ff.kernel_choices or {}
+        flash_ops = [op.name for op in attn if kc.get(op.name) == "flash"]
+        fused = ff.executor.fused_update_ops & set(ff.params)
+        # every claimed kernel is the one that runs, and no other op
+        # claims one
+        for op in attn:
+            want = kc.get(op.name)
+            check(want in ("flash", "einsum") and op.kernel_impl == want
+                  and op.selected_impl("cuda", ff.mesh.shape,
+                                       training=True) == want,
+                  f"{op.name}: claims {want}, pinned {op.kernel_impl}")
+        others = {n: i for n, i in kc.items()
+                  if n not in {op.name for op in attn}}
+        check(set(others.values()) <= {"fused"},
+              f"non-attention ops claim kernels {others}")
+        for _ in range(TRAIN_WARMUP):
+            ff.fit(x, y, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        reset_launches()
+        step_s = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            ff.fit(x, y, epochs=1, verbose=False)  # ends in a host read
+            step_s.append(time.perf_counter() - t0)
+        launches = read_launches()
+        losses = list(ff.epoch_losses)
+        want = dict(flash_attn_fwd=len(flash_ops) * TRAIN_STEPS,
+                    flash_attn_bwd=len(flash_ops) * TRAIN_STEPS,
+                    fused_adam=TRAIN_STEPS if fused else 0,
+                    flash_lse_fwd=0, flash_lse_bwd=0)
+        print(f"[search train] {len(flash_ops)} attention ops on K1/K2, "
+              f"{len(attn) - len(flash_ops)} on the einsum core, {len(fused)} "
+              f"ops through fused Adam; launches over {TRAIN_STEPS} steps: "
+              f"{launches} (expected {want})")
+        check(launches == want, "the searched path's launches differ from "
+              "its kernel choices")
+        print(f"[search train] loss per step: "
+              + ", ".join(f"{v:.6f}" for v in losses))
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+        print(f"[search train] against train (b)'s plain path from the same "
+              f"weights: worst step {int(np.argmax(rel)) + 1} at "
+              f"{max(rel):.3e} relative (tol {TRAJECTORY_RTOL})")
+        check(len(losses) == len(plain_losses) and all(np.isfinite(losses))
+              and max(rel) <= TRAJECTORY_RTOL,
+              "the searched path's losses leave the plain path's")
+        p50 = statistics.median(step_s)
+        p90 = percentile(sorted(step_s), 0.90)
+        print(f"[search train] step time p50 {p50 * 1e3:.3f} ms, p90 "
+              f"{p90 * 1e3:.3f} ms ({cfg.batch_size / p50:.2f} samples/s) "
+              f"against the predicted {predicted * 1e3:.3f} ms: measured / "
+              f"predicted {p50 / predicted:.2f} ({card})")
+        n_ops = len(ff.executor.nodes)
+        print(f"[search train] the step's p50 over its {n_ops} graph ops: "
+              f"{p50 / n_ops * 1e6:.1f} us a graph op, against the table's "
+              f"min_op_time {entry['min_op_time'] * 1e6:.3f} us, one "
+              f"host-paced launch, which the cost model charges once a "
+              f"graph op")
+        profile_train(ff, x, y)
+        with open(path) as f:
+            exported = json.load(f)
+        check(exported["objective"] == "step_time"
+              and exported["mesh"] == dict(ff.mesh.shape)
+              and len(exported["ops"]) == len(ff.strategy),
+              f"exported file: mesh {exported['mesh']}, "
+              f"{len(exported['ops'])} ops")
+        executed = executed_kernel_choices(ff.executor.nodes, ff.strategy,
+                                           ff.mesh.shape, training=True)
+        first = losses[0]
+        del ff
+        torch.cuda.empty_cache()
+        again = build(["--import-strategy", path])
+    check(again.search_info is None and again.kernel_choices == kc
+          and executed_kernel_choices(again.executor.nodes, again.strategy,
+                                      again.mesh.shape, training=True)
+          == executed, "the imported strategy runs other kernels")
+    again.fit(x, y, epochs=1, verbose=False)
+    print(f"[search train] exported and imported through --import-strategy: "
+          f"the same kernel choices; first-step loss {again.epoch_losses[0]!r}"
+          f" vs {first!r}")
+    check(again.epoch_losses[0] == first,
+          "the imported strategy's first-step loss is not bit-equal")
+    del again
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_search_serve():
+    """The searched path of serving at full width: ``serve(search_budget=
+    SEARCH_BUDGET)`` runs the latency search for every default bucket;
+    each bucket is then timed over SEARCH_BUCKET_BATCHES full batches of
+    its size, K1's launches counted against the bucket's kernel choices,
+    and its rows held against ``predict``. Returns K1's launches."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.obs.registry import get_registry
+    from flexflow_tpu_torch.ops.flash_attention import flash_fwd
+    from flexflow_tpu_torch.serve.loadgen import build_serve_model
+
+    card = nvidia_smi_line()
+    ff, make_request, cfg = build_serve_model("transformer", on_cpu=False,
+                                              device="cuda")
+    t0 = time.perf_counter()
+    engine = ff.serve(search_budget=SEARCH_BUDGET)
+    build_s = time.perf_counter() - t0
+    report = engine.bucket_report()
+    buckets = tuple(engine.scheduler.buckets)
+    check(buckets == (1, 2, 4, 8), f"unexpected buckets {buckets}")
+    print(f"[search serve] serve(search_budget={SEARCH_BUDGET}): {len(buckets)} "
+          f"bucket searches and executors in {build_s:.3f} s")
+    n_flash = {}
+    for b in buckets:
+        rep = report[str(b)]
+        kinds = Counter(rep["kernel_choices"].values())
+        n_flash[b] = kinds.get("flash", 0)
+        print(f"[search serve] bucket {b}: objective {rep['objective']}, mesh "
+              f"{rep['mesh']}, predicted latency "
+              f"{rep['predicted_latency_s'] * 1e3:.3f} ms, kernels "
+              f"{dict(kinds)}, differs from the model's strategy "
+              f"{rep['strategy_differs_from_training']}")
+        check(rep["objective"] == f"latency@batch{b}"
+              and rep["predicted_latency_s"] > 0
+              and math.prod(rep["mesh"].values()) == 1,
+              f"bucket {b}: {rep}")
+        check(set(kinds) <= {"flash", "einsum"}
+              and sum(kinds.values()) == cfg["num_layers"],
+              f"bucket {b}: kernel choices {rep['kernel_choices']}")
+    # first calls of every bucket are set-up
+    for b in buckets:
+        reqs = [engine.submit(make_request(i)) for i in range(b)]
+        engine.pump()
+        for r in reqs:
+            r.wait(60)
+    torch.cuda.synchronize()
+    reg = get_registry()
+    reg.reset()
+    flash_fwd.launches = 0
+    for b in buckets:
+        for _ in range(SEARCH_BUCKET_BATCHES):
+            reqs = [engine.submit(make_request(i)) for i in range(b)]
+            engine.pump()
+            for r in reqs:
+                check(np.isfinite(r.wait(60)).all(), f"bucket {b}: non-finite")
+    torch.cuda.synchronize()
+    launches = flash_fwd.launches
+    obs = reg.to_dict()["observations"]
+    counts = {b: int(obs[f"serve/bucket{b}/batch_latency_s"]["count"])
+              for b in buckets}
+    want = sum(counts[b] * n_flash[b] for b in buckets)
+    print(f"[search serve] batches {counts}; K1 launches {launches} "
+          f"(expected {want}: each batch one a flash attention)")
+    check(counts == {b: SEARCH_BUCKET_BATCHES for b in buckets}
+          and launches == want, "K1's launches differ from the buckets' "
+          "kernel choices")
+    for b in buckets:
+        o = obs[f"serve/bucket{b}/batch_latency_s"]
+        pred = report[str(b)]["predicted_latency_s"]
+        print(f"[search serve] bucket {b}: batch latency p50 "
+              f"{o['p50'] * 1e3:.3f} ms, p99 {o['p99'] * 1e3:.3f} ms against "
+              f"the predicted {pred * 1e3:.3f} ms: measured / predicted "
+              f"{o['p50'] / pred:.2f} ({card})")
+    # the served rows against predict on the same samples: the full batch
+    # exactly (the same graph, the same kernels), smaller buckets within
+    # MODEL_RTOL of the output's max (other GEMM shapes)
+    batch = np.stack([make_request(i)[0] for i in range(cfg["batch_size"])])
+    want_rows = ff.predict(batch)
+    scale = float(np.abs(want_rows).max())
+    for b in buckets:
+        reqs = [engine.submit([batch[i]]) for i in range(b)]
+        engine.pump()
+        got = np.stack([r.wait(60) for r in reqs])
+        err = float(np.abs(got - want_rows[:b]).max())
+        print(f"[search serve] bucket {b} rows vs predict: max_abs_err "
+              f"{err:.4e} (max |output| {scale:.4e})")
+        if b == cfg["batch_size"]:
+            check(err == 0.0, "the full batch differs from predict")
+        check(err <= MODEL_RTOL * scale, f"bucket {b}'s rows leave predict's")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1691,11 +2019,13 @@ def main() -> int:
         check_f32_model()
         with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
             ff, batch, train_b, losses = phase_train_b(tmp)
-            phase_train_trajectory(losses, tmp)
+            plain_losses = phase_train_trajectory(losses, tmp)
             phase_train_grads(ff, batch, tmp)
         adam = phase_kernels_adam(ff)
         del ff
         torch.cuda.empty_cache()
+        search_train = phase_search_train(plain_losses)
+        search_serve = phase_search_serve()
         train_a = phase_train_a()
         ring = phase_ring()
         train_c = phase_train_c({}, "full width")
@@ -1707,14 +2037,21 @@ def main() -> int:
     fwd["launches"] = train_b["flash_attn_fwd"]
     fwd["launches_by_path"] = dict(serve=serve_launches,
                                    train_b=train_b["flash_attn_fwd"],
-                                   train_a=train_a["flash_attn_fwd"])
+                                   train_a=train_a["flash_attn_fwd"],
+                                   search_train=search_train["flash_attn_fwd"],
+                                   search_serve=search_serve)
     bwd["launches"] = train_b["flash_attn_bwd"]
+    bwd["launches_by_path"] = dict(train_b=train_b["flash_attn_bwd"],
+                                   search_train=search_train["flash_attn_bwd"])
     bwd_k3["launches"] = train_a["flash_attn_bwd"]
     adam["launches"] = train_b["fused_adam"]
+    adam["launches_by_path"] = dict(train_b=train_b["fused_adam"],
+                                    search_train=search_train["fused_adam"])
     for entry, key in ((lse_fwd, "flash_lse_fwd"), (lse_bwd, "flash_lse_bwd")):
         entry["launches"] = train_c[key]
         entry["launches_by_path"] = dict(
             train_c=train_c[key], train_c_causal=train_c_causal[key],
+            search_train=search_train[key],
             **({f"ring_{k}": v for k, v in ring.items()}
                if key == "flash_lse_fwd" else {}))
     print("[kernels] earlier times, not measured by this run (the mma.sync "

@@ -2,13 +2,13 @@
 
 PyTorch counterpart of ``flexflow_tpu/config.py``: the same field names
 and defaults, so a configuration carries over between the two packages.
-The port reads ``batch_size``, ``seed``, ``epochs``, ``workers_per_node``,
-``search_budget``, ``allow_mixed_precision``, ``import_strategy_file``
-and ``kernel_search`` (and refuses the tracing and checkpointing fields,
-which later slices bring); the other fields are kept for the later
-slices that read them (search, meshes, checkpointing, observability). ``parse_args`` consumes the flags of the
-fields this slice reads and leaves every other flag to the application,
-as the reference leaves flags it does not know.
+``parse_args`` consumes the flags of the fields the port reads (the
+training flags, the machine model, the auto-parallelization search and
+strategy files) and leaves every other flag to the application, as the
+reference leaves flags it does not know. ``--search-measure-ops`` and
+``--profiling`` raise ``NotImplementedError``: per-op measurement on the
+card is ROADMAP.md Queue 1 item 11. Tracing and checkpointing fields are
+refused where they are read (``FFModel.fit``).
 """
 
 from __future__ import annotations
@@ -95,8 +95,8 @@ class FFConfig:
         return self.workers_per_node * self.num_nodes
 
     def parse_args(self, argv: Sequence[str]) -> List[str]:
-        """Consume the flags this slice reads from ``argv``; return the
-        rest. Flag names are the reference's."""
+        """Consume the flags the port reads from ``argv``; return the
+        rest. Flag names and their checks are the reference's."""
         rest: List[str] = []
         args = list(argv)
         i = 0
@@ -117,17 +117,84 @@ class FFConfig:
                 self.seed = int(take())
             elif a in ("-ll:gpu", "-ll:tpu", "--workers-per-node"):
                 self.workers_per_node = int(take())
+            elif a in ("-ll:fsize", "--memory-per-chip"):
+                self.memory_per_chip_mb = int(take())
             elif a in ("--budget", "--search-budget"):
                 self.search_budget = int(take())
+            elif a in ("--alpha", "--search-alpha"):
+                self.search_alpha = float(take())
+            elif a == "--only-data-parallel":
+                self.only_data_parallel = True
+            elif a == "--enable-parameter-parallel":
+                self.enable_parameter_parallel = True
+            elif a == "--enable-attribute-parallel":
+                # the reference's quirk: this flag sets both
+                self.enable_parameter_parallel = True
+                self.enable_attribute_parallel = True
+            elif a == "--enable-sample-parallel":
+                self.enable_sample_parallel = True
+            elif a == "--disable-pipeline-parallel":
+                self.enable_pipeline_parallel = False
+            elif a == "--pipeline-microbatches":
+                v = take().lower()
+                self.pipeline_microbatches = 0 if v == "auto" else int(v)
+            elif a == "--pipeline-schedule":
+                self.pipeline_schedule = _choice(
+                    a, take(), ("auto", "gpipe", "circular"))
+            elif a == "--pipeline-replicated-queue":
+                self.pipeline_shard_queue = False
+            elif a == "--substitution-json":
+                self.substitution_json = take()
+            elif a == "--disable-substitution":
+                self.enable_substitution = False
+            elif a == "--search-trace":
+                self.search_trace = True
+            elif a == "--memory-search":
+                self.memory_search = True
+            elif a == "--memory-threshold":
+                self.memory_threshold_mb = int(take())
+            elif a in ("--export-strategy", "--export"):
+                self.export_strategy_file = take()
             elif a in ("--import-strategy", "--import"):
                 self.import_strategy_file = take()
-            elif a == "--kernel-search":
+            elif a == "--machine-model-version":
+                self.machine_model_version = int(take())
+            elif a == "--machine-model-file":
+                self.machine_model_file = take()
+            elif a == "--overlap":
+                self.search_overlap_backward_update = True
+            elif a == "--disable-fusion":
+                self.perform_fusion = False
+            elif a == "--overlap-bucket-mb":
                 v = take().lower()
                 if v not in ("auto", "off"):
-                    raise ValueError(
-                        f"--kernel-search expects auto|off, got {v!r}")
-                self.kernel_search = v
+                    try:
+                        int(v)
+                    except ValueError:
+                        raise ValueError(
+                            f"--overlap-bucket-mb expects auto|off|N (MB), "
+                            f"got {v!r}") from None
+                self.overlap_bucket_mb = v
+            elif a == "--kernel-search":
+                self.kernel_search = _choice(a, take(), ("auto", "off"))
+            elif a == "--remat-search":
+                self.remat_search = _choice(a, take(), ("auto", "off"))
+            elif a == "--weight-update-sharding":
+                self.weight_update_sharding = _choice(
+                    a, take(), ("auto", "on", "off"))
+            elif a in ("--search-measure-ops", "--profiling"):
+                raise NotImplementedError(
+                    f"{a}: per-op measurement on the card comes with a "
+                    f"later slice of the PyTorch port (ROADMAP.md Queue 1 "
+                    f"item 11)")
             else:
                 rest.append(a)
             i += 1
         return rest
+
+
+def _choice(flag: str, value: str, allowed) -> str:
+    v = value.lower()
+    if v not in allowed:
+        raise ValueError(f"{flag} expects {'|'.join(allowed)}, got {v!r}")
+    return v

@@ -45,6 +45,10 @@ class OpNode:
     def __init__(self, op: Op, input_refs: List[Tuple]):
         self.op = op
         self.input_refs = input_refs
+        # the strategy's specs (parallel/strategy.py apply_strategy): one
+        # per output, and one per parameter name
+        self.output_specs: List[Optional[Tuple]] = [None] * len(op.output_shapes)
+        self.param_specs: Dict[str, Tuple] = {}
 
     @property
     def guid(self):

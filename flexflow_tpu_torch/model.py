@@ -1,25 +1,31 @@
-"""FFModel: the user-facing model-building API + inference runtime.
+"""FFModel: the user-facing model-building API, compile and runtime.
 
 PyTorch counterpart of ``flexflow_tpu/model.py``'s ``FFModel``: the same
 deferred layer-building API, a ``compile()`` that materializes operators
-from layers, and ``predict`` / ``serve`` over the compiled graph. The
-device is explicit: ``FFModel(config, device=...)`` runs on CUDA unless
-the caller asks for the CPU, and raises when no CUDA device is present
-rather than carry on on the CPU.
+from layers and chooses a strategy, and ``fit`` / ``evaluate`` /
+``predict`` / ``serve`` over the compiled graph. The device is explicit:
+``FFModel(config, device=...)`` runs on CUDA unless the caller asks for
+the CPU, and raises when no CUDA device is present rather than carry on
+on the CPU.
 
-``compile`` places every op on the one device, with no search and no
-weight-update sharding. A mesh (``machine.make_mesh``) may name one axis
-above 1, the sequence axis of the model's ring attention: all its ring
-positions then run on the one device. ``CompMode.TRAINING`` adds the
-optimizer state and ``fit`` / ``evaluate``; an imported strategy file
-(``FFConfig.import_strategy_file``) carries per-op kernel choices: ops
-whose choice is ``_k:fused`` update through the fused-Adam kernel, and
-attention ops are pinned to the flash core (``_k:flash``) or to the
-einsum core, as the JAX package pins them.
+``compile`` takes the reference's branch order: the machine model
+(``machine_spec``, ``--machine-model-file``, or ``detect_machine_spec``),
+then an imported strategy file, or the Unity search when
+``search_budget > 0`` (``search/unity.py``), else the heuristic mesh and
+data-parallel strategy; then the export (``--export-strategy``), then
+``apply_strategy``, which also turns each op's searched or imported
+choice into its kernel: attention ops are pinned to the flash core
+(``_k:flash``) or to the einsum core, and ``_k:fused`` ops update through
+the fused-Adam kernel. The port executes on one device, and a compile
+prices and lays out one device unless ``workers_per_node`` asks for more:
+a strategy whose mesh needs more than one (a mesh axis above 1 other than
+a ring-attention sequence axis) or that holds a remat (``_r``) choice
+raises at execution, naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -32,7 +38,9 @@ from flexflow_tpu_torch.executor import (COMPUTE_PARAMS_KEY, GraphExecutor,
 from flexflow_tpu_torch.ffconst import (ActiMode, CompMode, DataType,
                                         LossType, MetricsType, OperatorType)
 from flexflow_tpu_torch.layer import Layer
-from flexflow_tpu_torch.machine import Mesh, local_ring_axis
+from flexflow_tpu_torch.machine import (MachineSpec, Mesh,
+                                        UnknownDeviceError,
+                                        detect_machine_spec, make_mesh)
 from flexflow_tpu_torch.metrics import Metrics, PerfMetrics
 from flexflow_tpu_torch.ops import OpRegistry
 from flexflow_tpu_torch.ops.attention import MultiHeadAttention
@@ -55,6 +63,18 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def devices_to_run(cfg: FFConfig, device: torch.device) -> int:
+    """The devices a compile prices and lays its mesh over: one, the
+    model's device, unless the caller asks for more with
+    ``workers_per_node`` (``num_devices``), capped at the visible cards.
+    A strategy over more than one then raises at ``apply_strategy``:
+    multi-GPU execution is ROADMAP.md Queue 1 item 3."""
+    if cfg.num_devices <= 0:
+        return 1
+    avail = torch.cuda.device_count() if device.type == "cuda" else 1
+    return min(cfg.num_devices, avail)
 
 
 class FFModel:
@@ -167,6 +187,18 @@ class FFModel:
     def add(self, a, b, name=None):
         return self._binary(OperatorType.EW_ADD, a, b, name)
 
+    def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.SOFTMAX, [input],
+                                dict(axis=axis), name)
+        return self._finish(layer)
+
+    def split(self, input: Tensor, sizes, axis: int, name=None):
+        if isinstance(sizes, int):
+            sizes = [input.shape[axis] // sizes] * sizes
+        layer = self._add_layer(OperatorType.SPLIT, [input],
+                                dict(sizes=tuple(sizes), axis=axis), name)
+        return self._finish(layer)
+
     # ======================= compile ========================================
     def _materialize_nodes(self, input_shape_overrides=None):
         """Layer -> Op materialization. With ``input_shape_overrides``
@@ -218,34 +250,29 @@ class FFModel:
                 loss_type: LossType = LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
                 metrics: Sequence[MetricsType] = (),
                 comp_mode: CompMode = CompMode.TRAINING,
-                machine_spec=None, mesh=None, outputs=None,
-                lint: Optional[str] = None) -> None:
-        """Materialize ops, place them on the model's device, apply the
-        kernel choices of an imported strategy, initialize parameters (and
-        the optimizer state for TRAINING), and (on CUDA) build the kernels
-        the compiled path runs. ``mesh`` (``machine.Mesh``) may have one
-        axis above 1, a ring-attention sequence axis (``seq``, or an
-        attention's ``seq_parallel``), whose ring positions all run on the
-        model's device; any other axis above 1 raises."""
+                machine_spec: Optional[MachineSpec] = None, mesh=None,
+                outputs=None, lint: Optional[str] = None) -> None:
+        """Materialize ops, choose a strategy (imported, searched, or the
+        heuristic data-parallel one), export it when asked, apply it,
+        initialize parameters (and the optimizer state for TRAINING), and
+        (on CUDA) build the kernels the compiled path runs. ``mesh``
+        (``machine.Mesh``) may have one axis above 1, a ring-attention
+        sequence axis (``seq``, or an attention's ``seq_parallel``), whose
+        ring positions all run on the model's device; a strategy needing
+        any other axis above 1 raises."""
         cfg = self.config
-        if cfg.search_budget:
-            raise NotImplementedError(
-                f"search_budget={cfg.search_budget}: the strategy search "
-                f"comes with the search slice of the PyTorch port (slice 3)")
-        if cfg.export_strategy_file:
-            from flexflow_tpu_torch.search.unity import export_strategy_file
-            export_strategy_file(cfg.export_strategy_file)  # raises
-        if machine_spec is not None:
-            raise NotImplementedError(
-                "machine_spec: the machine model comes with the search "
-                "slice of the PyTorch port (ROADMAP.md Queue 1 item 1)")
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a flexflow_tpu_torch.machine.Mesh "
                             f"(machine.make_mesh), got {type(mesh).__name__}")
         if (lint or cfg.lint or "off") != "off":
             raise NotImplementedError(
                 "lint: static analysis comes with a later slice of the "
-                "PyTorch port")
+                "PyTorch port (ROADMAP.md Queue 1 item 12)")
+        if cfg.search_measure_ops or cfg.profiling:
+            raise NotImplementedError(
+                "search_measure_ops/profiling: per-op measurement on the "
+                "card comes with a later slice of the PyTorch port "
+                "(ROADMAP.md Queue 1 item 11)")
         if comp_mode == CompMode.TRAINING and optimizer is None:
             raise ValueError("compile(comp_mode=CompMode.TRAINING) needs an "
                              "optimizer")
@@ -257,10 +284,6 @@ class FFModel:
         nodes, input_names, tensor_ref = self._materialize_nodes()
         if not nodes:
             raise ValueError("model has no layers")
-        local_ring_axis(mesh, {"seq"} | {
-            n.op.seq_parallel for n in nodes
-            if isinstance(n.op, MultiHeadAttention) and n.op.seq_parallel})
-        self.mesh = mesh
         out_t = outputs if outputs is not None else getattr(self, "outputs", None)
         if isinstance(out_t, (list, tuple)):
             if len(out_t) != 1:
@@ -268,10 +291,105 @@ class FFModel:
             out_t = out_t[0]
         self.outputs = out_t
         final_ref = self._select_final_ref(nodes, tensor_ref)
+
+        # --- machine + mesh + strategy -----------------------------------
+        n_dev = devices_to_run(cfg, self.device)
+        batch0 = self.input_tensors[0].shape[0] if self.input_tensors else 1
+        search = (not cfg.import_strategy_file and cfg.search_budget > 0
+                  and not cfg.only_data_parallel and mesh is None)
+        if machine_spec is None and cfg.machine_model_file:
+            machine_spec = MachineSpec.from_file(cfg.machine_model_file)
+        elif cfg.machine_model_version > 0 and not cfg.machine_model_file:
+            raise ValueError(
+                "--machine-model-version > 0 requires --machine-model-file")
+        try:
+            self.machine_spec = machine_spec or detect_machine_spec(
+                n_dev, slices=cfg.slices, device=self.device)
+        except UnknownDeviceError:
+            if search:
+                raise
+            self.machine_spec = None  # nothing here prices a strategy
+        self.search_info = None
+        # "step_time" (TRAINING search), "latency" (INFERENCE search) or
+        # None (no search ran): recorded in exported strategy files
+        self.search_objective = None
+        from flexflow_tpu_torch.parallel.strategy import (
+            apply_strategy, data_parallel_strategy, filter_specs_to_mesh,
+            tensor_parallel_overrides)
+        from flexflow_tpu_torch.search import unity
+
+        self.mesh = mesh
+        self.strategy = None
+        if cfg.import_strategy_file:
+            mesh_axes, self.strategy = unity.import_strategy_file(
+                cfg.import_strategy_file, nodes)
+            if self.mesh is None:
+                self.mesh = make_mesh(math.prod(mesh_axes.values()), mesh_axes)
+            filter_specs_to_mesh(self.strategy, self.mesh)
+        elif search:
+            # optimizer-state copies the simulator prices: 0 plain SGD,
+            # 1 momentum, 2 the Adam family
+            from flexflow_tpu_torch.optimizers import SGDOptimizer
+            if comp_mode == CompMode.INFERENCE:
+                cfg.opt_state_factor = 0.0
+            elif isinstance(optimizer, SGDOptimizer):
+                cfg.opt_state_factor = 1.0 if optimizer.momentum else 0.0
+            else:
+                cfg.opt_state_factor = 2.0
+            try:
+                mesh_axes, self.strategy, self.search_info = \
+                    unity.graph_optimize(nodes, self.machine_spec, cfg, n_dev,
+                                         batch=batch0, final_ref=final_ref)
+            except (RuntimeError, OSError) as e:
+                # a requested search never degrades to data parallelism
+                raise RuntimeError(
+                    f"auto-parallelization search was requested "
+                    f"(search_budget={cfg.search_budget}) but failed: {e}. "
+                    f"Drop --budget to run data-parallel.") from e
+            self.search_objective = self.search_info.get("objective")
+            self.mesh = make_mesh(math.prod(mesh_axes.values()), mesh_axes)
+            # the substitution engine may have rewritten the graph: run
+            # the rewritten node list (the strategy is keyed to it)
+            if self.search_info.get("rewritten_nodes") is not None:
+                nodes = self.search_info["rewritten_nodes"]
+                if self.search_info.get("final_ref") is not None:
+                    final_ref = tuple(self.search_info["final_ref"])
+        if self.mesh is None:
+            self.mesh = self._heuristic_mesh(n_dev, batch0)
+        if self.strategy is None:
+            self.strategy = data_parallel_strategy(nodes, self.mesh)
+            if cfg.enable_parameter_parallel:
+                self.strategy = tensor_parallel_overrides(
+                    nodes, self.mesh, self.strategy)
+        if cfg.export_strategy_file:
+            unity.export_strategy_file(cfg.export_strategy_file,
+                                       dict(self.mesh.shape), self.strategy,
+                                       nodes, objective=self.search_objective)
+        # the kernel dimension ran when a search ran or a choice names a
+        # kernel; pipe meshes never enumerate it
+        kernel_on = ((self.search_info is not None
+                      or any("_k:" in (st.choice or "")
+                             for st in self.strategy.values()))
+                     and not unity.switched_off(cfg, "kernel_search",
+                                                "FFS_NO_KERNEL_SEARCH")
+                     and self.mesh.shape.get("pipe", 1) == 1)
+        self.kernel_choices = apply_strategy(
+            nodes, self.strategy, self.mesh,
+            kernels="all" if kernel_on else "off",
+            training=comp_mode == CompMode.TRAINING, device=self.device)
+        axes_now = self.mesh.shape
+        if (not unity.switched_off(cfg, "remat_search", "FFS_NO_REMAT")
+                and axes_now.get("pipe", 1) == 1):
+            remat = unity.executed_remat_ops(nodes, self.strategy)
+            if remat:
+                raise NotImplementedError(
+                    f"ops {sorted(remat)} have remat (_r) choices; remat "
+                    f"comes with the remat slice of the PyTorch port "
+                    f"(ROADMAP.md Queue 1 item 6)")
         final_op = next(n.op for n in nodes if n.guid == final_ref[0])
         final_is_softmax = final_op.op_type == OperatorType.SOFTMAX
+        self._final_is_softmax = final_is_softmax
 
-        self.kernel_choices = self._apply_kernel_choices(nodes, comp_mode)
         compute_dtype = (torch.bfloat16
                          if cfg.allow_mixed_precision and self.device.type == "cuda"
                          else torch.float32)
@@ -281,7 +399,7 @@ class FFModel:
             metrics=Metrics(loss_type, list(metrics),
                             preds_are_probs=final_is_softmax),
             optimizer=optimizer, final_is_softmax=final_is_softmax,
-            kernel_choices=self.kernel_choices, mesh=mesh)
+            kernel_choices=self.kernel_choices, mesh=self.mesh)
         self.executor.comp_mode = comp_mode
         self.params, self.state = self.executor.init_params_and_state(
             self._generator)
@@ -297,56 +415,26 @@ class FFModel:
             for name in names:
                 cuda_build.load(name)
 
-    def _apply_kernel_choices(self, nodes, comp_mode
-                              ) -> Optional[Dict[str, str]]:
-        """Kernel choices of an imported strategy file: the one-device
-        part of the JAX package's strategy import and kernel-choice block.
-        Returns {op name -> impl}, or None when no choice carries ``_k:``
-        or ``kernel_search`` is off. Attention ops are pinned: to flash
-        where the choice says ``_k:flash``, and to the einsum core where
-        the choice carries no ``_k:`` but flash could have run (else the
-        availability rule would silently run a kernel the strategy did
-        not pick)."""
-        from flexflow_tpu_torch.search.unity import (import_strategy_file,
-                                                     kernel_choice_of)
+    def _heuristic_mesh(self, n_dev: int, batch0: int) -> Mesh:
+        """The mesh without a search: data parallel over the devices the
+        batch divides (with a 2-way 'model' axis under
+        ``enable_parameter_parallel``)."""
         cfg = self.config
-        choices: Dict[int, Optional[str]] = {}
-        if cfg.import_strategy_file:
-            _, choices = import_strategy_file(cfg.import_strategy_file, nodes)
-        kernel_on = (any("_k:" in (c or "") for c in choices.values())
-                     and str(cfg.kernel_search).lower() != "off")
-        if not kernel_on:
-            return None  # every op keeps its availability-based default
-        kernel_choices: Dict[str, str] = {}
-        for n in nodes:
-            ch = choices.get(n.op.guid) or ""
-            impl = kernel_choice_of(ch)
-            if impl is not None:
-                kernel_choices[n.op.name] = impl
-            elif n.op.op_type == OperatorType.MULTIHEAD_ATTENTION:
-                kernel_choices[n.op.name] = ("ring" if "_ring" in ch
-                                             else "einsum")
-        for op in (n.op for n in nodes
-                   if isinstance(n.op, MultiHeadAttention)):
-            impl = kernel_choices.get(op.name)
-            if impl == "flash":
-                op.kernel_impl = "flash"
-            elif impl == "einsum" and self._flash_could_run(op, comp_mode):
-                op.kernel_impl = "einsum"
-        return kernel_choices
+        mp = (2 if cfg.enable_parameter_parallel and not cfg.only_data_parallel
+              and n_dev % 2 == 0 and n_dev > 1 else 1)
+        dp = n_dev // mp
+        while dp > 1 and batch0 % dp != 0:
+            dp //= 2
+        axes = {"data": dp}
+        if mp > 1:
+            axes["model"] = mp
+        return make_mesh(dp * mp, axes)
 
     def _selected_impl(self, op: MultiHeadAttention, comp_mode) -> str:
         """``op.selected_impl`` for this model's device, mesh and mode."""
         return op.selected_impl(
             self.device, self.mesh.shape if self.mesh is not None else None,
             training=comp_mode == CompMode.TRAINING)
-
-    def _flash_could_run(self, op: MultiHeadAttention, comp_mode) -> bool:
-        """The port's availability rule, read from the op's shapes, mesh
-        and mode: the card, no ring, self-attention, a head dim the
-        kernels take, and no attention dropout in training."""
-        return (self.device.type == "cuda"
-                and self._selected_impl(op, comp_mode) == "flash")
 
     def _kernels_of_path(self, nodes, comp_mode) -> List[str]:
         """The CUDA kernel sources the compiled path launches: the flash

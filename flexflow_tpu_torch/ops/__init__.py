@@ -1,7 +1,8 @@
 """Operator library: ops as functions on tensors + metadata for the search.
 
-PyTorch counterpart of ``flexflow_tpu/ops``. This slice carries the ops of
-the BERT-proxy transformer's forward; ROADMAP.md lists the rest.
+PyTorch counterpart of ``flexflow_tpu/ops``: the ops of the BERT-proxy
+transformer and the MLP, and the SPLIT the search's linear fusion emits;
+ROADMAP.md lists the rest.
 """
 
 from flexflow_tpu_torch.ops.base import Op, OpRegistry, register_op
@@ -9,5 +10,6 @@ import flexflow_tpu_torch.ops.linear  # noqa: F401
 import flexflow_tpu_torch.ops.attention  # noqa: F401
 import flexflow_tpu_torch.ops.norm  # noqa: F401
 import flexflow_tpu_torch.ops.elementwise  # noqa: F401
+import flexflow_tpu_torch.ops.tensor_ops  # noqa: F401
 
 __all__ = ["Op", "OpRegistry", "register_op"]

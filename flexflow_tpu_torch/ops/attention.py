@@ -117,23 +117,22 @@ class MultiHeadAttention(Op):
         b, sq, _ = self.input_shapes[0]
         return [(b, sq, self.embed_dim)]
 
-    def init_params(self, generator):
+    def param_shapes(self):
         h, e, d = self.num_heads, self.embed_dim, self.head_dim
         hk = self.num_kv_heads
-        dev = generator.device
-        params = {
-            "wq": self.kernel_init(generator, (h, e, d)),
-            "wk": self.kernel_init(generator, (hk, self.kdim, d)),
-            "wv": self.kernel_init(generator, (hk, self.vdim, d)),
-            "wo": self.kernel_init(generator, (h, d, e)),
-        }
+        shapes = {"wq": (h, e, d), "wk": (hk, self.kdim, d),
+                  "wv": (hk, self.vdim, d), "wo": (h, d, e)}
         if self.use_bias:
-            params["bo"] = torch.zeros((e,), device=dev)
+            shapes["bo"] = (e,)
             if self.qkv_bias:
-                params["bq"] = torch.zeros((h, d), device=dev)
-                params["bk"] = torch.zeros((hk, d), device=dev)
-                params["bv"] = torch.zeros((hk, d), device=dev)
-        return params
+                shapes.update(bq=(h, d), bk=(hk, d), bv=(hk, d))
+        return shapes
+
+    def init_params(self, generator):
+        dev = generator.device
+        return {name: (self.kernel_init(generator, shape) if name[0] == "w"
+                       else torch.zeros(shape, device=dev))
+                for name, shape in self.param_shapes().items()}
 
     def forward(self, params, inputs, ctx: OpContext):
         query, key, value = (inputs * 3)[:3] if len(inputs) == 1 else inputs

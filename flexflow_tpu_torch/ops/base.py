@@ -66,6 +66,11 @@ class Op:
     def compute_output_shapes(self) -> List[Tuple[int, ...]]:
         raise NotImplementedError
 
+    def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Parameter name -> shape, without allocating (the search reads
+        it); {} for param-free ops. ``init_params`` gives these shapes."""
+        return {}
+
     def init_params(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """Initialize trainable parameters on ``generator.device``; {} for
         param-free ops."""
@@ -111,8 +116,9 @@ class OpRegistry:
         if layer.op_type not in cls._by_type:
             raise NotImplementedError(
                 f"no Op registered for {layer.op_type} in the PyTorch port "
-                f"(this slice ports LINEAR, LAYERNORM, EW_ADD, RELU and "
-                f"MULTIHEAD_ATTENTION; ROADMAP.md lists the rest)")
+                f"(it ports LINEAR, LAYERNORM, EW_ADD, RELU, "
+                f"MULTIHEAD_ATTENTION, SOFTMAX and SPLIT; ROADMAP.md lists "
+                f"the rest)")
         return cls._by_type[layer.op_type](layer, input_shapes)
 
 

@@ -47,10 +47,17 @@ class Linear(Op):
         (in_shape,) = self.input_shapes
         return [tuple(in_shape[:-1]) + (self.out_dim,)]
 
-    def init_params(self, generator):
-        params = {"kernel": self.kernel_init(generator, (self.in_dim, self.out_dim))}
+    def param_shapes(self):
+        shapes = {"kernel": (self.in_dim, self.out_dim)}
         if self.use_bias:
-            params["bias"] = self.bias_init(generator, (self.out_dim,))
+            shapes["bias"] = (self.out_dim,)
+        return shapes
+
+    def init_params(self, generator):
+        shapes = self.param_shapes()
+        params = {"kernel": self.kernel_init(generator, shapes["kernel"])}
+        if self.use_bias:
+            params["bias"] = self.bias_init(generator, shapes["bias"])
         return params
 
     def forward(self, params, inputs, ctx: OpContext):

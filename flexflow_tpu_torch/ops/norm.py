@@ -1,8 +1,9 @@
-"""LayerNorm.
+"""LayerNorm and Softmax.
 
-PyTorch counterpart of ``flexflow_tpu/ops/norm.py``'s ``LayerNorm``:
-statistics and the affine apply in f32, the result in the input's dtype.
-RMSNorm, GroupNorm, Softmax and Dropout come with later slices.
+PyTorch counterpart of ``flexflow_tpu/ops/norm.py``'s ``LayerNorm`` and
+``Softmax``: statistics, the affine apply and the softmax in f32, the
+result in the input's dtype. RMSNorm, GroupNorm and Dropout come with
+later slices.
 """
 
 from __future__ import annotations
@@ -31,13 +32,19 @@ class LayerNorm(Op):
         axes = tuple(a % len(shp) for a in self.axes)
         return tuple(shp[a] for a in sorted(axes))
 
-    def init_params(self, generator):
+    def param_shapes(self):
         if not self.elementwise_affine:
             return {}
         ns = self._norm_shape()
+        return {"scale": ns, "bias": ns}
+
+    def init_params(self, generator):
+        shapes = self.param_shapes()
+        if not shapes:
+            return {}
         dev = generator.device
-        return {"scale": torch.ones(ns, device=dev),
-                "bias": torch.zeros(ns, device=dev)}
+        return {"scale": torch.ones(shapes["scale"], device=dev),
+                "bias": torch.zeros(shapes["bias"], device=dev)}
 
     def forward(self, params, inputs, ctx: OpContext):
         (x,) = inputs
@@ -59,3 +66,24 @@ class LayerNorm(Op):
 
     def params_elems(self):
         return 2 * math.prod(self._norm_shape()) if self.elementwise_affine else 0
+
+
+@register_op(OperatorType.SOFTMAX)
+class Softmax(Op):
+    def __init__(self, layer, input_shapes):
+        self.axis = layer.get_property("axis", -1)
+        super().__init__(layer, input_shapes)
+
+    def compute_output_shapes(self):
+        return [self.input_shapes[0]]
+
+    def forward(self, params, inputs, ctx: OpContext):
+        (x,) = inputs
+        return [torch.softmax(x.float(), dim=self.axis).to(x.dtype)]
+
+    def output_dim_roles(self):
+        shp = self.output_shapes[0]
+        roles = [DimRole.SAMPLE] + [DimRole.OTHER] * (len(shp) - 1)
+        if len(shp) == 3 and self.axis % len(shp) != 1:
+            roles[1] = DimRole.SEQ
+        return [tuple(roles)]

@@ -1,21 +1,32 @@
-"""ServingEngine: per-bucket executors + continuous batching.
+"""ServingEngine: latency-searched per-bucket executors + continuous batching.
 
 PyTorch counterpart of ``flexflow_tpu/serve/engine.py``. The layer graph
 re-materializes at each batch bucket (1, 2, 4, ... up to the declared
-batch) over the model's shared parameters, and the ``serve/batching``
-scheduler runs over the bucket executors: requests queue, close on
-size-or-deadline, pad into the smallest bucket that fits, and
-per-request rows come back out. p50/p99 request latency, queue depth and
-batch occupancy flow through the port's obs registry (``serve/*``).
+batch) over the model's shared parameters. With a search budget each
+bucket runs ``graph_optimize`` in INFERENCE mode, so the search minimizes
+the simulated per-batch latency at that bucket's shapes (forward cost
+only: no gradient sync, ``_wus`` or optimizer-state terms); the objective
+(``latency@batch<N>``), the predicted latency and the kernel each op runs
+are recorded per bucket. Each bucket takes ``apply_strategy``'s
+"chosen" kernel rule, the reference's: a ``_k:`` choice pins its kernel,
+and an attention op the search left at ``rep`` runs the flash core
+wherever it can, although the search priced it at the einsum core. A
+bucket whose search fails reuses the model's
+strategy and says so on stderr, as the reference does. Without a budget
+every bucket reuses the model's strategy ("reused-training-strategy").
 
-Every bucket reuses the model's single-device placement (objective
-"reused-training-strategy", the reference's behaviour at search budget
-0). The per-bucket latency search comes with the search slice.
+The ``serve/batching`` scheduler runs over the bucket executors: requests
+queue, close on size-or-deadline, pad into the smallest bucket that fits,
+and per-request rows come back out. p50/p99 request latency, queue depth,
+batch occupancy and each bucket's predicted latency flow through the
+port's obs registry (``serve/*``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import math
 import sys
 import threading
 import time
@@ -23,7 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from flexflow_tpu_torch.ffconst import OperatorType
+from flexflow_tpu_torch.ffconst import CompMode, OperatorType
 from flexflow_tpu_torch.obs.registry import get_registry
 from flexflow_tpu_torch.serve.batching import (BatchScheduler, Request,
                                                RequestQueue, pad_to_bucket,
@@ -40,15 +51,44 @@ def default_buckets(max_batch: int) -> Tuple[int, ...]:
     return tuple(sorted(set(out)))
 
 
+def _sanitize_output_specs(nodes, mesh) -> None:
+    """Null spec entries whose mesh-axis degree doesn't divide the
+    bucket-materialized dim (a training strategy's 'data' on the batch
+    dim is illegal at buckets below the data degree); the dim stays
+    replicated for that bucket."""
+    axes = mesh.shape
+    for node in nodes:
+        specs = []
+        for i, spec in enumerate(node.output_specs):
+            if spec is None:
+                specs.append(None)
+                continue
+            shp = node.op.output_shapes[i]
+            entries = (list(spec) + [None] * len(shp))[:len(shp)]
+            for d, e in enumerate(entries):
+                if e is None:
+                    continue
+                names = e if isinstance(e, tuple) else (e,)
+                deg = math.prod(axes.get(a, 1) for a in names)
+                if deg <= 1 or shp[d] % deg != 0:
+                    entries[d] = None
+            specs.append(tuple(entries) if any(entries) else None)
+        node.output_specs = specs
+
+
 @dataclasses.dataclass
 class BucketExecutor:
-    """One batch bucket's forward path + its provenance."""
+    """One batch bucket's forward path + its search provenance."""
 
     bucket: int
     executor: Any  # GraphExecutor (comp_mode INFERENCE)
-    objective: str
-    # the attention core each op runs in this bucket ({op name -> impl}),
-    # recorded at build time from the ops' selected_impl
+    objective: str  # "latency@batch4" / "reused-training-strategy"
+    mesh_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    predicted_latency_s: Optional[float] = None
+    strategy_differs: bool = False  # vs the model's strategy
+    # the kernel each op runs in this bucket ({op name -> impl}): "_k:"
+    # choices of the bucket's strategy plus each attention op's dispatch,
+    # recorded at build time
     kernel_choices: Dict[str, str] = dataclasses.field(default_factory=dict)
     _fwd: Any = None
 
@@ -81,10 +121,6 @@ class ServingEngine:
             raise ValueError(f"no usable batch buckets <= {max_batch}")
         budget = (search_budget if search_budget is not None
                   else getattr(ff.config, "search_budget", 0))
-        if budget:
-            raise NotImplementedError(
-                f"search_budget={budget}: the per-bucket latency search "
-                f"comes with the search slice of the PyTorch port (slice 3)")
         self.queue = RequestQueue()
         self.scheduler = BatchScheduler(buckets, max_wait_s=max_wait_ms / 1e3)
         self.verbose = verbose
@@ -92,13 +128,25 @@ class ServingEngine:
         # reservoir (loadgen toggles it off during warmup)
         self.record_latency = True
         self.buckets: Dict[int, BucketExecutor] = {
-            b: self._build_bucket(b) for b in buckets}
+            b: self._build_bucket(b, budget) for b in buckets}
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
     # ---- bucket construction ----------------------------------------------
-    def _build_bucket(self, bucket: int) -> BucketExecutor:
+    @staticmethod
+    def _signature(strategy):
+        return {g: (s.choice,
+                    tuple(tuple(sp) if sp is not None else None
+                          for sp in s.output_specs),
+                    tuple(sorted((k, tuple(v))
+                                 for k, v in s.param_specs.items())))
+                for g, s in strategy.items()}
+
+    def _build_bucket(self, bucket: int, budget: int) -> BucketExecutor:
         from flexflow_tpu_torch.executor import GraphExecutor
+        from flexflow_tpu_torch.parallel.strategy import apply_strategy
+        from flexflow_tpu_torch.search.unity import (executed_kernel_choices,
+                                                     switched_off)
 
         ff = self.ff
         # batch-only overrides: dim 0 of every INPUT becomes the bucket
@@ -112,19 +160,87 @@ class ServingEngine:
                 overrides[layer.name] = tuple(shp)
         nodes, input_names, tensor_ref = ff._materialize_nodes(overrides)
         final_ref = ff._select_final_ref(nodes, tensor_ref)
+        mesh = ff.mesh
+        strategy = None
+        objective = "reused-training-strategy"
+        predicted = None
+        if budget and budget > 0:
+            try:
+                strategy, mesh, objective, predicted, _ = \
+                    self._search_bucket(nodes, bucket, budget, ff.mesh.size,
+                                        final_ref)
+            except Exception as e:
+                print(f"[serve] bucket {bucket}: latency search failed "
+                      f"({e!r}); reusing the model's strategy",
+                      file=sys.stderr)
+                strategy, mesh = None, ff.mesh
+        if strategy is None:
+            # specs are axis names: they apply at any batch the axes
+            # still divide (_sanitize_output_specs guards each dim)
+            strategy = {g: copy.deepcopy(s) for g, s in ff.strategy.items()}
+        differs = self._signature(strategy) != self._signature(ff.strategy)
         full = ff.executor
+        kernel_choices = apply_strategy(
+            nodes, strategy, mesh,
+            kernels=("off" if switched_off(ff.config, "kernel_search",
+                                           "FFS_NO_KERNEL_SEARCH")
+                     else "chosen"),
+            device=full.device)
+        if kernel_choices is None:
+            kernel_choices = executed_kernel_choices(
+                nodes, None, mesh.shape, device=full.device)
+        _sanitize_output_specs(nodes, mesh)
         ex = GraphExecutor(nodes, input_names, final_ref, full.device,
-                           compute_dtype=full.compute_dtype, mesh=full.mesh)
-        mesh_axes = full.mesh.shape if full.mesh is not None else None
-        kernel_choices = {n.op.name: n.op.selected_impl(full.device, mesh_axes)
-                          for n in nodes if hasattr(n.op, "selected_impl")}
-        be = BucketExecutor(bucket=bucket, executor=ex,
-                            objective="reused-training-strategy",
-                            kernel_choices=kernel_choices)
+                           compute_dtype=full.compute_dtype, mesh=mesh)
+        ex.comp_mode = CompMode.INFERENCE
+        be = BucketExecutor(
+            bucket=bucket, executor=ex, objective=objective,
+            mesh_axes=dict(mesh.shape), predicted_latency_s=predicted,
+            strategy_differs=differs, kernel_choices=kernel_choices)
+        if predicted is not None:
+            get_registry().gauge(f"serve/bucket{bucket}/predicted_latency_s",
+                                 predicted)
         if self.verbose:
-            print(f"[serve] bucket {bucket}: objective={be.objective} "
-                  f"device={full.device}", file=sys.stderr)
+            print(f"[serve] bucket {bucket}: objective={objective} "
+                  f"mesh={be.mesh_axes} differs_from_training={differs}",
+                  file=sys.stderr)
         return be
+
+    def _search_bucket(self, nodes, bucket: int, budget: int, n_live: int,
+                       final_ref):
+        """Latency-objective search for one bucket: INFERENCE-mode
+        ``graph_optimize`` (forward-only cost model, opt_state_factor 0)
+        at this bucket's batch. Rewrites and pipeline meshes are off: the
+        bucket executors keep the model's parameter tree and run a plain
+        graph."""
+        from flexflow_tpu_torch.machine import make_mesh
+        from flexflow_tpu_torch.parallel.strategy import filter_specs_to_mesh
+        from flexflow_tpu_torch.search import unity
+
+        ff = self.ff
+        if ff.machine_spec is None:
+            raise RuntimeError("no machine model for this card: compile "
+                               "with machine_spec= or --machine-model-file")
+        cfg = dataclasses.replace(
+            ff.config, computation_mode=CompMode.INFERENCE,
+            search_budget=int(budget), enable_parameter_parallel=True,
+            enable_pipeline_parallel=False, enable_substitution=False,
+            only_data_parallel=False, weight_update_sharding="off",
+            overlap_bucket_mb="off")
+        cfg.opt_state_factor = 0.0
+        mesh_axes, strategy, info = unity.graph_optimize(
+            nodes, ff.machine_spec, cfg, n_live, batch=bucket,
+            final_ref=final_ref)
+        if math.prod(mesh_axes.values()) == n_live:
+            mesh = make_mesh(n_live, mesh_axes)
+        else:
+            # a factorization over fewer devices than the parameters live
+            # on: keep the live mesh, drop the foreign axes from the specs
+            mesh = ff.mesh
+            filter_specs_to_mesh(strategy, mesh)
+        objective = f"{info.get('objective', 'latency')}@batch{bucket}"
+        return (strategy, mesh, objective, info.get("predicted_time"),
+                info)
 
     # ---- request path ------------------------------------------------------
     def submit(self, inputs) -> Request:
@@ -235,8 +351,12 @@ class ServingEngine:
 
     # ---- introspection -----------------------------------------------------
     def bucket_report(self) -> Dict[str, Any]:
-        """Per-bucket provenance."""
-        return {str(b): dict(objective=be.objective,
+        """Per-bucket provenance: objective, mesh, predicted latency,
+        whether the strategy differs from the model's, device and the
+        kernel each op runs."""
+        return {str(b): dict(objective=be.objective, mesh=be.mesh_axes,
+                             predicted_latency_s=be.predicted_latency_s,
+                             strategy_differs_from_training=be.strategy_differs,
                              device=str(be.executor.device),
                              kernel_choices=dict(be.kernel_choices))
                 for b, be in self.buckets.items()}

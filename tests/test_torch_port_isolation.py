@@ -37,7 +37,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.cuda_build, flexflow_tpu_torch.serve.loadgen, "
         "flexflow_tpu_torch.optimizers, flexflow_tpu_torch.losses, "
         "flexflow_tpu_torch.metrics, flexflow_tpu_torch.search.unity, "
-        "flexflow_tpu_torch.ops.fused_update\n"
+        "flexflow_tpu_torch.ops.fused_update, flexflow_tpu_torch.machine, "
+        "flexflow_tpu_torch.search.native, flexflow_tpu_torch.search.rewrite, "
+        "flexflow_tpu_torch.parallel.strategy, "
+        "flexflow_tpu_torch.parallel.pipeline_detect, "
+        "flexflow_tpu_torch.layout, flexflow_tpu_torch.models.mlp\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -128,9 +128,16 @@ def test_bucket_report_records_the_attention_core(models):
 
 
 def test_search_budget_raises(models):
+    """The per-bucket latency search landed with the search slice: a
+    budget no longer raises, and every bucket records the latency
+    objective at its batch, with its predicted latency."""
     _, pff, _ = models
-    with pytest.raises(NotImplementedError, match="search slice"):
-        pff.serve(search_budget=2)
+    report = pff.serve(search_budget=2).bucket_report()
+    assert sorted(report) == ["1", "2", "4"]
+    for b, rep in report.items():
+        assert rep["objective"] == f"latency@batch{b}"
+        assert rep["predicted_latency_s"] > 0
+        assert rep["mesh"] == {"data": 1}
 
 
 def test_training_compile_raises():

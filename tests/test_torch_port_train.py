@@ -401,14 +401,26 @@ def test_attention_dropout_in_training_raises():
                np.zeros((2, 8, 1), np.float32), verbose=False)
 
 
-def test_export_strategy_raises():
+def test_export_strategy_raises(tmp_path):
+    """Strategy export landed with the search slice: it raises only where
+    the file cannot be written, and otherwise writes the heuristic
+    strategy of a compile without a search (mesh, one entry per op)."""
+    bad = str(tmp_path / "missing" / "s.json")
     ff = create_transformer(TransformerConfig(**SMALL),
-                            P.FFConfig(export_strategy_file="/nonexistent"),
+                            P.FFConfig(export_strategy_file=bad),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="search slice"):
+    with pytest.raises(FileNotFoundError):
         ff.compile(AdamOptimizer(), P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
-    with pytest.raises(NotImplementedError, match="search slice"):
-        unity.export_strategy_file("/nonexistent", {}, {}, [])
+    with pytest.raises(FileNotFoundError):
+        unity.export_strategy_file(bad, {}, {}, [])
+    good = tmp_path / "s.json"
+    ff = create_transformer(TransformerConfig(**SMALL),
+                            P.FFConfig(export_strategy_file=str(good)),
+                            device="cpu")
+    ff.compile(AdamOptimizer(), P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    data = json.loads(good.read_text())
+    assert data["mesh"] == {"data": 1} and "objective" not in data
+    assert sorted(data["ops"]) == sorted(ff.get_layer_names())
 
 
 def test_parse_args_reads_the_training_flags():
