@@ -46,6 +46,8 @@ package. Phases:
                and 128), two runs bit-equal, timed at the ring steps'
                shapes (BH 512 S 128, BH 32 S 512) beside the bounds and
                the nearest library calls (not the same function).
+   Every step of fit, evaluate, predict and the serving engine is a
+   compiled step: a CUDA-graph replay once its shape has been captured.
 4. serve   — builds the BERT-proxy transformer at full width
              (``TransformerConfig()``: 12 layers, hidden 1024, 16 heads, seq
              512, batch 8) with random weights from a seed, compiles it for
@@ -53,7 +55,9 @@ package. Phases:
              ``ServingEngine``: every bucket warmed (set-up), then 32
              requests closed-loop at concurrency 4, over which K1's launches
              are counted. Checks the results, that K1 ran 12 times per
-             batch, that a full batch through the engine equals ``predict``,
+             batch, that every batch was one replay of its bucket's
+             captured forward, that a full batch through the engine equals
+             ``predict``,
              and that ``predict`` agrees with the einsum attention core;
              breaks one batch-8 forward's device time down by kernel kind
              (torch.profiler). Then the same model in f32 compute
@@ -75,7 +79,22 @@ package. Phases:
              the fused update of those gradients against
              ``AdamOptimizer.update``, bit for bit.
              (a) 2 layers at S 2048 (K3's regime) without a strategy file:
-             3 steps, the backward launched twice a step.
+             3 steps, the backward launched twice a step; then 3 compiled
+             steps against eager ones from one state, bit for bit.
+   graph   — [graph train] (after K4) the compiled step: train (b) at full
+             width, 4 compiled calls (the first runs the step eagerly and
+             captures it; the rest are CUDA-graph replays) against 4 eager
+             steps (``_train_step_fn``) from one state: losses and every
+             leaf of the parameters, m, v, t and the bf16 compute copy bit
+             for bit; launches a replay (K1 12, K2 12, K4 1); two replayed
+             and two eager steps profiled (K1, K2 and K4 by name, the busy
+             share); the capture's pool and the copy-back's size; peak
+             memory; 10 interleaved pairs of a compiled and an eager step
+             timed (p50, p90, a replay's host enqueue time); ``evaluate``
+             and ``predict`` (a capture, then a replay each) against the
+             eager eval step and forward, bit for bit; then
+             ``make_multi_step(10, stacked=True)`` against 10 single
+             compiled steps from one state, the losses bit-equal.
    search  — (after train (b) and K4) the Unity search on the card.
              [search train]: detect the machine (printed with the card's
              name and power limit) and take its two measured constants'
@@ -107,8 +126,10 @@ package. Phases:
              steps and a ``predict``, against the same seeded weights
              without ``seq_parallel`` (the K1 path): predict and per-step
              losses, K5's launches = 12 x 3 x 4 each way, K1/K2/K4 none;
-             step p50 and the device-busy share. Then the same for 2
-             causal layers at S 2048, batch 2.
+             step p50; 3 compiled steps against eager ones from one state,
+             bit for bit, K5 48 each way a replay; the busy share of
+             replayed and eager steps and 10 interleaved pairs timed. Then
+             the same for 2 causal layers at S 2048, batch 2 (no pairs).
 8. report  — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``.
 
@@ -246,6 +267,12 @@ FLOOR_FACTOR = 2.0
 # training (a): K3's regime at a smaller depth
 TRAIN_A = dict(num_layers=2, seq_length=2048, batch_size=2)
 TRAIN_A_STEPS = 3
+# the compiled step (CUDA graphs): steps of the compiled-vs-eager check
+# from one state (after the capturing call), interleaved pairs of a
+# compiled and an eager step timed, and the stacked multi-step's length
+GRAPH_STEPS = 3
+GRAPH_PAIRS = 10
+MULTI_STEPS = 10
 
 # K5 (flash_attention_lse): (bh, s, d, causal) at the bf16 kernels' tile
 # edges, then at every shape the ring's steps give it on the main paths
@@ -577,7 +604,8 @@ def phase_kernels():
 
 def phase_serve():
     """Drive the serving path at full width; returns the kernel launches
-    counted during it."""
+    counted during it, and K1's launches a replayed batch, counted on the
+    device."""
     import numpy as np
     import torch
     from flexflow_tpu_torch.obs.registry import get_registry
@@ -620,6 +648,9 @@ def phase_serve():
         torch.cuda.synchronize()
         reg.reset()
         flash_fwd.launches = 0
+        graphs = {b: be.executor.step_graphs["forward"]
+                  for b, be in engine.buckets.items()}
+        replays0 = {b: g.replays for b, g in graphs.items()}
         engine.start()
         stats = run_closed_loop(engine, make_request, SERVE_REQUESTS,
                                 concurrency=SERVE_CONCURRENCY)
@@ -627,6 +658,7 @@ def phase_serve():
         engine.stop()
     torch.cuda.synchronize()
     launches = flash_fwd.launches
+    replays = {b: g.replays - replays0[b] for b, g in graphs.items()}
     counters = reg.to_dict()["counters"]
     batches = int(counters.get("serve/batches", 0))
     engine.submit = submit
@@ -651,7 +683,12 @@ def phase_serve():
           f"served batches")
     print(f"[serve] {warmed} warmup requests, then {stats['num_measured']} "
           f"closed-loop requests in {batches} batches; kernel launches "
-          f"{launches} = {cfg['num_layers']} x {batches}")
+          f"{launches} = {cfg['num_layers']} x {batches}; CUDA-graph "
+          f"replays by bucket {replays}, captures "
+          f"{ {b: g.captures for b, g in graphs.items()} }")
+    check(sum(replays.values()) == batches
+          and all(g.captures == 1 for g in graphs.values()),
+          "the served batches did not each replay their bucket's graph")
     print(f"[serve] closed loop (concurrency {SERVE_CONCURRENCY}): p50 "
           f"{stats['p50_s'] * 1e3:.3f} ms, p99 {stats['p99_s'] * 1e3:.3f} ms, "
           f"{stats['throughput_rps']:.2f} requests/s over "
@@ -675,11 +712,13 @@ def phase_serve():
           f"{np.abs(got - want).max()}")
     print("[serve] full batch through the engine equals predict exactly")
 
-    # predict with the flash core vs the einsum core, same weights, same card
+    # predict with the flash core vs the einsum core, same weights, same
+    # card (the einsum core through the eager forward: the compiled one
+    # keeps the kernels it captured)
     for op in attn:
         op.kernel_impl = "einsum"
     try:
-        plain = ff.predict(np.stack(batch))
+        plain = eager_predict(ff, np.stack(batch))
     finally:
         for op in attn:
             op.kernel_impl = None
@@ -693,7 +732,25 @@ def phase_serve():
     print(f"[serve] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_forward(ff, np.stack(batch))
-    return launches
+
+    # one full batch through the engine, profiled: its bucket's replay
+    # runs K1 once a layer, counted on the device by kernel name
+    full = graphs[cfg["batch_size"]]
+    replays0 = full.replays
+
+    def served_batch():
+        reqs = [engine.submit([x]) for x in batch]
+        engine.pump()
+        for r in reqs:
+            r.wait(60)
+
+    prof = profile_steps("[serve] one full batch through the engine",
+                         served_batch, steps=1)
+    check(full.replays - replays0 == 1,
+          "[serve] the profiled batch was not one replay")
+    replay = check_replay_launches("[serve] one full batch", prof, 1,
+                                   dict(flash_attn_fwd=cfg["num_layers"]))
+    return launches, replay["flash_attn_fwd"]
 
 
 KINDS = ("flash_attn_fwd", "flash_attn_bwd", "fused_adam", "gemm", "memcpy",
@@ -754,6 +811,16 @@ def profile_forward(ff, x):
               "not measured")
 
 
+def eager_predict(ff, x):
+    """``predict`` through the eager forward (``_forward_fn``), which
+    reads the attention ops' kernel choice as it runs."""
+    from flexflow_tpu_torch.model import host_copy
+
+    ff._refresh_compute_params()
+    return host_copy(ff.executor._forward_fn()(ff.params, ff.state,
+                                               ff._stage_inputs([x])))
+
+
 def check_f32_model():
     """The f32 route on the card (allow_mixed_precision=False): the full
     model with the f32 kernel against the einsum core."""
@@ -776,7 +843,7 @@ def check_f32_model():
             if isinstance(n.op, MultiHeadAttention)]
     for op in attn:
         op.kernel_impl = "einsum"
-    plain = ff.predict(x)
+    plain = eager_predict(ff, x)
     err = float(np.abs(flash - plain).max())
     scale = float(np.abs(plain).max())
     print(f"[f32] predict (compute dtype {ff.executor.compute_dtype}) flash "
@@ -1194,15 +1261,19 @@ def phase_ring():
     return out
 
 
-def phase_train_c(cfg_kw, label):
+def phase_train_c(cfg_kw, label, timed=False):
     """Training path (c), the slice's path: the seq-parallel BERT-proxy
     (``cfg_kw`` over ``TransformerConfig``) compiled for training on a
     {"seq": 4} mesh, no strategy file, against the same seeded weights
     without ``seq_parallel`` (the K1 path): ``predict`` within the ring's
     tolerance, TRAIN_C_STEPS per-step losses within TRAJECTORY_RTOL,
     K5's launches = layers x steps x the launch plan and no K1/K2/K4
-    launch; then a ``predict``, the step's p50 and the device-busy share.
-    Returns the launches of the timed steps."""
+    launch; then a ``predict`` and the step's p50; then GRAPH_STEPS
+    compiled steps against eager ones from one state, bit for bit, K5's
+    launches a replay, and the device-busy share of replayed steps; with
+    ``timed``, also of eager steps, and GRAPH_PAIRS interleaved pairs of a
+    compiled and an eager step timed. Returns the launches of the fit
+    steps and the replayed steps' profile."""
     import numpy as np
     import torch
     from flexflow_tpu_torch.machine import make_mesh
@@ -1275,9 +1346,42 @@ def phase_train_c(cfg_kw, label):
           + f" ms), {cfg.batch_size / p50:.2f} samples/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del plain
-    torch.cuda.empty_cache()
-    profile_train(ring, x, y)
-    return launches
+    release()
+    per_call = graph_vs_eager(ring, x, y, GRAPH_STEPS, f"[train c {label}]")
+    k5 = cfg.num_layers * RING_LAUNCHES
+    check(all(d == dict(want, flash_lse_fwd=k5, flash_lse_bwd=k5)
+              for d in per_call),
+          f"[train c {label}] launches a replay differ: K5 {k5} each way "
+          f"expected")
+    sg = ring.executor.step_graphs["train_step"]
+    replays0 = sg.replays
+    prof = profile_train(ring, x, y, label=f"[train c {label}] 2 replayed "
+                                          f"steps")
+    check(sg.replays - replays0 == 2,
+          f"[train c {label}] the profiled steps were not 2 replays")
+    replay_launches = check_replay_launches(
+        f"[train c {label}] 2 replayed steps", prof, 2,
+        dict(flash_lse_fwd=k5, flash_lse_bwd=k5))
+    del sg
+    out = dict(launches=launches, replay_launches=replay_launches,
+               kinds=prof[0])
+    if timed:
+        inputs, labels = ring._stage_inputs([x]), ring._stage_labels(y)
+        profile_steps(f"[train c {label}] 2 eager steps",
+                      eager_stepper(ring, inputs, labels)[0])
+        g_s, e_s, enq = time_pairs(ring, x, y, GRAPH_PAIRS)
+        (g50, g90), (e50, e90) = p50_p90(g_s), p50_p90(e_s)
+        print(f"[train c {label}] {GRAPH_PAIRS} interleaved pairs, step time "
+              f"(host clock, ends in a host read of the loss): compiled p50 "
+              f"{g50 * 1e3:.3f} ms, p90 {g90 * 1e3:.3f} ms; eager p50 "
+              f"{e50 * 1e3:.3f} ms, p90 {e90 * 1e3:.3f} ms; eager / "
+              f"compiled {e50 / g50:.2f} at p50; a replay's host enqueue "
+              f"p50 {statistics.median(enq) * 1e3:.3f} ms "
+              f"({nvidia_smi_line()})")
+        out.update(p50=g50, eager_p50=e50)
+    del ring
+    release()
+    return out
 
 
 def transformer_strategy(ff, path):
@@ -1294,6 +1398,13 @@ def transformer_strategy(ff, path):
                                outputs=[None], params={})
     with open(path, "w") as f:
         json.dump(dict(version=1, mesh={"data": 1}, ops=ops), f, indent=1)
+
+
+COUNTER_KEYS = {"flash_fwd.launches": "flash_attn_fwd",
+                "flash_bwd.launches": "flash_attn_bwd",
+                "fused_adam_multi.launches": "fused_adam",
+                "flash_fwd.lse_launches": "flash_lse_fwd",
+                "flash_bwd.lse_launches": "flash_lse_bwd"}
 
 
 def reset_launches():
@@ -1456,26 +1567,203 @@ def phase_train_trajectory(losses, strategy_dir):
     return plain_losses
 
 
-def profile_train(ff, x, y, steps=2):
-    """Where the time of training steps goes on the device: kernel time by
+def phase_graph_train(strategy_dir):
+    """[graph train] train (b) at full width through the compiled step (a
+    CUDA-graph replay): from one state GRAPH_STEPS + 1 compiled calls (the
+    first runs the step eagerly and captures it) against as many eager
+    steps, bit for bit; K1 12, K2 12 and K4 once a replay; two replayed
+    and two eager steps profiled (the kernels by name, the busy share,
+    the memcpys that copy the batch in and the new state back); GRAPH_PAIRS
+    interleaved pairs of a compiled and an eager step timed; peak memory
+    of each; ``evaluate`` and ``predict`` twice each (a capture, then a
+    replay) against the eager eval step and forward, bit for bit; then
+    ``make_multi_step(MULTI_STEPS, stacked=True)`` against MULTI_STEPS
+    single compiled steps from one state. Returns the report's
+    numbers."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig()
+    release()
+    base_gib = torch.cuda.memory_reserved() / 2**30
+    ff = compile_for_training(cfg, strategy_dir)
+    ex = ff.executor
+    x, y = training_batch(cfg, seed=7)
+    per_call = graph_vs_eager(ff, x, y, GRAPH_STEPS + 1, "[graph train]")
+    want = dict(flash_attn_fwd=cfg.num_layers, flash_attn_bwd=cfg.num_layers,
+                fused_adam=1, flash_lse_fwd=0, flash_lse_bwd=0)
+    check(all(d == want for d in per_call),
+          f"[graph train] launches a compiled call {per_call}, want {want}")
+    sg = ex.step_graphs["train_step"]
+    pool = tuple(ex._graph_pool)
+    pool_gib = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id") or ()) == pool) / 2**30
+    print(f"[graph train] the executor's graph pool reserves {pool_gib:.2f} "
+          f"GiB (the captured step's activations, gradients and new "
+          f"state); the copy-back writes {sg.copy_back_bytes / 2**20:.1f} "
+          f"MiB a step into {sg.copy_back_leaves} leaves (the plain-Adam "
+          f"params, m and v, t, and the bf16 compute copy), at least "
+          f"{2 * sg.copy_back_bytes / H100_SXM_PEAKS['bytes'] * 1e3:.4f} ms "
+          f"of device time (read and written once)")
+
+    inputs, labels = ff._stage_inputs([x]), ff._stage_labels(y)
+    graph = graph_stepper(ff, x, y)
+    eager, _ = eager_stepper(ff, inputs, labels)
+    replays0 = sg.replays
+    prof_graph = profile_steps("[graph train] 2 replayed steps", graph)
+    check(sg.replays - replays0 == 2, "[graph train] the profiled steps "
+                                      "were not 2 replays")
+    replay_launches = check_replay_launches(
+        "[graph train] 2 replayed steps", prof_graph, 2, want)
+    prof_eager = profile_steps("[graph train] 2 eager steps", eager)
+    copies = prof_graph[3]
+    print(f"[graph train] copies in the 2 replayed steps: "
+          + ", ".join(f"{n} {ms:.3f} ms" for n, ms in sorted(copies.items()))
+          + " (HtoD: the batch from its pinned buffer into the static "
+          "feeds; DtoD: the copy-back)")
+    peaks = {}
+    for name, run in (("compiled", graph), ("eager", eager)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"[graph train] device memory a step allocates above what is "
+          f"live before it, at its peak: compiled {peaks['compiled']:.2f} "
+          f"GiB (its graph runs in the pool above), eager "
+          f"{peaks['eager']:.2f} GiB")
+    g_s, e_s, enq = time_pairs(ff, x, y, GRAPH_PAIRS)
+    (g50, g90), (e50, e90) = p50_p90(g_s), p50_p90(e_s)
+    print(f"[graph train] {GRAPH_PAIRS} interleaved pairs, step time (host "
+          f"clock, ends in a host read of the loss): compiled p50 "
+          f"{g50 * 1e3:.3f} ms, p90 {g90 * 1e3:.3f} ms; eager p50 "
+          f"{e50 * 1e3:.3f} ms, p90 {e90 * 1e3:.3f} ms; eager / compiled "
+          f"{e50 / g50:.2f} at p50; a replay's host enqueue p50 "
+          f"{statistics.median(enq) * 1e3:.3f} ms ({nvidia_smi_line()})")
+
+    # evaluate and predict through their compiled steps, against the
+    # eager eval step and forward from the same state
+    want_loss = float(ex._eval_step_fn()(ff.params, ff.state, inputs,
+                                         labels)[0])
+    reports = [ff.evaluate(x, y)["loss"] for _ in range(2)]
+    want_out = eager_predict(ff, x)
+    outs = [ff.predict(x) for _ in range(2)]
+    graphs = {n: ex.step_graphs[n] for n in ("eval_step", "forward")}
+    print(f"[graph train] evaluate {reports} against the eager eval step "
+          f"{want_loss!r}; predict against the eager forward: "
+          f"{[bool(np.array_equal(o, want_out)) for o in outs]}; captures "
+          f"and replays "
+          f"{ {n: (g.captures, g.replays) for n, g in graphs.items()} }")
+    check(reports == [want_loss] * 2
+          and all(np.array_equal(o, want_out) for o in outs)
+          and all((g.captures, g.replays) == (1, 1)
+                  for g in graphs.values()),
+          "[graph train] evaluate or predict differ from the eager steps, "
+          "or did not replay their graphs")
+
+    # make_multi_step(MULTI_STEPS, stacked=True) against MULTI_STEPS
+    # single compiled steps from one state, on distinct batches
+    rs = np.random.RandomState(8)
+    xs = rs.randn(MULTI_STEPS, cfg.batch_size, cfg.seq_length,
+                  cfg.hidden_size).astype(np.float32)
+    ys = rs.randn(MULTI_STEPS, cfg.batch_size, cfg.seq_length,
+                  1).astype(np.float32)
+    start = clone_tree((ff.params, ff.opt_state, ff.state))
+    step = ex.make_train_step()
+    single = []
+    for i in range(MULTI_STEPS):
+        ff.params, ff.opt_state, ff.state, loss, _ = step(
+            ff.params, ff.opt_state, ff.state, ff._host_inputs([xs[i]]),
+            ys[i], ff._generator)
+        single.append(float(loss))
+    with torch.no_grad():
+        for t, s0 in zip(flatten_leaves((ff.params, ff.opt_state, ff.state)),
+                         flatten_leaves(start)):
+            t.copy_(s0)
+    del start
+    multi = ex.make_multi_step(MULTI_STEPS, stacked=True)
+    captures = sg.captures
+    before = read_launches()
+    t0 = time.perf_counter()
+    ff.params, ff.opt_state, ff.state, losses = multi(
+        ff.params, ff.opt_state, ff.state, ff._host_inputs([xs]), ys,
+        ff._generator)
+    losses = losses.tolist()
+    multi_s = time.perf_counter() - t0
+    launched = launch_delta(before)
+    print(f"[graph train] make_multi_step({MULTI_STEPS}, stacked=True) "
+          f"losses " + ", ".join(f"{v:.6f}" for v in losses)
+          + f" in {multi_s * 1e3:.3f} ms ({multi_s / MULTI_STEPS * 1e3:.3f} "
+          f"ms a step); {MULTI_STEPS} single compiled steps "
+          + ", ".join(f"{v:.6f}" for v in single) + f"; launches {launched}")
+    check(losses == single, "[graph train] the multi-step's losses differ "
+          "from the single compiled steps'")
+    check(launched == {k: v * MULTI_STEPS for k, v in want.items()}
+          and sg.captures == captures,
+          "[graph train] the multi-step's launches differ, or it captured "
+          "a graph of its own")
+    del ff, ex, sg, graph, graphs, eager, run, step, multi
+    release()
+    left_gib = torch.cuda.memory_reserved() / 2**30
+    print(f"[graph train] the model deleted, no collector run: "
+          f"{left_gib:.2f} GiB reserved on the card, {base_gib:.2f} GiB "
+          f"before it was built")
+    check(left_gib <= base_gib + 0.5, "[graph train] the deleted model's "
+          "memory (its graphs and their pool) was not freed by reference "
+          "counting")
+    return dict(per_call=per_call, kinds=prof_graph[0],
+                replay_launches=replay_launches,
+                eager_kinds=(prof_eager or [None])[0], p50=g50,
+                eager_p50=e50)
+
+
+def release():
+    """Give the allocator's cached blocks back after a model is deleted
+    (the model, its executor and its compiled steps are freed by their
+    reference counts as the last reference goes)."""
+    import torch
+
+    torch.cuda.empty_cache()
+
+
+def profile_train(ff, x, y, steps=2, label=None):
+    """``profile_steps`` over ``steps`` one-step ``fit``s: compiled steps,
+    CUDA-graph replays once the model has captured its step."""
+    return profile_steps(label or f"{steps} train steps",
+                         lambda: ff.fit(x, y, epochs=1, verbose=False),
+                         steps)
+
+
+def profile_steps(label, run_step, steps=2):
+    """Where the time of ``steps`` calls of ``run_step`` (each a training
+    step that ends in a host read) goes on the device: kernel time by
     kind, the top kernels, the busy share against the host clock, and the
-    largest idle gaps (named by the kernel that ended each)."""
+    largest idle gaps (named by the kernel that ended each). Returns
+    (ms by kind, events by kind, wall ms, ms by copy or set, launches by
+    kernel wrapper), or None if the profiler recorded no kernel. The
+    launches are the device's kernel events named by each wrapper's
+    kernel (``step_graph.launch_counters``: the one kernel a launch runs
+    once), keyed as ``read_launches``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            ff.fit(x, y, epochs=1, verbose=False)
+            run_step()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
     if not events:
-        print("[profile] torch.profiler recorded no kernel: the breakdown is "
-              "not measured")
-        return
+        print(f"[profile] {label}: torch.profiler recorded no kernel: the "
+              f"breakdown is not measured")
+        return None
     kinds = by_kind(events)
+    counts = dict.fromkeys(KINDS, 0)
+    for e in events:
+        counts[kernel_kind(e.name)] += 1
     busy = sum(kinds.values())
-    print(f"[profile] {steps} train steps: wall {wall_ms:.3f} ms, device busy "
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), idle "
           f"{wall_ms - busy:.3f} ms; "
           + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
@@ -1495,6 +1783,175 @@ def profile_train(ff, x, y, steps=2):
     print(f"[profile]   idle between device events: {len(gaps)} gaps, "
           f"{sum(g for g, _ in gaps) / 1e3:.3f} ms; largest after: "
           + "; ".join(f"{g / 1e3:.3f} ms after {n}" for g, n in gaps[:5]))
+    copies = {}
+    for e in events:
+        if kernel_kind(e.name) == "memcpy":
+            copies[e.name] = (copies.get(e.name, 0.0)
+                              + e.time_range.elapsed_us() / 1e3)
+    return kinds, counts, wall_ms, copies, launches_by_name(events)
+
+
+def launches_by_name(events):
+    """{read_launches key: device kernel events of that wrapper's kernel}."""
+    import flexflow_tpu_torch.ops.flash_attention  # noqa: F401
+    import flexflow_tpu_torch.ops.fused_update  # noqa: F401
+    from flexflow_tpu_torch.step_graph import launch_counters
+
+    got = {COUNTER_KEYS[f"{fn.__name__}.{attr}"]:
+           sum(1 for e in events if is_kernel(e.name))
+           for fn, attr, is_kernel in launch_counters()}
+    check(sorted(got) == sorted(COUNTER_KEYS.values()),
+          f"the registered launch counters {sorted(got)} are not the "
+          f"kernels line's")
+    return got
+
+
+def check_replay_launches(label, prof, replays, want):
+    """The kernels that ``replays`` replayed graphs ran on the device, by
+    name from their profile: each wrapper's kernel ``want[key]`` times a
+    replay, and the flash kernels' events all accounted for (a K1 or K5
+    forward launch runs one kernel, a K2/K3 backward launch two, a K5
+    backward launch three). Returns the launches a replay."""
+    check(prof is not None, f"{label}: the profiler recorded no kernel, so "
+                            f"the launches a replay are not measured")
+    got = prof[4]
+    per = {k: v / replays for k, v in got.items()}
+    counts = prof[1]
+    fwd_events = got["flash_attn_fwd"] + got["flash_lse_fwd"]
+    bwd_events = 2 * got["flash_attn_bwd"] + 3 * got["flash_lse_bwd"]
+    print(f"{label}: kernel events on the device by name over {replays} "
+          f"replays {got}, a replay {per} (want {want}); flash forward "
+          f"events {counts['flash_attn_fwd']} (want {fwd_events}), flash "
+          f"backward events {counts['flash_attn_bwd']} (want {bwd_events}), "
+          f"K4 events {counts['fused_adam']}")
+    check(per == {k: want.get(k, 0) for k in per}
+          and counts["flash_attn_fwd"] == fwd_events
+          and counts["flash_attn_bwd"] == bwd_events
+          and counts["fused_adam"] == got["fused_adam"],
+          f"{label}: the kernels the replays ran differ from the expected")
+    return {k: int(v) for k, v in per.items()}
+
+
+def clone_tree(tree):
+    from flexflow_tpu_torch.step_graph import flatten, unflatten
+
+    leaves, spec = flatten(tree)
+    return unflatten(spec, [t.clone() for t in leaves])
+
+
+def leaves_differ(a, b):
+    """How many leaves of two trees of one structure are not bit-equal."""
+    import torch
+    from flexflow_tpu_torch.step_graph import flatten
+
+    la, sa = flatten(a)
+    lb, sb = flatten(b)
+    check(sa == sb, "the two trees differ in structure")
+    return sum(1 for u, w in zip(la, lb) if not torch.equal(u, w))
+
+
+def launch_delta(before):
+    now = read_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def eager_stepper(ff, inputs, labels):
+    """One eager step (``_train_step_fn``) a call on a copy of the model's
+    state, ending in a host read of its loss; returns (step, the trees)."""
+    step = ff.executor._train_step_fn()
+    trees = [clone_tree(ff.params), clone_tree(ff.opt_state),
+             clone_tree(ff.state)]
+
+    def run():
+        p, o, st, loss, _ = step(*trees, inputs, labels, ff._generator)
+        trees[:] = [p, o, st]
+        return float(loss)
+
+    return run, trees
+
+
+def graph_stepper(ff, x, y):
+    """One compiled step a call on the model's own state over the host
+    batch (x, y), as ``fit`` gives it, ending in a host read of its loss;
+    the host's time to enqueue each (the batch's copy and the replay,
+    before the read) is appended to ``run.enqueue_s``."""
+    step = ff.executor.make_train_step()
+    inputs = ff._host_inputs([x])
+    enqueue_s = []  # (not through ``run``: no cycle keeps ``ff`` alive)
+
+    def run():
+        t0 = time.perf_counter()
+        ff.params, ff.opt_state, ff.state, loss, _ = step(
+            ff.params, ff.opt_state, ff.state, inputs, y, ff._generator)
+        enqueue_s.append(time.perf_counter() - t0)
+        return float(loss)
+
+    run.enqueue_s = enqueue_s
+    return run
+
+
+def graph_vs_eager(ff, x, y, steps, label):
+    """From the model's current state: ``steps`` eager steps
+    (``_train_step_fn``) on a copy of it and ``steps`` compiled steps on
+    the model itself, on one batch; every loss, and every leaf of the
+    parameters, the optimizer state (t included) and the state (the
+    compute copy), must be bit-equal. Returns the launches of each
+    compiled call."""
+    import torch
+
+    inputs, labels = ff._stage_inputs([x]), ff._stage_labels(y)
+    eager, trees = eager_stepper(ff, inputs, labels)
+    graph = graph_stepper(ff, x, y)
+    per_call, losses = [], []
+    for _ in range(steps):
+        want = eager()
+        before = read_launches()
+        got = graph()
+        per_call.append(launch_delta(before))
+        losses.append((got, want))
+    torch.cuda.synchronize()
+    differ = leaves_differ((ff.params, ff.opt_state, ff.state), tuple(trees))
+    n = len(flatten_leaves((ff.params, ff.opt_state, ff.state)))
+    sg = ff.executor.step_graphs["train_step"]
+    print(f"{label} compiled step vs eager step from one state, {steps} "
+          f"steps: losses " + ", ".join(f"{g!r}/{w!r}" for g, w in losses)
+          + f"; {differ} of {n} leaves (params, m, v, t, the compute copy) "
+          f"differ (want 0); captures {sg.captures}, replays {sg.replays}; "
+          f"launches a compiled call {per_call}")
+    check(all(g == w for g, w in losses) and differ == 0,
+          f"{label} the compiled step is not bit-equal to the eager step")
+    return per_call
+
+
+def flatten_leaves(tree):
+    from flexflow_tpu_torch.step_graph import flatten
+
+    return flatten(tree)[0]
+
+
+def time_pairs(ff, x, y, pairs):
+    """Compiled and eager steps timed in turn (the order alternating), each
+    on its own copy of the state, by the host clock around a step and the
+    host read of its loss. Returns (compiled s, eager s, the compiled
+    steps' enqueue s)."""
+    inputs, labels = ff._stage_inputs([x]), ff._stage_labels(y)
+    eager, _ = eager_stepper(ff, inputs, labels)
+    graph = graph_stepper(ff, x, y)
+    graph()  # a capture, if the model has none yet
+    graph.enqueue_s.clear()
+    times = {graph: [], eager: []}
+    for i in range(pairs):
+        for run in ((graph, eager) if i % 2 == 0 else (eager, graph)):
+            t0 = time.perf_counter()
+            run()
+            times[run].append(time.perf_counter() - t0)
+    return times[graph], times[eager], graph.enqueue_s
+
+
+def p50_p90(xs):
+    from flexflow_tpu_torch.obs.registry import percentile
+
+    return statistics.median(xs), percentile(sorted(xs), 0.90)
 
 
 def leaf_shares(ga, gb):
@@ -1679,7 +2136,10 @@ def phase_kernels_adam(ff):
 
 def phase_train_a():
     """Training path (a) in K3's regime: 2 layers at S 2048, no strategy
-    file. Returns the launches of its steps."""
+    file: TRAIN_A_STEPS ``fit`` steps, then GRAPH_STEPS compiled steps
+    against eager ones from one state, bit for bit, and the kernels of
+    two replayed steps by name from their profile. Returns the launches
+    of the fit steps and the launches a replay."""
     import numpy as np
     from flexflow_tpu_torch.models.transformer import TransformerConfig
     from flexflow_tpu_torch.ops.attention import MultiHeadAttention
@@ -1702,7 +2162,21 @@ def phase_train_a():
           + f"; launches {launches} (expected {want})")
     check(all(np.isfinite(ff.epoch_losses)), "non-finite loss in path (a)")
     check(launches == want, "path (a) launches differ from the expected")
-    return launches
+    per_call = graph_vs_eager(ff, x, y, GRAPH_STEPS, "[train a]")
+    check(all(d["flash_attn_bwd"] == cfg.num_layers
+              and d["flash_attn_fwd"] == cfg.num_layers for d in per_call),
+          "[train a] launches a replay differ from the expected")
+    sg = ff.executor.step_graphs["train_step"]
+    replays0 = sg.replays
+    prof = profile_train(ff, x, y, label="[train a] 2 replayed steps")
+    check(sg.replays - replays0 == 2,
+          "[train a] the profiled steps were not 2 replays")
+    replay_launches = check_replay_launches(
+        "[train a] 2 replayed steps", prof, 2,
+        dict(flash_attn_fwd=cfg.num_layers, flash_attn_bwd=cfg.num_layers))
+    del ff, sg
+    release()
+    return dict(launches=launches, replay_launches=replay_launches)
 
 
 def nvidia_smi_line():
@@ -1858,7 +2332,8 @@ def phase_search_train(plain_losses):
               "the searched path's losses leave the plain path's")
         p50 = statistics.median(step_s)
         p90 = percentile(sorted(step_s), 0.90)
-        print(f"[search train] step time p50 {p50 * 1e3:.3f} ms, p90 "
+        print(f"[search train] compiled step time (CUDA-graph replays) p50 "
+              f"{p50 * 1e3:.3f} ms, p90 "
               f"{p90 * 1e3:.3f} ms ({cfg.batch_size / p50:.2f} samples/s) "
               f"against the predicted {predicted * 1e3:.3f} ms: measured / "
               f"predicted {p50 / predicted:.2f} ({card})")
@@ -2015,20 +2490,21 @@ def main() -> int:
         fwd = phase_kernels()
         bwd, bwd_k3 = phase_kernels_bwd()
         lse_fwd, lse_bwd = phase_kernels_lse()
-        serve_launches = phase_serve()
+        serve_launches, serve_replay = phase_serve()
         check_f32_model()
         with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
             ff, batch, train_b, losses = phase_train_b(tmp)
             plain_losses = phase_train_trajectory(losses, tmp)
             phase_train_grads(ff, batch, tmp)
-        adam = phase_kernels_adam(ff)
-        del ff
-        torch.cuda.empty_cache()
+            adam = phase_kernels_adam(ff)
+            del ff
+            release()
+            graph = phase_graph_train(tmp)
         search_train = phase_search_train(plain_losses)
         search_serve = phase_search_serve()
         train_a = phase_train_a()
         ring = phase_ring()
-        train_c = phase_train_c({}, "full width")
+        train_c = phase_train_c({}, "full width", timed=True)
         train_c_causal = phase_train_c(TRAIN_C_CAUSAL, "causal S 2048")
     except Exception:
         traceback.print_exc()
@@ -2037,23 +2513,42 @@ def main() -> int:
     fwd["launches"] = train_b["flash_attn_fwd"]
     fwd["launches_by_path"] = dict(serve=serve_launches,
                                    train_b=train_b["flash_attn_fwd"],
-                                   train_a=train_a["flash_attn_fwd"],
+                                   train_a=train_a["launches"][
+                                       "flash_attn_fwd"],
                                    search_train=search_train["flash_attn_fwd"],
                                    search_serve=search_serve)
     bwd["launches"] = train_b["flash_attn_bwd"]
     bwd["launches_by_path"] = dict(train_b=train_b["flash_attn_bwd"],
                                    search_train=search_train["flash_attn_bwd"])
-    bwd_k3["launches"] = train_a["flash_attn_bwd"]
+    bwd_k3["launches"] = train_a["launches"]["flash_attn_bwd"]
     adam["launches"] = train_b["fused_adam"]
     adam["launches_by_path"] = dict(train_b=train_b["fused_adam"],
                                     search_train=search_train["fused_adam"])
     for entry, key in ((lse_fwd, "flash_lse_fwd"), (lse_bwd, "flash_lse_bwd")):
-        entry["launches"] = train_c[key]
+        entry["launches"] = train_c["launches"][key]
         entry["launches_by_path"] = dict(
-            train_c=train_c[key], train_c_causal=train_c_causal[key],
+            train_c=train_c["launches"][key],
+            train_c_causal=train_c_causal["launches"][key],
             search_train=search_train[key],
             **({f"ring_{k}": v for k, v in ring.items()}
                if key == "flash_lse_fwd" else {}))
+    # each kernel's launches a replayed step, counted on the device by
+    # kernel name, and its device time a launch inside a replayed graph
+    # (the profiles of two replayed steps; serving: of one batch)
+    for entry, kind, prof, key in (
+            (fwd, "flash_attn_fwd", graph, "flash_attn_fwd"),
+            (bwd, "flash_attn_bwd", graph, "flash_attn_bwd"),
+            (adam, "fused_adam", graph, "fused_adam"),
+            (lse_fwd, "flash_attn_fwd", train_c, "flash_lse_fwd"),
+            (lse_bwd, "flash_attn_bwd", train_c, "flash_lse_bwd")):
+        per_replay = prof["replay_launches"][key]
+        entry["launches_a_replay"] = per_replay
+        entry["graph_ms"] = prof["kinds"][kind] / (2 * per_replay)
+    fwd["launches_a_replay_by_path"] = dict(
+        train_b=graph["replay_launches"]["flash_attn_fwd"],
+        train_a=train_a["replay_launches"]["flash_attn_fwd"],
+        serve=serve_replay)
+    bwd_k3["launches_a_replay"] = train_a["replay_launches"]["flash_attn_bwd"]
     print("[kernels] earlier times, not measured by this run (the mma.sync "
           "kernels' chip runs, NVIDIA H100 80GB HBM3, 700 W; the forward by "
           "profiled device time, the rest one call between two CUDA "

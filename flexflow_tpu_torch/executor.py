@@ -1,10 +1,23 @@
 """Graph executor: runs the materialized op graph forward, and trains it.
 
 PyTorch counterpart of ``flexflow_tpu/executor.py``'s ``GraphExecutor``.
-Where the JAX package traces the graph into one jitted step, the port runs
-it eagerly, op by op in topological order, on one device. Values are keyed
-by ``(producer guid, output index)`` and inputs are referenced as
-``("op", guid, idx)`` / ``("input", name)``, the reference's scheme.
+The step bodies run the graph op by op in topological order, on one
+device. Values are keyed by ``(producer guid, output index)`` and inputs
+are referenced as ``("op", guid, idx)`` / ``("input", name)``, the
+reference's scheme.
+
+Where the JAX package jits its steps, the port compiles them into CUDA
+graphs (``step_graph.py``): ``make_train_step`` (its carry donated, the
+counterpart of ``donate_argnums=(0, 1, 2)``), ``make_multi_step`` (that
+step replayed ``num_iters`` times), ``make_eval_step`` and
+``make_forward(training=False)``, each captured once for each set of
+input shapes and replayed after. They take the batch as host arrays and
+cast it on the device. On the CPU the same bodies run eagerly over the
+same static buffers. The bodies are the executor's own methods, which
+the compiled steps hold weakly, so an executor is freed with its graphs
+as soon as its last reference goes. The eager steps stay reachable as
+``_train_step_fn``, ``_eval_step_fn`` and ``_forward_fn``: the
+references a replayed step is held against.
 
 The forward for inference runs under ``torch.inference_mode``. The train
 step runs the forward with grad enabled on the compute copy of the
@@ -15,8 +28,7 @@ the new parameters: the JAX step's order. Ops whose strategy choice is
 ``_k:fused`` update through the fused pass (``ops/fused_update.py``).
 A mesh reaches the ops through ``OpContext.mesh``: one process runs a
 mesh whose one axis above 1 is ring attention's sequence axis, every ring
-position on this device. Sharding, remat and multi-step scans come with
-later slices.
+position on this device. Sharding and remat come with later slices.
 """
 
 from __future__ import annotations
@@ -27,7 +39,9 @@ import torch
 
 from flexflow_tpu_torch.ffconst import CompMode, LossType
 from flexflow_tpu_torch.losses import get_loss_fn
+from flexflow_tpu_torch.obs.registry import get_registry
 from flexflow_tpu_torch.ops.base import Op, OpContext
+from flexflow_tpu_torch.step_graph import StepGraph
 
 # pseudo-entry in the op-state dict holding the compute-dtype (bf16) copy
 # of the parameters under the master-weight mixed-precision regime (never
@@ -89,6 +103,10 @@ class GraphExecutor:
             if impl == "fused"}
         # the compiled mesh (machine.Mesh or None), handed to every op
         self.mesh = mesh
+        # the compiled steps ({"train_step" | "eval_step" | "forward" ->
+        # StepGraph}) and the memory pool their CUDA graphs share
+        self.step_graphs: Dict[str, StepGraph] = {}
+        self._graph_pool = None
 
     def _ctx(self, training: bool, rng=None) -> OpContext:
         return OpContext(training=training, compute_dtype=self.compute_dtype,
@@ -132,10 +150,11 @@ class GraphExecutor:
                 values[(op.guid, i)] = o
         return values
 
-    def make_forward(self, training: bool = False):
-        """``fwd(params, state, inputs) -> output``. Reads the compute copy
-        of the parameters when the state carries one. ``training=False``
-        runs under ``torch.inference_mode``; ``training=True`` runs the
+    def _forward_fn(self, training: bool = False):
+        """The eager forward: ``fwd(params, state, inputs, rng=None) ->
+        output``. Reads the compute copy of the parameters when the state
+        carries one. ``training=False`` runs under
+        ``torch.inference_mode``; ``training=True`` runs the
         training-mode forward with grad enabled (its output carries the
         autograd graph back to the parameters it was given)."""
 
@@ -149,6 +168,60 @@ class GraphExecutor:
                 return self.run_graph(cparams, inputs, ctx)[self.final_ref]
 
         return fwd
+
+    def make_forward(self, training: bool = False):
+        """``fwd(params, state, inputs, rng=None) -> output``.
+        ``training=False``: the compiled forward (a CUDA-graph replay on
+        the card), which takes host arrays or tensors and whose output is
+        overwritten by the executor's next compiled call.
+        ``training=True`` is the eager training-mode forward
+        (``_forward_fn``): its output carries an autograd graph."""
+        if training:
+            return self._forward_fn(True)
+        graph = self._step_graph("forward", self._forward_body,
+                                 donate=False)
+
+        def compiled(params, state, inputs, rng=None):
+            return graph((params, state), inputs, rng)[1]
+
+        return compiled
+
+    def _step_graph(self, name: str, body, *, donate: bool) -> StepGraph:
+        """The executor's compiled step ``name``, made at its first use;
+        its CUDA graphs draw on the executor's one memory pool. ``body``
+        is a method of the executor, which the step holds weakly."""
+        graph = self.step_graphs.get(name)
+        if graph is None:
+            if self._graph_pool is None and self.device.type == "cuda":
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = self.step_graphs[name] = StepGraph(
+                body, self.device, name, donate=donate, pool=self._graph_pool)
+        return graph
+
+    def _cast_feeds(self, inputs, labels=None):
+        """A batch as the eager steps take it (``model.stage_array``'s
+        casts): floating inputs in the compute dtype, floating labels in
+        f32. The compiled steps cast their static feeds so, on the
+        device."""
+        inputs = {n: x.to(self.compute_dtype) if x.is_floating_point()
+                  else x for n, x in inputs.items()}
+        if labels is not None and labels.is_floating_point():
+            labels = labels.to(torch.float32)
+        return inputs, labels
+
+    # the compiled steps' bodies: body(carry, feeds, rng) -> (new carry,
+    # outputs) over the static buffers (step_graph.StepGraph)
+    def _forward_body(self, carry, inputs, rng):
+        return None, self._forward_fn(False)(
+            *carry, self._cast_feeds(inputs)[0], rng)
+
+    def _train_body(self, carry, feeds, rng):
+        params, opt_state, state, loss, mvals = self._train_step_fn()(
+            *carry, *self._cast_feeds(*feeds), rng)
+        return (params, opt_state, state), (loss, mvals)
+
+    def _eval_body(self, carry, feeds, rng):
+        return None, self._eval_step_fn()(*carry, *self._cast_feeds(*feeds))
 
     # ---- training ----------------------------------------------------------
     def _loss_value(self, logits, labels):
@@ -226,15 +299,65 @@ class GraphExecutor:
         return train_step
 
     def make_train_step(self):
+        """The compiled train step, ``_train_step_fn``'s signature and
+        results: ``(params, opt_state, state, inputs, labels, rng=None) ->
+        (params, opt_state, state, loss, metric sums)``; the batch may be
+        host arrays (the compiled step copies and casts them on the
+        device) or the staged tensors the eager step takes. The trees it
+        is first called with become its static buffers and come back
+        updated (donated); loss and metric sums are overwritten by the
+        executor's next compiled call."""
         if self.comp_mode == CompMode.INFERENCE:
             raise RuntimeError(
                 "model compiled with CompMode.INFERENCE is forward-only; "
                 "re-compile with CompMode.TRAINING to train")
-        return self._train_step_fn()
+        get_registry().gauge("executor.num_ops", len(self.nodes))
+        graph = self._step_graph("train_step", self._train_body, donate=True)
 
-    def make_eval_step(self):
-        """``eval_step(params, state, inputs, labels) -> (loss, logits,
-        metric sums)``, under ``torch.inference_mode``."""
+        def train_step(params, opt_state, state, inputs, labels, rng=None):
+            (params, opt_state, state), (loss, mvals) = graph(
+                (params, opt_state, state), (inputs, labels), rng)
+            return params, opt_state, state, loss, mvals
+
+        return train_step
+
+    def make_multi_step(self, num_iters: int, stacked: bool = False):
+        """``num_iters`` training steps in one call, the counterpart of the
+        JAX package's ``lax.scan`` of the step (the reference's trace
+        replay): ``multi(params, opt_state, state, inputs, labels,
+        rng=None) -> (params, opt_state, state, losses[num_iters])``.
+        ``stacked=False``: (inputs, labels) is one batch reused every
+        iteration; ``stacked=True``: each array carries a leading
+        ``[num_iters]`` axis and iteration i consumes slice i. The
+        compiled one-step graph is replayed ``num_iters`` times, slice i
+        copied into its static input buffers before replay i (device to
+        device, or host arrays through its pinned buffers); ``losses`` is
+        a new f32 tensor each call."""
+        if num_iters < 1:
+            raise ValueError(f"num_iters must be at least 1, got {num_iters}")
+        step = self.make_train_step()
+
+        def multi(params, opt_state, state, inputs, labels, rng=None):
+            if stacked:
+                lead = {t.shape[0] for t in [labels, *inputs.values()]}
+                if lead != {num_iters}:
+                    raise ValueError(f"stacked inputs need a leading axis of "
+                                     f"{num_iters}, got {sorted(lead)}")
+            losses = torch.empty(num_iters, dtype=torch.float32,
+                                 device=self.device)
+            for i in range(num_iters):
+                inp, lab = (({n: x[i] for n, x in inputs.items()}, labels[i])
+                            if stacked else (inputs, labels))
+                params, opt_state, state, loss, _ = step(
+                    params, opt_state, state, inp, lab, rng)
+                losses[i] = loss
+            return params, opt_state, state, losses
+
+        return multi
+
+    def _eval_step_fn(self):
+        """The eager eval step: ``eval_step(params, state, inputs, labels)
+        -> (loss, logits, metric sums)``, under ``torch.inference_mode``."""
 
         def eval_step(params, state, inputs, labels):
             ctx = self._ctx(False)
@@ -243,5 +366,15 @@ class GraphExecutor:
                                         inputs, ctx)[self.final_ref]
                 loss = self._loss_value(logits, labels)
                 return loss, logits, self.metrics.compute(logits, labels)
+
+        return eval_step
+
+    def make_eval_step(self):
+        """The compiled eval step, ``_eval_step_fn``'s signature and
+        results, overwritten by the executor's next compiled call."""
+        graph = self._step_graph("eval_step", self._eval_body, donate=False)
+
+        def eval_step(params, state, inputs, labels):
+            return graph((params, state), (inputs, labels))[1]
 
         return eval_step

@@ -455,16 +455,23 @@ class FFModel:
         return names
 
     # ======================= data staging ==================================
-    def _stage_inputs(self, xs) -> Dict[str, torch.Tensor]:
-        """Host arrays -> device tensors; float inputs in the compute
-        dtype (activations flow in it end to end)."""
+    def _host_inputs(self, xs) -> Dict[str, np.ndarray]:
+        """One host array per model input -> {input name: array}, the
+        batch the compiled steps take (they copy it to the card and cast
+        it there)."""
         if not isinstance(xs, (list, tuple)):
             xs = [xs]
         names = self.executor.input_names
         if len(xs) != len(names):
             raise ValueError(f"model has {len(names)} inputs, got {len(xs)} arrays")
+        return {n: np.asarray(x) for n, x in zip(names, xs)}
+
+    def _stage_inputs(self, xs) -> Dict[str, torch.Tensor]:
+        """Host arrays -> device tensors, the batch the eager steps take;
+        float inputs in the compute dtype (activations flow in it end to
+        end)."""
         return {n: stage_array(x, self.device, self.executor.compute_dtype)
-                for n, x in zip(names, xs)}
+                for n, x in self._host_inputs(xs).items()}
 
     def _stage_labels(self, y) -> torch.Tensor:
         """Labels on the device, float labels in f32 (the loss is f32)."""
@@ -492,9 +499,10 @@ class FFModel:
 
     def _run_epochs(self, next_batch, num_batches: int, bs: int,
                     epochs: int, verbose: bool) -> float:
-        """Epoch loop: one train step per batch, metric sums added up on
-        the device and read once per epoch, the ELAPSED TIME / THROUGHPUT
-        report. ``next_batch(epoch, b)`` -> (inputs dict, labels).
+        """Epoch loop: one compiled train step per batch (a CUDA-graph
+        replay on the card), metric sums added up on the device and read
+        once per epoch, the ELAPSED TIME / THROUGHPUT report.
+        ``next_batch(epoch, b)`` -> (inputs dict, labels).
 
         Registry (``obs/registry.py``): ``train/step_latency_s`` observes
         each step's host time since the previous step ended. Steps are
@@ -525,8 +533,10 @@ class FFModel:
                                      inputs, labels, self._generator)
                 self._iter += 1
                 executed += 1
-                mtotals = mvals if mtotals is None else {
-                    k: mtotals[k] + v for k, v in mvals.items()}
+                # the step's metric sums are overwritten by its next call
+                mtotals = ({k: v.clone() for k, v in mvals.items()}
+                           if mtotals is None else
+                           {k: mtotals[k] + v for k, v in mvals.items()})
                 if b + 1 < num_batches:
                     now = time.perf_counter()
                     reg.observe("train/step_latency_s", now - t_prev)
@@ -577,15 +587,16 @@ class FFModel:
 
         def next_batch(epoch, b):
             sl = slice(b * bs, (b + 1) * bs)
-            return (self._stage_inputs([xx[sl] for xx in xs]),
-                    self._stage_labels(y[sl]))
+            return (self._host_inputs([xx[sl] for xx in xs]),
+                    np.asarray(y[sl]))
 
         return self._run_epochs(next_batch, num_batches, bs, epochs, verbose)
 
     def evaluate(self, x=None, y=None, batch_size: Optional[int] = None,
                  trace_dir: Optional[str] = None) -> Dict[str, float]:
         """Loss and metrics over the dataset -> {metric: mean, "loss":
-        mean batch loss}."""
+        mean batch loss}, through the compiled eval step; each batch's
+        loss and metric sums are read as the reference reads them."""
         if self.executor is None:
             raise ValueError("compile() the model before evaluate()")
         self._refuse_tracing(trace_dir)
@@ -598,8 +609,7 @@ class FFModel:
             sl = slice(b * bs, (b + 1) * bs)
             loss, _, mvals = eval_step(
                 self.params, self.state,
-                self._stage_inputs([xx[sl] for xx in xs]),
-                self._stage_labels(y[sl]))
+                self._host_inputs([xx[sl] for xx in xs]), np.asarray(y[sl]))
             loss_sum += float(loss)
             acc.update(mvals, bs)
         rep = acc.report()
@@ -623,16 +633,16 @@ class FFModel:
         return engine.start() if start else engine
 
     def predict(self, x) -> np.ndarray:
-        """Forward the batch ``x`` (one array per model input); returns the
-        model output as f32 numpy."""
+        """Forward the batch ``x`` (one array per model input) through the
+        compiled forward; returns the model output as f32 numpy."""
         self._refresh_compute_params()
         fwd = self.executor.make_forward(training=False)
-        inputs = self._stage_inputs(x if isinstance(x, (list, tuple)) else [x])
-        return fwd(self.params, self.state, inputs).float().cpu().numpy()
+        return host_copy(fwd(self.params, self.state, self._host_inputs(x)))
 
     # ---- weight I/O --------------------------------------------------------
     def get_parameter(self, layer_name: str, param_name: str = "kernel") -> np.ndarray:
-        return self.params[layer_name][param_name].detach().cpu().numpy()
+        return host_copy(self.params[layer_name][param_name],
+                         self.params[layer_name][param_name].dtype)
 
     def set_parameter(self, layer_name: str, value: np.ndarray,
                       param_name: str = "kernel") -> None:
@@ -648,13 +658,24 @@ class FFModel:
 
     def _refresh_compute_params(self) -> None:
         """Re-derive the compute copy after direct parameter writes. Lazy:
-        runs once before the next forward, however many writes happened."""
+        runs once before the next forward, however many writes happened.
+        It casts into the compute copy's own tensors, which the compiled
+        steps read."""
         if not getattr(self, "_compute_params_dirty", False):
             return
         self._compute_params_dirty = False
-        if self.executor is not None and self.executor.use_master_copy:
+        if self.executor is None or not self.executor.use_master_copy:
+            return
+        copy = self.state.get(COMPUTE_PARAMS_KEY)
+        if copy is None:
             self.state[COMPUTE_PARAMS_KEY] = \
                 self.executor.cast_compute_copy(self.params)
+            return
+        with torch.no_grad():
+            for op, sub in copy.items():
+                for pn, t in sub.items():
+                    if t.is_floating_point():
+                        t.copy_(self.params[op][pn])
 
     def get_layer_names(self) -> List[str]:
         return [n.op.name for n in (self.executor.nodes if self.executor else [])]
@@ -665,3 +686,11 @@ def stage_array(arr, device: torch.device, compute_dtype: torch.dtype
     """One host array on ``device``; floating arrays in ``compute_dtype``."""
     t = torch.as_tensor(np.asarray(arr), device=device)
     return t.to(compute_dtype) if t.is_floating_point() else t
+
+
+def host_copy(t: torch.Tensor, dtype=torch.float32) -> np.ndarray:
+    """A host copy of ``t`` in ``dtype``, never a view: compiled steps
+    rewrite their outputs, and training rewrites the parameters, in
+    place."""
+    return t.detach().to("cpu", dtype, copy=True).numpy()
+

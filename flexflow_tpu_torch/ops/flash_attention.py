@@ -13,9 +13,11 @@ ring attention merges). The kernels are CUDA C++ for Hopper,
 they never give way to the plain version. On CPU tensors they run
 ``flash_fwd_reference`` / ``flash_bwd_reference``, the plain PyTorch
 versions of the same functions, which are also what the card's kernels
-are held against. Kernel launches are counted (CUDA only) by what they
-compute: ``flash_fwd.launches`` / ``flash_bwd.launches`` for K1 and
-K2/K3 (o in q's dtype), ``flash_fwd.lse_launches`` /
+are held against. Kernel launches are counted (CUDA only; a CUDA-graph
+capture launches nothing, and a replay adds the graph's nodes of each
+kernel, ``step_graph.py``) by what they compute: ``flash_fwd.launches``
+/ ``flash_bwd.launches`` for K1 and K2/K3 (o in q's dtype),
+``flash_fwd.lse_launches`` /
 ``flash_bwd.lse_launches`` for K5 (bf16 q, k, v with an f32 o, and in
 the backward an f32 dO). One ``flash_bwd`` launch runs the backward's
 kernels: in bf16 the dQ kernel, which also forms delta, then dK/dV; for
@@ -34,11 +36,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from flexflow_tpu_torch import cuda_build
+from flexflow_tpu_torch.step_graph import register_launch_counter
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -225,7 +229,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error "
                            f"{rc} ([BH, S, D] = {list(q.shape)}, {q.dtype} -> "
                            f"{o.dtype})")
-    if _is_lse_mix(q, o):
+    if torch.cuda.is_current_stream_capturing():
+        pass  # a capture launches nothing; a replay counts its nodes
+    elif _is_lse_mix(q, o):
         flash_fwd.lse_launches += 1
     else:
         flash_fwd.launches += 1
@@ -313,7 +319,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
                            f"{rc} ([BH, S, D] = {list(q.shape)}, {q.dtype}, "
                            f"O and dO {o.dtype})")
-    if do16 is not None:
+    if torch.cuda.is_current_stream_capturing():
+        pass  # a capture launches nothing; a replay counts its nodes
+    elif do16 is not None:
         flash_bwd.lse_launches += 1
     else:
         flash_bwd.launches += 1
@@ -322,6 +330,29 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_bwd.launches = 0
 flash_bwd.lse_launches = 0
+
+# The kernel that each launch runs once, by its name, mangled
+# (``_ZN12_GLOBAL__N_114flash_fwd_bf16ILi64ELi128ELi2ELi3E13__nv_bf...``)
+# or demangled (``(anonymous namespace)::flash_fwd_bf16<64, 128, 2, 3,
+# __nv_bfloat16>(...)``): K1 and K5's forward by o's dtype, the last
+# template argument; K2/K3 and K5's backward by the dQ kernel, K5's
+# reading delta from the scratch (``DLT_IN``). ``step_graph`` counts a
+# captured graph's nodes by them.
+KERNEL_NAMES = {
+    (flash_fwd, "launches"): re.compile(
+        r"(?<![A-Za-z_])flash_fwd_f32(<|I)"
+        r"|(?<![A-Za-z_])flash_fwd_bf16"
+        r"(<[^>]*__nv_bfloat16>|I(Li\d+E)+13__nv_bfloat16E)"),
+    (flash_fwd, "lse_launches"): re.compile(
+        r"(?<![A-Za-z_])flash_fwd_bf16(<[^>]*, float>|I(Li\d+E)+fE)"),
+    (flash_bwd, "launches"): re.compile(
+        r"(?<![A-Za-z_])flash_bwd_dq_f32(<|I)"
+        r"|(?<![A-Za-z_])flash_bwd_dq_bf16(<[^>]*false>|I(Li\d+E)+Lb0EE)"),
+    (flash_bwd, "lse_launches"): re.compile(
+        r"(?<![A-Za-z_])flash_bwd_dq_bf16(<[^>]*true>|I(Li\d+E)+Lb1EE)"),
+}
+for (_fn, _attr), _name in KERNEL_NAMES.items():
+    register_launch_counter(_fn, _attr, _name.search)
 
 
 class FlashAttention(torch.autograd.Function):

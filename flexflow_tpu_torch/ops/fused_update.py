@@ -19,17 +19,24 @@ class takes the whole-tree ``optimizer.update``.
 ``fused_adam_multi`` on CUDA tensors launches the kernel or raises; on CPU
 tensors it runs ``fused_adam_reference``, the plain version, which is also
 what the card's kernel is held against. ``fused_adam_multi.launches``
-counts kernel launches (CUDA only).
+counts kernel launches (CUDA only; a CUDA-graph capture launches nothing
+and a replay adds the graph's nodes of the kernel, ``step_graph.py``).
+The launch is capturable into a CUDA graph: its leaf table lives on the
+device, one for each set of leaves, and a capture's table is reserved
+before it, filled after it and held by its graph (``_LeafTables``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 from typing import Dict, List, Sequence, Set, Tuple
 
 import torch
 
 from flexflow_tpu_torch import cuda_build
+from flexflow_tpu_torch.step_graph import (register_capture_hook,
+                                           register_launch_counter)
 
 # the kernel's gradient and state dtypes (its parameters are f32)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -122,14 +129,12 @@ def fused_adam_multi(params: Sequence[torch.Tensor],
     rows, n_chunks = [], 0
     for p, g, m, v in zip(params, grads, ms, vs):
         if p.numel():
-            rows.append([p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                         v.data_ptr(), p.numel(), n_chunks])
+            rows.append((p.data_ptr(), g.data_ptr(), m.data_ptr(),
+                         v.data_ptr(), p.numel(), n_chunks))
             n_chunks += -(-p.numel() // chunk)
     if not rows:
         return
-    # the leaf table goes up with the step's other work: pinned, async
-    table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
-        dev, non_blocking=True)
+    table = _LEAF_TABLES.get(rows, dev)
     with torch.cuda.device(dev):
         rc = fn(table.data_ptr(), len(rows), n_chunks, alpha_t.data_ptr(),
                 beta1, 1 - beta1, beta2, 1 - beta2, eps, wd,
@@ -139,10 +144,73 @@ def fused_adam_multi(params: Sequence[torch.Tensor],
     if rc != 0:
         raise RuntimeError(f"fused_adam kernel launch failed: CUDA error {rc} "
                            f"({len(rows)} leaves, {n_chunks} chunks)")
-    fused_adam_multi.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        fused_adam_multi.launches += 1
 
 
 fused_adam_multi.launches = 0
+
+
+class _LeafTables:
+    """The kernel's leaf tables on the device, one for each set of leaves
+    (the table is a function of its rows: the leaves' pointers, sizes and
+    first chunks), so that a step whose leaves keep their storage uploads
+    its table once; eager calls keep their ``EAGER_TABLES`` most recent.
+    A CUDA graph cannot take a table made inside its own capture: a copy
+    recorded into the graph would read a host buffer freed before the
+    first replay, and memory allocated inside the capture is the graph's,
+    which its earlier nodes rewrite on every replay. So each eager call
+    also reserves a spare table of its size, a capture takes the spare of
+    its size, and ``end_capture`` fills it once the capture has ended and
+    hands it to the graph, which holds it as long as the graph lives."""
+
+    EAGER_TABLES = 4
+
+    def __init__(self):
+        self._tables: Dict[tuple, torch.Tensor] = {}
+        self._spares: Dict[tuple, torch.Tensor] = {}
+        # (table, its rows on the host) taken by the capture under way
+        self._taken: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+    def get(self, rows, dev: torch.device) -> torch.Tensor:
+        size = (dev, len(rows))
+        if torch.cuda.is_current_stream_capturing():
+            table = self._spares.pop(size, None)
+            if table is None:
+                raise RuntimeError(
+                    f"fused_adam_multi: no leaf table of {len(rows)} rows "
+                    f"reserved for this CUDA-graph capture: run the update "
+                    f"once outside the capture first")
+            self._taken.append((table, torch.tensor(rows, dtype=torch.int64)))
+            return table
+        key = (dev, tuple(rows))
+        table = self._tables.pop(key, None)  # re-inserted as the newest
+        if table is None:
+            # up with the step's other work: pinned, asynchronous
+            table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+                dev, non_blocking=True)
+        self._tables[key] = table
+        for k in list(self._tables)[:-self.EAGER_TABLES]:
+            del self._tables[k]
+        if size not in self._spares:
+            self._spares[size] = torch.empty_like(table)
+        return table
+
+    def end_capture(self, discard: bool) -> List[torch.Tensor]:
+        """After a capture: fill the tables it took and return them (for
+        its graph to hold); with ``discard`` (it failed), drop them."""
+        taken, self._taken = self._taken, []
+        if discard:
+            return []
+        for table, host in taken:
+            table.copy_(host)
+        return [table for table, _ in taken]
+
+
+_LEAF_TABLES = _LeafTables()
+register_capture_hook(_LEAF_TABLES.end_capture)
+register_launch_counter(fused_adam_multi, "launches",
+                        re.compile(r"(?<![A-Za-z_])fused_adam(<|I)").search)
 
 
 def _sgd_math(opt, p, g, v):

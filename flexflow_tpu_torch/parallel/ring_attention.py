@@ -24,7 +24,8 @@ the hop (one hop a step carries K and V):
   devices.
 - ``ProcessGroupRing(group)``: one position per rank of a
   ``torch.distributed`` group, the hop a send to rank + 1 and a receive
-  from rank - 1 (the counterpart of ``jax.lax.ppermute``).
+  from rank - 1 (the counterpart of ``jax.lax.ppermute``). It refuses to
+  run inside a CUDA-graph capture; ``LocalRing`` captures as it is.
 
 The inner block is K5, ``flash_attention_lse`` (o in f32 and lse, one
 launch for every group of positions that share a mode at a step), where
@@ -139,6 +140,12 @@ class ProcessGroupRing:
         return tuple(outs)
 
     def hop(self, k: torch.Tensor, v: torch.Tensor):
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise NotImplementedError(
+                "ring attention over a process group inside a CUDA graph: "
+                "its NCCL hop comes with the multi-GPU slice of the "
+                "PyTorch port (ROADMAP.md Queue 1 item 3)")
         return _RingHop.apply(k, v, self) if self.size > 1 else (k, v)
 
     def anchor(self, o: torch.Tensor, k: torch.Tensor,

@@ -15,6 +15,14 @@ bucket whose search fails reuses the model's
 strategy and says so on stderr, as the reference does. Without a budget
 every bucket reuses the model's strategy ("reused-training-strategy").
 
+Each bucket runs its compiled forward (``GraphExecutor.make_forward``):
+on the card one CUDA-graph replay a batch, captured when the engine is
+built, before ``start()`` launches the serving thread (in the
+"thread_local" capture mode, so client threads never meet a capture); a
+batch is padded on the host and copied through the graph's pinned
+buffer into its static input, and its output is copied to the host
+before the next replay. On the CPU the same forward runs eagerly.
+
 The ``serve/batching`` scheduler runs over the bucket executors: requests
 queue, close on size-or-deadline, pad into the smallest bucket that fits,
 and per-request rows come back out. p50/p99 request latency, queue depth,
@@ -33,8 +41,10 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from flexflow_tpu_torch.ffconst import CompMode, OperatorType
+from flexflow_tpu_torch.model import host_copy
 from flexflow_tpu_torch.obs.registry import get_registry
 from flexflow_tpu_torch.serve.batching import (BatchScheduler, Request,
                                                RequestQueue, pad_to_bucket,
@@ -93,9 +103,24 @@ class BucketExecutor:
     _fwd: Any = None
 
     def forward(self):
+        """The bucket's compiled forward ``fwd(params, state, inputs)``."""
         if self._fwd is None:
             self._fwd = self.executor.make_forward(training=False)
         return self._fwd
+
+    def capture(self, ff) -> None:
+        """On the card, capture the forward's graph now, over a zero host
+        batch of the model inputs' dtypes (the requests'), whose result is
+        dropped; elsewhere nothing."""
+        ex = self.executor
+        if ex.device.type != "cuda":
+            return
+        zeros = {n: np.zeros((self.bucket,) + tuple(t.shape[1:]),
+                             torch.empty(0, dtype=t.dtype.torch_dtype)
+                             .numpy().dtype)
+                 for n, t in zip(ex.input_names, ff.input_tensors)}
+        ff._refresh_compute_params()
+        self.forward()(ff.params, ff.state, zeros)
 
 
 class ServingEngine:
@@ -129,6 +154,8 @@ class ServingEngine:
         self.record_latency = True
         self.buckets: Dict[int, BucketExecutor] = {
             b: self._build_bucket(b, budget) for b in buckets}
+        for be in self.buckets.values():
+            be.capture(ff)
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
@@ -250,11 +277,9 @@ class ServingEngine:
             inputs if isinstance(inputs, (list, tuple)) else [inputs])
 
     def _stage(self, be: BucketExecutor, arrays: List[np.ndarray]):
-        from flexflow_tpu_torch.model import stage_array
-
-        ex = be.executor
-        return {name: stage_array(arr, ex.device, ex.compute_dtype)
-                for name, arr in zip(ex.input_names, arrays)}
+        """The padded batch as the bucket's compiled forward takes it:
+        host arrays by input name (it copies them to the card)."""
+        return dict(zip(be.executor.input_names, arrays))
 
     def _serve_batch(self, batch: List[Request]) -> None:
         t0 = time.perf_counter()
@@ -266,7 +291,7 @@ class ServingEngine:
             fwd = be.forward()
             self.ff._refresh_compute_params()
             out = fwd(self.ff.params, self.ff.state, inputs)
-            out = out.float().cpu().numpy()
+            out = host_copy(out)
             for i, req in enumerate(batch):
                 req.finish(result=out[i], record=self.record_latency)
         except BaseException as e:

@@ -41,7 +41,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.search.native, flexflow_tpu_torch.search.rewrite, "
         "flexflow_tpu_torch.parallel.strategy, "
         "flexflow_tpu_torch.parallel.pipeline_detect, "
-        "flexflow_tpu_torch.layout, flexflow_tpu_torch.models.mlp\n"
+        "flexflow_tpu_torch.layout, flexflow_tpu_torch.models.mlp, "
+        "flexflow_tpu_torch.step_graph\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
