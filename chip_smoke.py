@@ -130,7 +130,26 @@ package. Phases:
              bit for bit, K5 48 each way a replay; the busy share of
              replayed and eager steps and 10 interleaved pairs timed. Then
              the same for 2 causal layers at S 2048, batch 2 (no pairs).
-8. report  — one JSON line ``{"kernels": [...]}``, then the final line
+8. llama   — the decoder LM (``create_llama``) at Mistral-7B-v0.3's
+             published widths (32 layers, hidden 4096, 32 heads, 8 kv heads,
+             vocab 32768), batch 4, seq 1024, random weights from a seed,
+             compiled for inference. [llama serve]: K1 at its shape (BH 128,
+             S 1024, D 128, causal) against its plain version, timed beside
+             ``scaled_dot_product_attention(is_causal=True)``; ``predict``
+             (K1 32 times in the capturing call and in each replay, the
+             replay bit-equal), its p50, one replay profiled; the serving
+             engine's buckets 1, 2, 4 and 8 requests closed-loop from 2
+             clients (K1 32 times a batch, one replay a batch), a full batch
+             equal to ``predict``. [llama decode]: ``DecodeSession.generate``
+             of 64 greedy tokens after a 960-token prompt (two captures in
+             all, no K1 launch); a second session fed those tokens: prefill
+             and every decode step timed against the step's bound, the
+             replayed step bit-equal to the eager one at two positions, two
+             replayed steps profiled. Then the same seeded model through a
+             ``dp_k:einsum`` strategy file: its ``predict`` against the
+             flash core's, and of the generated sequence against the
+             prefill's and the decode steps' logits (LLAMA_RTOL).
+9. report  — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without printing the final line.
@@ -335,6 +354,31 @@ TRAIN_C_CAUSAL = dict(num_layers=2, seq_length=2048, batch_size=2,
 # bucket is timed over this many full batches of its size
 SEARCH_BUDGET = 30
 SEARCH_BUCKET_BATCHES = 10
+# the decoder LM: create_llama at Mistral-7B-v0.3's published widths
+# (its config.json: hidden 4096, intermediate 14336, 32 layers, 32 heads,
+# 8 kv heads, so head dim 128; vocab 32768, RMSNorm eps 1e-5, RoPE theta
+# 1e6), batch 4, seq 1024, random weights from the config's seed
+LLAMA = dict(vocab_size=32768, hidden_size=4096, intermediate_size=14336,
+             num_hidden_layers=32, num_attention_heads=32,
+             num_key_value_heads=8, rms_norm_eps=1e-5, rope_theta=1e6,
+             batch_size=4, seq_length=1024)
+# its K1 launch: BH = 4 x 32 heads after the GQA repeat, causal, D 128
+LLAMA_K1 = (128, 1024, 128)
+# the served requests' closed loop, and predict's timed calls
+LLAMA_BUCKETS, LLAMA_REQUESTS, LLAMA_CONCURRENCY = (1, 2, 4), 8, 2
+LLAMA_PREDICTS = 5
+# greedy decode: a prompt of LLAMA_PROMPT tokens, then LLAMA_NEW tokens,
+# which fill the model's 1024 positions; the captured decode step is held
+# against the eager one at LLAMA_CHECK_AT
+LLAMA_PROMPT, LLAMA_NEW = 960, 64
+LLAMA_CHECK_AT = (980, 1010)
+# logits, flash core against the einsum core and decode against a full
+# predict, as a share of the largest |logit|: both sides keep activations
+# in bf16 between ops, and differ in where the attention rounds P and in
+# the order of the sums (and, for decode, in every GEMM's blocking, at
+# M = 4 rows a step against 4096): a few bf16 ulps (2^-8 each) a layer,
+# as MODEL_RTOL allows 2e-2 over 12 layers, here over 32 layers
+LLAMA_RTOL = 5e-2
 
 
 class SmokeFailure(Exception):
@@ -2467,6 +2511,536 @@ def phase_search_serve():
     return launches
 
 
+def llama_einsum_strategy(ff, path):
+    """Write a strategy file for ``ff``'s layers: attention ops
+    ``dp_k:einsum`` (the einsum core), every other op ``dp``."""
+    from flexflow_tpu_torch import OperatorType
+
+    ops = {}
+    for layer in ff.layers:
+        if layer.op_type == OperatorType.INPUT:
+            continue
+        attn = layer.op_type == OperatorType.MULTIHEAD_ATTENTION
+        ops[layer.name] = dict(choice="dp_k:einsum" if attn else "dp",
+                               outputs=[None], params={})
+    with open(path, "w") as f:
+        json.dump(dict(version=1, mesh={"data": 1}, ops=ops), f, indent=1)
+
+
+def build_llama(strategy_dir=None):
+    """``create_llama`` at LLAMA on the card, compiled for INFERENCE; with
+    ``strategy_dir``, through a strategy file written there that pins every
+    attention op to the einsum core (``dp_k:einsum``). The weights come
+    from the config's seed, so every call builds the same weights."""
+    from flexflow_tpu_torch import CompMode, FFConfig, LossType
+    from flexflow_tpu_torch.models.llama import (LlamaModelConfig,
+                                                 create_llama)
+
+    ff = create_llama(LlamaModelConfig(**LLAMA),
+                      FFConfig(batch_size=LLAMA["batch_size"]),
+                      device="cuda")
+    if strategy_dir is not None:
+        path = os.path.join(strategy_dir, "llama_einsum.json")
+        llama_einsum_strategy(ff, path)
+        ff.config.import_strategy_file = path
+    ff.compile(None, LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [],
+               comp_mode=CompMode.INFERENCE)
+    return ff
+
+
+def weights_fingerprint(ff):
+    """Each f32 parameter leaf's sum in f64, in a fixed order: two builds
+    from one seed must give the same list."""
+    import torch
+
+    return [float(ff.params[op][pn].sum(dtype=torch.float64))
+            for op in sorted(ff.params) for pn in sorted(ff.params[op])]
+
+
+def llama_ids(seed, batch, length):
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(
+        0, LLAMA["vocab_size"], (batch, length)).astype(np.int32)
+
+
+def memory_line():
+    import torch
+
+    return (f"device memory allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak reserved "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+
+
+def rel_gap(got, want):
+    """Largest |got - want| over the largest |want|."""
+    import numpy as np
+
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+def llama_k1_row():
+    """K1 at the decoder LM's launch (BH 128 = 4 x 32 heads after the GQA
+    repeat, S 1024, D 128, causal, bf16): against its plain version, two
+    runs bit-equal, timed by the profiler's device time beside
+    ``scaled_dot_product_attention(is_causal=True)`` on the same
+    GQA-expanded q, k, v (and both back to back), the plain version and
+    the bound. Returns the numbers for the kernels line."""
+    import torch
+    from flexflow_tpu_torch.ops.flash_attention import (flash_fwd,
+                                                        flash_fwd_reference)
+
+    bh, s, d = LLAMA_K1
+    b, h = LLAMA["batch_size"], LLAMA["num_attention_heads"]
+    rep = h // LLAMA["num_key_value_heads"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, h // rep, s, d, generator=gen, device="cuda")
+            .bfloat16().repeat_interleave(rep, dim=1) for _ in range(2))
+    q3, k3, v3 = (x.reshape(bh, s, d) for x in (q, k, v))
+    o, lse = flash_fwd(q3, k3, v3, True)
+    again = flash_fwd(q3, k3, v3, True)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = flash_fwd_reference(q3.float(), k3.float(), v3.float(),
+                                         True)
+    err_o = (o.float() - ref_o).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    tol = TOL["bfloat16"]
+    same = all(torch.equal(a, b_) for a, b_ in zip((o, lse), again))
+    print(f"[llama serve] flash_attn_fwd BH={bh} S={s} D={d} bfloat16 "
+          f"causal=True: o max_abs_err {err_o:.3e} (tol {tol['o']}), lse "
+          f"max_abs_err {err_lse:.3e} (tol {tol['lse']}); two runs "
+          f"bit-equal: {same}")
+    check(bool(torch.isfinite(o).all()) and err_o <= tol["o"]
+          and err_lse <= tol["lse"] and same,
+          "K1 disagrees with its plain version at the decoder LM's shape, "
+          "or two runs differ")
+    kernel = lambda: flash_fwd(q3, k3, v3, True)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True)
+    dev_ms, lib_dev_ms = profiled_ms(kernel), profiled_ms(lib)
+    b2b_ms, host_ms = time_calls(kernel)
+    lib_b2b_ms, lib_host_ms = time_calls(lib)
+    plain_ms = time_ms(lambda: flash_fwd_reference(q3, k3, v3, True))
+    profiled = dev_ms is not None and lib_dev_ms is not None
+    bound_s, bound_by = flash_bound(bh, s, d, 2, True, H100_SXM_PEAKS)
+    row = dict(shape=f"BH={bh} S={s} D={d} bfloat16 causal=True",
+               max_abs_err=err_o, lse_max_abs_err=err_lse,
+               ms=dev_ms if profiled else b2b_ms,
+               timed_by="profiler" if profiled else "back to back",
+               b2b_ms=b2b_ms, host_ms=host_ms, plain_ms=plain_ms,
+               library_ms=lib_dev_ms if profiled else lib_b2b_ms,
+               library_b2b_ms=lib_b2b_ms, library_host_ms=lib_host_ms,
+               bound_ms=bound_s * 1e3, bound_by=bound_by)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    print(f"[llama serve] K1 at BH={bh} S={s} D={d} causal: kernel profiled "
+          f"{fmt(dev_ms)}, {b2b_ms:.4f} ms back to back (host "
+          f"{host_ms:.4f} ms); library (sdpa, is_causal) profiled "
+          f"{fmt(lib_dev_ms)}, {lib_b2b_ms:.4f} ms back to back (host "
+          f"{lib_host_ms:.4f} ms); plain {plain_ms:.4f} ms; bound "
+          f"{bound_s * 1e6:.2f} us ({bound_by}) ({nvidia_smi_line()})")
+    return row
+
+
+def phase_llama_serve():
+    """[llama serve] the decoder LM at LLAMA through ``predict`` and the
+    serving engine: K1's row at its shape; ``predict`` a capture and then
+    a replay, each launching K1 once a layer, the two bit-equal, timed
+    over LLAMA_PREDICTS replays and one replay profiled (K1 by name); the
+    engine's buckets LLAMA_BUCKETS warmed, then LLAMA_REQUESTS requests
+    closed-loop at LLAMA_CONCURRENCY (K1 once a layer a batch, one replay
+    a batch); a full batch through the engine equal to ``predict``, and
+    one profiled. Returns (the model, predict's ids and logits, the
+    weights' fingerprint, the report's numbers)."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import CompMode
+    from flexflow_tpu_torch.obs.registry import get_registry
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+    from flexflow_tpu_torch.serve.loadgen import (run_closed_loop,
+                                                  warm_buckets)
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[llama serve] before the model: {memory_line()}")
+    k1 = llama_k1_row()
+    layers = LLAMA["num_hidden_layers"]
+    t0 = time.perf_counter()
+    ff = build_llama()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for sub in ff.params.values()
+                   for t in sub.values())
+    attn = [n.op for n in ff.executor.nodes
+            if isinstance(n.op, MultiHeadAttention)]
+    print(f"[llama serve] create_llama {LLAMA}: {n_params} parameters, "
+          f"built and compiled in {build_s:.2f} s (weights drawn on the "
+          f"card), compute dtype {ff.executor.compute_dtype}; "
+          f"{memory_line()}")
+    check(len(attn) == layers
+          and all(ff._selected_impl(op, CompMode.INFERENCE) == "flash"
+                  for op in attn)
+          and "flash_attn_fwd" in ff._kernels_of_path(ff.executor.nodes,
+                                                      CompMode.INFERENCE),
+          "[llama serve] the attention ops do not run K1")
+    fingerprint = weights_fingerprint(ff)
+
+    x = llama_ids(0, LLAMA["batch_size"], LLAMA["seq_length"])
+    reset_launches()
+    out = ff.predict(x)  # the capture: its eager warm-up launches K1
+    first = read_launches()["flash_attn_fwd"]
+    again = ff.predict(x)  # a replay
+    both = read_launches()["flash_attn_fwd"]
+    fwd = ff.executor.step_graphs["forward"]
+    print(f"[llama serve] predict: logits {out.shape} {out.dtype}, K1 "
+          f"launches {first} in the capturing call, {both - first} in the "
+          f"replay; replay equals the first call bit for bit: "
+          f"{bool(np.array_equal(out, again))}")
+    check(out.shape == (LLAMA["batch_size"], LLAMA["seq_length"],
+                        LLAMA["vocab_size"])
+          and bool(np.isfinite(out).all()), "[llama serve] predict's "
+          "logits are misshapen or not finite")
+    check(first == layers and both == 2 * layers
+          and (fwd.captures, fwd.replays) == (1, 1)
+          and np.array_equal(out, again),
+          "[llama serve] predict did not launch K1 once a layer in each "
+          "call, or its replay differs from the first call")
+    del again
+    walls = []
+    for _ in range(LLAMA_PREDICTS):
+        t0 = time.perf_counter()
+        ff.predict(x)
+        walls.append(time.perf_counter() - t0)
+    p50, p90 = p50_p90(walls)
+    print(f"[llama serve] predict (batch {LLAMA['batch_size']} x "
+          f"{LLAMA['seq_length']} tokens, f32 logits to the host), "
+          f"{LLAMA_PREDICTS} replays: p50 {p50 * 1e3:.3f} ms, p90 "
+          f"{p90 * 1e3:.3f} ms ({nvidia_smi_line()})")
+    prof = profile_steps("[llama serve] one replayed predict",
+                         lambda: ff.predict(x), steps=1)
+    predict_replay = check_replay_launches(
+        "[llama serve] one replayed predict", prof, 1,
+        dict(flash_attn_fwd=layers))
+
+    engine = ff.serve(batch_buckets=LLAMA_BUCKETS)
+    buckets = tuple(engine.scheduler.buckets)
+    check(buckets == LLAMA_BUCKETS, f"unexpected buckets {buckets}")
+    for b, rep in engine.bucket_report().items():
+        check(set(rep["kernel_choices"].values()) == {"flash"},
+              f"[llama serve] bucket {b} does not run K1: {rep}")
+    samples = llama_ids(1, 16, LLAMA["seq_length"])
+    make_request = lambda i: [samples[i % len(samples)]]
+    reg = get_registry()
+    try:
+        warmed = warm_buckets(engine, make_request)
+        graphs = {b: be.executor.step_graphs["forward"]
+                  for b, be in engine.buckets.items()}
+        torch.cuda.synchronize()
+        reg.reset()
+        reset_launches()
+        replays0 = {b: g.replays for b, g in graphs.items()}
+        engine.start()
+        stats = run_closed_loop(engine, make_request, LLAMA_REQUESTS,
+                                concurrency=LLAMA_CONCURRENCY)
+    finally:
+        engine.stop()
+    torch.cuda.synchronize()
+    launches = read_launches()["flash_attn_fwd"]
+    replays = {b: g.replays - replays0[b] for b, g in graphs.items()}
+    counters = reg.to_dict()["counters"]
+    batches = int(counters.get("serve/batches", 0))
+    check(not stats["errors"] and counters.get("serve/batch_errors", 0) == 0
+          and stats["num_measured"] == LLAMA_REQUESTS,
+          f"[llama serve] closed loop errors: {stats['errors'][:3]}")
+    check(launches == layers * batches and batches > 0
+          and sum(replays.values()) == batches
+          and all(g.captures == 1 for g in graphs.values()),
+          f"[llama serve] K1 launches {launches} != {layers} x {batches} "
+          f"batches, or a batch was not one replay ({replays})")
+    print(f"[llama serve] {warmed} warm-up requests, then "
+          f"{stats['num_measured']} requests closed-loop (concurrency "
+          f"{LLAMA_CONCURRENCY}) in {batches} batches, replays by bucket "
+          f"{replays}; K1 launches {launches} = {layers} x {batches}; p50 "
+          f"{stats['p50_s'] * 1e3:.3f} ms, p99 {stats['p99_s'] * 1e3:.3f} "
+          f"ms, {stats['throughput_rps']:.3f} requests/s over "
+          f"{stats['wall_s']:.3f} s ({nvidia_smi_line()})")
+    obs = reg.to_dict()["observations"]
+    for b in buckets:
+        o = obs.get(f"serve/bucket{b}/batch_latency_s")
+        if o:
+            print(f"[llama serve] bucket {b}: {int(o['count'])} batches, "
+                  f"batch latency p50 {o['p50'] * 1e3:.3f} ms")
+
+    full = graphs[LLAMA["batch_size"]]
+    replays0 = full.replays
+
+    def served_batch():
+        reqs = [engine.submit([row]) for row in x]
+        engine.pump()
+        return np.stack([r.wait(120) for r in reqs])
+
+    got = served_batch()
+    print(f"[llama serve] a full batch through the engine equals predict "
+          f"exactly: {bool(np.array_equal(got, out))}")
+    check(np.array_equal(got, out), "[llama serve] served rows differ from "
+          "predict's")
+    del got
+    prof = profile_steps("[llama serve] one full batch through the engine",
+                         served_batch, steps=1)
+    check(full.replays - replays0 == 2, "[llama serve] the served batches "
+          "were not one replay each")
+    serve_replay = check_replay_launches(
+        "[llama serve] one full batch", prof, 1, dict(flash_attn_fwd=layers))
+    print(f"[llama serve] after serving: {memory_line()}")
+    del engine, graphs, full, prof, served_batch
+    release()
+    return ff, x, out, fingerprint, dict(
+        k1=k1, launches=launches, replay=serve_replay["flash_attn_fwd"],
+        predict_launches=first,
+        predict_replay=predict_replay["flash_attn_fwd"],
+        predict_p50_ms=p50 * 1e3, p50_ms=stats["p50_s"] * 1e3,
+        p99_ms=stats["p99_s"] * 1e3, rps=stats["throughput_rps"])
+
+
+def profile_ops(label, fn, top=8):
+    """Where one call of ``fn`` (eager PyTorch ops) spends its device
+    time, by aten op and input shapes (torch.profiler with
+    ``record_shapes``): the ``top`` ops by their own device time, each
+    with its calls. Returns fn's result."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    self_ms = lambda r: getattr(r, "self_device_time_total",
+                                getattr(r, "self_cuda_time_total", 0)) / 1e3
+    # the host-side ops, each with the device time of the kernels it
+    # launched itself (the kernels' own rows would count it twice)
+    rows = [r for r in prof.key_averages(group_by_input_shape=True)
+            if r.device_type == DeviceType.CPU and self_ms(r) > 0]
+    total = sum(self_ms(r) for r in rows)
+    print(f"[profile] {label}: device time {total:.3f} ms by aten op "
+          f"(its own time, calls, input shapes):")
+    for r in sorted(rows, key=lambda r: -self_ms(r))[:top]:
+        print(f"[profile]   {self_ms(r):.3f} ms ({100 * self_ms(r) / total:.1f}"
+              f"%) in {r.count} calls: {r.key} {str(r.input_shapes)[:90]}")
+    return out
+
+
+def decode_step_bound(ff, sess):
+    """Least time (s) of one decode step: the bytes it must move over the
+    card's memory rate, every bf16 weight read once (of the embedding
+    table only the batch's rows) and both caches of every layer read
+    once (attention at the last position reads them whole)."""
+    from flexflow_tpu_torch.executor import COMPUTE_PARAMS_KEY
+
+    tree = ff.state.get(COMPUTE_PARAMS_KEY, ff.params)
+    nbytes = sum(t.numel() * t.element_size() for op, sub in tree.items()
+                 for t in sub.values() if op != "embed_tokens")
+    emb = tree["embed_tokens"]["kernel"]
+    nbytes += sess.batch * emb.shape[1] * emb.element_size()
+    nbytes += sum(t.numel() * t.element_size()
+                  for c in sess.caches.values() for t in c.values())
+    return nbytes / H100_SXM_PEAKS["bytes"], nbytes
+
+
+def phase_llama_decode(ff):
+    """[llama decode] greedy decode on the model of [llama serve]:
+    ``DecodeSession.generate`` of LLAMA_NEW tokens after a LLAMA_PROMPT-
+    token prompt (two captures in all, no K1 launch); then a second
+    session fed the generated tokens one at a time: its prefill (the
+    capture, then replays from position 0), every decode step timed, the
+    greedy tokens reproduced, at LLAMA_CHECK_AT the replayed step against
+    the eager one from the same caches and position bit for bit, two
+    replayed steps profiled. Returns the generated ids, the prefill's and
+    the decode steps' logits and the report's numbers."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.serve import DecodeSession
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    b = LLAMA["batch_size"]
+    prompt = llama_ids(2, b, LLAMA_PROMPT)
+    reset_launches()
+    sess = DecodeSession(ff)
+    t0 = time.perf_counter()
+    gen = sess.generate(prompt, LLAMA_NEW)
+    gen_s = time.perf_counter() - t0
+    launched = read_launches()
+    graphs = sess.step_graphs
+    caps = {t: g.captures for t, g in graphs.items()}
+    per_replay = {t: g.launches_a_replay() for t, g in graphs.items()}
+    print(f"[llama decode] generate({LLAMA_PROMPT}-token prompt, "
+          f"{LLAMA_NEW} steps) at batch {b} in {gen_s:.3f} s: ids "
+          f"{gen.shape} {gen.dtype}; captures {caps}, replays "
+          f"{ {t: g.replays for t, g in graphs.items()} }; kernel launches "
+          f"{launched}, a replay {per_replay}; report {sess.report()}")
+    check(gen.shape == (b, LLAMA["seq_length"]) and gen.dtype == np.int32
+          and np.array_equal(gen[:, :LLAMA_PROMPT], prompt),
+          "[llama decode] generate returned the wrong ids")
+    check(caps == {LLAMA_PROMPT: 1, 1: 1}
+          and graphs[1].replays == LLAMA_NEW - 2,
+          "[llama decode] generate did not capture exactly two graphs")
+    check(not any(launched.values())
+          and not any(v for d in per_replay.values() for v in d.values()),
+          "[llama decode] the decode path launched a kernel of the port "
+          "(it runs the cached einsum)")
+    check(set(sess.report()["kernel_choices"].values()) == {"cached_einsum"},
+          "[llama decode] the session reports another attention core")
+    del sess, graphs
+    release()
+
+    sess = DecodeSession(ff)
+    t0 = time.perf_counter()
+    pre = sess.prefill([gen[:, :LLAMA_PROMPT]])
+    first_prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_ms = []
+    for _ in range(3):
+        sess.pos = 0  # the same prompt again: its rows are rewritten
+        t0 = time.perf_counter()
+        again = sess.prefill([gen[:, :LLAMA_PROMPT]])
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    check(np.array_equal(pre, again), "[llama decode] a replayed prefill "
+          "differs from the capturing one")
+    del again
+    rows, step_ms, checked = [pre[:, -1]], [], []
+    prof = None
+    for p in range(LLAMA_PROMPT, LLAMA["seq_length"]):
+        tok = gen[:, p:p + 1]
+        if p in LLAMA_CHECK_AT:
+            saved = {n: {k: t.clone() for k, t in c.items()}
+                     for n, c in sess.caches.items()}
+            replayed = sess.decode([tok])
+            after = {n: {k: t.clone() for k, t in c.items()}
+                     for n, c in sess.caches.items()}
+            with torch.no_grad():
+                for n, c in saved.items():
+                    for k, t in c.items():
+                        sess.caches[n][k].copy_(t)
+            sess.pos = p
+            run = lambda: sess._run([tok], 1, eager=True)
+            eager = (profile_ops("[llama decode] one eager decode step", run)
+                     if p == LLAMA_CHECK_AT[-1] else run())
+            same = (np.array_equal(replayed, eager)
+                    and all(torch.equal(sess.caches[n][k], after[n][k])
+                            for n in after for k in ("k", "v")))
+            checked.append((p, same))
+            del saved, after
+            rows.append(replayed[:, 0])
+            continue
+        if p == LLAMA_CHECK_AT[0] + 4:
+            def decode_next():
+                rows.append(sess.decode([gen[:, sess.pos:sess.pos + 1]])[:, 0])
+            step = sess.step_graphs[1]
+            replays0 = step.replays
+            prof = profile_steps("[llama decode] two replayed decode steps",
+                                 decode_next, steps=2)
+            check(step.replays - replays0 == 2, "[llama decode] the "
+                  "profiled steps were not two replays")
+            continue
+        if sess.pos != p:  # the two profiled steps ran these positions
+            continue
+        t0 = time.perf_counter()
+        rows.append(sess.decode([tok])[:, 0])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(sess.pos == LLAMA["seq_length"] and len(rows) == LLAMA_NEW + 1,
+          "[llama decode] the timed session did not reach the last position")
+    print(f"[llama decode] the replayed decode step against the eager one "
+          f"from the same caches and position, logits and caches bit for "
+          f"bit, at positions: {checked}")
+    check(all(same for _, same in checked) and len(checked) == 2,
+          "[llama decode] a replayed decode step differs from the eager "
+          "step")
+    check({t: g.captures for t, g in sess.step_graphs.items()}
+          == {LLAMA_PROMPT: 1, 1: 1},
+          "[llama decode] the timed session captured more than two graphs")
+    logits = np.stack(rows, axis=1)  # positions LLAMA_PROMPT - 1 .. 1023
+    greedy = np.argmax(logits[:, :-1], axis=-1)
+    check(np.array_equal(greedy, gen[:, LLAMA_PROMPT:]),
+          "[llama decode] the teacher-fed session's argmax differs from "
+          "generate's tokens")
+    replay_launches = check_replay_launches(
+        "[llama decode] two replayed decode steps", prof, 2, {})
+    capture_ms, timed = step_ms[0], step_ms[1:]
+    (d50, d90) = p50_p90(timed)
+    bound_s, nbytes = decode_step_bound(ff, sess)
+    kinds, wall_ms = prof[0], prof[2]
+    busy = sum(kinds.values())
+    print(f"[llama decode] prefill of {LLAMA_PROMPT} tokens at batch {b}: "
+          f"{first_prefill_ms:.3f} ms capturing, then "
+          + ", ".join(f"{t:.3f}" for t in prefill_ms)
+          + f" ms replayed; decode step (one token a row, logits to the "
+          f"host): the capturing call {capture_ms:.3f} ms, then "
+          f"{len(timed)} replays p50 {d50:.3f} ms, p90 {d90:.3f} ms, "
+          f"{b / d50 * 1e3:.1f} tokens/s; the step's bound "
+          f"{bound_s * 1e3:.4f} ms ({nbytes / 1e9:.3f} GB of bf16 weights "
+          f"and caches over {H100_SXM_PEAKS['bytes'] / 1e12:.2f} TB/s), "
+          f"p50 = {d50 / (bound_s * 1e3):.2f}x the bound; two replayed "
+          f"steps: device busy {busy:.3f} of {wall_ms:.3f} ms "
+          f"({100 * busy / wall_ms:.1f}%) ({nvidia_smi_line()})")
+    print(f"[llama decode] {memory_line()}")
+    del sess, step, prof
+    release()
+    return gen, pre, logits[:, 1:], dict(
+        prefill_ms=statistics.median(prefill_ms),
+        first_prefill_ms=first_prefill_ms, step_p50_ms=d50, step_p90_ms=d90,
+        tokens_per_s=b / d50 * 1e3, bound_ms=bound_s * 1e3,
+        busy_share=busy / wall_ms, replay_launches=replay_launches)
+
+
+def phase_llama_reference(x, flash_out, gen, pre, dec, fingerprint):
+    """The einsum-core reference for both llama phases: the same model
+    from the same seed (the weights' fingerprint must agree) compiled
+    through a strategy file that pins every attention op to the einsum
+    core (``dp_k:einsum``): its ``predict`` of [llama serve]'s ids against
+    the flash core's, and of the generated sequence against the prefill's
+    and the decode steps' logits, each within LLAMA_RTOL of the largest
+    |logit|. Also the share of rows whose argmax agrees."""
+    import numpy as np
+    import torch
+
+    release()
+    print(f"[llama] the flash-core model deleted: {memory_line()}")
+    with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
+        ff = build_llama(tmp)
+    check(weights_fingerprint(ff) == fingerprint, "[llama] the einsum-core "
+          "model does not hold the same weights")
+    attn = {n.op.kernel_impl for n in ff.executor.nodes
+            if n.op.op_type.name == "MULTIHEAD_ATTENTION"}
+    check(attn == {"einsum"}, f"[llama] the strategy file pinned {attn}")
+    reset_launches()
+    ein_x = ff.predict(x)
+    ein_gen = ff.predict(gen)
+    check(not any(read_launches().values()), "[llama] the einsum-core "
+          "model launched a kernel")
+    del ff
+    release()
+    gaps = dict(serve=rel_gap(flash_out, ein_x),
+                prefill=rel_gap(pre, ein_gen[:, :LLAMA_PROMPT]),
+                decode=rel_gap(dec, ein_gen[:, LLAMA_PROMPT:]))
+    agree = float(np.mean(np.argmax(dec, -1)
+                          == np.argmax(ein_gen[:, LLAMA_PROMPT:], -1)))
+    print(f"[llama serve] predict, flash core vs einsum core (a dp_k:einsum "
+          f"strategy file, same seed): max_abs_err / max |logit| "
+          f"{gaps['serve']:.3e} (tol {LLAMA_RTOL})")
+    print(f"[llama decode] against one full predict (einsum core) of the "
+          f"generated sequence, max_abs_err / max |logit|: prefill rows "
+          f"{gaps['prefill']:.3e}, decode rows {LLAMA_PROMPT}-"
+          f"{LLAMA['seq_length'] - 1} {gaps['decode']:.3e} (tol "
+          f"{LLAMA_RTOL}); argmax agrees on {100 * agree:.1f}% of the decode "
+          f"rows")
+    check(all(np.isfinite(v) and v <= LLAMA_RTOL for v in gaps.values()),
+          f"[llama] logits beyond {LLAMA_RTOL} of the einsum-core predict: "
+          f"{gaps}")
+    return gaps
+
+
 def main() -> int:
     try:
         import torch
@@ -2506,6 +3080,10 @@ def main() -> int:
         ring = phase_ring()
         train_c = phase_train_c({}, "full width", timed=True)
         train_c_causal = phase_train_c(TRAIN_C_CAUSAL, "causal S 2048")
+        llama, x, out, fingerprint, llama_serve = phase_llama_serve()
+        gen, pre, dec, _ = phase_llama_decode(llama)
+        del llama
+        phase_llama_reference(x, out, gen, pre, dec, fingerprint)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -2516,7 +3094,8 @@ def main() -> int:
                                    train_a=train_a["launches"][
                                        "flash_attn_fwd"],
                                    search_train=search_train["flash_attn_fwd"],
-                                   search_serve=search_serve)
+                                   search_serve=search_serve,
+                                   llama_serve=llama_serve["launches"])
     bwd["launches"] = train_b["flash_attn_bwd"]
     bwd["launches_by_path"] = dict(train_b=train_b["flash_attn_bwd"],
                                    search_train=search_train["flash_attn_bwd"])
@@ -2547,7 +3126,8 @@ def main() -> int:
     fwd["launches_a_replay_by_path"] = dict(
         train_b=graph["replay_launches"]["flash_attn_fwd"],
         train_a=train_a["replay_launches"]["flash_attn_fwd"],
-        serve=serve_replay)
+        serve=serve_replay, llama_serve=llama_serve["replay"])
+    fwd["llama_serve"] = llama_serve["k1"]
     bwd_k3["launches_a_replay"] = train_a["replay_launches"]["flash_attn_bwd"]
     print("[kernels] earlier times, not measured by this run (the mma.sync "
           "kernels' chip runs, NVIDIA H100 80GB HBM3, 700 W; the forward by "

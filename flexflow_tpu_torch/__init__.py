@@ -1,19 +1,22 @@
 """flexflow_tpu_torch — the PyTorch/CUDA port of flexflow_tpu.
 
 A second package beside the JAX reference ``flexflow_tpu``, built slice by
-slice (ROADMAP.md). This slice serves the BERT-proxy transformer on one
-CUDA device: ``FFModel`` builds and compiles it for inference, ``serve()``
-answers requests through the continuous-batching ``ServingEngine``, and
-each attention op runs a hand-written CUDA flash-attention forward kernel
-(``ops/flash_attention.py``, ``csrc/flash_attn_fwd.cu``).
+slice (ROADMAP.md). It serves and trains the BERT-proxy transformer on
+one CUDA device, and serves and decodes the Llama-family decoder LM
+(``models/llama.py``, ``serve/kv_cache.py``): ``FFModel`` builds and
+compiles a model, ``fit`` trains it, ``serve()`` answers requests through
+the continuous-batching ``ServingEngine``, and the attention ops run
+hand-written CUDA flash-attention kernels (``ops/flash_attention.py``,
+``csrc/``).
 
 The package imports torch and numpy only: never jax, and nothing of
 ``flexflow_tpu``. Entry points run on CUDA unless the caller asks for the
 CPU (``device="cpu"``).
 """
 
-from flexflow_tpu_torch.ffconst import (ActiMode, CompMode, DataType,
-                                        LossType, MetricsType, OperatorType)
+from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
+                                        DataType, LossType, MetricsType,
+                                        OperatorType)
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.tensor import Tensor
 from flexflow_tpu_torch.model import FFModel, resolve_device
@@ -22,6 +25,7 @@ from flexflow_tpu_torch.initializers import (GlorotUniformInitializer,
 
 __all__ = [
     "ActiMode",
+    "AggrMode",
     "CompMode",
     "DataType",
     "FFConfig",

@@ -69,6 +69,26 @@ class OpNode:
         return self.op.guid
 
 
+def drop_schedule(nodes: List[OpNode], keep) -> List[List[Tuple[int, int]]]:
+    """For each node of ``nodes`` (in order), the values ``(guid, output
+    index)`` that no later node reads, to be dropped once it has run; the
+    values in ``keep`` never are. A graph walk that follows it holds only
+    the values still to be read, not every activation of the forward."""
+    last: Dict[Tuple[int, int], int] = {}
+    for i, node in enumerate(nodes):
+        for ref in node.input_refs:
+            if ref[0] == "op":
+                last[(ref[1], ref[2])] = i
+        for j in range(len(node.op.output_shapes)):
+            last.setdefault((node.guid, j), i)
+    drops: List[List[Tuple[int, int]]] = [[] for _ in nodes]
+    keep = {tuple(k) for k in keep}
+    for key, i in last.items():
+        if key not in keep:
+            drops[i].append(key)
+    return drops
+
+
 class GraphExecutor:
     def __init__(self, nodes: List[OpNode], input_names: List[str], final_ref,
                  device: torch.device,
@@ -107,6 +127,7 @@ class GraphExecutor:
         # StepGraph}) and the memory pool their CUDA graphs share
         self.step_graphs: Dict[str, StepGraph] = {}
         self._graph_pool = None
+        self._drops = drop_schedule(nodes, [self.final_ref])
 
     def _ctx(self, training: bool, rng=None) -> OpContext:
         return OpContext(training=training, compute_dtype=self.compute_dtype,
@@ -136,18 +157,23 @@ class GraphExecutor:
     # ---- forward graph traversal ------------------------------------------
     def run_graph(self, params, inputs: Dict[str, torch.Tensor],
                   ctx: OpContext) -> Dict[Tuple[int, int], torch.Tensor]:
-        """Evaluate ops in topo order; returns every op output keyed by
-        (producer guid, output index). (Op state, the auxiliary losses and
-        the Conv+BN inference fold of the JAX package come with the ops
-        that need them.)"""
+        """Evaluate ops in topo order; returns the model output keyed by
+        (producer guid, output index), ``final_ref``. Each op output is
+        dropped once its last consumer has run (``drop_schedule``), so the
+        walk holds the values still to be read, not the whole forward's.
+        (Op state, the auxiliary losses and the Conv+BN inference fold of
+        the JAX package come with the ops that need them.)"""
         values: Dict[Tuple[int, int], torch.Tensor] = {}
-        for node in self.nodes:
+        for node, drop in zip(self.nodes, self._drops):
             op = node.op
             args = [values[(ref[1], ref[2])] if ref[0] == "op"
                     else inputs[ref[1]] for ref in node.input_refs]
             outs = op.forward(params.get(op.name, {}), args, ctx)
             for i, o in enumerate(outs):
                 values[(op.guid, i)] = o
+            del args, outs
+            for key in drop:
+                del values[key]
         return values
 
     def _forward_fn(self, training: bool = False):

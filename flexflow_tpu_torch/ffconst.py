@@ -47,6 +47,12 @@ class ActiMode(enum.Enum):
     AC_MODE_GELU = 4
 
 
+class AggrMode(enum.Enum):
+    AGGR_MODE_NONE = 0
+    AGGR_MODE_SUM = 1
+    AGGR_MODE_AVG = 2
+
+
 class LossType(enum.Enum):
     CATEGORICAL_CROSSENTROPY = 10
     SPARSE_CATEGORICAL_CROSSENTROPY = 11

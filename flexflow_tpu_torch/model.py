@@ -35,8 +35,9 @@ import torch
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.executor import (COMPUTE_PARAMS_KEY, GraphExecutor,
                                          OpNode)
-from flexflow_tpu_torch.ffconst import (ActiMode, CompMode, DataType,
-                                        LossType, MetricsType, OperatorType)
+from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
+                                        DataType, LossType, MetricsType,
+                                        OperatorType)
 from flexflow_tpu_torch.layer import Layer
 from flexflow_tpu_torch.machine import (MachineSpec, Mesh,
                                         UnknownDeviceError,
@@ -173,6 +174,22 @@ class FFModel:
             kernel_initializer=kernel_initializer, seq_parallel=seq_parallel), name)
         return self._finish(layer)
 
+    def rms_norm(self, input: Tensor, eps: float = 1e-6,
+                 name: Optional[str] = None) -> Tensor:
+        """RMSNorm over the last dim (the Llama family)."""
+        layer = self._add_layer(OperatorType.RMSNORM, [input],
+                                dict(eps=eps), name)
+        return self._finish(layer)
+
+    def embedding(self, input: Tensor, num_entries: int, out_dim: int,
+                  aggr: AggrMode = AggrMode.AGGR_MODE_NONE,
+                  kernel_initializer=None, name: Optional[str] = None) -> Tensor:
+        layer = self._add_layer(OperatorType.EMBEDDING, [input], dict(
+            num_entries=num_entries, out_dim=out_dim, aggr=aggr,
+            kernel_initializer=kernel_initializer), name, DataType.FLOAT)
+        return self._finish(layer)
+
+    # ---- elementwise -------------------------------------------------------
     def _unary(self, op_type, x, name=None, scalar=None, inplace=False):
         layer = self._add_layer(op_type, [x], dict(scalar=scalar, inplace=inplace), name)
         return self._finish(layer)
@@ -181,11 +198,33 @@ class FFModel:
         layer = self._add_layer(op_type, [a, b], {}, name)
         return self._finish(layer)
 
-    def relu(self, x, inplace=True, name=None):
-        return self._unary(OperatorType.RELU, x, name, inplace=inplace)
+    def exp(self, x, name=None): return self._unary(OperatorType.EXP, x, name)
+    def sin(self, x, name=None): return self._unary(OperatorType.SIN, x, name)
+    def cos(self, x, name=None): return self._unary(OperatorType.COS, x, name)
+    def relu(self, x, inplace=True, name=None): return self._unary(OperatorType.RELU, x, name, inplace=inplace)
+    def gelu(self, x, name=None): return self._unary(OperatorType.GELU, x, name)
+    def sigmoid(self, x, name=None): return self._unary(OperatorType.SIGMOID, x, name)
+    def tanh(self, x, name=None): return self._unary(OperatorType.TANH, x, name)
+    def elu(self, x, inplace=True, name=None): return self._unary(OperatorType.ELU, x, name, inplace=inplace)
+    def rsqrt(self, x, name=None): return self._unary(OperatorType.RSQRT, x, name)
+    def log(self, x, name=None): return self._unary(OperatorType.LOG, x, name)
+    def identity(self, x, name=None): return self._unary(OperatorType.IDENTITY, x, name)
+    def pow(self, x, exponent, name=None): return self._unary(OperatorType.POW, x, name, scalar=exponent)
+    def scalar_multiply(self, x, scalar, inplace=True, name=None):
+        return self._unary(OperatorType.SCALAR_MULTIPLY, x, name, scalar=scalar, inplace=inplace)
+    def scalar_add(self, x, scalar, inplace=True, name=None):
+        return self._unary(OperatorType.SCALAR_ADD, x, name, scalar=scalar, inplace=inplace)
+    def scalar_sub(self, x, scalar, inplace=True, name=None):
+        return self._unary(OperatorType.SCALAR_SUB, x, name, scalar=scalar, inplace=inplace)
+    def scalar_true_divide(self, x, scalar, inplace=True, name=None):
+        return self._unary(OperatorType.SCALAR_TRUE_DIV, x, name, scalar=scalar, inplace=inplace)
 
-    def add(self, a, b, name=None):
-        return self._binary(OperatorType.EW_ADD, a, b, name)
+    def add(self, a, b, name=None): return self._binary(OperatorType.EW_ADD, a, b, name)
+    def subtract(self, a, b, name=None): return self._binary(OperatorType.EW_SUB, a, b, name)
+    def multiply(self, a, b, name=None): return self._binary(OperatorType.EW_MUL, a, b, name)
+    def divide(self, a, b, name=None): return self._binary(OperatorType.EW_DIV, a, b, name)
+    def max(self, a, b, name=None): return self._binary(OperatorType.EW_MAX, a, b, name)
+    def min(self, a, b, name=None): return self._binary(OperatorType.EW_MIN, a, b, name)
 
     def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
         layer = self._add_layer(OperatorType.SOFTMAX, [input],
@@ -245,6 +284,19 @@ class FFModel:
         free = [i for i in range(len(final_node.op.output_shapes))
                 if (final_node.guid, i) not in consumed]
         return (final_node.guid, free[0] if len(free) == 1 else 0)
+
+    def _declared_seq(self) -> Optional[int]:
+        """The model's sequence extent: the one extent that the compiled
+        graph's ops mark with the SEQ role, or None when there is none or
+        they disagree (an encoder/decoder pair has no single extent)."""
+        from flexflow_tpu_torch.ops.base import DimRole
+
+        found = {shp[d]
+                 for node in self.executor.nodes
+                 for shp, roles in zip(node.op.output_shapes,
+                                       node.op.output_dim_roles())
+                 for d, r in enumerate(roles) if r == DimRole.SEQ}
+        return found.pop() if len(found) == 1 else None
 
     def compile(self, optimizer=None,
                 loss_type: LossType = LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
@@ -464,7 +516,8 @@ class FFModel:
         names = self.executor.input_names
         if len(xs) != len(names):
             raise ValueError(f"model has {len(names)} inputs, got {len(xs)} arrays")
-        return {n: np.asarray(x) for n, x in zip(names, xs)}
+        return {n: host_input(x, t)
+                for n, x, t in zip(names, xs, self.input_tensors)}
 
     def _stage_inputs(self, xs) -> Dict[str, torch.Tensor]:
         """Host arrays -> device tensors, the batch the eager steps take;
@@ -679,6 +732,18 @@ class FFModel:
 
     def get_layer_names(self) -> List[str]:
         return [n.op.name for n in (self.executor.nodes if self.executor else [])]
+
+
+def host_input(arr, tensor: Tensor) -> np.ndarray:
+    """One host array for the model input ``tensor``: integer arrays (token
+    ids) in the input's declared integer dtype, so that a compiled step's
+    static feed keeps that dtype whatever integer type the caller used;
+    anything else as given."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind in "iu" and tensor.dtype in (DataType.INT32,
+                                                   DataType.INT64):
+        arr = arr.astype(tensor.dtype.value, copy=False)
+    return arr
 
 
 def stage_array(arr, device: torch.device, compute_dtype: torch.dtype

@@ -1,7 +1,8 @@
 """Operator library: ops as functions on tensors + metadata for the search.
 
 PyTorch counterpart of ``flexflow_tpu/ops``: the ops of the BERT-proxy
-transformer and the MLP, and the SPLIT the search's linear fusion emits;
+transformer, the MLP and the Llama-family decoder (embedding, RMSNorm,
+the elementwise kinds), and the SPLIT the search's linear fusion emits;
 ROADMAP.md lists the rest.
 """
 
@@ -10,6 +11,7 @@ import flexflow_tpu_torch.ops.linear  # noqa: F401
 import flexflow_tpu_torch.ops.attention  # noqa: F401
 import flexflow_tpu_torch.ops.norm  # noqa: F401
 import flexflow_tpu_torch.ops.elementwise  # noqa: F401
+import flexflow_tpu_torch.ops.embedding  # noqa: F401
 import flexflow_tpu_torch.ops.tensor_ops  # noqa: F401
 
 __all__ = ["Op", "OpRegistry", "register_op"]

@@ -18,6 +18,10 @@ counterpart of the JAX package's Pallas interpret mode. The ring keeps
 the reference's rule for its inner block (K5 wherever the kernel takes
 the shape, else einsum) whatever ``kernel_impl`` says; only on the CPU
 does ``kernel_impl="flash"`` give it K5's plain versions.
+``decode_forward``, the KV-cache decode path, always runs the einsum core
+over the cache. Grouped-query attention (``num_kv_heads``) and rotary
+position embeddings (``rope``, with a position offset for decode) are
+the reference's.
 """
 
 from __future__ import annotations
@@ -35,15 +39,18 @@ from flexflow_tpu_torch.ops.flash_attention import (
 from flexflow_tpu_torch.parallel.ring_attention import ring_attention
 
 
-def rotary_embedding(x: torch.Tensor, *, theta: float = 10000.0
-                     ) -> torch.Tensor:
+def rotary_embedding(x: torch.Tensor, *, theta: float = 10000.0,
+                     position_offset=0) -> torch.Tensor:
     """Apply RoPE to ``[B, H, S, D]`` (HF Llama rotate-half convention):
-    positions 0..S-1, inv_freq = theta^(-2i/D). (The decode path's
-    position offset comes with KV decode.)"""
+    positions offset..offset+S-1, inv_freq = theta^(-2i/D), angles in f32.
+    ``position_offset`` is the absolute position of the first row: a
+    Python int, or an integer tensor on ``x``'s device (a compiled decode
+    step feeds it, so that no position is captured into its graph)."""
     b, h, s, d = x.shape
     inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                              device=x.device) / d))
-    pos = torch.arange(s, dtype=torch.float32, device=x.device)
+    pos = position_offset + torch.arange(s, dtype=torch.float32,
+                                         device=x.device)
     angles = pos[:, None] * inv_freq[None, :]
     cos = torch.cat([torch.cos(angles)] * 2, dim=-1)  # [S, D]
     sin = torch.cat([torch.sin(angles)] * 2, dim=-1)
@@ -181,6 +188,75 @@ class MultiHeadAttention(Op):
         if self.use_bias:
             y = y + params["bo"].float()
         return [y.to(query.dtype)]
+
+    def decode_forward(self, params, inputs, ctx: OpContext,
+                       k_cache, v_cache, pos):
+        """KV-cache incremental forward (``serve/kv_cache.py``), the
+        reference's ``decode_forward``.
+
+        ``inputs``: the new token block only, query/key/value rows
+        ``[B, T, E]`` at absolute positions ``pos..pos+T-1`` (prefill:
+        T = the prompt's length at pos 0; decode: T = 1). ``k_cache`` /
+        ``v_cache``: ``[B, Hk, S_max, D]`` with the positions below
+        ``pos`` filled. ``pos``: a Python int or an integer tensor on the
+        caches' device (the compiled decode step feeds one). Projects the
+        new rows, writes their K and V into the caches in place at
+        ``pos``, and attends the new queries over the filled prefix and
+        themselves with the causal mask over absolute positions: always
+        the einsum core (flash has no incremental form over a cache).
+        The grouped query heads contract against the un-expanded cache.
+        The caller keeps ``pos + T <= S_max``. Returns ``(y [B, T, E],
+        k_cache, v_cache)``, the caches being the tensors given.
+
+        Only causal attention decomposes incrementally (a bidirectional
+        row needs K/V of positions that do not exist yet): a non-causal
+        op refuses."""
+        if not self.causal:
+            raise NotImplementedError(
+                f"attention '{self.name}': KV-cache incremental decode "
+                f"requires causal attention (bidirectional rows depend "
+                f"on future positions)")
+        query, key, value = (inputs * 3)[:3] if len(inputs) == 1 else inputs
+        cd = ctx.compute_dtype
+        proj = lambda x, w: torch.einsum("bse,hed->bhsd", x.to(cd),
+                                         params[w].to(cd))
+        q, k, v = proj(query, "wq"), proj(key, "wk"), proj(value, "wv")
+        if self.qkv_bias and "bq" in params:
+            q = q.float() + params["bq"].float()[None, :, None, :]
+            k = k.float() + params["bk"].float()[None, :, None, :]
+            v = v.float() + params["bv"].float()[None, :, None, :]
+        if self.rope:
+            q = rotary_embedding(q, theta=self.rope_theta,
+                                 position_offset=pos)
+            k = rotary_embedding(k, theta=self.rope_theta,
+                                 position_offset=pos)
+        b, _, t, d = q.shape
+        s_max = k_cache.shape[2]
+        dev = k_cache.device
+        # the new rows into the caches, in place, at their positions
+        rows = torch.arange(t, device=dev) + pos
+        k_cache.index_copy_(2, rows, k.to(k_cache.dtype))
+        v_cache.index_copy_(2, rows, v.to(v_cache.dtype))
+        hk = self.num_kv_heads
+        rep = self.num_heads // hk
+        # operands rounded to the compute dtype, f32 products and sums
+        # (the reference's preferred_element_type=f32)
+        qq = q.to(cd).float().reshape(b, hk, rep, t, d)
+        scores = torch.einsum("bgrqd,bgkd->bgrqk", qq,
+                              k_cache.to(cd).float()) / math.sqrt(d)
+        # key j is visible to the query at absolute position pos + i iff
+        # j <= pos + i, which also hides every slot not yet written
+        visible = (torch.arange(s_max, device=dev)[None, :]
+                   <= rows[:, None])
+        scores = scores.masked_fill(~visible, torch.finfo(torch.float32).min)
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bgrqk,bgkd->bgrqd", probs.to(cd).float(),
+                         v_cache.to(cd).float()
+                         ).reshape(b, self.num_heads, t, d)
+        y = torch.einsum("bhsd,hde->bse", o.to(cd), params["wo"].to(cd)).float()
+        if self.use_bias:
+            y = y + params["bo"].float()
+        return y.to(query.dtype), k_cache, v_cache
 
     def _use_flash(self, q, k) -> bool:
         if self.kernel_impl == "einsum":

@@ -116,9 +116,9 @@ class OpRegistry:
         if layer.op_type not in cls._by_type:
             raise NotImplementedError(
                 f"no Op registered for {layer.op_type} in the PyTorch port "
-                f"(it ports LINEAR, LAYERNORM, EW_ADD, RELU, "
-                f"MULTIHEAD_ATTENTION, SOFTMAX and SPLIT; ROADMAP.md lists "
-                f"the rest)")
+                f"(it ports LINEAR, EMBEDDING, LAYERNORM, RMSNORM, "
+                f"MULTIHEAD_ATTENTION, SOFTMAX, SPLIT and the elementwise "
+                f"kinds; ROADMAP.md lists the rest)")
         return cls._by_type[layer.op_type](layer, input_shapes)
 
 

@@ -1,9 +1,9 @@
-"""LayerNorm and Softmax.
+"""LayerNorm, RMSNorm and Softmax.
 
-PyTorch counterpart of ``flexflow_tpu/ops/norm.py``'s ``LayerNorm`` and
-``Softmax``: statistics, the affine apply and the softmax in f32, the
-result in the input's dtype. RMSNorm, GroupNorm and Dropout come with
-later slices.
+PyTorch counterpart of ``flexflow_tpu/ops/norm.py``'s ``LayerNorm``,
+``RMSNorm`` and ``Softmax``: statistics, the affine apply and the
+softmax in f32, the result in the input's dtype. GroupNorm and Dropout
+come with later slices.
 """
 
 from __future__ import annotations
@@ -66,6 +66,43 @@ class LayerNorm(Op):
 
     def params_elems(self):
         return 2 * math.prod(self._norm_shape()) if self.elementwise_affine else 0
+
+
+@register_op(OperatorType.RMSNORM)
+class RMSNorm(Op):
+    """Root-mean-square normalization over the last dim (the Llama
+    family): y = x / rms(x) * scale, computed in f32."""
+
+    def __init__(self, layer, input_shapes):
+        self.eps = layer.get_property("eps", 1e-6)
+        super().__init__(layer, input_shapes)
+
+    def compute_output_shapes(self):
+        return [self.input_shapes[0]]
+
+    def param_shapes(self):
+        return {"scale": (self.input_shapes[0][-1],)}
+
+    def init_params(self, generator):
+        return {"scale": torch.ones(self.param_shapes()["scale"],
+                                    device=generator.device)}
+
+    def forward(self, params, inputs, ctx: OpContext):
+        (x,) = inputs
+        xf = x.float()
+        rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
+                          + self.eps)
+        return [(xf * rms * params["scale"].float()).to(x.dtype)]
+
+    def output_dim_roles(self):
+        shp = self.output_shapes[0]
+        roles = [DimRole.SAMPLE] + [DimRole.OTHER] * (len(shp) - 1)
+        if len(shp) == 3:
+            roles[1] = DimRole.SEQ  # a per-position norm
+        return [tuple(roles)]
+
+    def params_elems(self):
+        return int(self.input_shapes[0][-1])
 
 
 @register_op(OperatorType.SOFTMAX)

@@ -1,23 +1,27 @@
 """flexflow_tpu_torch/serve — inference serving.
 
 PyTorch counterpart of ``flexflow_tpu/serve``: continuous/dynamic
-batching (``batching``) over per-batch-bucket executors (``engine``), and
-closed-loop load generation (``loadgen``). KV-cache decode, the
-per-bucket latency search and manifest loading come with later slices.
+batching (``batching``) over per-batch-bucket executors (``engine``),
+KV-cache prefill and incremental decode for causal decoders
+(``kv_cache``), and closed-loop load generation (``loadgen``). Manifest
+loading comes with a later slice.
 """
 
 from flexflow_tpu_torch.serve.batching import (BatchScheduler, Request,
                                                RequestQueue, pad_to_bucket,
                                                pick_bucket)
 from flexflow_tpu_torch.serve.engine import ServingEngine
+from flexflow_tpu_torch.serve.kv_cache import DecodeSession, init_kv_cache
 from flexflow_tpu_torch.serve.loadgen import (run_closed_loop,
                                               warm_buckets)
 
 __all__ = [
     "BatchScheduler",
+    "DecodeSession",
     "Request",
     "RequestQueue",
     "ServingEngine",
+    "init_kv_cache",
     "pad_to_bucket",
     "pick_bucket",
     "run_closed_loop",

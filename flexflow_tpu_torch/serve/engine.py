@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch.ffconst import CompMode, OperatorType
-from flexflow_tpu_torch.model import host_copy
+from flexflow_tpu_torch.model import host_copy, host_input
 from flexflow_tpu_torch.obs.registry import get_registry
 from flexflow_tpu_torch.serve.batching import (BatchScheduler, Request,
                                                RequestQueue, pad_to_bucket,
@@ -278,8 +278,10 @@ class ServingEngine:
 
     def _stage(self, be: BucketExecutor, arrays: List[np.ndarray]):
         """The padded batch as the bucket's compiled forward takes it:
-        host arrays by input name (it copies them to the card)."""
-        return dict(zip(be.executor.input_names, arrays))
+        host arrays by input name (it copies them to the card), integer
+        ids in the input's declared dtype."""
+        return {n: host_input(a, t) for n, a, t in
+                zip(be.executor.input_names, arrays, self.ff.input_tensors)}
 
     def _serve_batch(self, batch: List[Request]) -> None:
         t0 = time.perf_counter()

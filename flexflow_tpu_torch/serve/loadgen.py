@@ -131,9 +131,23 @@ def serve_workload(name: str = "transformer", on_cpu: bool = True,
                 LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
                 lambda i: [samples[i % len(samples)]])
     if name == "llama":
-        raise NotImplementedError(
-            "the llama serving workload comes with the op/model-zoo slice "
-            "of the PyTorch port")
+        from flexflow_tpu_torch.models.llama import (LlamaModelConfig,
+                                                     create_llama)
+        cfg = (LlamaModelConfig(batch_size=8, seq_length=32,
+                                num_hidden_layers=2)
+               if on_cpu else
+               LlamaModelConfig(batch_size=8, seq_length=512,
+                                hidden_size=1024, intermediate_size=4096,
+                                num_hidden_layers=8,
+                                num_attention_heads=16,
+                                num_key_value_heads=4, vocab_size=32000))
+        samples = rs.randint(0, cfg.vocab_size,
+                             (64, cfg.seq_length)).astype(np.int32)
+        return (cfg,
+                lambda: create_llama(
+                    cfg, FFConfig(batch_size=cfg.batch_size), device=device),
+                LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                lambda i: [samples[i % len(samples)]])
     raise ValueError(f"unknown serve workload '{name}' (transformer|llama)")
 
 

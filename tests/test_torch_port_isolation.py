@@ -42,7 +42,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.parallel.strategy, "
         "flexflow_tpu_torch.parallel.pipeline_detect, "
         "flexflow_tpu_torch.layout, flexflow_tpu_torch.models.mlp, "
-        "flexflow_tpu_torch.step_graph\n"
+        "flexflow_tpu_torch.step_graph, flexflow_tpu_torch.serve.kv_cache, "
+        "flexflow_tpu_torch.models.llama, flexflow_tpu_torch.ops.embedding\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
