@@ -149,7 +149,38 @@ package. Phases:
              ``dp_k:einsum`` strategy file: its ``predict`` against the
              flash core's, and of the generated sequence against the
              prefill's and the decode steps' logits (LLAMA_RTOL).
-9. report  — one JSON line ``{"kernels": [...]}``, then the final line
+9. llama train — [llama train] the decoder trained at Mistral-7B-v0.3's
+             widths, cut to LLAMA_TRAIN_LAYERS of its 32 layers (batch 4,
+             seq 1024, random weights from a seed, Adam with bf16
+             moments, the token-level sparse CE, next-token batches):
+             K2 at its training launch (BH 128, S 1024, D 128, causal,
+             K and V expanded for GQA) against its plain version, timed
+             beside the library's backward node and the bound; K4 over
+             the decoder's fused leaves bit-equal to its plain version,
+             timed beside ``torch.optim.Adam(fused=True)`` and the
+             bound; at LLAMA_GRAD_LAYERS layers the flash core's
+             gradients against the einsum core's (bf16). Then two
+             strategy files from one seed (the weights' fingerprints
+             agree): (P) attention ``dp_k:flash``, every other op
+             ``dp_k:fused``; (R) the same with ``_r`` on every attention
+             and RMSNorm (remat). What autograd keeps for the backward,
+             by op, in each; the forward and backward's peak memory;
+             LLAMA_TRAIN_STEPS ``fit`` steps each: losses finite and
+             falling, K1 once a layer a step in (P) and twice in (R) (the
+             forward and the recompute), K2 once a layer, K4 once, no K5;
+             (R) bit-equal to (P), losses and every leaf; the memory a
+             step allocates (R below P) and the graph pools;
+             LLAMA_TRAIN_PAIRS interleaved pairs of a (P) and an (R) step
+             (p50, p90, tokens/s); two replayed steps of each profiled
+             (the kernels by name, the busy share); (R)'s replayed step
+             against its eager step bit for bit. [llama search]: the
+             search on the same decoder uncapped (its named remat
+             rejections), then memory-capped (``memory_search`` at a
+             share of the uncapped prediction) until ``_r`` choices win:
+             their ops, what autograd keeps with and without them beside
+             what the search priced, 2 ``fit`` steps and the measured
+             peak beside the prediction.
+10. report — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without printing the final line.
@@ -214,12 +245,15 @@ SERVE_REQUESTS, SERVE_CONCURRENCY = 32, 4
 
 # flash backward: (bh, s, d, dtype name, causal, random g_lse); the first
 # is the training shape (batch 8 x 16 heads, seq 512, head dim 64), the
-# second K3's regime (batch 2 x 16 heads, seq 2048); then the tile edges
-# of the bf16 kernels (64-row warpgroups, 64-row ring tiles, 128-row CTAs)
+# second K3's regime (batch 2 x 16 heads, seq 2048), the third the
+# decoder's training launch (batch 4 x 32 heads after the GQA repeat, seq
+# 1024, head dim 128, causal); then the tile edges of the bf16 kernels
+# (64-row warpgroups, 64-row ring tiles, 128-row CTAs)
 BWD_EDGE_LENGTHS = (1, 63, 65, 127, 129)
 BWD_CASES = [
     (128, 512, 64, "bfloat16", False, False),
     (32, 2048, 64, "bfloat16", False, False),
+    (128, 1024, 128, "bfloat16", True, False),
     (128, 512, 64, "bfloat16", True, True),
     (32, 2048, 64, "bfloat16", True, False),
     (16, 1000, 64, "bfloat16", False, True),
@@ -231,9 +265,20 @@ BWD_CASES = [
     (8, 200, 128, "float32", True, True),
 ] + [(4, s, d, "bfloat16", causal, glse) for s in BWD_EDGE_LENGTHS
      for d in (64, 128) for causal in (False, True) for glse in (False, True)]
+# the cases timed for the kernels line: {case: (its row, the heads of its
+# model)}; the library's backward runs on the [B, H, S, D] view. The GQA
+# repeat in front of the decoder's K2 changes only the values K and V
+# hold, not the launch, so its case draws them like any other.
+BWD_TIMED = {
+    (128, 512, 64, "bfloat16", False, False): ("flash_attn_bwd", 16),
+    (32, 2048, 64, "bfloat16", False, False): ("flash_attn_bwd@S2048", 16),
+    (128, 1024, 128, "bfloat16", True, False):
+        ("flash_attn_bwd@llama_train", 32),
+}
 # the backward run twice on the same inputs must give the same bits
 BWD_DETERMINISM_CASES = [
     (128, 512, 64, "bfloat16", False, False),
+    (128, 1024, 128, "bfloat16", True, False),
     (16, 1000, 64, "bfloat16", True, True),
     (16, 300, 128, "bfloat16", True, False),
 ]
@@ -379,6 +424,20 @@ LLAMA_CHECK_AT = (980, 1010)
 # M = 4 rows a step against 4096): a few bf16 ulps (2^-8 each) a layer,
 # as MODEL_RTOL allows 2e-2 over 12 layers, here over 32 layers
 LLAMA_RTOL = 5e-2
+
+
+# [llama train]: the decoder at LLAMA's widths cut to LLAMA_TRAIN_LAYERS of
+# its 32 layers (training state, about 12 bytes a parameter, would hold
+# 87 GB at full depth: more than the card); Adam with bf16 moments
+LLAMA_TRAIN_LAYERS = 8
+LLAMA_TRAIN_ALPHA = 1e-4
+LLAMA_TRAIN_STEPS = 3
+LLAMA_TRAIN_PAIRS = 5
+# the flash core's gradients against the einsum core's, at this depth
+LLAMA_GRAD_LAYERS = 2
+# the memory-capped search's thresholds, as shares of the uncapped
+# search's predicted memory, tried in turn until an _r twin wins
+LLAMA_SEARCH_FRACTIONS = (0.95, 0.9, 0.8)
 
 
 class SmokeFailure(Exception):
@@ -966,7 +1025,8 @@ def bwd_entry_launch(q, k, v, o, lse, do, causal, want):
 def phase_kernels_bwd():
     """K2/K3 against the plain version on the card, every case of
     BWD_CASES; bit-equal results from two runs; returns the entries of the
-    kernels line for the training shape (K2) and K3's regime."""
+    kernels line for the cases of BWD_TIMED, in its order: the training
+    shape (K2), K3's regime and the decoder's training launch (K2)."""
     import torch
     from flexflow_tpu_torch.ops.flash_attention import (flash_bwd,
                                                         flash_bwd_reference)
@@ -996,7 +1056,7 @@ def phase_kernels_bwd():
               + f" (tol {tol} of max)")
         check(all(e <= tol * sc for e, sc in zip(errs, scales)),
               f"backward kernel disagrees with its plain version at {case}")
-        if dname != "bfloat16" or causal or with_glse or s not in (512, 2048):
+        if case not in BWD_TIMED:
             continue
         # the training shapes. The kernels are timed through their entry
         # point with the arguments flash_bwd gives it (the wrapper's
@@ -1010,11 +1070,12 @@ def phase_kernels_bwd():
             lambda: flash_bwd(q, k, v, o, lse, do, causal))
         plain_ms = time_ms(
             lambda: flash_bwd_reference(q, k, v, o, lse, do, causal))
-        b = bh // 16
-        lq, lk, lv = (x.view(b, 16, s, d).detach().requires_grad_()
+        name, heads = BWD_TIMED[case]
+        b = bh // heads
+        lq, lk, lv = (x.view(b, heads, s, d).detach().requires_grad_()
                       for x in (q, k, v))
-        ldo = do.view(b, 16, s, d)
-        node = sdpa(lq, lk, lv).grad_fn
+        ldo = do.view(b, heads, s, d)
+        node = sdpa(lq, lk, lv, is_causal=causal).grad_fn
         lib = lambda: node(ldo)
         lib_errs = [(g.reshape(bh, s, d).float() - w).abs().max().item() / sc
                     for g, w, sc in zip(lib(), want, scales)]
@@ -1025,13 +1086,13 @@ def phase_kernels_bwd():
               f"the library's backward node does not give dq, dk, dv at {case}")
         library_ms, library_host_ms = time_calls(lib)
         _, fb_host_ms = time_calls(
-            lambda: torch.autograd.grad(sdpa(lq, lk, lv), (lq, lk, lv), ldo))
+            lambda: torch.autograd.grad(sdpa(lq, lk, lv, is_causal=causal),
+                                        (lq, lk, lv), ldo))
         dev_ms = profiled_ms(launch, label=f"kernel S={s}")
         lib_dev_ms = profiled_ms(lib, label=f"library backward S={s}")
         bound_s, bound_by = bwd_bound(bh, s, d, q.element_size(), causal,
                                       with_glse, H100_SXM_PEAKS)
         k3 = s > 1024
-        name = "flash_attn_bwd" + ("@S2048" if k3 else "")
         entries.append(dict(
             name=name, route="cuda",
             source="flexflow_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -1049,7 +1110,8 @@ def phase_kernels_bwd():
             library_fwd_bwd_host_ms=fb_host_ms,
             bound_ms=bound_s * 1e3, bound_by=bound_by))
         fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
-        print(f"[kernels] backward at BH={bh} S={s}: kernels {ms:.4f} ms a "
+        print(f"[kernels] backward at BH={bh} S={s} D={d} causal={causal}: "
+              f"kernels {ms:.4f} ms a "
               f"launch back to back (host {host_ms:.4f} ms), profiled device "
               f"time {fmt(dev_ms)}; through flash_bwd {wrapper_ms:.4f} ms "
               f"(host {wrapper_host_ms:.4f} ms); plain {plain_ms:.4f} ms; "
@@ -1057,7 +1119,8 @@ def phase_kernels_bwd():
               f"{library_host_ms:.4f} ms), profiled {fmt(lib_dev_ms)}; "
               f"library fwd+bwd through autograd: host {fb_host_ms:.4f} ms "
               f"a call; bound {bound_s * 1e6:.2f} us ({bound_by})")
-    check(len(entries) == 2, "missing a training-shape backward timing")
+    check(len(entries) == len(BWD_TIMED),
+          "missing a training-shape backward timing")
     for case in BWD_DETERMINISM_CASES:
         q, k, v, o, lse, do, glse = bwd_inputs(gen, *case)
         first = flash_bwd(q, k, v, o, lse, do, case[4], glse)
@@ -1428,20 +1491,33 @@ def phase_train_c(cfg_kw, label, timed=False):
     return out
 
 
-def transformer_strategy(ff, path):
-    """Write the strategy file of training path (b) for ``ff``'s layers:
-    attention ops ``dp_k:flash``, every other op ``dp_k:fused``."""
+def write_strategy(ff, path, choice_of):
+    """Write a one-device strategy file for ``ff``'s layers, each op's
+    choice ``choice_of(its OperatorType)``."""
     from flexflow_tpu_torch import OperatorType
 
-    ops = {}
-    for layer in ff.layers:
-        if layer.op_type == OperatorType.INPUT:
-            continue
-        attn = layer.op_type == OperatorType.MULTIHEAD_ATTENTION
-        ops[layer.name] = dict(choice="dp_k:flash" if attn else "dp_k:fused",
-                               outputs=[None], params={})
+    ops = {layer.name: dict(choice=choice_of(layer.op_type), outputs=[None],
+                            params={})
+           for layer in ff.layers if layer.op_type != OperatorType.INPUT}
     with open(path, "w") as f:
         json.dump(dict(version=1, mesh={"data": 1}, ops=ops), f, indent=1)
+
+
+def kernel_path(remat=False):
+    """The kernel path's choice by op type (training path (b) and the
+    decoder's): attention ``dp_k:flash`` (K1, K2), every other op
+    ``dp_k:fused`` (K4); with ``remat``, ``_r`` on every attention and
+    every RMSNorm."""
+    from flexflow_tpu_torch import OperatorType
+
+    r = "_r" if remat else ""
+
+    def choice_of(kind):
+        if kind == OperatorType.MULTIHEAD_ATTENTION:
+            return "dp_k:flash" + r
+        return "dp_k:fused" + (r if kind == OperatorType.RMSNORM else "")
+
+    return choice_of
 
 
 COUNTER_KEYS = {"flash_fwd.launches": "flash_attn_fwd",
@@ -1500,7 +1576,7 @@ def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4,
                             device="cuda")
     if strategy_dir is not None:
         path = os.path.join(strategy_dir, "strategy.json")
-        transformer_strategy(ff, path)
+        write_strategy(ff, path, kernel_path())
         ff.config.import_strategy_file = path
     ff.compile(AdamOptimizer(alpha=alpha, state_dtype=torch.bfloat16),
                LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
@@ -1640,10 +1716,8 @@ def phase_graph_train(strategy_dir):
     check(all(d == want for d in per_call),
           f"[graph train] launches a compiled call {per_call}, want {want}")
     sg = ex.step_graphs["train_step"]
-    pool = tuple(ex._graph_pool)
-    pool_gib = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id") or ()) == pool) / 2**30
-    print(f"[graph train] the executor's graph pool reserves {pool_gib:.2f} "
+    print(f"[graph train] the executor's graph pool reserves "
+          f"{pool_gib(ff):.2f} "
           f"GiB (the captured step's activations, gradients and new "
           f"state); the copy-back writes {sg.copy_back_bytes / 2**20:.1f} "
           f"MiB a step into {sg.copy_back_leaves} leaves (the plain-Adam "
@@ -1760,6 +1834,15 @@ def phase_graph_train(strategy_dir):
                 replay_launches=replay_launches,
                 eager_kinds=(prof_eager or [None])[0], p50=g50,
                 eager_p50=e50)
+
+
+def pool_gib(ff):
+    """What the model's executor's CUDA-graph pool reserves, GiB."""
+    import torch
+
+    pool = tuple(ff.executor._graph_pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id") or ()) == pool) / 2**30
 
 
 def release():
@@ -2024,21 +2107,23 @@ def grads_of_core(ff, x, y, impl):
             op.kernel_impl = pin
 
 
-def check_grads(ff, x, y, dname):
+def check_grads(ff, x, y, dname, label="[train grads]", nudged=None):
     """Flash gradients against einsum gradients from the model's state,
     each leaf within GRAD_RTOL or within FLOOR_FACTOR times its floor (the
-    einsum core against itself with the input nudged)."""
+    einsum core against itself with its input scaled by 1 +- NUDGE:
+    ``nudged(sign)`` gives those gradients; by default the batch ``x``
+    nudged)."""
     g_plain = grads_of_core(ff, x, y, "einsum")
     err = leaf_shares(grads_of_core(ff, x, y, "flash"), g_plain)
-    nudged = [leaf_shares(grads_of_core(ff, x * (1 + sign * NUDGE), y,
-                                        "einsum"), g_plain)
-              for sign in (1, -1)]
+    nudged = nudged or (lambda sign: grads_of_core(
+        ff, x * (1 + sign * NUDGE), y, "einsum"))
+    nudged = [leaf_shares(nudged(sign), g_plain) for sign in (1, -1)]
     floor = {l: max(f[l] for f in nudged) for l in err}
     tol = GRAD_RTOL[dname]
     worst = max(err, key=err.get)
     over = sorted((l for l in err if err[l] > tol), key=lambda l: -err[l])
     bad = [l for l in over if err[l] > FLOOR_FACTOR * floor[l]]
-    print(f"[train grads] {dname} compute, initial weights, flash core vs "
+    print(f"{label} {dname} compute, initial weights, flash core vs "
           f"einsum core: worst leaf {worst} at {err[worst]:.3e} of its max "
           f"|g| (tol {tol}); its floor (einsum core, input scaled by 1 "
           f"+- {NUDGE}) {floor[worst]:.3e}; largest floor "
@@ -2511,28 +2596,13 @@ def phase_search_serve():
     return launches
 
 
-def llama_einsum_strategy(ff, path):
-    """Write a strategy file for ``ff``'s layers: attention ops
-    ``dp_k:einsum`` (the einsum core), every other op ``dp``."""
-    from flexflow_tpu_torch import OperatorType
-
-    ops = {}
-    for layer in ff.layers:
-        if layer.op_type == OperatorType.INPUT:
-            continue
-        attn = layer.op_type == OperatorType.MULTIHEAD_ATTENTION
-        ops[layer.name] = dict(choice="dp_k:einsum" if attn else "dp",
-                               outputs=[None], params={})
-    with open(path, "w") as f:
-        json.dump(dict(version=1, mesh={"data": 1}, ops=ops), f, indent=1)
-
-
 def build_llama(strategy_dir=None):
     """``create_llama`` at LLAMA on the card, compiled for INFERENCE; with
     ``strategy_dir``, through a strategy file written there that pins every
     attention op to the einsum core (``dp_k:einsum``). The weights come
     from the config's seed, so every call builds the same weights."""
-    from flexflow_tpu_torch import CompMode, FFConfig, LossType
+    from flexflow_tpu_torch import (CompMode, FFConfig, LossType,
+                                    OperatorType)
     from flexflow_tpu_torch.models.llama import (LlamaModelConfig,
                                                  create_llama)
 
@@ -2541,7 +2611,8 @@ def build_llama(strategy_dir=None):
                       device="cuda")
     if strategy_dir is not None:
         path = os.path.join(strategy_dir, "llama_einsum.json")
-        llama_einsum_strategy(ff, path)
+        write_strategy(ff, path, lambda kind: "dp_k:einsum" if kind
+                       == OperatorType.MULTIHEAD_ATTENTION else "dp")
         ff.config.import_strategy_file = path
     ff.compile(None, LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [],
                comp_mode=CompMode.INFERENCE)
@@ -2571,6 +2642,26 @@ def memory_line():
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak reserved "
             f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+
+
+def take_peaks(acc):
+    """Folds the card's peak allocated and reserved memory since the last
+    reset into ``acc`` ([GiB, GiB], the larger of each kept), then resets
+    the peaks: a phase that resets them for each of its readings still
+    knows its own peak."""
+    import torch
+
+    acc[0] = max(acc[0], torch.cuda.max_memory_allocated() / 2**30)
+    acc[1] = max(acc[1], torch.cuda.max_memory_reserved() / 2**30)
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peaks_line(acc):
+    import torch
+
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    return (f"peak allocated {acc[0]:.2f} GiB, peak reserved {acc[1]:.2f} "
+            f"GiB of the card's {total:.2f} GiB")
 
 
 def rel_gap(got, want):
@@ -3041,6 +3132,461 @@ def phase_llama_reference(x, flash_out, gen, pre, dec, fingerprint):
     return gaps
 
 
+def build_llama_train(layers, strategy_dir=None, remat=False, **cfg_kw):
+    """``create_llama`` at LLAMA's widths and ``layers`` layers on the
+    card, compiled for training (Adam LLAMA_TRAIN_ALPHA with bf16 moments,
+    the token-level sparse CE); with ``strategy_dir``, through a strategy
+    file of ``kernel_path(remat)`` written there; ``cfg_kw`` go to
+    the FFConfig. The weights come from the config's seed: every call
+    builds the same weights."""
+    import torch
+    from flexflow_tpu_torch import FFConfig, LossType
+    from flexflow_tpu_torch.models.llama import (LlamaModelConfig,
+                                                 create_llama)
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
+    ff = create_llama(LlamaModelConfig(**dict(LLAMA,
+                                              num_hidden_layers=layers)),
+                      FFConfig(batch_size=LLAMA["batch_size"], **cfg_kw),
+                      device="cuda")
+    if strategy_dir is not None:
+        path = os.path.join(strategy_dir, f"llama_train_{layers}_"
+                                          f"{'remat' if remat else 'plain'}"
+                                          f".json")
+        write_strategy(ff, path, kernel_path(remat))
+        ff.config.import_strategy_file = path
+    ff.compile(AdamOptimizer(alpha=LLAMA_TRAIN_ALPHA,
+                             state_dtype=torch.bfloat16),
+               LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [])
+    return ff
+
+
+def llama_batch(seed):
+    """Ids and their labels in ``tests/test_llama.py``'s learnable pattern
+    (the next token is the token + 1)."""
+    import numpy as np
+
+    v = LLAMA["vocab_size"]
+    x = np.random.RandomState(seed).randint(
+        0, v - 1, (LLAMA["batch_size"], LLAMA["seq_length"])).astype(np.int32)
+    return x, ((x + 1) % v).astype(np.int32)
+
+
+def llama_k4_row(layers):
+    """K4 over the decoder's ``_k:fused`` leaves at ``layers`` layers
+    (every op's parameters but attention's, their shapes read from the
+    materialized graph; p f32, g, m, v bf16): one launch bit-equal to its
+    plain version, leaf by leaf; timed back to back beside the plain
+    version, ``torch.optim.Adam(fused=True)`` on the same parameters
+    (f32 grads and moments: not the same function) and the bound (every
+    byte read and written once). Returns the numbers for the kernels
+    line."""
+    import torch
+    from flexflow_tpu_torch.models.llama import (LlamaModelConfig,
+                                                 create_llama)
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+    from flexflow_tpu_torch.ops.fused_update import (fused_adam_multi,
+                                                     fused_adam_reference)
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
+    graph = create_llama(LlamaModelConfig(**dict(LLAMA,
+                                                 num_hidden_layers=layers)),
+                         device="cuda")._materialize_nodes()[0]
+    shapes = [tuple(shp) for n in graph
+              if not isinstance(n.op, MultiHeadAttention)
+              for shp in n.op.param_shapes().values()]
+    n = sum(math.prod(shp) for shp in shapes)
+    chunks = sum(-(-math.prod(shp) // 1024) for shp in shapes)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    rnd = lambda shp, k: torch.randn(shp, generator=gen, device="cuda") * k
+    ps = [rnd(shp, 1e-2) for shp in shapes]
+    gs = [rnd(shp, 1e-3).bfloat16() for shp in shapes]
+    ms = [rnd(shp, 1e-3).bfloat16() for shp in shapes]
+    vs = [(rnd(shp, 1e-3) ** 2).bfloat16() for shp in shapes]
+    _, alpha_t = AdamOptimizer(alpha=LLAMA_TRAIN_ALPHA).step_scalars(
+        torch.tensor(0, dtype=torch.int32, device="cuda"))
+    kw = dict(wd=0.0, **ADAM_KW)
+    kp, km, kv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+    fused_adam_multi(kp, gs, km, kv, alpha_t, **kw)
+    torch.cuda.synchronize()
+    differ = 0
+    for i in range(len(shapes)):
+        want = fused_adam_reference([ps[i]], [gs[i]], [ms[i]], [vs[i]],
+                                    alpha_t, **kw)[0]
+        differ += sum(int((a != b).sum())
+                      for a, b in zip((kp[i], km[i], kv[i]), want))
+    del kp, km, kv, want
+    print(f"[llama train] fused_adam over the decoder's {len(shapes)} fused "
+          f"leaves at {layers} layers ({n} elements in {chunks} "
+          f"1024-element chunks, one CTA each: the launch's grid): "
+          f"{differ} elements differ from the plain version (want 0)")
+    check(differ == 0, "K4 is not bit-equal to its plain version over the "
+                       "decoder's leaves")
+    launch = lambda: fused_adam_multi(ps, gs, ms, vs, alpha_t, **kw)
+    k4_ms = time_ms(launch)
+    plain_ms = time_ms(lambda: fused_adam_reference(ps, gs, ms, vs, alpha_t,
+                                                    **kw))
+    del ms, vs
+    lib_params = [torch.nn.Parameter(p) for p in ps]
+    for lp, g in zip(lib_params, gs):
+        lp.grad = g.float()
+    del gs
+    lib = torch.optim.Adam(lib_params, lr=LLAMA_TRAIN_ALPHA, fused=True)
+    library_ms = time_ms(lib.step)
+    del lib, lib_params, ps
+    release()
+    bound_s, bound_by = adam_bound(n, 2, 2, H100_SXM_PEAKS)
+    print(f"[llama train] fused_adam over the {len(shapes)} fused leaves: "
+          f"kernel {k4_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"(torch.optim.Adam fused, f32 moments and grads: not the same "
+          f"function) {library_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms "
+          f"({bound_by}) ({nvidia_smi_line()})")
+    return dict(shape=f"{len(shapes)} leaves, {n} elements, p f32, g/m/v "
+                      f"bf16", leaves=len(shapes), elements=n, chunks=chunks,
+                max_abs_err=0.0, ms=k4_ms, timed_by="back to back",
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_s * 1e3, bound_by=bound_by)
+
+
+def phase_llama_train_grads(strategy_dir):
+    """The decoder at LLAMA_GRAD_LAYERS layers, from its initial weights:
+    the flash core's gradients against the einsum core's in bf16 compute
+    (``check_grads``: each leaf within GRAD_RTOL of its largest |g|, or
+    within FLOOR_FACTOR times its floor, the einsum core against itself
+    with the embedding table, the model's input, scaled by 1 +- NUDGE)."""
+    import torch
+
+    release()
+    ff = build_llama_train(LLAMA_GRAD_LAYERS, strategy_dir)
+    x, y = llama_batch(7)
+    emb = ff.params["embed_tokens"]["kernel"]
+    start = emb.clone()
+
+    def nudged(sign):
+        with torch.no_grad():
+            emb.mul_(1 + sign * NUDGE)
+        ff._compute_params_dirty = True
+        try:
+            return grads_of_core(ff, x, y, "einsum")
+        finally:
+            with torch.no_grad():
+                emb.copy_(start)
+            ff._compute_params_dirty = True
+
+    check_grads(ff, x, y, "bfloat16", label=f"[llama train] "
+                f"{LLAMA_GRAD_LAYERS} layers,", nudged=nudged)
+    del ff, emb, start, nudged
+    release()
+
+
+def phase_llama_train(strategy_dir):
+    """[llama train] the decoder at LLAMA's widths and LLAMA_TRAIN_LAYERS
+    layers through two strategy files from one seed: (P) attention
+    ``dp_k:flash``, the rest ``dp_k:fused``; (R) the same with ``_r`` on
+    every attention and RMSNorm. What autograd keeps for the backward, by
+    op, in each; LLAMA_TRAIN_STEPS ``fit`` steps each (K1 once a layer a
+    step in P and twice in R, K2 once a layer, K4 once; the losses finite
+    and falling; R bit-equal to P, losses and every leaf; the device
+    memory a step allocates and the graph pool, R below P);
+    LLAMA_TRAIN_PAIRS interleaved pairs of a P and an R step timed; two
+    replayed steps of each profiled (the kernels by name, the busy
+    share); then, with P deleted, R's replayed step against its eager
+    step bit for bit. Returns the report's numbers."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+    from flexflow_tpu_torch.ops.norm import RMSNorm
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = [0.0, 0.0]
+    print(f"[llama train] before the models: {memory_line()}")
+    layers = LLAMA_TRAIN_LAYERS
+    x, y = llama_batch(5)
+    models = {}
+    for name in ("plain", "remat"):
+        t0 = time.perf_counter()
+        ff = models[name] = build_llama_train(layers, strategy_dir,
+                                              remat=name == "remat")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for sub in ff.params.values()
+                       for t in sub.values())
+        print(f"[llama train] ({name[0].upper()}) create_llama at "
+              f"{layers} of 32 layers, batch {LLAMA['batch_size']} x "
+              f"{LLAMA['seq_length']}: {n_params} parameters, built and "
+              f"compiled in {time.perf_counter() - t0:.2f} s; kernels "
+              f"{sorted(set(ff.kernel_choices.values()))}, remat ops "
+              f"{len(ff.remat_ops or ())}; {memory_line()}")
+    pff, rff = models["plain"], models["remat"]
+    check(weights_fingerprint(pff) == weights_fingerprint(rff),
+          "[llama train] (P) and (R) do not hold the same weights")
+    remat_kinds = {n.op.name for n in rff.executor.nodes
+                   if isinstance(n.op, (MultiHeadAttention, RMSNorm))}
+    check(pff.remat_ops is None and rff.remat_ops == remat_kinds
+          and len(remat_kinds) == 3 * layers + 1
+          and pff.kernel_choices == rff.kernel_choices
+          and set(pff.kernel_choices.values()) == {"flash", "fused"},
+          "[llama train] the strategy files did not give the expected "
+          "kernels and remat ops")
+
+    # what autograd keeps for the backward, by op (one eager forward each)
+    saved = {}
+    for name, ff in models.items():
+        saved[name] = ff.executor.saved_bytes_by_op(
+            ff.params, ff.state, ff._stage_inputs(x), ff._stage_labels(y))
+        release()
+    mib = lambda b: b / 2**20
+    rows = [op for op in saved["plain"] if not op.startswith("l")
+            or op.startswith("l0_")]
+    print("[llama train] what autograd keeps for the backward, MiB by op "
+          "(P / R; layer 0 and the ops outside the layers): "
+          + ", ".join(f"{op} {mib(saved['plain'][op]):.1f} / "
+                      f"{mib(saved['remat'][op]):.1f}" for op in rows))
+    totals = {k: sum(v.values()) for k, v in saved.items()}
+    freed = {op: saved["plain"][op] - saved["remat"][op]
+             for op in saved["plain"] if op in rff.remat_ops}
+    print(f"[llama train] in all: P {mib(totals['plain']):.1f} MiB, R "
+          f"{mib(totals['remat']):.1f} MiB; remat frees "
+          f"{mib(totals['plain'] - totals['remat']):.1f} MiB: attention "
+          f"{mib(sum(v for k, v in freed.items() if k.endswith('_attn'))):.1f}"
+          f", RMSNorm "
+          f"{mib(sum(v for k, v in freed.items() if k.endswith('_ln'))):.1f}"
+          f" (each checkpoint keeping its input)")
+    check(totals["remat"] < totals["plain"]
+          and all(saved["remat"][op] == b for op, b in saved["plain"].items()
+                  if op not in rff.remat_ops)
+          and all(v > 0 for v in freed.values()),
+          "[llama train] remat did not free what the remat ops kept, or "
+          "changed what another op keeps")
+    # the forward and backward alone (an eager grads_of), without the
+    # update: where each step's peak falls
+    fwd_bwd = {}
+    for name, ff in models.items():
+        torch.cuda.synchronize()
+        take_peaks(peaks)
+        base = torch.cuda.memory_allocated()
+        ff.executor.grads_of(ff.params, ff.state, ff._stage_inputs(x),
+                             ff._stage_labels(y))
+        torch.cuda.synchronize()
+        fwd_bwd[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        release()
+    print(f"[llama train] the forward and backward alone (an eager "
+          f"grads_of), peak above what is held: P {fwd_bwd['plain']:.2f} "
+          f"GiB, R {fwd_bwd['remat']:.2f} GiB")
+
+    # LLAMA_TRAIN_STEPS fit steps each: launches, memory, losses
+    want = {name: dict(flash_attn_fwd=layers * (2 if name == "remat" else 1),
+                       flash_attn_bwd=layers, fused_adam=1, flash_lse_fwd=0,
+                       flash_lse_bwd=0) for name in models}
+    per = {}
+    for name, ff in models.items():
+        torch.cuda.synchronize()
+        take_peaks(peaks)
+        base = torch.cuda.memory_allocated()
+        steps, walls = [], []
+        for _ in range(LLAMA_TRAIN_STEPS):
+            before = read_launches()
+            t0 = time.perf_counter()
+            ff.fit(x, y, epochs=1, verbose=False)
+            walls.append(time.perf_counter() - t0)
+            steps.append(launch_delta(before))
+        torch.cuda.synchronize()
+        sg = ff.executor.step_graphs["train_step"]
+        per[name] = dict(
+            saved_mib=mib(totals[name]), fwd_bwd_gib=fwd_bwd[name],
+            losses=list(ff.epoch_losses),
+            peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+            held_gib=base / 2**30, pool_gib=pool_gib(ff),
+            copy_back_mib=sg.copy_back_bytes / 2**20,
+            launches={k: sum(d[k] for d in steps) for k in steps[0]})
+        r = per[name]
+        print(f"[llama train] ({name[0].upper()}) {LLAMA_TRAIN_STEPS} fit "
+              f"steps: losses " + ", ".join(f"{v:.6f}" for v in r["losses"])
+              + f"; wall " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+              + f" ms (the first captures); launches a step {steps} (want "
+              f"{want[name]}); captures {sg.captures}, replays {sg.replays}; "
+              f"{r['held_gib']:.2f} GiB held before the first step, a step "
+              f"allocates {r['peak_gib']:.2f} GiB above it at its peak; the "
+              f"graph pool {r['pool_gib']:.2f} GiB, the copy-back "
+              f"{r['copy_back_mib']:.1f} MiB a step ({nvidia_smi_line()})")
+        check(all(d == want[name] for d in steps)
+              and (sg.captures, sg.replays) == (1, LLAMA_TRAIN_STEPS - 1),
+              f"[llama train] ({name}) launches a step differ, or a step "
+              f"was not one replay")
+        check(all(np.isfinite(r["losses"]))
+              and r["losses"][-1] < r["losses"][0],
+              f"[llama train] ({name}) the loss is not finite or does not "
+              f"fall")
+    differ = leaves_differ((pff.params, pff.opt_state, pff.state),
+                           (rff.params, rff.opt_state, rff.state))
+    n_leaves = len(flatten_leaves((pff.params, pff.opt_state, pff.state)))
+    print(f"[llama train] (R) against (P): losses equal "
+          f"{per['remat']['losses'] == per['plain']['losses']}; {differ} of "
+          f"{n_leaves} leaves (params, m, v, t, the compute copy) differ "
+          f"(want 0); a step's peak R {per['remat']['peak_gib']:.2f} GiB "
+          f"against P {per['plain']['peak_gib']:.2f} GiB")
+    check(per["remat"]["losses"] == per["plain"]["losses"] and differ == 0,
+          "[llama train] remat changed the losses or the weights")
+    check(per["remat"]["peak_gib"] < per["plain"]["peak_gib"],
+          "[llama train] the remat step does not allocate less")
+
+    # interleaved pairs of replayed steps, then two of each profiled
+    runs = {name: graph_stepper(ff, x, y) for name, ff in models.items()}
+    times = {name: [] for name in models}
+    for i in range(LLAMA_TRAIN_PAIRS):
+        for name in (("plain", "remat") if i % 2 == 0
+                     else ("remat", "plain")):
+            t0 = time.perf_counter()
+            runs[name]()
+            times[name].append(time.perf_counter() - t0)
+    tokens = LLAMA["batch_size"] * LLAMA["seq_length"]
+    for name in models:
+        p50, p90 = p50_p90(times[name])
+        per[name].update(p50_ms=p50 * 1e3, p90_ms=p90 * 1e3,
+                         tokens_per_s=tokens / p50)
+        print(f"[llama train] ({name[0].upper()}) {LLAMA_TRAIN_PAIRS} "
+              f"interleaved pairs, a replayed step (host clock, ends in a "
+              f"host read of the loss): p50 {p50 * 1e3:.3f} ms, p90 "
+              f"{p90 * 1e3:.3f} ms, {tokens / p50:.1f} tokens/s "
+              f"({nvidia_smi_line()})")
+    for name, ff in models.items():
+        sg = ff.executor.step_graphs["train_step"]
+        replays0 = sg.replays
+        label = f"[llama train] ({name[0].upper()}) 2 replayed steps"
+        prof = profile_steps(label, runs[name])
+        check(sg.replays - replays0 == 2, f"{label} were not 2 replays")
+        per[name]["replay"] = check_replay_launches(label, prof, 2,
+                                                    want[name])
+        per[name]["kinds"] = prof[0]
+        per[name]["busy_share"] = sum(prof[0].values()) / prof[2]
+    torch.cuda.synchronize()
+    take_peaks(peaks)
+    print(f"[llama train] the phase with (P) and (R) both on the card: "
+          f"{peaks_line(peaks)} ({nvidia_smi_line()})")
+    del runs, prof, pff, ff
+    models.pop("plain")
+    release()
+    per_call = graph_vs_eager(rff, x, y, 2, "[llama train] (R)")
+    check(all(d == want["remat"] for d in per_call),
+          f"[llama train] (R) launches a compiled call {per_call}")
+    del rff, models
+    release()
+    return per
+
+
+def phase_llama_search():
+    """The memory-capped search on the decoder at LLAMA_TRAIN_LAYERS
+    layers: ``compile(search_budget=SEARCH_BUDGET)`` uncapped, then with
+    ``memory_search`` and a threshold at each of LLAMA_SEARCH_FRACTIONS of
+    the uncapped prediction until the search gives ``_r`` choices; their
+    ops, the predicted memory and step, then 2 ``fit`` steps: the loss
+    finite, the measured peak beside the prediction. If no threshold
+    makes an ``_r`` twin win, the search trace's named rejections of the
+    decoder's ops. Returns the report's numbers."""
+    import numpy as np
+    import torch
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = [0.0, 0.0]
+    layers = LLAMA_TRAIN_LAYERS
+    ff = build_llama_train(layers, search_budget=SEARCH_BUDGET,
+                           search_trace=True)
+    free = ff.search_info
+    trace = free.get("search_trace") or {}
+    print(f"[llama search] compile(search_budget={SEARCH_BUDGET}) at "
+          f"{layers} layers, uncapped: predicted step "
+          f"{free['predicted_time'] * 1e3:.3f} ms, memory "
+          f"{free['predicted_memory'] / 2**30:.2f} GiB, remat ops "
+          f"{sorted(ff.remat_ops or ())}, kernels "
+          f"{sorted(set((ff.kernel_choices or {}).values()))}; search "
+          f"{free['search_wall_s']:.3f} s")
+    rejected = {}
+    for o in trace.get("ops", []):
+        for r in o.get("remat_rejections") or []:
+            rejected.setdefault(r["reason"], []).append(o["name"])
+    twins = sorted({o["name"] for o in trace.get("ops", [])
+                    for c in o.get("candidates", [])
+                    if c["choice"].endswith("_r")})
+    print(f"[llama search] the gate's twins: {len(twins)} ops with an _r "
+          f"candidate ({', '.join(twins[:6])}, ...); named rejections: "
+          + "; ".join(f"{reason} x {len(names)} ({', '.join(names[:4])}, "
+                      f"...)" for reason, names in rejected.items()))
+    del ff
+    release()
+    for frac in LLAMA_SEARCH_FRACTIONS:
+        cap_mb = int(free["predicted_memory"] * frac) >> 20
+        ff = build_llama_train(layers, search_budget=SEARCH_BUDGET,
+                               memory_search=True, memory_threshold_mb=cap_mb)
+        if ff.remat_ops:
+            break
+        print(f"[llama search] threshold {cap_mb} MiB ({frac}): no _r "
+              f"choice")
+        del ff
+        release()
+    else:
+        # every capped compile ran and none chose _r: the finding is the
+        # gate's named rejections, which must then be there
+        print(f"[llama search] no threshold in {LLAMA_SEARCH_FRACTIONS} of "
+              f"the uncapped prediction made an _r twin win")
+        check(rejected, "[llama search] no _r choice under any threshold "
+                        "and no named remat rejection in the search trace")
+        return dict(remat_ops=[], rejected=rejected)
+    info = ff.search_info
+    print(f"[llama search] threshold {cap_mb} MiB ({frac} of the uncapped "
+          f"prediction): {len(ff.remat_ops)} ops carry _r: "
+          f"{sorted(ff.remat_ops)}; predicted step "
+          f"{info['predicted_time'] * 1e3:.3f} ms, memory "
+          f"{info['predicted_memory'] / 2**30:.2f} GiB; {memory_line()}")
+    x, y = llama_batch(6)
+    # what the _r choices free, measured: what autograd keeps with them
+    # and with the executor's remat set aside for the count
+    ex = ff.executor
+    feeds = (ff._stage_inputs(x), ff._stage_labels(y))
+    kept = {"remat": ex.saved_bytes_by_op(ff.params, ff.state, *feeds)}
+    ex.remat_ops, remat_ops = None, ex.remat_ops
+    try:
+        kept["plain"] = ex.saved_bytes_by_op(ff.params, ff.state, *feeds)
+    finally:
+        ex.remat_ops = remat_ops
+    release()
+    freed_gib = (sum(kept["plain"].values())
+                 - sum(kept["remat"].values())) / 2**30
+    priced_gib = (free["predicted_memory"] - info["predicted_memory"]) / 2**30
+    print(f"[llama search] what autograd keeps for the backward, MiB, "
+          f"without / with the _r choices, for their ops: "
+          + ", ".join(f"{op} {kept['plain'][op] / 2**20:.1f} / "
+                      f"{kept['remat'][op] / 2**20:.1f}"
+                      for op in sorted(remat_ops))
+          + f"; in all, remat frees {freed_gib:.3f} GiB, where the search "
+          f"priced {priced_gib:.3f} GiB (its uncapped and capped "
+          f"predictions)")
+    torch.cuda.synchronize()
+    take_peaks(peaks)
+    reset_launches()
+    for _ in range(2):
+        ff.fit(x, y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    take_peaks(peaks)
+    print(f"[llama search] 2 fit steps: losses "
+          + ", ".join(f"{v:.6f}" for v in ff.epoch_losses)
+          + f"; launches {read_launches()}; peak allocated {peak_gib:.2f} GiB "
+          f"(the search predicted {info['predicted_memory'] / 2**30:.2f} "
+          f"GiB); the phase: {peaks_line(peaks)} ({nvidia_smi_line()})")
+    check(all(np.isfinite(ff.epoch_losses)),
+          "[llama search] the searched remat strategy's loss is not finite")
+    out = dict(remat_ops=sorted(ff.remat_ops), threshold_mb=cap_mb,
+               freed_gib=freed_gib, priced_gib=priced_gib,
+               predicted_gib=info["predicted_memory"] / 2**30,
+               free_predicted_gib=free["predicted_memory"] / 2**30,
+               peak_gib=peak_gib, losses=list(ff.epoch_losses))
+    del ff
+    release()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3062,7 +3608,7 @@ def main() -> int:
         name = phase_card()
         phase_build()
         fwd = phase_kernels()
-        bwd, bwd_k3 = phase_kernels_bwd()
+        bwd, bwd_k3, llama_k2 = phase_kernels_bwd()
         lse_fwd, lse_bwd = phase_kernels_lse()
         serve_launches, serve_replay = phase_serve()
         check_f32_model()
@@ -3084,6 +3630,11 @@ def main() -> int:
         gen, pre, dec, _ = phase_llama_decode(llama)
         del llama
         phase_llama_reference(x, out, gen, pre, dec, fingerprint)
+        llama_k4 = llama_k4_row(LLAMA_TRAIN_LAYERS)
+        with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
+            phase_llama_train_grads(tmp)
+            llama_train = phase_llama_train(tmp)
+        phase_llama_search()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -3096,13 +3647,24 @@ def main() -> int:
                                    search_train=search_train["flash_attn_fwd"],
                                    search_serve=search_serve,
                                    llama_serve=llama_serve["launches"])
+    fwd["launches_by_path"].update(
+        llama_train=llama_train["plain"]["launches"]["flash_attn_fwd"],
+        llama_train_remat=llama_train["remat"]["launches"]["flash_attn_fwd"])
     bwd["launches"] = train_b["flash_attn_bwd"]
-    bwd["launches_by_path"] = dict(train_b=train_b["flash_attn_bwd"],
-                                   search_train=search_train["flash_attn_bwd"])
+    bwd["launches_by_path"] = dict(
+        train_b=train_b["flash_attn_bwd"],
+        search_train=search_train["flash_attn_bwd"],
+        llama_train=llama_train["plain"]["launches"]["flash_attn_bwd"],
+        llama_train_remat=llama_train["remat"]["launches"]["flash_attn_bwd"])
+    bwd["llama_train"] = dict(
+        llama_k2, launches=llama_train["plain"]["launches"]["flash_attn_bwd"])
     bwd_k3["launches"] = train_a["launches"]["flash_attn_bwd"]
     adam["launches"] = train_b["fused_adam"]
-    adam["launches_by_path"] = dict(train_b=train_b["fused_adam"],
-                                    search_train=search_train["fused_adam"])
+    adam["launches_by_path"] = dict(
+        train_b=train_b["fused_adam"], search_train=search_train["fused_adam"],
+        llama_train=llama_train["plain"]["launches"]["fused_adam"],
+        llama_train_remat=llama_train["remat"]["launches"]["fused_adam"])
+    adam["llama_train"] = llama_k4
     for entry, key in ((lse_fwd, "flash_lse_fwd"), (lse_bwd, "flash_lse_bwd")):
         entry["launches"] = train_c["launches"][key]
         entry["launches_by_path"] = dict(
@@ -3126,7 +3688,17 @@ def main() -> int:
     fwd["launches_a_replay_by_path"] = dict(
         train_b=graph["replay_launches"]["flash_attn_fwd"],
         train_a=train_a["replay_launches"]["flash_attn_fwd"],
-        serve=serve_replay, llama_serve=llama_serve["replay"])
+        serve=serve_replay, llama_serve=llama_serve["replay"],
+        llama_train=llama_train["plain"]["replay"]["flash_attn_fwd"],
+        llama_train_remat=llama_train["remat"]["replay"]["flash_attn_fwd"])
+    bwd["launches_a_replay_by_path"] = dict(
+        train_b=graph["replay_launches"]["flash_attn_bwd"],
+        llama_train=llama_train["plain"]["replay"]["flash_attn_bwd"],
+        llama_train_remat=llama_train["remat"]["replay"]["flash_attn_bwd"])
+    adam["launches_a_replay_by_path"] = dict(
+        train_b=graph["replay_launches"]["fused_adam"],
+        llama_train=llama_train["plain"]["replay"]["fused_adam"],
+        llama_train_remat=llama_train["remat"]["replay"]["fused_adam"])
     fwd["llama_serve"] = llama_serve["k1"]
     bwd_k3["launches_a_replay"] = train_a["replay_launches"]["flash_attn_bwd"]
     print("[kernels] earlier times, not measured by this run (the mma.sync "

@@ -28,7 +28,16 @@ the new parameters: the JAX step's order. Ops whose strategy choice is
 ``_k:fused`` update through the fused pass (``ops/fused_update.py``).
 A mesh reaches the ops through ``OpContext.mesh``: one process runs a
 mesh whose one axis above 1 is ring attention's sequence axis, every ring
-position on this device. Sharding and remat come with later slices.
+position on this device. Sharding comes with a later slice.
+
+Remat (``remat_ops``, the ops whose strategy choice carries ``_r``): in
+training such an op's forward runs under a non-reentrant
+``torch.utils.checkpoint``, the counterpart of the reference's per-op
+``jax.checkpoint``. Autograd then keeps the op's inputs and parameters
+and recomputes its interior when the backward reaches it; the values are
+those of the plain forward, bit for bit. The recompute of a flash
+attention launches K1 a second time, inside the backward (and inside
+the captured graph of a compiled step).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from flexflow_tpu_torch.ffconst import CompMode, LossType
 from flexflow_tpu_torch.losses import get_loss_fn
@@ -89,6 +99,21 @@ def drop_schedule(nodes: List[OpNode], keep) -> List[List[Tuple[int, int]]]:
     return drops
 
 
+def remat_refusal(op: Op) -> Optional[str]:
+    """Why ``op``'s forward cannot be recomputed in the backward, in the
+    words of the native remat gate (``native/ffs_strategy.hpp``
+    ``remat_gate``), or None: a recompute would re-advance its state or
+    draw its random numbers anew, and so differ from the forward it
+    replaces."""
+    t = op.op_type.name
+    if t in ("BATCHNORM", "EXPERTS", "AGGREGATE", "GROUP_BY", "TOPK",
+             "CACHE"):
+        return "stateful_interior"
+    if t == "DROPOUT" or (getattr(op, "dropout", 0.0) or 0.0) > 0.0:
+        return "dropout_interior"
+    return None
+
+
 class GraphExecutor:
     def __init__(self, nodes: List[OpNode], input_names: List[str], final_ref,
                  device: torch.device,
@@ -96,7 +121,7 @@ class GraphExecutor:
                  loss_type: Optional[LossType] = None, metrics=None,
                  optimizer=None, final_is_softmax: bool = False,
                  kernel_choices: Optional[Dict[str, str]] = None,
-                 mesh=None):
+                 mesh=None, remat_ops: Optional[set] = None):
         self.nodes = nodes
         self.input_names = input_names
         # (guid, out_idx) of the user-designated model output
@@ -123,6 +148,18 @@ class GraphExecutor:
             if impl == "fused"}
         # the compiled mesh (machine.Mesh or None), handed to every op
         self.mesh = mesh
+        # names of the ops whose forward runs under a checkpoint in
+        # training (their "_r" choices); None = no remat
+        self.remat_ops = set(remat_ops) if remat_ops else None
+        for node in nodes:
+            if self.remat_ops and node.op.name in self.remat_ops:
+                reason = remat_refusal(node.op)
+                if reason:
+                    raise ValueError(
+                        f"op {node.op.name!r} cannot be rematerialized "
+                        f"({reason}): recomputing its forward in the "
+                        f"backward would not reproduce it; drop its _r "
+                        f"choice")
         # the compiled steps ({"train_step" | "eval_step" | "forward" ->
         # StepGraph}) and the memory pool their CUDA graphs share
         self.step_graphs: Dict[str, StepGraph] = {}
@@ -168,13 +205,34 @@ class GraphExecutor:
             op = node.op
             args = [values[(ref[1], ref[2])] if ref[0] == "op"
                     else inputs[ref[1]] for ref in node.input_refs]
-            outs = op.forward(params.get(op.name, {}), args, ctx)
+            outs = self._op_forward(op, params.get(op.name, {}), args, ctx)
             for i, o in enumerate(outs):
                 values[(op.guid, i)] = o
             del args, outs
             for key in drop:
                 del values[key]
         return values
+
+    def _op_forward(self, op: Op, params, args, ctx: OpContext):
+        """``op.forward``; for a remat op in a forward with grad, under a
+        non-reentrant checkpoint (the reentrant form refuses
+        ``torch.autograd.grad``). Its parameters and inputs go to the
+        checkpoint as tensor arguments, so that what it keeps for the
+        backward is saved, and seen by saved-tensor hooks, like what any
+        op saves. The RNG state is not kept: no op that draws random
+        numbers is rematerialized (``remat_refusal``), and reading it
+        would not be legal under a CUDA-graph capture."""
+        if not (ctx.training and self.remat_ops and op.name in self.remat_ops
+                and torch.is_grad_enabled()):
+            return op.forward(params, args, ctx)
+        names = list(params)
+
+        def interior(*flat):
+            return op.forward(dict(zip(names, flat[:len(names)])),
+                              list(flat[len(names):]), ctx)
+
+        return checkpoint(interior, *params.values(), *args,
+                          use_reentrant=False, preserve_rng_state=False)
 
     def _forward_fn(self, training: bool = False):
         """The eager forward: ``fwd(params, state, inputs, rng=None) ->
@@ -277,17 +335,23 @@ class GraphExecutor:
         return fused_optimizer_update(self.optimizer, grads, opt_state,
                                       params, fused)
 
+    def _grad_leaves(self, params, state):
+        """The leaves an autograd graph of one step starts from: fresh
+        tensors over the parameters the forward reads (the compute copy,
+        under the master-weight regime), floating ones requiring grad."""
+        cparams = (state[COMPUTE_PARAMS_KEY] if self.use_master_copy
+                   else params)
+        return {op: {pn: t.detach().requires_grad_(t.is_floating_point())
+                     for pn, t in sub.items()}
+                for op, sub in cparams.items()}
+
     def grads_of(self, params, state, inputs, labels, rng=None):
         """One forward and backward: (loss, logits, grads). ``grads`` has
         the tree of ``params``, in the dtype of the tensors the forward
         read (the compute copy's, under the master-weight regime). The
         leaves the autograd graph starts from are made fresh here, so no
         graph outlives the call."""
-        cparams = (state[COMPUTE_PARAMS_KEY] if self.use_master_copy
-                   else params)
-        leaves = {op: {pn: t.detach().requires_grad_(t.is_floating_point())
-                       for pn, t in sub.items()}
-                  for op, sub in cparams.items()}
+        leaves = self._grad_leaves(params, state)
         flat = [(op, pn) for op, sub in leaves.items() for pn, t in sub.items()
                 if t.requires_grad]
         ctx = self._ctx(True, rng)
@@ -302,6 +366,52 @@ class GraphExecutor:
                       for pn, t in sub.items()}
                  for op, sub in leaves.items()}
         return loss.detach(), logits.detach(), grads
+
+    def saved_bytes_by_op(self, params, state, inputs, labels,
+                          rng=None) -> Dict[str, int]:
+        """What autograd keeps for the backward of one training forward
+        and its loss, by op: {op name (``"loss"`` for the loss): bytes}.
+        Each storage that a saved-tensor hook sees is counted once, whole,
+        at the op that saves it first; a remat op's checkpoint keeps its
+        inputs and parameters, its interior nothing. The parameter leaves
+        themselves are not counted. No backward runs: the graph is
+        dropped on return."""
+        from torch.autograd.graph import saved_tensors_hooks
+
+        leaves = self._grad_leaves(params, state)
+        seen = {t.untyped_storage().data_ptr()
+                for sub in leaves.values() for t in sub.values()}
+        by_op: Dict[str, int] = {}
+        current = ["input"]
+
+        def pack(t):
+            storage = t.untyped_storage()
+            if storage.data_ptr() not in seen:
+                seen.add(storage.data_ptr())
+                by_op[current[0]] = (by_op.get(current[0], 0)
+                                     + storage.nbytes())
+            # held (so that no storage is freed and its address reused
+            # during the walk) without its grad_fn: a saved output
+            # returned as it is would hold its own node, a cycle that
+            # keeps the graph alive after the call
+            return t.detach()
+
+        def tagged(op, *args):
+            current[0] = op.name
+            return type(self)._op_forward(self, op, *args)
+
+        # each op's forward tags what it saves, for this call only
+        self._op_forward = tagged
+        try:
+            with torch.enable_grad(), saved_tensors_hooks(pack, lambda t: t):
+                logits = self.run_graph(leaves, inputs,
+                                        self._ctx(True, rng))[self.final_ref]
+                current[0] = "loss"
+                loss = self._loss_value(logits, labels)
+        finally:
+            del self._op_forward
+        del loss, logits
+        return by_op
 
     def _train_step_fn(self):
         """The train step as a plain function:

@@ -16,11 +16,12 @@ data-parallel strategy; then the export (``--export-strategy``), then
 ``apply_strategy``, which also turns each op's searched or imported
 choice into its kernel: attention ops are pinned to the flash core
 (``_k:flash``) or to the einsum core, and ``_k:fused`` ops update through
-the fused-Adam kernel. The port executes on one device, and a compile
-prices and lays out one device unless ``workers_per_node`` asks for more:
-a strategy whose mesh needs more than one (a mesh axis above 1 other than
-a ring-attention sequence axis) or that holds a remat (``_r``) choice
-raises at execution, naming the ROADMAP.md item that brings it.
+the fused-Adam kernel; an ``_r`` choice makes the op's forward a
+checkpoint in training (remat: the executor's ``remat_ops``). The port
+executes on one device, and a compile prices and lays out one device
+unless ``workers_per_node`` asks for more: a strategy whose mesh needs
+more than one (a mesh axis above 1 other than a ring-attention sequence
+axis) raises at execution, naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -90,6 +91,8 @@ class FFModel:
         self.state: Dict[str, Any] = {}
         self.opt_state: Any = None
         self.kernel_choices: Optional[Dict[str, str]] = None
+        # names of the ops compile found an "_r" (remat) choice for
+        self.remat_ops: Optional[set] = None
         self.mesh: Optional[Mesh] = None
         self._iter = 0
         self._last_loss: Optional[float] = None
@@ -429,15 +432,16 @@ class FFModel:
             nodes, self.strategy, self.mesh,
             kernels="all" if kernel_on else "off",
             training=comp_mode == CompMode.TRAINING, device=self.device)
-        axes_now = self.mesh.shape
+        # remat: the ops whose "_r" choice won run under a checkpoint in
+        # training; the off switch (--remat-search off / FFS_NO_REMAT) runs
+        # every op plainly, bit-identical to a strategy without "_r". Pipe
+        # meshes carry block-level remat instead (ROADMAP.md Queue 1 item
+        # 10), as in the reference.
+        self.remat_ops = None
         if (not unity.switched_off(cfg, "remat_search", "FFS_NO_REMAT")
-                and axes_now.get("pipe", 1) == 1):
-            remat = unity.executed_remat_ops(nodes, self.strategy)
-            if remat:
-                raise NotImplementedError(
-                    f"ops {sorted(remat)} have remat (_r) choices; remat "
-                    f"comes with the remat slice of the PyTorch port "
-                    f"(ROADMAP.md Queue 1 item 6)")
+                and self.mesh.shape.get("pipe", 1) == 1):
+            self.remat_ops = unity.executed_remat_ops(nodes,
+                                                      self.strategy) or None
         final_op = next(n.op for n in nodes if n.guid == final_ref[0])
         final_is_softmax = final_op.op_type == OperatorType.SOFTMAX
         self._final_is_softmax = final_is_softmax
@@ -451,7 +455,8 @@ class FFModel:
             metrics=Metrics(loss_type, list(metrics),
                             preds_are_probs=final_is_softmax),
             optimizer=optimizer, final_is_softmax=final_is_softmax,
-            kernel_choices=self.kernel_choices, mesh=self.mesh)
+            kernel_choices=self.kernel_choices, mesh=self.mesh,
+            remat_ops=self.remat_ops)
         self.executor.comp_mode = comp_mode
         self.params, self.state = self.executor.init_params_and_state(
             self._generator)

@@ -22,7 +22,11 @@ kernel, ``step_graph.py``) by what they compute: ``flash_fwd.launches``
 the backward an f32 dO). One ``flash_bwd`` launch runs the backward's
 kernels: in bf16 the dQ kernel, which also forms delta, then dK/dV; for
 K5 first a kernel that forms delta from the f32 O and dO and rounds dO
-to bf16.
+to bf16. A counter counts launches, not attention ops: under remat
+(``_k:flash_r``) a training step launches K1 twice for each attention,
+the forward and its recompute in the backward, and both counts (the
+Python counter of an eager step, the graph's kernel nodes of a replay)
+say two.
 
 The port's availability rule replaces the TPU's tuning gates (``BLK_Q``,
 ``MIN_SEQ_FOR_FLASH``, ``head_dim % 8``, ``MAX_BWD_SEQ``): the tensors

@@ -46,7 +46,9 @@ launches nothing). So each wrapper registers its counter here
 (``register_launch_counter``) with a test of the name of the one kernel
 that each of its launches runs once; a capture reads the names of its
 graph's kernel nodes through libcuda, and every replay adds, to
-each counter, the nodes of its kernel. Work a kernel needs once a capture
+each counter, the nodes of its kernel (a remat op's recompute is
+captured into the backward: its kernels are nodes of the graph and count
+again). Work a kernel needs once a capture
 has ended is registered here too (``register_capture_hook``). The
 registry keeps this module free of the ops.
 

@@ -399,7 +399,7 @@ def test_strategy_files_cross_both_ways(tmp_path, n, machine, training):
 
 def test_multi_device_import_raises_at_execution(tmp_path):
     """A 4-device file imports; compiling it raises, naming the multi-GPU
-    items; a remat choice raises naming the remat item."""
+    items; on one device a remat choice compiles into a remat op."""
     jff, pff = _pair()
     jn, jmesh, jst, jinfo = _search(
         jff, junity, jmachine.MachineSpec(chip="cpu-sim", chips_per_slice=4),
@@ -416,8 +416,8 @@ def test_multi_device_import_raises_at_execution(tmp_path):
     data["ops"]["ffn1_0"]["choice"] = "dp_r"
     path.write_text(json.dumps(data))
     pff = _pair(import_strategy_file=str(path))[1]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pff.compile(AdamOptimizer(), P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    pff.compile(AdamOptimizer(), P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    assert pff.remat_ops == pff.executor.remat_ops == {"ffn1_0"}
 
 
 def test_compile_takes_the_machine_model(tmp_path, monkeypatch):

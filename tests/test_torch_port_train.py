@@ -215,7 +215,6 @@ def test_kernel_search_off_drops_the_choices(trained, tmp_path):
 
 @pytest.mark.parametrize("mesh,choice,match", [
     ({"data": 2}, "dp", "multi-GPU slice"),
-    ({"data": 1}, "dp_k:fused_r", "remat slice"),
 ])
 def test_strategy_import_refuses_what_later_slices_bring(trained, tmp_path,
                                                          mesh, choice, match):
@@ -230,6 +229,32 @@ def test_strategy_import_refuses_what_later_slices_bring(trained, tmp_path,
                              device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         pff.compile(AdamOptimizer(), P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+
+
+def test_strategy_import_trains_a_remat_choice(trained, tmp_path):
+    """A ``_k:fused_r`` choice (refused until the port had remat) compiles,
+    checkpoints that op, and trains bit-equal to ``_k:fused``."""
+    with open(trained["b"][3]) as f:
+        data = json.load(f)
+    data["ops"]["ffn1_0"]["choice"] = "dp_k:fused_r"
+    path = tmp_path / "s.json"
+    path.write_text(json.dumps(data))
+    x, y = _batch()
+    models = []
+    for file in (trained["b"][3], str(path)):
+        pff = create_transformer(TransformerConfig(**SMALL),
+                                 P.FFConfig(import_strategy_file=file),
+                                 device="cpu")
+        pff.compile(AdamOptimizer(alpha=1e-4, state_dtype=torch.bfloat16),
+                    P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+        pff.fit(x, y, epochs=1, verbose=False)
+        models.append(pff)
+    plain, remat = models
+    assert plain.remat_ops is None and remat.remat_ops == {"ffn1_0"}
+    assert remat.kernel_choices == plain.kernel_choices
+    assert remat.epoch_losses == plain.epoch_losses
+    assert all(torch.equal(remat.params[op][pn], t)
+               for op, sub in plain.params.items() for pn, t in sub.items())
 
 
 def test_carried_state_continues_like_the_reference(trained):
