@@ -180,7 +180,32 @@ package. Phases:
              their ops, what autograd keeps with and without them beside
              what the search priced, 2 ``fit`` steps and the measured
              peak beside the prediction.
-10. report — one JSON line ``{"kernels": [...]}``, then the final line
+10. zoo     — [zoo] the OSDI'22 protocol's other five models at the JAX
+             package's default configurations (DLRM batch 64 with 8
+             tables of 100,000 x 64; XDL batch 64 with 4 tables of
+             1,000,000 x 64; CANDLE-Uno batch 64 with seven 8 x 4192
+             towers and a 4 x 4192 trunk; ResNeXt-50 32x4d batch 16 at
+             224 x 224; Inception-v3 batch 64 at 299 x 299), random
+             weights from the config's seed, one seeded batch, cuDNN in
+             its deterministic mode without benchmarking; each compiled
+             for training three ways, one model on the card at a time:
+             (D) plain Adam, (K) a strategy file giving every op
+             ``dp_k:fused`` (K4), (S) ``compile(search_budget=20)``, 10
+             for Inception-v3. Each: the capture and two replays against
+             eager steps from one state, bit for bit, K4 once a call in
+             (K) and never in (D); (K)'s and (S)'s losses and parameters
+             against (D)'s; 2 ``fit`` steps (K4's launches counted);
+             ``evaluate`` and ``predict`` (a capture and a replay) against
+             the eager eval step and forward, bit for bit; interleaved
+             compiled and eager steps timed (p50, p90, samples/s); two
+             replayed steps profiled
+             (busy share; device time by kind: conv, GEMM, K4, concat and
+             copies, other; the top cuDNN kernels by name; K4 by name
+             once a replay in (K)); peak memory; for (S) the search's wall
+             time and predicted step. Then K4 over (K)'s leaf shapes
+             against its plain version, timed beside
+             ``torch.optim.Adam(fused=True)`` and the bound.
+11. report — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without printing the final line.
@@ -856,18 +881,27 @@ def phase_serve():
     return launches, replay["flash_attn_fwd"]
 
 
-KINDS = ("flash_attn_fwd", "flash_attn_bwd", "fused_adam", "gemm", "memcpy",
-         "other")
+KINDS = ("flash_attn_fwd", "flash_attn_bwd", "fused_adam", "conv", "gemm",
+         "memcpy", "concat/copies", "other")
 
 
 def kernel_kind(name):
+    """A device event's kind: the port's kernels; cuDNN's convolutions and
+    their NCHW<->NHWC layout transforms (named before the GEMMs: cuDNN's
+    implicit-GEMM kernels carry GEMM names); GEMMs; memcpy and memset;
+    concat's batched copy and the copy kernels (casts, contiguous copies);
+    other."""
     name = name.lower()
     return ("flash_attn_fwd" if "flash_fwd" in name else
             "flash_attn_bwd" if "flash_bwd" in name else
             "fused_adam" if "fused_adam" in name else
+            "conv" if any(t in name for t in ("conv", "fprop", "dgrad",
+                                              "wgrad", "cudnn", "nchwtonhwc",
+                                              "nhwctonchw")) else
             "gemm" if any(t in name for t in ("gemm", "nvjet", "xmma",
                                               "cutlass", "sm90")) else
             "memcpy" if "memcpy" in name or "memset" in name else
+            "concat/copies" if "catarray" in name or "copy" in name else
             "other")
 
 
@@ -920,8 +954,8 @@ def eager_predict(ff, x):
     from flexflow_tpu_torch.model import host_copy
 
     ff._refresh_compute_params()
-    return host_copy(ff.executor._forward_fn()(ff.params, ff.state,
-                                               ff._stage_inputs([x])))
+    inputs = ff._stage_inputs(as_inputs(x))
+    return host_copy(ff.executor._forward_fn()(ff.params, ff.state, inputs))
 
 
 def check_f32_model():
@@ -1862,16 +1896,16 @@ def profile_train(ff, x, y, steps=2, label=None):
                          steps)
 
 
-def profile_steps(label, run_step, steps=2):
+def profile_steps(label, run_step, steps=2, top_of=()):
     """Where the time of ``steps`` calls of ``run_step`` (each a training
     step that ends in a host read) goes on the device: kernel time by
-    kind, the top kernels, the busy share against the host clock, and the
-    largest idle gaps (named by the kernel that ended each). Returns
-    (ms by kind, events by kind, wall ms, ms by copy or set, launches by
-    kernel wrapper), or None if the profiler recorded no kernel. The
-    launches are the device's kernel events named by each wrapper's
-    kernel (``step_graph.launch_counters``: the one kernel a launch runs
-    once), keyed as ``read_launches``."""
+    kind, the top kernels (also of each kind in ``top_of``), the busy
+    share against the host clock, and the largest idle gaps (named by the
+    kernel that ended each). Returns (ms by kind, events by kind, wall
+    ms, ms by copy or set, launches by kernel wrapper), or None if the
+    profiler recorded no kernel. The launches are the device's kernel events
+    named by each wrapper's kernel (``step_graph.launch_counters``: the
+    one kernel a launch runs once), keyed as ``read_launches``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1897,11 +1931,17 @@ def profile_steps(label, run_step, steps=2):
                       for k, v in kinds.items() if v))
     totals = {}
     for e in events:
-        t = totals.setdefault(e.name[:90], [0.0, 0])
+        t = totals.setdefault(e.name[:110], [0.0, 0, kernel_kind(e.name)])
         t[0] += e.time_range.elapsed_us() / 1e3
         t[1] += 1
-    for name, (ms, n) in sorted(totals.items(), key=lambda kv: -kv[1][0])[:8]:
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])
+    for name, (ms, n, _) in ranked[:8]:
         print(f"[profile]   top: {ms:.3f} ms in {n} launches: {name}")
+    for kind in top_of:
+        for name, (ms, n, _) in [kv for kv in ranked
+                                 if kv[1][2] == kind][:8]:
+            print(f"[profile]   top {kind}: {ms:.3f} ms in {n} launches: "
+                  f"{name}")
     events.sort(key=lambda e: e.time_range.start)
     gaps = [(b.time_range.start - a.time_range.end, a.name[:70])
             for a, b in zip(events, events[1:])
@@ -2003,7 +2043,7 @@ def graph_stepper(ff, x, y):
     the host's time to enqueue each (the batch's copy and the replay,
     before the read) is appended to ``run.enqueue_s``."""
     step = ff.executor.make_train_step()
-    inputs = ff._host_inputs([x])
+    inputs = ff._host_inputs(as_inputs(x))
     enqueue_s = []  # (not through ``run``: no cycle keeps ``ff`` alive)
 
     def run():
@@ -2017,16 +2057,22 @@ def graph_stepper(ff, x, y):
     return run
 
 
-def graph_vs_eager(ff, x, y, steps, label):
+def as_inputs(x):
+    """A model's batch as ``FFModel`` takes it: one array per input."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def graph_vs_eager(ff, x, y, steps, label, losses_out=None):
     """From the model's current state: ``steps`` eager steps
     (``_train_step_fn``) on a copy of it and ``steps`` compiled steps on
-    the model itself, on one batch; every loss, and every leaf of the
-    parameters, the optimizer state (t included) and the state (the
-    compute copy), must be bit-equal. Returns the launches of each
-    compiled call."""
+    the model itself, on one batch (``x``: an array, or one a model
+    input); every loss, and every leaf of the parameters, the optimizer
+    state (t included) and the state (the compute copy), must be
+    bit-equal. Returns the launches of each compiled call; the compiled
+    calls' losses are appended to ``losses_out``."""
     import torch
 
-    inputs, labels = ff._stage_inputs([x]), ff._stage_labels(y)
+    inputs, labels = ff._stage_inputs(as_inputs(x)), ff._stage_labels(y)
     eager, trees = eager_stepper(ff, inputs, labels)
     graph = graph_stepper(ff, x, y)
     per_call, losses = [], []
@@ -2047,6 +2093,8 @@ def graph_vs_eager(ff, x, y, steps, label):
           f"launches a compiled call {per_call}")
     check(all(g == w for g, w in losses) and differ == 0,
           f"{label} the compiled step is not bit-equal to the eager step")
+    if losses_out is not None:
+        losses_out.extend(g for g, _ in losses)
     return per_call
 
 
@@ -2061,7 +2109,7 @@ def time_pairs(ff, x, y, pairs):
     on its own copy of the state, by the host clock around a step and the
     host read of its loss. Returns (compiled s, eager s, the compiled
     steps' enqueue s)."""
-    inputs, labels = ff._stage_inputs([x]), ff._stage_labels(y)
+    inputs, labels = ff._stage_inputs(as_inputs(x)), ff._stage_labels(y)
     eager, _ = eager_stepper(ff, inputs, labels)
     graph = graph_stepper(ff, x, y)
     graph()  # a capture, if the model has none yet
@@ -2617,6 +2665,28 @@ def build_llama(strategy_dir=None):
     ff.compile(None, LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [],
                comp_mode=CompMode.INFERENCE)
     return ff
+
+
+def host_params(ff):
+    """Host copies of the model's parameter leaves in build order, to
+    hold another build of the model against (``params_differ``): two
+    builds name their layers apart (the layer counter is global), so the
+    leaves are matched by position, not by name."""
+    return [t.detach().to("cpu", copy=True)
+            for sub in ff.params.values() for t in sub.values()]
+
+
+def params_differ(ff, base):
+    """How many of ``ff``'s parameter leaves, in build order, are not
+    equal to ``base``'s (``host_params`` of another build); every leaf
+    when the two disagree in count or shapes."""
+    import torch
+
+    got = [t for sub in ff.params.values() for t in sub.values()]
+    if [t.shape for t in got] != [t.shape for t in base]:
+        return max(len(got), len(base))
+    return sum(1 for t, b in zip(got, base)
+               if not torch.equal(t.detach().cpu(), b))
 
 
 def weights_fingerprint(ff):
@@ -3175,19 +3245,10 @@ def llama_batch(seed):
 def llama_k4_row(layers):
     """K4 over the decoder's ``_k:fused`` leaves at ``layers`` layers
     (every op's parameters but attention's, their shapes read from the
-    materialized graph; p f32, g, m, v bf16): one launch bit-equal to its
-    plain version, leaf by leaf; timed back to back beside the plain
-    version, ``torch.optim.Adam(fused=True)`` on the same parameters
-    (f32 grads and moments: not the same function) and the bound (every
-    byte read and written once). Returns the numbers for the kernels
-    line."""
-    import torch
+    materialized graph): ``k4_row``."""
     from flexflow_tpu_torch.models.llama import (LlamaModelConfig,
                                                  create_llama)
     from flexflow_tpu_torch.ops.attention import MultiHeadAttention
-    from flexflow_tpu_torch.ops.fused_update import (fused_adam_multi,
-                                                     fused_adam_reference)
-    from flexflow_tpu_torch.optimizers import AdamOptimizer
 
     graph = create_llama(LlamaModelConfig(**dict(LLAMA,
                                                  num_hidden_layers=layers)),
@@ -3195,16 +3256,33 @@ def llama_k4_row(layers):
     shapes = [tuple(shp) for n in graph
               if not isinstance(n.op, MultiHeadAttention)
               for shp in n.op.param_shapes().values()]
+    return k4_row("[llama train]", f"the decoder's {len(shapes)} fused "
+                  f"leaves at {layers} layers", shapes, LLAMA_TRAIN_ALPHA,
+                  seed=12)
+
+
+def k4_row(label, what, shapes, alpha, seed):
+    """K4 over leaves of ``shapes`` (p f32, g, m, v bf16, random from
+    ``seed``): one launch bit-equal to its plain version, leaf by leaf;
+    timed back to back beside the plain version,
+    ``torch.optim.Adam(fused=True)`` on the same parameters (f32 grads and
+    moments: not the same function) and the bound (every byte read and
+    written once). Returns the numbers for the kernels line."""
+    import torch
+    from flexflow_tpu_torch.ops.fused_update import (fused_adam_multi,
+                                                     fused_adam_reference)
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
     n = sum(math.prod(shp) for shp in shapes)
     chunks = sum(-(-math.prod(shp) // 1024) for shp in shapes)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(12)
+    gen.manual_seed(seed)
     rnd = lambda shp, k: torch.randn(shp, generator=gen, device="cuda") * k
     ps = [rnd(shp, 1e-2) for shp in shapes]
     gs = [rnd(shp, 1e-3).bfloat16() for shp in shapes]
     ms = [rnd(shp, 1e-3).bfloat16() for shp in shapes]
     vs = [(rnd(shp, 1e-3) ** 2).bfloat16() for shp in shapes]
-    _, alpha_t = AdamOptimizer(alpha=LLAMA_TRAIN_ALPHA).step_scalars(
+    _, alpha_t = AdamOptimizer(alpha=alpha).step_scalars(
         torch.tensor(0, dtype=torch.int32, device="cuda"))
     kw = dict(wd=0.0, **ADAM_KW)
     kp, km, kv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
@@ -3217,14 +3295,12 @@ def llama_k4_row(layers):
         differ += sum(int((a != b).sum())
                       for a, b in zip((kp[i], km[i], kv[i]), want))
     del kp, km, kv, want
-    print(f"[llama train] fused_adam over the decoder's {len(shapes)} fused "
-          f"leaves at {layers} layers ({n} elements in {chunks} "
+    print(f"{label} fused_adam over {what} ({n} elements in {chunks} "
           f"1024-element chunks, one CTA each: the launch's grid): "
           f"{differ} elements differ from the plain version (want 0)")
-    check(differ == 0, "K4 is not bit-equal to its plain version over the "
-                       "decoder's leaves")
+    check(differ == 0, f"{label} K4 is not bit-equal to its plain version")
     launch = lambda: fused_adam_multi(ps, gs, ms, vs, alpha_t, **kw)
-    k4_ms = time_ms(launch)
+    k4_ms, k4_host_ms = time_calls(launch)
     plain_ms = time_ms(lambda: fused_adam_reference(ps, gs, ms, vs, alpha_t,
                                                     **kw))
     del ms, vs
@@ -3232,20 +3308,22 @@ def llama_k4_row(layers):
     for lp, g in zip(lib_params, gs):
         lp.grad = g.float()
     del gs
-    lib = torch.optim.Adam(lib_params, lr=LLAMA_TRAIN_ALPHA, fused=True)
+    lib = torch.optim.Adam(lib_params, lr=alpha, fused=True)
     library_ms = time_ms(lib.step)
     del lib, lib_params, ps
     release()
     bound_s, bound_by = adam_bound(n, 2, 2, H100_SXM_PEAKS)
-    print(f"[llama train] fused_adam over the {len(shapes)} fused leaves: "
-          f"kernel {k4_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+    print(f"{label} fused_adam over the {len(shapes)} leaves: kernel "
+          f"{k4_ms:.4f} ms (the host's time a call {k4_host_ms:.4f} ms: "
+          f"the leaf table is built and copied every call), plain "
+          f"{plain_ms:.4f} ms, library "
           f"(torch.optim.Adam fused, f32 moments and grads: not the same "
           f"function) {library_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms "
           f"({bound_by}) ({nvidia_smi_line()})")
     return dict(shape=f"{len(shapes)} leaves, {n} elements, p f32, g/m/v "
                       f"bf16", leaves=len(shapes), elements=n, chunks=chunks,
                 max_abs_err=0.0, ms=k4_ms, timed_by="back to back",
-                plain_ms=plain_ms, library_ms=library_ms,
+                host_ms=k4_host_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_s * 1e3, bound_by=bound_by)
 
 
@@ -3587,6 +3665,321 @@ def phase_llama_search():
     return out
 
 
+ZOO_MODELS = ("dlrm", "xdl", "candle_uno", "resnext", "inception")
+# compile(search_budget=...) as in the OSDI'22 scripts
+ZOO_BUDGET = dict(dlrm=20, xdl=20, candle_uno=20, resnext=20, inception=10)
+ZOO_ALPHA = 1e-4
+ZOO_CALLS = 3  # compiled calls against eager steps: the capture, 2 replays
+ZOO_FIT_STEPS = 2
+ZOO_PAIRS = 5
+
+
+def zoo_spec(name):
+    """(builder, config, loss, metrics) of the zoo model ``name`` at the
+    JAX package's default configuration."""
+    from flexflow_tpu_torch import LossType, MetricsType
+    from flexflow_tpu_torch import models as M
+
+    mse = (LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+           [MetricsType.MEAN_SQUARED_ERROR])
+    sce = (LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [MetricsType.ACCURACY])
+    return {"dlrm": (M.create_dlrm, M.DLRMConfig(), *mse),
+            "xdl": (M.create_xdl, M.XDLConfig(), *sce),
+            "candle_uno": (M.create_candle_uno, M.CandleUnoConfig(), *mse),
+            "resnext": (M.create_resnext50, M.ResNeXtConfig(), *sce),
+            "inception": (M.create_inception_v3, M.InceptionConfig(),
+                          *sce)}[name]
+
+
+def zoo_batch(name, cfg, seed=11):
+    """One batch of ``name``'s inputs and labels, from ``seed``: ids below
+    each table's rows, floats from a normal, labels by the loss."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    b = cfg.batch_size
+    if name == "dlrm":
+        xs = [rs.randint(0, cfg.vocab_size, (b, cfg.indices_per_feature))
+              for _ in range(cfg.num_sparse_features)]
+        xs.append(rs.randn(b, cfg.dense_dim))
+        y = rs.rand(b, 1)
+    elif name == "xdl":
+        xs = [rs.randint(0, v, (b, cfg.embedding_bag_size))
+              for v in cfg.embedding_size]
+        y = rs.randint(0, cfg.mlp[-1], (b, 1))
+    elif name == "candle_uno":
+        xs = [rs.randn(b, d) for d in cfg.input_features.values()]
+        y = rs.rand(b, 1)
+    else:
+        xs = [rs.randn(b, 3, cfg.image_size, cfg.image_size)]
+        y = rs.randint(0, cfg.num_classes, (b, 1))
+    cast = lambda a: a.astype(np.int32 if a.dtype.kind == "i" else np.float32)
+    return [cast(a) for a in xs], cast(y)
+
+
+def compile_zoo(name, mode, strategy_dir):
+    """``name`` on the card, compiled for training (Adam alpha ZOO_ALPHA
+    with bf16 moments, the model's loss) from the config's seed: (D) no
+    strategy file; (K) a strategy file giving every op ``dp_k:fused``
+    (K4); (S) ``compile(search_budget=ZOO_BUDGET[name])``."""
+    import torch
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
+    create, cfg, loss, metrics = zoo_spec(name)
+    ff = create(cfg, FFConfig(batch_size=cfg.batch_size), device="cuda")
+    if mode == "K":
+        path = os.path.join(strategy_dir, f"{name}_fused.json")
+        write_strategy(ff, path, lambda kind: "dp_k:fused")
+        ff.config.import_strategy_file = path
+    elif mode == "S":
+        ff.config.search_budget = ZOO_BUDGET[name]
+    ff.compile(AdamOptimizer(alpha=ZOO_ALPHA, state_dtype=torch.bfloat16),
+               loss, metrics)
+    return ff
+
+
+def phase_zoo(name, strategy_dir):
+    """[zoo] one of the OSDI'22 protocol's other five models at the JAX
+    package's default configuration, compiled three ways from one seed,
+    one compiled model on the card at a time: (D) plain Adam, (K) every
+    op ``dp_k:fused`` (K4), (S) the search. For each: ZOO_CALLS compiled
+    calls (the capture, then replays) against as many eager steps from
+    one state, bit for bit, K4's launches a call (1 in (K), 0 in (D));
+    (K)'s and (S)'s losses against (D)'s and their parameter leaves bit
+    for bit (unless the search rewrote the graph); ZOO_FIT_STEPS ``fit``
+    steps (replays; K4's launches counted from 0 around them);
+    ``evaluate`` and ``predict`` of the batch (a capture, then a replay)
+    against the eager eval step and forward, bit for bit. All of that
+    with cuDNN deterministic (for (D) two replays of that capture are
+    profiled too); then, as ``fit`` runs by default
+    (deterministic off) and the step captured anew: ZOO_PAIRS
+    interleaved pairs of a compiled and an eager step; two replayed
+    steps profiled (busy share, device time by kind, the top conv
+    kernels, K4 by name); peak memory; for (S) the search's wall time
+    and prediction.
+    Then K4 on (K)'s leaf shapes against its plain version and the
+    library (``k4_row``). Returns the report's numbers."""
+    import numpy as np
+    import torch
+    from collections import Counter
+
+    create, cfg, _, _ = zoo_spec(name)
+    x, y = zoo_batch(name, cfg)
+    card = nvidia_smi_line()
+    rows, base_init, shapes = {}, None, None
+    base_losses = base_trained = None
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    for mode in ("D", "K", "S"):
+        label = f"[zoo {name} {mode}]"
+        # the checks: cuDNN picks its algorithms by heuristics (no
+        # benchmarking, so no choice is timed inside a capture) and only
+        # deterministic ones, so that a replayed step can be held
+        # bit-equal to an eager one
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        release()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        peaks = [0.0, 0.0]
+        t0 = time.perf_counter()
+        ff = compile_zoo(name, mode, strategy_dir)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        ex, info = ff.executor, ff.search_info
+        fused = ex.fused_update_ops & set(ff.params)
+        leaves = [tuple(t.shape) for op in sorted(fused)
+                  for t in ff.params[op].values()]
+        n_params = sum(t.numel() for sub in ff.params.values()
+                       for t in sub.values())
+        n_leaves = sum(len(sub) for sub in ff.params.values())
+        print(f"{label} {cfg} compiled in {compile_s:.2f} s: "
+              f"{len(ex.nodes)} ops, {n_params} parameters in {n_leaves} "
+              f"leaves; K4 over {len(leaves)} leaves "
+              f"({sum(math.prod(s) for s in leaves)} elements); cuDNN "
+              f"benchmark {torch.backends.cudnn.benchmark}, deterministic "
+              f"{torch.backends.cudnn.deterministic}; layout "
+              f"{ff.layout_info}")
+        rewritten = bool(info and info.get("rewrites"))
+        if base_init is None:
+            base_init = host_params(ff)
+        elif rewritten:
+            print(f"{label} the search rewrote the graph "
+                  f"({len(info['rewrites'])} rewrites): its parameters are "
+                  f"not held to (D)'s, before or after training")
+        else:
+            differ = params_differ(ff, base_init)
+            check(not differ, f"{label} {differ} initial parameter leaves "
+                              f"differ from (D)'s: not one seed")
+        if mode == "D":
+            check(not leaves, f"{label} a plain compile routes leaves "
+                              f"through K4")
+        if mode == "K":
+            check(len(leaves) == n_leaves, f"{label} {len(leaves)} of "
+                  f"{n_leaves} leaves through K4")
+            shapes = leaves
+        if mode == "S":
+            choices = Counter(st.choice for st in ff.strategy.values())
+            print(f"{label} compile(search_budget={ZOO_BUDGET[name]}): "
+                  f"search {info['search_wall_s']:.3f} s wall; mesh "
+                  f"{ff.mesh.shape}; choices {dict(choices)}; kernel "
+                  f"choices {ff.kernel_choices}; predicted_time "
+                  f"{info['predicted_time'] * 1e3:.3f} ms, predicted_memory "
+                  f"{info['predicted_memory']}, cost model "
+                  f"{info['cost_model']}, {len(info['rewrites'])} rewrites")
+            check(ff.mesh.size == 1 and info["objective"] == "step_time",
+                  f"{label} the search chose {ff.mesh.shape}, "
+                  f"{info['objective']}")
+        want = dict(flash_attn_fwd=0, flash_attn_bwd=0,
+                    fused_adam=1 if leaves else 0, flash_lse_fwd=0,
+                    flash_lse_bwd=0)
+        losses = []
+        per_call = graph_vs_eager(ff, x, y, ZOO_CALLS, label, losses)
+        sg = ex.step_graphs["train_step"]
+        check(all(d == want for d in per_call)
+              and (sg.captures, sg.replays) == (1, ZOO_CALLS - 1),
+              f"{label} launches a compiled call {per_call} (want {want}), "
+              f"captures and replays {(sg.captures, sg.replays)}")
+        check(all(np.isfinite(losses)), f"{label} non-finite loss")
+        if base_losses is None:
+            base_losses, base_trained = losses, host_params(ff)
+            differ = 0
+        else:
+            differ = (0 if rewritten
+                      else params_differ(ff, base_trained))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+        print(f"{label} losses {losses} against (D)'s {base_losses}: "
+              f"{rel:.3e} relative (tol {TRAJECTORY_RTOL}); bit-equal "
+              f"{losses == base_losses}; parameter leaves after the "
+              f"{ZOO_CALLS} steps bit-equal to (D)'s: "
+              + ("not compared (the graph was rewritten)" if rewritten
+                 else f"{n_leaves - differ} of {n_leaves}"))
+        check(rel <= TRAJECTORY_RTOL, f"{label} the losses leave (D)'s")
+        # K4 is bit-equal to the plain update, and the search's
+        # one-device strategy runs (D)'s ops: the parameters agree
+        check(not differ, f"{label} {differ} parameter leaves after "
+                          f"{ZOO_CALLS} steps differ from (D)'s")
+        # fit and evaluate, the entry points a user calls: fit replays
+        # the captured step, evaluate captures its step, then replays it
+        reset_launches()
+        ff.fit(x, y, epochs=ZOO_FIT_STEPS, verbose=False)
+        fit_launches = read_launches()
+        fit_losses = ff.epoch_losses[-ZOO_FIT_STEPS:]
+        want_fit = {k: v * ZOO_FIT_STEPS for k, v in want.items()}
+        print(f"{label} fit, {ZOO_FIT_STEPS} steps: losses {fit_losses}; "
+              f"launches {fit_launches} (want {want_fit}); replays "
+              f"{sg.replays}")
+        check(fit_launches == want_fit and np.isfinite(fit_losses).all()
+              and sg.captures == 1,
+              f"{label} fit's launches or losses differ")
+        want_loss = float(ex._eval_step_fn()(
+            ff.params, ff.state, ff._stage_inputs(as_inputs(x)),
+            ff._stage_labels(y))[0])
+        reports = [ff.evaluate(x, y)["loss"] for _ in range(2)]
+        ev = ex.step_graphs["eval_step"]
+        print(f"{label} evaluate {reports} against the eager eval step "
+              f"{want_loss!r}; captures and replays "
+              f"{(ev.captures, ev.replays)}")
+        check(reports == [want_loss] * 2
+              and (ev.captures, ev.replays) == (1, 1),
+              f"{label} evaluate differs from the eager eval step")
+        want_out = eager_predict(ff, x)
+        outs = [ff.predict(x) for _ in range(2)]
+        fwd = ex.step_graphs["forward"]
+        print(f"{label} predict {outs[0].shape} against the eager forward: "
+              f"{[bool(np.array_equal(o, want_out)) for o in outs]}; "
+              f"captures and replays {(fwd.captures, fwd.replays)}")
+        check(all(np.array_equal(o, want_out) for o in outs)
+              and np.isfinite(want_out).all()
+              and (fwd.captures, fwd.replays) == (1, 1),
+              f"{label} predict differs from the eager forward")
+        # (D): two replays of the deterministic capture profiled, to set
+        # beside the same under cuDNN's default algorithms below
+        det = (profile_steps(f"{label} 2 replayed steps, cuDNN "
+                             f"deterministic", graph_stepper(ff, x, y),
+                             top_of=("conv",)) if mode == "D" else None)
+        # the timing and the profile: cuDNN's default choice of
+        # algorithms, as ``fit`` runs (deterministic off, benchmarking
+        # still off), the step captured anew under it; only finite losses
+        # are asked of these steps
+        torch.backends.cudnn.deterministic = False
+        del ex.step_graphs["train_step"], sg
+        graph = graph_stepper(ff, x, y)
+        check(math.isfinite(graph()), f"{label} non-finite loss under "
+                                      f"cuDNN's default algorithms")
+        sg = ex.step_graphs["train_step"]
+        take_peaks(peaks)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        graph()
+        step_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+        g_s, e_s, enq = time_pairs(ff, x, y, ZOO_PAIRS)
+        (g50, g90), (e50, e90) = p50_p90(g_s), p50_p90(e_s)
+        print(f"{label} {ZOO_PAIRS} interleaved pairs (host clock, each "
+              f"step ends in a host read of its loss): compiled p50 "
+              f"{g50 * 1e3:.3f} ms, p90 {g90 * 1e3:.3f} ms, "
+              f"{cfg.batch_size / g50:.1f} samples/s; eager p50 "
+              f"{e50 * 1e3:.3f} ms, p90 {e90 * 1e3:.3f} ms; a replay's "
+              f"host enqueue p50 {statistics.median(enq) * 1e3:.3f} ms "
+              f"({card})")
+        replays0 = sg.replays
+        prof = profile_steps(f"{label} 2 replayed steps", graph,
+                             top_of=("conv",))
+        check(sg.replays - replays0 == 2 and sg.captures == 1,
+              f"{label} the profiled steps were not 2 replays of one "
+              f"capture")
+        per_replay = check_replay_launches(f"{label} 2 replayed steps",
+                                           prof, 2, want)
+        check(math.isfinite(graph()), f"{label} non-finite loss under "
+                                      f"cuDNN's default algorithms")
+        kinds = prof[0]
+        if det:
+            print(f"{label} 2 replayed steps' device ms, cuDNN deterministic"
+                  f" against its default algorithms: busy "
+                  f"{sum(det[0].values()):.3f} against "
+                  f"{sum(kinds.values()):.3f}, conv {det[0]['conv']:.3f} "
+                  f"against {kinds['conv']:.3f}")
+        take_peaks(peaks)
+        row = dict(p50_ms=g50 * 1e3, p90_ms=g90 * 1e3,
+                   samples_s=cfg.batch_size / g50, eager_p50_ms=e50 * 1e3,
+                   busy=sum(prof[0].values()) / prof[2], kinds=kinds,
+                   deterministic_kinds=det[0] if det else None,
+                   step_gib=step_gib, pool_gib=pool_gib(ff),
+                   peak_allocated_gib=peaks[0], peak_reserved_gib=peaks[1],
+                   compile_s=compile_s, losses=losses,
+                   k4_launches=fit_launches["fused_adam"],
+                   k4_a_replay=per_replay["fused_adam"],
+                   k4_graph_ms=(prof[0]["fused_adam"] / 2 if leaves
+                                else None))
+        if mode == "S":
+            pred = info["predicted_time"]
+            row.update(search_s=info["search_wall_s"],
+                       predicted_ms=pred * 1e3, measured_over_predicted=g50
+                       / pred)
+            print(f"{label} measured p50 {g50 * 1e3:.3f} ms against the "
+                  f"predicted {pred * 1e3:.3f} ms: {g50 / pred:.2f}x")
+        print(f"{label} memory: a replayed step allocates {step_gib:.2f} "
+              f"GiB above what is held; the graph pool {row['pool_gib']:.2f}"
+              f" GiB; {peaks_line(peaks)} (the eager reference steps' copy "
+              f"of the state included)")
+        rows[mode] = row
+        del ff, ex, sg, ev, fwd, graph, prof
+        release()
+        left = torch.cuda.memory_allocated() / 2**30
+        print(f"{label} the model freed before the next is built: "
+              f"{memory_line()}")
+        check(left <= base_gib + 0.5, f"{label} the freed model still holds "
+              f"{left - base_gib:.2f} GiB")
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = flags
+    k4 = k4_row(f"[zoo {name}]", f"{name}'s {len(shapes)} leaves", shapes,
+                ZOO_ALPHA, seed=13)
+    k4.update(launches=rows["K"]["k4_launches"],
+              launches_a_replay=rows["K"]["k4_a_replay"],
+              graph_ms=rows["K"]["k4_graph_ms"])
+    return dict(rows=rows, k4=k4)
+
+
 def main() -> int:
     try:
         import torch
@@ -3605,7 +3998,7 @@ def main() -> int:
               f"script: {e}", file=sys.stderr)
         return 1
     try:
-        name = phase_card()
+        device_name = phase_card()
         phase_build()
         fwd = phase_kernels()
         bwd, bwd_k3, llama_k2 = phase_kernels_bwd()
@@ -3635,6 +4028,10 @@ def main() -> int:
             phase_llama_train_grads(tmp)
             llama_train = phase_llama_train(tmp)
         phase_llama_search()
+        zoo = {}
+        with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
+            for model in ZOO_MODELS:
+                zoo[model] = phase_zoo(model, tmp)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -3665,6 +4062,9 @@ def main() -> int:
         llama_train=llama_train["plain"]["launches"]["fused_adam"],
         llama_train_remat=llama_train["remat"]["launches"]["fused_adam"])
     adam["llama_train"] = llama_k4
+    adam["launches_by_path"].update(
+        {f"zoo_{n}": z["k4"]["launches"] for n, z in zoo.items()})
+    adam["zoo"] = {n: z["k4"] for n, z in zoo.items()}
     for entry, key in ((lse_fwd, "flash_lse_fwd"), (lse_bwd, "flash_lse_bwd")):
         entry["launches"] = train_c["launches"][key]
         entry["launches_by_path"] = dict(
@@ -3709,7 +4109,7 @@ def main() -> int:
     print(json.dumps({"kernels": [fwd, bwd, bwd_k3, adam, lse_fwd,
                                   lse_bwd]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

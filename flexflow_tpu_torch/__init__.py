@@ -2,8 +2,10 @@
 
 A second package beside the JAX reference ``flexflow_tpu``, built slice by
 slice (ROADMAP.md). It serves and trains the BERT-proxy transformer on
-one CUDA device, and serves and decodes the Llama-family decoder LM
-(``models/llama.py``, ``serve/kv_cache.py``): ``FFModel`` builds and
+one CUDA device, serves and decodes the Llama-family decoder LM
+(``models/llama.py``, ``serve/kv_cache.py``), and trains the other five
+models of the OSDI'22 protocol (DLRM, XDL, CANDLE-Uno, ResNeXt-50,
+Inception-v3): ``FFModel`` builds and
 compiles a model, ``fit`` trains it, ``serve()`` answers requests through
 the continuous-batching ``ServingEngine``, and the attention ops run
 hand-written CUDA flash-attention kernels (``ops/flash_attention.py``,
@@ -16,7 +18,7 @@ CPU (``device="cpu"``).
 
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
                                         DataType, LossType, MetricsType,
-                                        OperatorType)
+                                        OperatorType, PoolType)
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.tensor import Tensor
 from flexflow_tpu_torch.model import FFModel, resolve_device
@@ -34,6 +36,7 @@ __all__ = [
     "LossType",
     "MetricsType",
     "OperatorType",
+    "PoolType",
     "Tensor",
     "ZeroInitializer",
     "resolve_device",

@@ -53,6 +53,11 @@ class AggrMode(enum.Enum):
     AGGR_MODE_AVG = 2
 
 
+class PoolType(enum.Enum):
+    POOL_MAX = 0
+    POOL_AVG = 1
+
+
 class LossType(enum.Enum):
     CATEGORICAL_CROSSENTROPY = 10
     SPARSE_CATEGORICAL_CROSSENTROPY = 11

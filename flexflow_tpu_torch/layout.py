@@ -3,9 +3,13 @@
 The port's part of ``flexflow_tpu/layout.py`` that the search needs:
 ``serialize_graph`` marks each conv whose sole consumer is a foldable
 BatchNorm with the ``bn_fusable`` attr, the legality the native
-``_k:conv_bn_fused`` kernel twin gates on. The port has no conv op yet
-(ROADMAP.md Queue 1 item 9), so for its graphs the set is empty; the rule
-is written on op types so that it holds when conv comes.
+``_k:conv_bn_fused`` kernel twin gates on. The port has Conv2D but no
+BatchNorm yet (ROADMAP.md Queue 1 item 9b), so for its graphs the set is
+empty; the rule is written on op types so that it holds when BatchNorm
+comes. The port computes the conv family in NCHW: the JAX package's
+channels-last pass (``propagate_layouts``) is item 9b too, and
+``FFModel.compile`` reports its absence in ``layout_info``
+(``model.conv_layout_info``).
 """
 
 from __future__ import annotations

@@ -276,14 +276,19 @@ def detect_machine_spec(num_devices: Optional[int] = None, slices: int = 1,
     """The MachineSpec of the devices the model runs on: ``"cpu-sim"``
     for the CPU, else the CUDA card's table entry (read from
     ``torch.cuda.get_device_name`` and ``get_device_properties``; a card
-    without one raises ``UnknownDeviceError``). ``num_devices`` defaults
-    to the visible cards (1 on the CPU); ``slices > 1`` splits them into
-    that many DCN-joined nodes."""
+    without one raises ``UnknownDeviceError``). ``device`` is resolved as
+    ``FFModel``'s is: ``None`` means the card, and raises when no CUDA
+    device is present; the CPU only when asked for by name.
+    ``num_devices`` defaults to the visible cards (1 on the CPU);
+    ``slices > 1`` splits them into that many DCN-joined nodes."""
     import torch
 
-    dev = torch.device(device) if device is not None else (
-        torch.device("cuda", torch.cuda.current_device())
-        if torch.cuda.is_available() else torch.device("cpu"))
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to price the "
+            "CPU")
+    dev = torch.device(device) if device is not None else torch.device(
+        "cuda", torch.cuda.current_device())
     if dev.type == "cuda":
         props = torch.cuda.get_device_properties(dev)
         chip = _cuda_chip(torch.cuda.get_device_name(dev), props.total_memory)

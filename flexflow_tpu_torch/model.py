@@ -3,7 +3,9 @@
 PyTorch counterpart of ``flexflow_tpu/model.py``'s ``FFModel``: the same
 deferred layer-building API, a ``compile()`` that materializes operators
 from layers and chooses a strategy, and ``fit`` / ``evaluate`` /
-``predict`` / ``serve`` over the compiled graph. The device is explicit:
+``predict`` / ``serve`` over the compiled graph, with the reference's
+step-by-step loop (``set_batch``, ``forward``, ``zero_gradients``,
+``backward``, ``update``) beside ``fit``. The device is explicit:
 ``FFModel(config, device=...)`` runs on CUDA unless the caller asks for
 the CPU, and raises when no CUDA device is present rather than carry on
 on the CPU.
@@ -38,7 +40,7 @@ from flexflow_tpu_torch.executor import (COMPUTE_PARAMS_KEY, GraphExecutor,
                                          OpNode)
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
                                         DataType, LossType, MetricsType,
-                                        OperatorType)
+                                        OperatorType, PoolType)
 from flexflow_tpu_torch.layer import Layer
 from flexflow_tpu_torch.machine import (MachineSpec, Mesh,
                                         UnknownDeviceError,
@@ -96,6 +98,8 @@ class FFModel:
         self.mesh: Optional[Mesh] = None
         self._iter = 0
         self._last_loss: Optional[float] = None
+        # the batch set_batch staged for update: (host inputs, labels)
+        self._current_batch = None
         # the last step's loss of each epoch fit ran (one host read each)
         self.epoch_losses: List[float] = []
         self._used_names = set()
@@ -148,6 +152,31 @@ class FFModel:
             out_dim=out_dim, activation=activation, use_bias=use_bias,
             kernel_initializer=kernel_initializer, bias_initializer=bias_initializer,
         ), name, datatype)
+        return self._finish(layer)
+
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
+               padding_w: int, activation: ActiMode = ActiMode.AC_MODE_NONE,
+               groups: int = 1, use_bias: bool = True,
+               kernel_initializer=None, bias_initializer=None,
+               name: Optional[str] = None) -> Tensor:
+        layer = self._add_layer(OperatorType.CONV2D, [input], dict(
+            out_channels=out_channels, kernel_h=kernel_h, kernel_w=kernel_w,
+            stride_h=stride_h, stride_w=stride_w, padding_h=padding_h,
+            padding_w=padding_w, activation=activation, groups=groups,
+            use_bias=use_bias, kernel_initializer=kernel_initializer,
+            bias_initializer=bias_initializer), name)
+        return self._finish(layer)
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: PoolType = PoolType.POOL_MAX,
+               activation: ActiMode = ActiMode.AC_MODE_NONE,
+               name: Optional[str] = None) -> Tensor:
+        layer = self._add_layer(OperatorType.POOL2D, [input], dict(
+            kernel_h=kernel_h, kernel_w=kernel_w, stride_h=stride_h,
+            stride_w=stride_w, padding_h=padding_h, padding_w=padding_w,
+            pool_type=pool_type, activation=activation), name)
         return self._finish(layer)
 
     def layer_norm(self, input: Tensor, axes: Sequence[int] = (-1,),
@@ -232,6 +261,16 @@ class FFModel:
     def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
         layer = self._add_layer(OperatorType.SOFTMAX, [input],
                                 dict(axis=axis), name)
+        return self._finish(layer)
+
+    def concat(self, tensors: Sequence[Tensor], axis: int,
+               name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.CONCAT, list(tensors),
+                                dict(axis=axis), name)
+        return self._finish(layer)
+
+    def flat(self, input: Tensor, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.FLAT, [input], {}, name)
         return self._finish(layer)
 
     def split(self, input: Tensor, sizes, axis: int, name=None):
@@ -339,6 +378,7 @@ class FFModel:
         nodes, input_names, tensor_ref = self._materialize_nodes()
         if not nodes:
             raise ValueError("model has no layers")
+        self.layout_info = conv_layout_info(cfg.conv_compute_layout)
         out_t = outputs if outputs is not None else getattr(self, "outputs", None)
         if isinstance(out_t, (list, tuple)):
             if len(out_t) != 1:
@@ -542,7 +582,7 @@ class FFModel:
             raise NotImplementedError(
                 "trace_dir/profile_steps: step tracing and device-trace "
                 "capture come with slice 6 of the PyTorch port (ROADMAP.md "
-                "Queue 1 item 15)")
+                "Queue 1 item 11)")
 
     def _refuse_checkpointing(self, checkpoint_dir=None,
                               checkpoint_every=None, resume=None) -> None:
@@ -553,7 +593,7 @@ class FFModel:
             raise NotImplementedError(
                 "checkpoint_dir/checkpoint_every/resume and the runtime "
                 "health flags come with slice 6 of the PyTorch port "
-                "(ROADMAP.md Queue 1 item 14)")
+                "(ROADMAP.md Queue 1 item 11)")
 
     def _run_epochs(self, next_batch, num_batches: int, bs: int,
                     epochs: int, verbose: bool) -> float:
@@ -674,6 +714,55 @@ class FFModel:
         rep["loss"] = loss_sum / num_batches
         return rep
 
+    # ======================= the reference's step-by-step loop ============
+    # set_batch; forward; zero_gradients; backward; update: the original
+    # FlexFlow's training loop, as the JAX package keeps it. forward and
+    # backward only mark the step; update runs one whole compiled train
+    # step (fit's) on the staged batch.
+    def set_batch(self, x, y) -> None:
+        if self.executor is None:
+            raise ValueError("compile() the model before set_batch()")
+        self._current_batch = (self._host_inputs(x), np.asarray(y))
+
+    def _check_seq_length(self, seq_length: Optional[int]) -> None:
+        """A ``seq_length`` below the model's sequence extent runs, in the
+        JAX package, a bucket executor at a shorter length; the port runs
+        full-length steps only (ROADMAP.md Queue 1 item 8)."""
+        declared = self._declared_seq() if seq_length else None
+        if declared is not None and seq_length < declared:
+            raise NotImplementedError(
+                f"seq_length={seq_length} below the model's {declared}: "
+                f"sequence-length buckets come with a later slice of the "
+                f"PyTorch port (ROADMAP.md Queue 1 item 8)")
+
+    def forward(self, seq_length: Optional[int] = None) -> None:
+        if self._current_batch is None:
+            raise ValueError("call set_batch(x, y) before forward()")
+        self._check_seq_length(seq_length)
+
+    def zero_gradients(self) -> None:
+        """Nothing to clear: every step takes fresh gradients."""
+
+    def backward(self, seq_length: Optional[int] = None) -> None:
+        self._check_seq_length(seq_length)
+
+    def update(self) -> None:
+        """One compiled train step on the staged batch: parameters,
+        optimizer state, ``_last_loss`` and ``_last_metrics`` (the step's
+        metric sums) as ``fit``'s step leaves them."""
+        if self._current_batch is None:
+            raise ValueError("call set_batch(x, y) before update()")
+        inputs, labels = self._current_batch
+        train_step = self.executor.make_train_step()
+        self._refresh_compute_params()
+        (self.params, self.opt_state, self.state, loss,
+         mvals) = train_step(self.params, self.opt_state, self.state,
+                             inputs, labels, self._generator)
+        # the step's outputs are overwritten by its next call
+        self._last_metrics = {k: v.clone() for k, v in mvals.items()}
+        self._last_loss = float(loss)
+        self._iter += 1
+
     # ======================= inference =====================================
     def serve(self, batch_buckets=None, max_wait_ms: float = 5.0,
               search_budget: Optional[int] = None, start: bool = False,
@@ -737,6 +826,23 @@ class FFModel:
 
     def get_layer_names(self) -> List[str]:
         return [n.op.name for n in (self.executor.nodes if self.executor else [])]
+
+
+def conv_layout_info(mode: str) -> Dict[str, Any]:
+    """The conv family's execution layout, as the JAX package's
+    ``propagate_layouts`` reports it: the port computes NCHW under
+    ``"auto"`` and ``"nchw"``; the channels-last pass is ROADMAP.md
+    Queue 1 item 9b, and ``"nhwc"`` raises until it comes."""
+    mode = (mode or "auto").lower()
+    if mode == "nhwc":
+        raise NotImplementedError(
+            "conv_compute_layout='nhwc': the channels-last layout pass "
+            "comes with a later slice of the PyTorch port (ROADMAP.md "
+            "Queue 1 item 9b); 'auto' and 'nchw' compute NCHW")
+    if mode not in ("auto", "nchw"):
+        raise ValueError(f"conv_compute_layout expects auto|nhwc|nchw, got "
+                         f"{mode!r}")
+    return dict(enabled=False, nhwc_ops=0, transposes=0, boundaries=[])
 
 
 def host_input(arr, tensor: Tensor) -> np.ndarray:

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``flexflow_tpu/ops``: the ops of the BERT-proxy
 transformer, the MLP and the Llama-family decoder (embedding, RMSNorm,
-the elementwise kinds), and the SPLIT the search's linear fusion emits;
-ROADMAP.md lists the rest.
+the elementwise kinds), the recommendation models' CONCAT, the conv
+family's CONV2D, POOL2D and FLAT, and the SPLIT the search's linear
+fusion emits; ROADMAP.md lists the rest.
 """
 
 from flexflow_tpu_torch.ops.base import Op, OpRegistry, register_op
@@ -13,5 +14,6 @@ import flexflow_tpu_torch.ops.norm  # noqa: F401
 import flexflow_tpu_torch.ops.elementwise  # noqa: F401
 import flexflow_tpu_torch.ops.embedding  # noqa: F401
 import flexflow_tpu_torch.ops.tensor_ops  # noqa: F401
+import flexflow_tpu_torch.ops.conv  # noqa: F401
 
 __all__ = ["Op", "OpRegistry", "register_op"]

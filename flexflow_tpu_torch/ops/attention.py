@@ -11,10 +11,17 @@ availability rule holds, else the einsum core
 ``scaled_dot_product_attention``; with grad enabled the flash core runs
 through the ``FlashAttention`` autograd Function (forward and backward
 kernels). ``kernel_impl="einsum"`` pins the einsum core;
-``kernel_impl="flash"`` demands the flash core: on CUDA the kernels run
-or the call raises (the port has no silent fallback), and on the CPU it
-runs ``FlashAttention`` through the kernels' plain versions, the
-counterpart of the JAX package's Pallas interpret mode. The ring keeps
+``kernel_impl="flash"`` asks for the flash core: where the kernel takes
+the shape on CUDA it runs (a kernel that fails to build or launch
+raises), and on the CPU self-attention runs ``FlashAttention`` through
+the kernels' plain versions, the counterpart of the JAX package's Pallas
+interpret mode. Where the kernel cannot take the forward's shape (a
+head dim it lacks, cross-attention, batch x heads beyond its grid) the
+op runs the einsum core and records why in ``_kernel_fallback``, in the
+JAX package's words: the reference's semantics for a strategy choice the
+kernel cannot take. A card below sm_90 is not such a case: there a shape
+the kernel takes raises ``FlashKernelDeviceError`` unless
+``kernel_impl="einsum"`` pins the einsum core. The ring keeps
 the reference's rule for its inner block (K5 wherever the kernel takes
 the shape, else einsum) whatever ``kernel_impl`` says; only on the CPU
 does ``kernel_impl="flash"`` give it K5's plain versions.
@@ -35,7 +42,8 @@ from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.initializers import DefaultWeightInitializer
 from flexflow_tpu_torch.ops.base import DimRole, Op, OpContext, register_op
 from flexflow_tpu_torch.ops.flash_attention import (
-    SUPPORTED_HEAD_DIMS, flash_attention, flash_attention_available)
+    MAX_BATCH_HEADS, SUPPORTED_HEAD_DIMS, flash_attention,
+    flash_attention_available)
 from flexflow_tpu_torch.parallel.ring_attention import ring_attention
 
 
@@ -110,8 +118,11 @@ class MultiHeadAttention(Op):
         # than one device (ROADMAP.md Queue 1 item 3)
         self.head_parallel = p.get("head_parallel", None)
         self._warned_dropout = False
-        # None = availability-based pick; "flash" demands the kernel;
-        # "einsum" pins the einsum core
+        # None = availability-based pick; "flash" asks for the kernel;
+        # "einsum" pins the einsum core. A "flash" the kernel cannot take
+        # runs the einsum core and records why here (each compile makes
+        # new ops, so a fresh record)
+        self._kernel_fallback = None
         self.kernel_impl = p.get("kernel_impl", None)
         if self.kernel_impl not in (None, "flash", "einsum"):
             raise ValueError(f"attention '{layer.name}': kernel_impl "
@@ -179,7 +190,7 @@ class MultiHeadAttention(Op):
                 f"attention '{self.name}': attention-prob dropout in "
                 f"training comes with a later slice of the PyTorch port "
                 f"(ROADMAP.md)")
-        elif self._use_flash(q, k):
+        elif self._use_flash(q, k, dropout):
             o = flash_attention(q, k, v, causal=self.causal)
         else:
             o = scaled_dot_product_attention(q, k, v, causal=self.causal,
@@ -258,18 +269,27 @@ class MultiHeadAttention(Op):
             y = y + params["bo"].float()
         return y.to(query.dtype), k_cache, v_cache
 
-    def _use_flash(self, q, k) -> bool:
+    def _use_flash(self, q, k, dropout_rate=0.0) -> bool:
+        """Whether the core runs through the kernel. A ``flash`` pin the
+        kernel cannot take runs the einsum core and records why in
+        ``_kernel_fallback``, with the reference's strings
+        (``flexflow_tpu/ops/attention.py:203-210, 240-250``)."""
         if self.kernel_impl == "einsum":
             return False
-        if (self.kernel_impl == "flash" and q.device.type == "cpu"
-                and q.shape[2] == k.shape[2]):
+        if q.shape[2] != k.shape[2]:
+            if self.kernel_impl == "flash" and self._kernel_fallback is None:
+                self._kernel_fallback = (
+                    f"flash has no lowering for this forward "
+                    f"(dropout_rate={dropout_rate}, Sq={q.shape[2]}, "
+                    f"Sk={k.shape[2]}) — einsum executed instead")
+            return False
+        if self.kernel_impl == "flash" and q.device.type == "cpu":
             return True  # the plain versions: the CPU's interpret mode
         available = flash_attention_available(q, k)
         if self.kernel_impl == "flash" and not available:
-            raise ValueError(
-                f"attention '{self.name}': kernel_impl='flash' but the "
-                f"kernel cannot run here (device={q.device.type}, "
-                f"Sq={q.shape[2]}, Sk={k.shape[2]}, head_dim={q.shape[3]})")
+            self._kernel_fallback = (
+                f"flash unavailable at runtime (seq={q.shape[2]}, "
+                f"head_dim={q.shape[3]}) — einsum executed instead")
         return available
 
     def _is_ring(self, mesh_axes) -> bool:
@@ -293,7 +313,8 @@ class MultiHeadAttention(Op):
         if s != sk:
             return "einsum"
         if torch.device(device).type == "cuda":
-            return "flash" if self.head_dim in SUPPORTED_HEAD_DIMS else "einsum"
+            return ("flash" if self.head_dim in SUPPORTED_HEAD_DIMS
+                    and b * self.num_heads <= MAX_BATCH_HEADS else "einsum")
         return "flash" if self.kernel_impl == "flash" else "einsum"
 
     def output_dim_roles(self):

@@ -117,8 +117,9 @@ class OpRegistry:
             raise NotImplementedError(
                 f"no Op registered for {layer.op_type} in the PyTorch port "
                 f"(it ports LINEAR, EMBEDDING, LAYERNORM, RMSNORM, "
-                f"MULTIHEAD_ATTENTION, SOFTMAX, SPLIT and the elementwise "
-                f"kinds; ROADMAP.md lists the rest)")
+                f"MULTIHEAD_ATTENTION, SOFTMAX, CONCAT, SPLIT, CONV2D, "
+                f"POOL2D, FLAT and the elementwise kinds; ROADMAP.md "
+                f"lists the rest)")
         return cls._by_type[layer.op_type](layer, input_shapes)
 
 

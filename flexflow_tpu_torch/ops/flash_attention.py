@@ -30,10 +30,13 @@ say two.
 
 The port's availability rule replaces the TPU's tuning gates (``BLK_Q``,
 ``MIN_SEQ_FOR_FLASH``, ``head_dim % 8``, ``MAX_BWD_SEQ``): the tensors
-are on CUDA, the attention is self-attention (Sq == Sk) and the head dim
-is one the kernels support. The backward streams its tiles, so it has no
-length limit and the JAX package's long-sequence einsum recompute has no
-counterpart.
+are on CUDA, the attention is self-attention (Sq == Sk), the head dim is
+one the kernels support and batch x heads fits the grid. The card is not
+part of the rule: the kernels are built for sm_90a, and on a card below
+compute capability 9.0 both the rule and the wrappers raise
+``FlashKernelDeviceError`` rather than give the work to a plain version.
+The backward streams its tiles, so it has no length limit and the JAX
+package's long-sequence einsum recompute has no counterpart.
 """
 
 from __future__ import annotations
@@ -50,15 +53,34 @@ from flexflow_tpu_torch.step_graph import register_launch_counter
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-_MAX_BH = 65535  # the kernels' grids put batch*heads on grid.y
+MAX_BATCH_HEADS = 65535  # the kernels' grids put batch*heads on grid.y
+
+
+class FlashKernelDeviceError(RuntimeError):
+    """A CUDA card the sm_90a flash kernels cannot run on."""
+
+
+def require_sm90(device: torch.device) -> None:
+    """Raise ``FlashKernelDeviceError`` unless ``device``, a CUDA device,
+    has compute capability 9.0 or above."""
+    major, minor = torch.cuda.get_device_capability(device)
+    if (major, minor) < (9, 0):
+        raise FlashKernelDeviceError(
+            f"the flash kernels are built for sm_90a; this card is "
+            f"sm_{major}{minor}")
 
 
 def flash_attention_available(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Whether ``MultiHeadAttention`` runs its core through the kernel:
     q, k are ``[B, H, S, D]``. (Attention dropout has no kernel path;
-    the attention op refuses it before it asks.)"""
-    return (q.device.type == "cuda" and q.shape[2] == k.shape[2]
-            and q.shape[3] in SUPPORTED_HEAD_DIMS)
+    the attention op refuses it before it asks.) A shape the kernel takes
+    on a card below sm_90 raises ``FlashKernelDeviceError``."""
+    available = (q.device.type == "cuda" and q.shape[2] == k.shape[2]
+                 and q.shape[3] in SUPPORTED_HEAD_DIMS
+                 and q.shape[0] * q.shape[1] <= MAX_BATCH_HEADS)
+    if available:
+        require_sm90(q.device)
+    return available
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -155,8 +177,9 @@ def _check_panels(fn: str, *xs: torch.Tensor, f32: Sequence = ()) -> None:
         raise ValueError(f"{fn}: panels must be 16-byte aligned")
     if any(x.device != q.device for x in xs):
         raise ValueError(f"{fn}: panels on different devices")
-    if q.shape[0] > _MAX_BH:
-        raise ValueError(f"{fn}: batch*heads {q.shape[0]} > {_MAX_BH}")
+    if q.shape[0] > MAX_BATCH_HEADS:
+        raise ValueError(f"{fn}: batch*heads {q.shape[0]} > "
+                         f"{MAX_BATCH_HEADS}")
 
 
 def _check_rows(fn: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
@@ -221,6 +244,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_fwd_reference(q, k, v, causal, out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: no kernel for device {q.device}")
+    require_sm90(q.device)
     o = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     args = fwd_launch_args(q, k, v, o, lse, causal, _stream(q), out_dtype)
@@ -309,6 +333,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_bwd_reference(q, k, v, o, lse, do, causal, glse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: no kernel for device {q.device}")
+    require_sm90(q.device)
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     dlt, do16 = bwd_scratch(q, o)

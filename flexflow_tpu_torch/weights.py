@@ -4,8 +4,10 @@ JAX's PRNG has no torch twin, so parity between the two packages goes
 through the JAX model's initialized parameters, copied into the port. The
 layouts are identical by construction (dense ``kernel [in, out]`` and
 ``bias [out]``, LayerNorm ``scale``/``bias``, attention ``wq/wk/wv
-[H, E, D]``, ``wo [H, D, E]``, ``bo [E]``), so the copy is a cast and a
-device move.
+[H, E, D]``, ``wo [H, D, E]``, ``bo [E]``, embedding ``kernel
+[entries, out]``, conv ``kernel [Cout, Cin/groups, KH, KW]`` (OIHW in
+both packages) and ``bias [Cout]``), so the copy is a cast and a device
+move.
 """
 
 from __future__ import annotations

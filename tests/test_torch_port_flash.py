@@ -242,17 +242,53 @@ def _fake(device, shape):
     return types.SimpleNamespace(device=torch.device(device), shape=shape)
 
 
-@pytest.mark.parametrize("q_shape,k_shape,want", [
-    ((2, 4, 512, 64), (2, 4, 512, 64), True),
-    ((2, 4, 100, 128), (2, 4, 100, 128), True),
-    ((2, 4, 512, 32), (2, 4, 512, 32), False),   # head dim
-    ((2, 4, 512, 64), (2, 4, 256, 64), False),   # cross-attention
+@pytest.mark.parametrize("q_shape,k_shape,capability,want", [
+    ((2, 4, 512, 64), (2, 4, 512, 64), (9, 0), True),
+    ((2, 4, 100, 128), (2, 4, 100, 128), (9, 0), True),
+    ((2, 4, 512, 32), (2, 4, 512, 32), (9, 0), False),   # head dim
+    ((2, 4, 512, 64), (2, 4, 256, 64), (9, 0), False),   # cross-attention
+    ((8192, 8, 128, 64), (8192, 8, 128, 64), (9, 0), False),  # B*H > grid
+    ((8191, 8, 128, 64), (8191, 8, 128, 64), (9, 0), True),
+    ((2, 4, 512, 32), (2, 4, 512, 32), (8, 0), False),   # head dim, sm_80
 ])
-def test_availability_rule_on_cuda(q_shape, k_shape, want):
-    """The port's rule — CUDA, Sq == Sk, a supported head dim — replaces
-    the TPU's BLK_Q / MIN_SEQ_FOR_FLASH gates."""
+def test_availability_rule_on_cuda(monkeypatch, q_shape, k_shape,
+                                   capability, want):
+    """The port's rule — CUDA, Sq == Sk, a supported head dim, batch x
+    heads within the grid — replaces the TPU's BLK_Q / MIN_SEQ_FOR_FLASH
+    gates. A shape the kernel does not take answers no on any card."""
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: capability)
     assert flash_attention_available(_fake("cuda", q_shape),
                                      _fake("cuda", k_shape)) is want
+
+
+@pytest.mark.parametrize("capability", [(8, 0), (8, 9)])
+def test_availability_rule_raises_below_sm90(monkeypatch, capability):
+    """A shape the kernel takes, on a card the sm_90a kernels cannot run
+    on: the rule raises instead of giving the work to the einsum core,
+    and so do the wrappers (`require_sm90`, before they launch) and the
+    ring's block rule."""
+    from flexflow_tpu_torch.ops.flash_attention import (
+        FlashKernelDeviceError, require_sm90)
+    from flexflow_tpu_torch.parallel.ring_attention import _use_flash
+
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: capability)
+    name = f"sm_{capability[0]}{capability[1]}"
+    q = _fake("cuda", (2, 4, 512, 64))
+    with pytest.raises(FlashKernelDeviceError, match=f"sm_90a.*{name}"):
+        flash_attention_available(q, q)
+    with pytest.raises(FlashKernelDeviceError, match=name):
+        require_sm90(torch.device("cuda"))
+
+    class Blocks:  # the ring's [P, B, H, S, D] blocks; it asks of block 0
+        device = torch.device("cuda")
+
+        def __getitem__(self, i):
+            return q
+
+    with pytest.raises(FlashKernelDeviceError, match=name):
+        _use_flash(Blocks(), interpret=False)
 
 
 def test_cpu_is_never_available():

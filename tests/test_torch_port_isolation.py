@@ -43,7 +43,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.parallel.pipeline_detect, "
         "flexflow_tpu_torch.layout, flexflow_tpu_torch.models.mlp, "
         "flexflow_tpu_torch.step_graph, flexflow_tpu_torch.serve.kv_cache, "
-        "flexflow_tpu_torch.models.llama, flexflow_tpu_torch.ops.embedding\n"
+        "flexflow_tpu_torch.models.llama, flexflow_tpu_torch.ops.embedding, "
+        "flexflow_tpu_torch.ops.conv, flexflow_tpu_torch.ops.tensor_ops, "
+        "flexflow_tpu_torch.models.dlrm, flexflow_tpu_torch.models.xdl, "
+        "flexflow_tpu_torch.models.candle_uno, "
+        "flexflow_tpu_torch.models.resnext, "
+        "flexflow_tpu_torch.models.inception\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -81,6 +86,31 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from flexflow_tpu_torch.serve.loadgen import build_serve_model
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_serve_model("transformer", on_cpu=True)
+
+
+def test_detect_machine_spec_does_not_fall_back_to_the_cpu(monkeypatch):
+    """``detect_machine_spec(device=None)`` resolves the device as
+    ``FFModel`` does: the card, or an error when there is none; the CPU
+    only by name."""
+    from flexflow_tpu_torch.machine import detect_machine_spec
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_machine_spec()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_machine_spec(1)
+    assert detect_machine_spec(device="cpu").chip == "cpu-sim"
+
+
+@pytest.mark.parametrize("build", ["dlrm", "xdl", "candle_uno", "resnext50",
+                                   "inception_v3"])
+def test_zoo_builders_raise_without_cuda(monkeypatch, build):
+    import flexflow_tpu_torch.models as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = {"dlrm": M.DLRMConfig, "xdl": M.XDLConfig,
+              "candle_uno": M.CandleUnoConfig, "resnext50": M.ResNeXtConfig,
+              "inception_v3": M.InceptionConfig}[build]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(M, f"create_{build}")(config())
 
 
 def test_cpu_only_when_asked():

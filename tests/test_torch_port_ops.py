@@ -145,15 +145,24 @@ def test_mha_projections_keep_head_first_layout():
 
 
 def test_mha_kernel_impl_flash_raises_where_kernel_cannot_run():
-    """No silent fallback: a forced flash core raises where flash cannot
-    run (cross-attention, Sq != Sk). On the CPU a forced flash core on
-    self-attention runs FlashAttention through the plain versions."""
-    _, pop, params, inputs = _pair(
+    """A flash choice the kernel cannot take (cross-attention, Sq != Sk)
+    runs the einsum core, as the reference does, and records why in
+    ``_kernel_fallback`` with the reference's words; a kernel that fails
+    to build or launch still raises (``test_torch_port_flash``). On the
+    CPU a forced flash core on self-attention runs FlashAttention through
+    the plain versions."""
+    jop, pop, params, inputs = _pair(
         "MULTIHEAD_ATTENTION", [(2, 16, 128), (2, 12, 128), (2, 12, 128)],
         dict(embed_dim=128, num_heads=2, kernel_impl="flash"))
-    with pytest.raises(ValueError, match="kernel cannot run"):
-        pop.forward({k: torch.from_numpy(v) for k, v in params.items()},
-                    [torch.from_numpy(x) for x in inputs], PContext())
+    (got,) = pop.forward({k: torch.from_numpy(v) for k, v in params.items()},
+                         [torch.from_numpy(x) for x in inputs], PContext())
+    (want,) = jop.forward({k: jnp.asarray(v) for k, v in params.items()},
+                          [jnp.asarray(x) for x in inputs],
+                          JContext(training=False, compute_dtype=jnp.float32))
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
+                               atol=ATOL * np.abs(want).max())
+    assert pop._kernel_fallback == jop._kernel_fallback is not None
     assert pop.selected_impl("cpu") == "einsum"
     assert pop.selected_impl("cuda") == "einsum"
     _, pop, params, inputs = _pair(
@@ -164,13 +173,14 @@ def test_mha_kernel_impl_flash_raises_where_kernel_cannot_run():
 
 
 def test_unported_op_raises():
-    layer = PLayer(pconst.OperatorType.CONV2D, "conv", [])
+    layer = PLayer(pconst.OperatorType.BATCHNORM, "bn", [])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PRegistry.create(layer, [(1, 3, 8, 8)])
 
 
 @pytest.mark.parametrize("name", ["OperatorType", "DataType", "ActiMode",
-                                  "LossType", "CompMode", "MetricsType"])
+                                  "LossType", "CompMode", "MetricsType",
+                                  "PoolType"])
 def test_enums_match_jax(name):
     j, p = getattr(jconst, name), getattr(pconst, name)
     assert [(m.name, m.value) for m in p] == [(m.name, m.value) for m in j]
