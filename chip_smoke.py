@@ -204,9 +204,41 @@ package. Phases:
              once a replay in (K)); peak memory; for (S) the search's wall
              time and predicted step. Then K4 over (K)'s leaf shapes
              against its plain version, timed beside
-             ``torch.optim.Adam(fused=True)`` and the bound.
-11. report — one JSON line ``{"kernels": [...]}``, then the final line
-             ``{"ok": true, "device": {...}}``.
+             ``torch.optim.Adam(fused=True)`` and the bound. The conv
+             models run channels-last (``conv_compute_layout="auto"``);
+             [layout]: ResNeXt-50 and Inception-v3 built under
+             ``"auto"`` (channels-last) and ``"nchw"`` from one seed and
+             held to each other (``layout_pair``): each op's output in
+             one training forward, one SGD step's loss, and each
+             parameter and BN running-statistics leaf's change in that
+             step, within bounds set from readings (PERF.md); then (D)
+             under
+             ``"nchw"``: 3 compiled steps, two replays profiled beside
+             the channels-last run's (busy, conv, cuDNN's NCHW<->NHWC
+             transforms by name).
+11. zoo bn  — [zoo bn] ResNet-50 with BatchNorm (batch 64, 224 x 224,
+             53 conv -> BN pairs) as [zoo] runs a model, in four ways:
+             (D), (K), (F) a strategy file giving every conv
+             ``dp_k:conv_bn_fused`` (53 fused nodes), (S) the search
+             (the ops that chose ``conv_bn_fused`` printed); every
+             compiled step bit-equal to its eager one and every way to
+             (D), BN running statistics included. After (D): ``predict``
+             and ``evaluate`` with the eval fold against
+             ``fold_conv_bn=False`` (FOLD_RTOL); an INFERENCE build given
+             the trained weights and statistics through
+             ``transforms.fold_conv_batchnorm`` (53 folds), its
+             ``predict`` against the eval fold's and ``serve()``:
+             SERVE_REQUESTS requests answered with their ``predict``
+             rows bit for bit. [layout resnet_bn]: the layout pair as
+             above. AlexNet (batch 64, 224 x 224, two dropouts at
+             0.5) as (D) and (K), each step pair from one generator
+             state; each dropout's share of zeros in a training tap
+             within DROPOUT_SIGMAS binomial deviations of 0.5 and its
+             kept values scaled exactly; ``predict`` with dropout the
+             identity; 3 ``fit`` steps finite.
+12. report — one JSON line ``{"kernels": [...]}``, then the final line
+             ``{"ok": true, "device": {...}}``. Each phase's seconds are
+             printed as ``[time]`` lines.
 
 Any failed check exits non-zero without printing the final line.
 """
@@ -1902,8 +1934,9 @@ def profile_steps(label, run_step, steps=2, top_of=()):
     kind, the top kernels (also of each kind in ``top_of``), the busy
     share against the host clock, and the largest idle gaps (named by the
     kernel that ended each). Returns (ms by kind, events by kind, wall
-    ms, ms by copy or set, launches by kernel wrapper), or None if the
-    profiler recorded no kernel. The launches are the device's kernel events
+    ms, ms by copy or set, launches by kernel wrapper, cuDNN's
+    NCHW<->NHWC transform kernels: their ms, launches and ms by name), or
+    None if the profiler recorded no kernel. The launches are the device's kernel events
     named by each wrapper's kernel (``step_graph.launch_counters``: the
     one kernel a launch runs once), keyed as ``read_launches``."""
     from torch.profiler import ProfilerActivity, profile
@@ -1955,7 +1988,21 @@ def profile_steps(label, run_step, steps=2, top_of=()):
         if kernel_kind(e.name) == "memcpy":
             copies[e.name] = (copies.get(e.name, 0.0)
                               + e.time_range.elapsed_us() / 1e3)
-    return kinds, counts, wall_ms, copies, launches_by_name(events)
+    transforms = {}
+    for e in events:
+        low = e.name.lower()
+        if "nchwtonhwc" in low or "nhwctonchw" in low:
+            t = transforms.setdefault(e.name[:110], [0.0, 0])
+            t[0] += e.time_range.elapsed_us() / 1e3
+            t[1] += 1
+    layout = dict(ms=sum(t[0] for t in transforms.values()),
+                  launches=sum(t[1] for t in transforms.values()),
+                  by_name=transforms)
+    print(f"[profile]   NCHW<->NHWC transforms: {layout['ms']:.3f} ms in "
+          f"{layout['launches']} launches"
+          + "".join(f"; {ms:.3f} ms in {n}: {name}"
+                    for name, (ms, n) in sorted(transforms.items())))
+    return kinds, counts, wall_ms, copies, launches_by_name(events), layout
 
 
 def launches_by_name(events):
@@ -2068,8 +2115,11 @@ def graph_vs_eager(ff, x, y, steps, label, losses_out=None):
     the model itself, on one batch (``x``: an array, or one a model
     input); every loss, and every leaf of the parameters, the optimizer
     state (t included) and the state (the compute copy), must be
-    bit-equal. Returns the launches of each compiled call; the compiled
-    calls' losses are appended to ``losses_out``."""
+    bit-equal. Each pair of steps starts from one state of the model's
+    generator, so that they draw one dropout mask (a capture's graph
+    registers the generator, and a replay takes the offset it has then).
+    Returns the launches of each compiled call; the compiled calls'
+    losses are appended to ``losses_out``."""
     import torch
 
     inputs, labels = ff._stage_inputs(as_inputs(x)), ff._stage_labels(y)
@@ -2077,7 +2127,10 @@ def graph_vs_eager(ff, x, y, steps, label, losses_out=None):
     graph = graph_stepper(ff, x, y)
     per_call, losses = [], []
     for _ in range(steps):
+        # both steps draw their dropout masks from one generator state
+        rng_state = ff._generator.get_state()
         want = eager()
+        ff._generator.set_state(rng_state)
         before = read_launches()
         got = graph()
         per_call.append(launch_delta(before))
@@ -2088,7 +2141,8 @@ def graph_vs_eager(ff, x, y, steps, label, losses_out=None):
     sg = ff.executor.step_graphs["train_step"]
     print(f"{label} compiled step vs eager step from one state, {steps} "
           f"steps: losses " + ", ".join(f"{g!r}/{w!r}" for g, w in losses)
-          + f"; {differ} of {n} leaves (params, m, v, t, the compute copy) "
+          + f"; {differ} of {n} leaves (params, m, v, t, the op state and "
+          f"the compute copy) "
           f"differ (want 0); captures {sg.captures}, replays {sg.replays}; "
           f"launches a compiled call {per_call}")
     check(all(g == w for g, w in losses) and differ == 0,
@@ -2667,22 +2721,31 @@ def build_llama(strategy_dir=None):
     return ff
 
 
+def model_leaves(ff):
+    """The model's parameter leaves and then its op-state leaves (the
+    BatchNorms' running statistics; not the compute copy), in build
+    order."""
+    return ([t for sub in ff.params.values() for t in sub.values()]
+            + [t for k, sub in ff.state.items() if not k.startswith("__")
+               for t in sub.values()])
+
+
 def host_params(ff):
-    """Host copies of the model's parameter leaves in build order, to
-    hold another build of the model against (``params_differ``): two
-    builds name their layers apart (the layer counter is global), so the
-    leaves are matched by position, not by name."""
-    return [t.detach().to("cpu", copy=True)
-            for sub in ff.params.values() for t in sub.values()]
+    """Host copies of the model's parameter and op-state leaves in build
+    order (``model_leaves``), to hold another build of the model against
+    (``params_differ``): two builds name their layers apart (the layer
+    counter is global), so the leaves are matched by position, not by
+    name."""
+    return [t.detach().to("cpu", copy=True) for t in model_leaves(ff)]
 
 
 def params_differ(ff, base):
-    """How many of ``ff``'s parameter leaves, in build order, are not
-    equal to ``base``'s (``host_params`` of another build); every leaf
-    when the two disagree in count or shapes."""
+    """How many of ``ff``'s parameter and op-state leaves, in build order,
+    are not equal to ``base``'s (``host_params`` of another build); every
+    leaf when the two disagree in count or shapes."""
     import torch
 
-    got = [t for sub in ff.params.values() for t in sub.values()]
+    got = model_leaves(ff)
     if [t.shape for t in got] != [t.shape for t in base]:
         return max(len(got), len(base))
     return sum(1 for t, b in zip(got, base)
@@ -3667,28 +3730,74 @@ def phase_llama_search():
 
 ZOO_MODELS = ("dlrm", "xdl", "candle_uno", "resnext", "inception")
 # compile(search_budget=...) as in the OSDI'22 scripts
-ZOO_BUDGET = dict(dlrm=20, xdl=20, candle_uno=20, resnext=20, inception=10)
+ZOO_BUDGET = dict(dlrm=20, xdl=20, candle_uno=20, resnext=20, inception=10,
+                  resnet_bn=20)
 ZOO_ALPHA = 1e-4
 ZOO_CALLS = 3  # compiled calls against eager steps: the capture, 2 replays
 ZOO_FIT_STEPS = 2
 ZOO_PAIRS = 5
+# [zoo bn]: the models and the ways each is compiled ((F): every fusable
+# conv "dp_k:conv_bn_fused")
+BN_MODES = dict(resnet_bn=("D", "K", "F", "S"), alexnet=("D", "K"))
+BN_PAIRS = 53  # ResNet-50's conv -> BatchNorm pairs
+# the eval fold's weights are rounded to bf16 after folding, the unfolded
+# conv's output before its f32 BatchNorm: each of the 53 pairs rounds
+# once more or less (2^-9 of a value), so the two predictions part by a
+# random walk of such steps, the bf16 model tolerance of this script
+FOLD_RTOL = MODEL_RTOL
+# the layout pair (``layout_pair``), in f32 compute (TF32 off): one SGD
+# step at LAYOUT_LR changes a parameter leaf by minus its gradient. The
+# bounds are set from the readings of sound runs on an H100 80GB HBM3
+# (PERF.md section 6), a few times the largest of the three models':
+# each op's output in one training forward, of its largest (read 1.5e-4,
+# ResNet-50-BN's last block, a BN over a channel of nearly equal values
+# amplifying; 4.6e-6 and 5.5e-6 without BN); the step's loss, relative
+# (6.1e-7, 0, 0); a leaf's change, the norm of the gap over its norm:
+# parameters (2.7e-2, 6.4e-2, 7.7e-2: a gradient at random weights is a
+# sum of terms of either sign, far smaller than their magnitudes, so the
+# two layouts' orders of summation part it), running statistics
+# (1.2e-5); a conv bias that a BatchNorm cancels has a gradient of
+# rounding alone, so its change is held under LAYOUT_NULL of the model's
+# largest parameter change instead (2.8e-7). In bf16 (as ``fit`` runs)
+# only step 1's loss is held, relative (8.8e-4, 0, 0): bf16 rounding,
+# amplified by such a BatchNorm, parts single activations and gradients
+# by as much as they are large
+LAYOUT_LR = 1.0
+LAYOUT_SEED = 5  # the pair's He-normal conv kernels
+LAYOUT_ACT_RTOL = 1e-3
+LAYOUT_LOSS_RTOL = 1e-5
+LAYOUT_LEAF_RTOL = 0.25
+LAYOUT_STATE_RTOL = 1e-3
+LAYOUT_NULL = 1e-5
+LAYOUT_BF16_LOSS = 4e-3
+SERVE_REQUESTS = 8
+DROPOUT_SIGMAS = 5
 
 
 def zoo_spec(name):
     """(builder, config, loss, metrics) of the zoo model ``name`` at the
-    JAX package's default configuration."""
+    JAX package's default configuration; ``builder(config, ff_config,
+    device=)``."""
+    import types
     from flexflow_tpu_torch import LossType, MetricsType
     from flexflow_tpu_torch import models as M
 
     mse = (LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
            [MetricsType.MEAN_SQUARED_ERROR])
     sce = (LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [MetricsType.ACCURACY])
+    alexnet = types.SimpleNamespace(batch_size=64, image_size=224,
+                                    num_classes=10)
     return {"dlrm": (M.create_dlrm, M.DLRMConfig(), *mse),
             "xdl": (M.create_xdl, M.XDLConfig(), *sce),
             "candle_uno": (M.create_candle_uno, M.CandleUnoConfig(), *mse),
             "resnext": (M.create_resnext50, M.ResNeXtConfig(), *sce),
             "inception": (M.create_inception_v3, M.InceptionConfig(),
-                          *sce)}[name]
+                          *sce),
+            "resnet_bn": (M.create_resnet, M.ResNetConfig(batch_norm=True),
+                          *sce),
+            "alexnet": (lambda c, ff_config, device: M.create_alexnet(
+                c.batch_size, c.num_classes, c.image_size,
+                ff_config=ff_config, device=device), alexnet, *sce)}[name]
 
 
 def zoo_batch(name, cfg, seed=11):
@@ -3717,37 +3826,55 @@ def zoo_batch(name, cfg, seed=11):
     return [cast(a) for a in xs], cast(y)
 
 
-def compile_zoo(name, mode, strategy_dir):
-    """``name`` on the card, compiled for training (Adam alpha ZOO_ALPHA
-    with bf16 moments, the model's loss) from the config's seed: (D) no
-    strategy file; (K) a strategy file giving every op ``dp_k:fused``
-    (K4); (S) ``compile(search_budget=ZOO_BUDGET[name])``."""
+def compile_zoo(name, mode, strategy_dir, layout="auto",
+                comp_mode="TRAINING", optimizer=None, mixed=True):
+    """``name`` on the card, compiled for training (``optimizer``, by
+    default Adam alpha ZOO_ALPHA with bf16 moments; the model's loss)
+    from the config's seed, bf16 compute (f32 with ``mixed=False``), the
+    conv
+    family's layout ``layout``: (D) no strategy file; (K) a strategy file
+    giving every op ``dp_k:fused`` (K4); (F) one giving every conv
+    ``dp_k:conv_bn_fused`` and every other op ``dp``; (S)
+    ``compile(search_budget=ZOO_BUDGET[name])``. ``comp_mode="INFERENCE"``
+    compiles (D) for inference."""
     import torch
-    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch import CompMode, FFConfig, OperatorType
     from flexflow_tpu_torch.optimizers import AdamOptimizer
 
     create, cfg, loss, metrics = zoo_spec(name)
-    ff = create(cfg, FFConfig(batch_size=cfg.batch_size), device="cuda")
-    if mode == "K":
-        path = os.path.join(strategy_dir, f"{name}_fused.json")
-        write_strategy(ff, path, lambda kind: "dp_k:fused")
+    ff = create(cfg, FFConfig(batch_size=cfg.batch_size,
+                              conv_compute_layout=layout,
+                              allow_mixed_precision=mixed), device="cuda")
+    if mode in ("K", "F"):
+        path = os.path.join(strategy_dir, f"{name}_{mode}.json")
+        write_strategy(ff, path, (lambda kind: "dp_k:fused") if mode == "K"
+                       else (lambda kind: "dp_k:conv_bn_fused"
+                             if kind == OperatorType.CONV2D else "dp"))
         ff.config.import_strategy_file = path
     elif mode == "S":
         ff.config.search_budget = ZOO_BUDGET[name]
-    ff.compile(AdamOptimizer(alpha=ZOO_ALPHA, state_dtype=torch.bfloat16),
-               loss, metrics)
+    if comp_mode == "INFERENCE":
+        ff.compile(None, loss, metrics, comp_mode=CompMode.INFERENCE)
+    else:
+        ff.compile(optimizer or AdamOptimizer(
+            alpha=ZOO_ALPHA, state_dtype=torch.bfloat16), loss, metrics)
     return ff
 
 
-def phase_zoo(name, strategy_dir):
-    """[zoo] one of the OSDI'22 protocol's other five models at the JAX
-    package's default configuration, compiled three ways from one seed,
-    one compiled model on the card at a time: (D) plain Adam, (K) every
-    op ``dp_k:fused`` (K4), (S) the search. For each: ZOO_CALLS compiled
+def phase_zoo(name, strategy_dir, modes=("D", "K", "S"), after=None,
+              tag="zoo"):
+    """[zoo] one of the OSDI'22 protocol's other five models (or, as
+    ``[zoo bn]``, ResNet-50 with BatchNorm or AlexNet) at the JAX
+    package's default configuration, compiled in each of ``modes`` from
+    one seed, one compiled model on the card at a time: (D) plain Adam,
+    (K) every op ``dp_k:fused`` (K4), (F) every conv
+    ``dp_k:conv_bn_fused``, (S) the search. For each: ZOO_CALLS compiled
     calls (the capture, then replays) against as many eager steps from
-    one state, bit for bit, K4's launches a call (1 in (K), 0 in (D));
-    (K)'s and (S)'s losses against (D)'s and their parameter leaves bit
-    for bit (unless the search rewrote the graph); ZOO_FIT_STEPS ``fit``
+    one state, bit for bit (the BatchNorms' running statistics too), K4's
+    launches a call (1 in (K), 0 elsewhere);
+    the others' losses against (D)'s and their parameter and op-state
+    leaves bit for bit (unless the search rewrote the graph); (F) and
+    (S) run each ``conv_bn_fused`` choice as one fused node; ZOO_FIT_STEPS ``fit``
     steps (replays; K4's launches counted from 0 around them);
     ``evaluate`` and ``predict`` of the batch (a capture, then a replay)
     against the eager eval step and forward, bit for bit. All of that
@@ -3759,10 +3886,14 @@ def phase_zoo(name, strategy_dir):
     kernels, K4 by name); peak memory; for (S) the search's wall time
     and prediction.
     Then K4 on (K)'s leaf shapes against its plain version and the
-    library (``k4_row``). Returns the report's numbers."""
+    library (``k4_row``), where (K) ran. ``after(mode, ff, x, y,
+    label)`` runs the model's own checks once the common ones have,
+    still deterministic; its dict joins the mode's row. Returns the
+    report's numbers."""
     import numpy as np
     import torch
     from collections import Counter
+    from flexflow_tpu_torch.layout import TrainFusedConvBN
 
     create, cfg, _, _ = zoo_spec(name)
     x, y = zoo_batch(name, cfg)
@@ -3771,8 +3902,9 @@ def phase_zoo(name, strategy_dir):
     base_losses = base_trained = None
     flags = (torch.backends.cudnn.benchmark,
              torch.backends.cudnn.deterministic)
-    for mode in ("D", "K", "S"):
-        label = f"[zoo {name} {mode}]"
+    for mode in modes:
+        label = f"[{tag} {name} {mode}]"
+        t_mode = time.perf_counter()
         # the checks: cuDNN picks its algorithms by heuristics (no
         # benchmarking, so no choice is timed inside a capture) and only
         # deterministic ones, so that a replayed step can be held
@@ -3812,9 +3944,20 @@ def phase_zoo(name, strategy_dir):
             differ = params_differ(ff, base_init)
             check(not differ, f"{label} {differ} initial parameter leaves "
                               f"differ from (D)'s: not one seed")
-        if mode == "D":
-            check(not leaves, f"{label} a plain compile routes leaves "
-                              f"through K4")
+        if mode in ("D", "F"):
+            check(not leaves, f"{label} a compile without _k:fused routes "
+                              f"leaves through K4")
+        chosen = sorted(n for n, k in (ff.kernel_choices or {}).items()
+                        if k == "conv_bn_fused")
+        fused_nodes = sum(isinstance(n.op, TrainFusedConvBN)
+                          for n in ex._training_nodes())
+        if chosen or mode == "F":
+            print(f"{label} {len(chosen)} ops chose conv_bn_fused "
+                  f"({chosen[:3]}...): {fused_nodes} fused nodes in the "
+                  f"train step; unfused {ex.unfused_conv_bn}")
+            check(fused_nodes == len(chosen) and not ex.unfused_conv_bn
+                  and (mode != "F" or fused_nodes == BN_PAIRS),
+                  f"{label} the conv_bn_fused choices do not all fuse")
         if mode == "K":
             check(len(leaves) == n_leaves, f"{label} {len(leaves)} of "
                   f"{n_leaves} leaves through K4")
@@ -3851,10 +3994,11 @@ def phase_zoo(name, strategy_dir):
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
         print(f"{label} losses {losses} against (D)'s {base_losses}: "
               f"{rel:.3e} relative (tol {TRAJECTORY_RTOL}); bit-equal "
-              f"{losses == base_losses}; parameter leaves after the "
-              f"{ZOO_CALLS} steps bit-equal to (D)'s: "
+              f"{losses == base_losses}; parameter and op-state leaves after "
+              f"the {ZOO_CALLS} steps bit-equal to (D)'s: "
               + ("not compared (the graph was rewritten)" if rewritten
-                 else f"{n_leaves - differ} of {n_leaves}"))
+                 else f"{len(base_trained) - differ} of "
+                      f"{len(base_trained)}"))
         check(rel <= TRAJECTORY_RTOL, f"{label} the losses leave (D)'s")
         # K4 is bit-equal to the plain update, and the search's
         # one-device strategy runs (D)'s ops: the parameters agree
@@ -3894,6 +4038,7 @@ def phase_zoo(name, strategy_dir):
               and np.isfinite(want_out).all()
               and (fwd.captures, fwd.replays) == (1, 1),
               f"{label} predict differs from the eager forward")
+        extra = after(mode, ff, x, y, label) if after else {}
         # (D): two replays of the deterministic capture profiled, to set
         # beside the same under cuDNN's default algorithms below
         det = (profile_steps(f"{label} 2 replayed steps, cuDNN "
@@ -3951,7 +4096,10 @@ def phase_zoo(name, strategy_dir):
                    k4_launches=fit_launches["fused_adam"],
                    k4_a_replay=per_replay["fused_adam"],
                    k4_graph_ms=(prof[0]["fused_adam"] / 2 if leaves
-                                else None))
+                                else None),
+                   layout_info=ff.layout_info, transforms=prof[5],
+                   deterministic_transforms=det[5] if det else None,
+                   **extra)
         if mode == "S":
             pred = info["predicted_time"]
             row.update(search_s=info["search_wall_s"],
@@ -3971,13 +4119,484 @@ def phase_zoo(name, strategy_dir):
               f"{memory_line()}")
         check(left <= base_gib + 0.5, f"{label} the freed model still holds "
               f"{left - base_gib:.2f} GiB")
+        print(f"{label} {time.perf_counter() - t_mode:.1f} s")
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = flags
-    k4 = k4_row(f"[zoo {name}]", f"{name}'s {len(shapes)} leaves", shapes,
+    if "K" not in rows:
+        return dict(rows=rows)
+    k4 = k4_row(f"[{tag} {name}]", f"{name}'s {len(shapes)} leaves", shapes,
                 ZOO_ALPHA, seed=13)
     k4.update(launches=rows["K"]["k4_launches"],
               launches_a_replay=rows["K"]["k4_a_replay"],
               graph_ms=rows["K"]["k4_graph_ms"])
     return dict(rows=rows, k4=k4)
+
+
+def copy_model(src, dst):
+    """``src``'s parameter and op-state values into ``dst``, another build
+    of the same graph whose layers carry the same names (every layer with
+    parameters or state is named in the model's builder)."""
+    import torch
+
+    trees = [(src.params, dst.params)] + [
+        ({k: v for k, v in m.state.items() if not k.startswith("__")}
+         for m in (src, dst))]
+    for a, b in trees:
+        check({k: sorted(v) for k, v in a.items()}
+              == {k: sorted(v) for k, v in b.items()},
+              "the two builds' parameter or state trees differ")
+        with torch.no_grad():
+            for op, sub in a.items():
+                for pn, t in sub.items():
+                    b[op][pn].copy_(t)
+    dst._compute_params_dirty = True
+
+
+def resnet_bn_after(mode, ff, x, y, label):
+    """[zoo bn] ResNet-50-BN's (D), after its steps: ``predict`` and
+    ``evaluate`` with the eval fold against ``fold_conv_bn=False``
+    (FOLD_RTOL); then an INFERENCE-compiled build given the trained
+    weights and running statistics, folded offline
+    (``transforms.fold_conv_batchnorm``, BN_PAIRS folds), its ``predict``
+    against the eval fold's (FOLD_RTOL), and ``serve()``: SERVE_REQUESTS
+    requests through a batch-64 bucket, each answered with its
+    ``predict`` row, bit for bit."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.transforms import fold_conv_batchnorm
+
+    if mode != "D":
+        return {}
+    ex = ff.executor
+    folded, folded_logits = ff.predict(x), logits_of(ff, x)
+    folded_loss = ff.evaluate(x, y)["loss"]
+    ex.fold_conv_bn = False
+    try:
+        check(ex._inference_nodes() is ex.nodes, f"{label} fold off still "
+                                                 f"folds")
+        plain, plain_logits = eager_predict(ff, x), logits_of(ff, x)
+        plain_loss = float(ex._eval_step_fn()(
+            ff.params, ff.state, ff._stage_inputs(as_inputs(x)),
+            ff._stage_labels(y))[0])
+    finally:
+        ex.fold_conv_bn = True
+    # the logits (bf16) too: the softmax's bf16 probabilities, near 0.1
+    # each here, may round two close logits to one value
+    gap, logit_gap = rel_gap(folded, plain), rel_gap(folded_logits,
+                                                     plain_logits)
+    loss_gap = abs(folded_loss - plain_loss) / abs(plain_loss)
+    print(f"{label} eval fold against fold_conv_bn=False: predict "
+          f"{gap:.3e} of max, logits {logit_gap:.3e} of max (max |logit| "
+          f"{float(abs(plain_logits).max()):.4g}), evaluate loss "
+          f"{folded_loss!r} against {plain_loss!r} ({loss_gap:.3e} "
+          f"relative); tolerance {FOLD_RTOL}")
+    check(max(gap, logit_gap, loss_gap) <= FOLD_RTOL,
+          f"{label} the eval fold leaves the unfolded eval")
+
+    t0 = time.perf_counter()
+    inf = compile_zoo("resnet_bn", "D", None, comp_mode="INFERENCE")
+    copy_model(ff, inf)
+    n_folds = fold_conv_batchnorm(inf)
+    offline = inf.predict(x)
+    off_gap = max(rel_gap(offline, folded),
+                  rel_gap(logits_of(inf, x), folded_logits))
+    bn_left = sum(n.op.op_type.name == "BATCHNORM"
+                  for n in inf.executor.nodes)
+    print(f"{label} transforms.fold_conv_batchnorm: {n_folds} folds, "
+          f"{bn_left} BatchNorms left, {len(inf.executor.nodes)} ops; its "
+          f"predict and logits against the eval fold's: {off_gap:.3e} of "
+          f"max "
+          f"(tolerance {FOLD_RTOL}); layout {inf.layout_info['nhwc_ops']} "
+          f"ops channels-last")
+    check(n_folds == BN_PAIRS and bn_left == 0 and off_gap <= FOLD_RTOL,
+          f"{label} the offline fold differs")
+    images = x[0]
+    engine = inf.serve(batch_buckets=[len(images)])
+    rows = np.linspace(0, len(images) - 1, SERVE_REQUESTS).astype(int)
+    reqs = [engine.submit([images[i]]) for i in rows]
+    engine.pump()
+    got = [np.asarray(r.wait(60)) for r in reqs]
+    equal = [bool(np.array_equal(g, offline[i])) for g, i in zip(got, rows)]
+    print(f"{label} serve() of the folded model: {len(reqs)} requests in "
+          f"bucket {len(images)}, each its predict row: {equal} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(all(equal), f"{label} a served reply differs from its predict row")
+    del inf, engine, reqs
+    release()
+    return dict(fold_gap=gap, fold_logit_gap=logit_gap,
+                fold_loss_gap=loss_gap, offline_gap=off_gap,
+                offline_folds=n_folds)
+
+
+def op_taps(ff, kind, training, inputs):
+    """Each ``kind`` op's (input, output) in one eager forward
+    (``_forward_fn``, the eval fold's node list outside training) of
+    ``inputs``, its randomness drawn from the model's generator."""
+    ex = ff.executor
+    nodes = ex.nodes if training else ex._inference_nodes()
+    ops = [n.op for n in nodes if n.op.op_type.name == kind]
+    taps = {}
+    for op in ops:
+        def tapped(params, args, ctx, op=op, forward=op.forward):
+            outs = forward(params, args, ctx)
+            taps[op.name] = (args[0], outs[0])
+            return outs
+        op.forward = tapped
+    try:
+        ex._forward_fn(training)(ff.params, ff.state, inputs, ff._generator)
+    finally:
+        for op in ops:
+            del op.forward
+    return taps
+
+
+def logits_of(ff, x):
+    """The model's logits on ``x`` (the input of its final softmax) as
+    the eval forward computes them, as f32 numpy."""
+    from flexflow_tpu_torch.model import host_copy
+
+    ff._refresh_compute_params()
+    (logits, _), = op_taps(ff, "SOFTMAX", False,
+                           ff._stage_inputs(as_inputs(x))).values()
+    return host_copy(logits)
+
+
+def alexnet_after(mode, ff, x, y, label):
+    """[zoo bn] AlexNet's checks, after its steps: in a training forward,
+    each dropout zeroes a share of the elements its input holds nonzero
+    within DROPOUT_SIGMAS binomial standard deviations of its rate, and
+    scales the rest by 1 / (1 - rate) exactly; ``predict``'s forward
+    takes each dropout as the identity and draws nothing from the
+    generator; 3 ``fit`` steps give finite losses."""
+    import numpy as np
+    import torch
+
+    inputs = ff._stage_inputs(as_inputs(x))
+    shares = {}
+    with torch.no_grad():
+        for name, (inp, out) in op_taps(ff, "DROPOUT", True,
+                                        inputs).items():
+            rate = next(n.op.rate for n in ff.executor.nodes
+                        if n.op.name == name)
+            live = inp != 0
+            dropped = (out == 0) & live
+            n = int(live.sum())
+            share = float(dropped.sum()) / n
+            exact = torch.equal(out[live & ~dropped],
+                                (inp / (1.0 - rate))[live & ~dropped])
+            bound = DROPOUT_SIGMAS * (rate * (1 - rate) / n) ** 0.5
+            shares[name] = share
+            print(f"{label} dropout {name} (rate {rate}): {share:.5f} of "
+                  f"{n} nonzero inputs dropped (within {bound:.5f} of "
+                  f"{rate}); the kept scaled exactly: {exact}")
+            check(abs(share - rate) <= bound and exact,
+                  f"{label} dropout {name} off its rate or scale")
+    state = ff._generator.get_state()
+    identity = all(out is inp for inp, out
+                   in op_taps(ff, "DROPOUT", False, inputs).values())
+    outs = [ff.predict(x) for _ in range(2)]
+    same_rng = torch.equal(state, ff._generator.get_state())
+    print(f"{label} predict: dropout the identity {identity}, two predicts "
+          f"equal {np.array_equal(*outs)}, the generator untouched "
+          f"{same_rng}")
+    check(identity and np.array_equal(*outs) and same_rng,
+          f"{label} predict is not dropout-free")
+    ff.fit(x, y, epochs=3, verbose=False)
+    losses = ff.epoch_losses[-3:]
+    print(f"{label} 3 fit steps: losses {losses}")
+    check(np.isfinite(losses).all(), f"{label} non-finite fit loss")
+    return dict(dropout_shares=shares, fit3_losses=losses)
+
+
+def forward_outputs(ff, x):
+    """Each op's first output, detached, in graph order, from one
+    training-mode forward of ``x`` (batch statistics; the model's state
+    and parameters untouched)."""
+    import torch
+
+    ex = ff.executor
+    ops = [n.op for n in ex.nodes]
+    got = {}
+    for op in ops:
+        for attr in ("forward", "forward_with_state"):
+            fn = getattr(op, attr, None)
+            if fn is None:
+                continue
+
+            def tapped(*a, op=op, fn=fn, attr=attr, **k):
+                r = fn(*a, **k)
+                got[op.name] = (r[0] if attr == "forward_with_state"
+                                else r)[0].detach()
+                return r
+            setattr(op, attr, tapped)
+    try:
+        ff._refresh_compute_params()
+        with torch.no_grad():
+            ex._forward_fn(True)(ff.params, ff.state,
+                                 ff._stage_inputs(as_inputs(x)),
+                                 ff._generator)
+    finally:
+        for op in ops:
+            for attr in ("forward", "forward_with_state"):
+                op.__dict__.pop(attr, None)
+    return [(op.name, op.op_type.name, got[op.name]) for op in ops]
+
+
+def cancelled_biases(ff):
+    """(op, "bias") of every conv whose output only a BatchNorm reads:
+    the BN subtracts the batch mean, so the bias's gradient is rounding
+    alone."""
+    nodes = ff.executor.nodes
+    readers = {}
+    for n in nodes:
+        for ref in n.input_refs:
+            if ref[0] == "op":
+                readers.setdefault(ref[1], []).append(n.op)
+    return {(n.op.name, "bias") for n in nodes
+            if n.op.op_type.name == "CONV2D"
+            and "bias" in ff.params.get(n.op.name, {})
+            and [r.op_type.name for r in readers.get(n.op.guid, [])]
+            == ["BATCHNORM"]}
+
+
+def layout_pair(name, auto_row):
+    """The model under ``"auto"`` (channels-last) and ``"nchw"`` held to
+    each other, then its (D) profiled under ``"nchw"``.
+
+    The check, in f32 compute (TF32 off) and cuDNN deterministic (so
+    that a reading repeats): both builds from the config's seed, their
+    conv kernels He-normal from LAYOUT_SEED (every leaf equal), compiled
+    with SGD at LAYOUT_LR. Each op's output in one training-mode forward
+    within LAYOUT_ACT_RTOL of its largest (the eval forward says little
+    at the initial running statistics: its logits are near 0). One
+    compiled step each: its loss within LAYOUT_LOSS_RTOL, and each
+    parameter and BN running-statistics leaf's change in that step (a
+    gradient; a batch statistic), the norm of the gap over the norm of
+    the change, within LAYOUT_LEAF_RTOL (LAYOUT_STATE_RTOL for the
+    statistics); a conv bias that a BN cancels
+    (``cancelled_biases``) held under LAYOUT_NULL of the model's
+    largest parameter change under both layouts instead. Only rounding
+    parts the two: the conv algorithms differ by layout. Then bf16 and
+    cuDNN's default algorithms, as ``fit`` runs: (D) under ``"nchw"``,
+    ZOO_CALLS compiled steps, the first's loss within LAYOUT_BF16_LOSS
+    of the ``"auto"`` run's (the later ones printed, not held: from
+    step 2 the model memorizes its one batch and the rounding
+    compounds), two replays profiled (busy share, conv time, cuDNN's
+    NCHW<->NHWC transforms by name) beside the ``"auto"`` run's profile
+    (``auto_row``)."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.optimizers import SGDOptimizer
+
+    label = f"[layout {name}]"
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    release()
+    try:
+        _, cfg, _, _ = zoo_spec(name)
+        x, y = zoo_batch(name, cfg)
+        pair = {lay: compile_zoo(name, "D", None, layout=lay,
+                                 optimizer=SGDOptimizer(lr=LAYOUT_LR),
+                                 mixed=False)
+                for lay in ("auto", "nchw")}
+        # a step hands back new trees, in an order of its own: a leaf is
+        # found again by its name, taken in build order beforehand
+        names = {lay: [("params", op, pn) for op, sub in ff.params.items()
+                       for pn in sub]
+                 + [("state", k, n) for k, sub in ff.state.items()
+                    if not k.startswith("__") for n in sub]
+                 for lay, ff in pair.items()}
+        # the builders' conv kernels (Glorot) halve a ReLU signal's power
+        # each layer: without BatchNorm, ResNeXt-50's and Inception-v3's
+        # logits come out 0 and most leaves get no gradient, which would
+        # leave nothing to compare. He-normal kernels from one seed keep
+        # the signal, and the last dense's kernel, scaled to give logits
+        # of RMS 1, keeps the loss off its clip (where the gradient is 0);
+        # the same values in both builds
+        def put(i, value):
+            with torch.no_grad():
+                for lay, ff in pair.items():
+                    _, op, pn = names[lay][i]
+                    ff.params[op][pn].copy_(value)
+                    ff._compute_params_dirty = True
+
+        rs = np.random.RandomState(LAYOUT_SEED)
+        for i, (k, op, pn) in enumerate(names["auto"]):
+            t = pair["auto"].params[op][pn] if k == "params" else None
+            if t is not None and pn == "kernel" and t.dim() == 4:
+                put(i, torch.from_numpy(
+                    rs.randn(*t.shape).astype(np.float32)
+                    * math.sqrt(2 / math.prod(t.shape[1:]))))
+        fc, _, logits = [a for a in forward_outputs(pair["auto"], x)
+                         if a[1] == "LINEAR"][-1]
+        rms = float(logits.float().pow(2).mean().sqrt())
+        i = names["auto"].index(("params", fc, "kernel"))
+        put(i, pair["auto"].params[fc]["kernel"] / rms)
+        del logits
+        before = host_params(pair["auto"])
+        n_params = sum(len(sub) for sub in pair["auto"].params.values())
+        cancelled = cancelled_biases(pair["auto"])
+        nulls = {i for i, (_, op, pn) in enumerate(names["auto"])
+                 if (op, pn) in cancelled}
+        differ = params_differ(pair["nchw"], before)
+        info = {lay: ff.layout_info for lay, ff in pair.items()}
+        print(f"{label} f32 (compute dtype "
+              f"{pair['auto'].executor.compute_dtype}, TF32 "
+              f"{torch.backends.cudnn.allow_tf32}): auto layout "
+              f"{info['auto']}; nchw layout {info['nchw']}; {len(before)} "
+              f"leaves ({n_params} "
+              f"parameters, {len(nulls)} of them conv biases a BN cancels; "
+              f"{len(before) - n_params} running statistics), {differ} "
+              f"differ before the step")
+        check(info["auto"]["enabled"] and not info["nchw"]["enabled"]
+              and not differ, f"{label} not the two layouts from one seed")
+
+        acts = forward_outputs(pair["auto"], x)
+        act_gaps, zero_ops = [], 0
+        for (op, kind, a), (_, _, n) in zip(acts,
+                                            forward_outputs(pair["nchw"], x)):
+            a, n = a.float(), n.float()
+            top, gap = float(a.abs().max()), float((n - a).abs().max())
+            if top == 0 and gap == 0:
+                zero_ops += 1
+            else:
+                act_gaps.append((gap / top if top else math.inf,
+                                 f"{op} ({kind})"))
+        logit_gap = act_gaps[-1][0] if act_gaps else 0.0
+        del acts
+        loss = {lay: graph_stepper(ff, x, y)() for lay, ff in pair.items()}
+        change = {lay: [getattr(ff, k)[op][n].detach().cpu().float()
+                        - b.float() for (k, op, n), b in zip(names[lay],
+                                                             before)]
+                  for lay, ff in pair.items()}
+        del pair
+        release()
+        loss_gap = abs(loss["nchw"] - loss["auto"]) / abs(loss["auto"])
+        top = {lay: [float(d.abs().max()) for d in ch]
+               for lay, ch in change.items()}
+        largest = max(top["auto"][:n_params])
+        null_top = max((max(top["auto"][i], top["nchw"][i]) / largest
+                        for i in nulls), default=0.0)
+        # a leaf's gap: the norm of the difference of its changes over the
+        # norm of its change (the largest element's gap, over the largest
+        # change, printed beside it). A ReLU whose input lies within
+        # rounding of 0 under one layout and not the other sends one
+        # element of the gradient elsewhere: that moves the largest
+        # element's gap by a few percent, the norm's hardly
+        leaf_gaps, leaf_max_gaps, still = [], [], 0
+        for i, (k, op, pn) in enumerate(names["auto"]):
+            if i in nulls:
+                continue
+            d = change["nchw"][i] - change["auto"][i]
+            norm = float(change["auto"][i].norm())
+            if norm == 0 and float(d.abs().max()) == 0:
+                still += 1
+                continue
+            leaf_gaps.append((float(d.norm()) / norm if norm else math.inf,
+                              f"{op}.{pn}"))
+            leaf_max_gaps.append((float(d.abs().max()) / top["auto"][i]
+                                  if top["auto"][i] else math.inf,
+                                  f"{op}.{pn}"))
+        worst = lambda gaps: sorted(gaps)[-5:]
+        fmt = lambda gaps: [(f"{g:.2e}", n) for g, n in worst(gaps)]
+        state_names = {f"{op}.{n}" for k, op, n in names["auto"]
+                       if k == "state"}
+        s_gaps = [g for g in leaf_gaps if g[1] in state_names]
+        p_gaps = [g for g in leaf_gaps if g[1] not in state_names]
+        p_max = max((g for g in leaf_max_gaps if g[1] not in state_names),
+                    default=(0.0, None))
+        s_max = max((g for g in leaf_max_gaps if g[1] in state_names),
+                    default=(0.0, None))
+        p_worst = max(p_gaps, default=(0.0, None))
+        s_worst = max(s_gaps, default=(0.0, None))
+        act_worst = max(act_gaps, default=(0.0, None))
+        print(f"{label} one training forward, each op's output against its"
+              f" largest: worst {act_worst[0]:.3e} ({act_worst[1]}), the "
+              f"logits {logit_gap:.3e}, {zero_ops} ops 0 under both layouts"
+              f" (tol {LAYOUT_ACT_RTOL}); the 5 worst {fmt(act_gaps)}")
+        print(f"{label} one SGD step (lr {LAYOUT_LR}): loss {loss['nchw']!r}"
+              f" against {loss['auto']!r}, {loss_gap:.3e} relative (tol "
+              f"{LAYOUT_LOSS_RTOL}); a leaf's change, the norm of the gap "
+              f"over its norm: parameters worst {p_worst[0]:.3e} "
+              f"({p_worst[1]}), running statistics worst {s_worst[0]:.3e} "
+              f"({s_worst[1]}) (tol {LAYOUT_LEAF_RTOL}, "
+              f"{LAYOUT_STATE_RTOL}); the largest "
+              f"element's gap over the largest change: parameters "
+              f"{p_max[0]:.3e} ({p_max[1]}), running statistics "
+              f"{s_max[0]:.3e} ({s_max[1]}); {still} leaves unchanged under "
+              f"both; "
+              f"the 5 worst parameters {fmt(p_gaps)}; the cancelled conv "
+              f"biases' largest change {null_top:.3e} of the model's "
+              f"largest ({largest:.4g}; tol {LAYOUT_NULL})")
+        check(act_worst[0] <= LAYOUT_ACT_RTOL and loss_gap <= LAYOUT_LOSS_RTOL
+              and p_worst[0] <= LAYOUT_LEAF_RTOL
+              and s_worst[0] <= LAYOUT_STATE_RTOL
+              and null_top <= LAYOUT_NULL,
+              f"{label} the layouts part beyond rounding")
+        out = dict(act_gap=act_worst[0], logit_gap=logit_gap,
+                   zero_ops=zero_ops, loss_gap=loss_gap,
+                   param_gap=p_worst[0], state_gap=s_worst[0],
+                   param_max_gap=p_max[0], state_max_gap=s_max[0],
+                   null_top=null_top, unchanged_leaves=still,
+                   act_gaps=act_gaps, leaf_gaps=leaf_gaps,
+                   leaf_max_gaps=leaf_max_gaps)
+        del change
+
+        torch.backends.cudnn.deterministic = False
+        ff = compile_zoo(name, "D", None, layout="nchw")
+        graph = graph_stepper(ff, x, y)
+        losses = [graph() for _ in range(ZOO_CALLS)]
+        first = abs(losses[0] - auto_row["losses"][0]) / abs(
+            auto_row["losses"][0])
+        print(f"{label} (D) in bf16 under nchw, cuDNN's default "
+              f"algorithms: {ZOO_CALLS} compiled steps' losses {losses}, "
+              f"the auto run's {auto_row['losses']}: step 1 {first:.3e} "
+              f"relative (tol {LAYOUT_BF16_LOSS}), the later ones not held")
+        check(np.isfinite(losses).all() and first <= LAYOUT_BF16_LOSS,
+              f"{label} bf16 step 1's loss parts by layout")
+        out.update(bf16_loss_gap=first)
+        prof = profile_steps(f"{label} nchw, 2 replayed steps", graph,
+                             top_of=("conv",))
+        kinds, wall, tr = prof[0], prof[2], prof[5]
+        auto_kinds, auto_tr = auto_row["kinds"], auto_row["transforms"]
+        print(f"{label} 2 replayed steps, nchw against auto (channels-"
+              f"last): busy {sum(kinds.values()):.3f} against "
+              f"{sum(auto_kinds.values()):.3f} ms, conv {kinds['conv']:.3f} "
+              f"against {auto_kinds['conv']:.3f} ms, NCHW<->NHWC transforms "
+              f"{tr['ms']:.3f} ms in {tr['launches']} launches against "
+              f"{auto_tr['ms']:.3f} ms in {auto_tr['launches']} "
+              f"({nvidia_smi_line()}; {time.perf_counter() - t0:.1f} s)")
+        out.update(losses=losses, busy_ms=sum(kinds.values()),
+                   busy_share=sum(kinds.values()) / wall, kinds=kinds,
+                   transforms=tr, layout_info=ff.layout_info)
+        del ff, graph, prof
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic \
+            = flags
+        release()
+    return out
+
+
+def phase_zoo_bn(strategy_dir):
+    """[zoo bn] ResNet-50 with BatchNorm (batch 64, 224 x 224, 53
+    conv -> BN pairs) as (D), (K), (F) and (S), with the eval and offline
+    folds and ``serve()`` after (D) (``resnet_bn_after``), then its (D)
+    under ``"nchw"`` (``layout_pair``); AlexNet (batch 64, 224 x 224, two
+    dropouts at 0.5) as (D) and (K), with its dropout checks
+    (``alexnet_after``). Returns {model: ``phase_zoo``'s report, with the
+    layout pair under "nchw"}."""
+    out = {}
+    for name, after in (("resnet_bn", resnet_bn_after),
+                        ("alexnet", alexnet_after)):
+        t0 = time.perf_counter()
+        out[name] = phase_zoo(name, strategy_dir, modes=BN_MODES[name],
+                              after=after, tag="zoo bn")
+        if name == "resnet_bn":
+            out[name]["nchw"] = layout_pair(name, out[name]["rows"]["D"])
+        print(f"[zoo bn {name}] {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3997,41 +4616,62 @@ def main() -> int:
         print(f"chip_smoke: FAIL: the port package is not beside this "
               f"script: {e}", file=sys.stderr)
         return 1
+    def run_phase(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        result = fn(*args, **kw)
+        print(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+        return result
+
+    t_start = time.perf_counter()
     try:
-        device_name = phase_card()
-        phase_build()
-        fwd = phase_kernels()
-        bwd, bwd_k3, llama_k2 = phase_kernels_bwd()
-        lse_fwd, lse_bwd = phase_kernels_lse()
-        serve_launches, serve_replay = phase_serve()
-        check_f32_model()
+        device_name = run_phase("card", phase_card)
+        run_phase("build", phase_build)
+        fwd = run_phase("kernels", phase_kernels)
+        bwd, bwd_k3, llama_k2 = run_phase("kernels bwd", phase_kernels_bwd)
+        lse_fwd, lse_bwd = run_phase("kernels lse", phase_kernels_lse)
+        serve_launches, serve_replay = run_phase("serve", phase_serve)
+        run_phase("f32 model", check_f32_model)
         with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
-            ff, batch, train_b, losses = phase_train_b(tmp)
-            plain_losses = phase_train_trajectory(losses, tmp)
-            phase_train_grads(ff, batch, tmp)
-            adam = phase_kernels_adam(ff)
+            ff, batch, train_b, losses = run_phase("train b", phase_train_b,
+                                                   tmp)
+            plain_losses = run_phase("train trajectory",
+                                     phase_train_trajectory, losses, tmp)
+            run_phase("train grads", phase_train_grads, ff, batch, tmp)
+            adam = run_phase("kernels adam", phase_kernels_adam, ff)
             del ff
             release()
-            graph = phase_graph_train(tmp)
-        search_train = phase_search_train(plain_losses)
-        search_serve = phase_search_serve()
-        train_a = phase_train_a()
-        ring = phase_ring()
-        train_c = phase_train_c({}, "full width", timed=True)
-        train_c_causal = phase_train_c(TRAIN_C_CAUSAL, "causal S 2048")
-        llama, x, out, fingerprint, llama_serve = phase_llama_serve()
-        gen, pre, dec, _ = phase_llama_decode(llama)
+            graph = run_phase("graph train", phase_graph_train, tmp)
+        search_train = run_phase("search train", phase_search_train,
+                                 plain_losses)
+        search_serve = run_phase("search serve", phase_search_serve)
+        train_a = run_phase("train a", phase_train_a)
+        ring = run_phase("ring", phase_ring)
+        train_c = run_phase("train c", phase_train_c, {}, "full width",
+                            timed=True)
+        train_c_causal = run_phase("train c causal", phase_train_c,
+                                   TRAIN_C_CAUSAL, "causal S 2048")
+        llama, x, out, fingerprint, llama_serve = run_phase(
+            "llama serve", phase_llama_serve)
+        gen, pre, dec, _ = run_phase("llama decode", phase_llama_decode,
+                                     llama)
         del llama
-        phase_llama_reference(x, out, gen, pre, dec, fingerprint)
-        llama_k4 = llama_k4_row(LLAMA_TRAIN_LAYERS)
+        run_phase("llama reference", phase_llama_reference, x, out, gen,
+                  pre, dec, fingerprint)
+        llama_k4 = run_phase("llama k4", llama_k4_row, LLAMA_TRAIN_LAYERS)
         with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
-            phase_llama_train_grads(tmp)
-            llama_train = phase_llama_train(tmp)
-        phase_llama_search()
+            run_phase("llama train grads", phase_llama_train_grads, tmp)
+            llama_train = run_phase("llama train", phase_llama_train, tmp)
+        run_phase("llama search", phase_llama_search)
         zoo = {}
         with tempfile.TemporaryDirectory(prefix="ff_strategy_") as tmp:
             for model in ZOO_MODELS:
-                zoo[model] = phase_zoo(model, tmp)
+                zoo[model] = run_phase(f"zoo {model}", phase_zoo, model, tmp)
+                if model in ("resnext", "inception"):
+                    zoo[model]["nchw"] = run_phase(
+                        f"layout {model}", layout_pair, model,
+                        zoo[model]["rows"]["D"])
+            zoo.update(run_phase("zoo bn", phase_zoo_bn, tmp))
+        print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)

@@ -5,7 +5,9 @@ slice (ROADMAP.md). It serves and trains the BERT-proxy transformer on
 one CUDA device, serves and decodes the Llama-family decoder LM
 (``models/llama.py``, ``serve/kv_cache.py``), and trains the other five
 models of the OSDI'22 protocol (DLRM, XDL, CANDLE-Uno, ResNeXt-50,
-Inception-v3): ``FFModel`` builds and
+Inception-v3) and the reference's ResNet-50 (with BatchNorm) and AlexNet,
+the conv family channels-last on the card (``layout.py``): ``FFModel``
+builds and
 compiles a model, ``fit`` trains it, ``serve()`` answers requests through
 the continuous-batching ``ServingEngine``, and the attention ops run
 hand-written CUDA flash-attention kernels (``ops/flash_attention.py``,

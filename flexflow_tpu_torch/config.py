@@ -4,7 +4,7 @@ PyTorch counterpart of ``flexflow_tpu/config.py``: the same field names
 and defaults, so a configuration carries over between the two packages.
 ``parse_args`` consumes the flags of the fields the port reads (the
 training flags, the machine model, the auto-parallelization search and
-strategy files) and leaves every other flag to the application, as the
+strategy files, the conv layout and the Conv+BN fold) and leaves every other flag to the application, as the
 reference leaves flags it does not know. ``--search-measure-ops`` and
 ``--profiling`` raise ``NotImplementedError``: per-op measurement on the
 card is ROADMAP.md Queue 1 item 11. Tracing and checkpointing fields are
@@ -17,6 +17,7 @@ import dataclasses
 from typing import List, Optional, Sequence
 
 from flexflow_tpu_torch.ffconst import CompMode
+from flexflow_tpu_torch.layout import LAYOUT_MODES
 
 
 @dataclasses.dataclass
@@ -72,7 +73,12 @@ class FFConfig:
     profiling: bool = False
     # bf16 compute with f32 master params on the card; f32 on the CPU
     allow_mixed_precision: bool = True
+    # the conv family's execution layout (layout.py): "auto" computes
+    # channels-last on the card and NCHW on the CPU; "nhwc"/"nchw" force
+    # it. NCHW stays the API layout either way
     conv_compute_layout: str = "auto"
+    # eval, forward and predict fold each Conv+BN(+ReLU) pair into one
+    # convolution (layout.fold_conv_bn)
     fold_conv_bn: bool = True
     weight_update_sharding: str = "auto"
     overlap_bucket_mb: str = "auto"
@@ -175,6 +181,10 @@ class FFConfig:
                             f"--overlap-bucket-mb expects auto|off|N (MB), "
                             f"got {v!r}") from None
                 self.overlap_bucket_mb = v
+            elif a == "--conv-layout":
+                self.conv_compute_layout = _choice(a, take(), LAYOUT_MODES)
+            elif a == "--disable-conv-bn-fold":
+                self.fold_conv_bn = False
             elif a == "--kernel-search":
                 self.kernel_search = _choice(a, take(), ("auto", "off"))
             elif a == "--remat-search":

@@ -30,6 +30,21 @@ A mesh reaches the ops through ``OpContext.mesh``: one process runs a
 mesh whose one axis above 1 is ring attention's sequence axis, every ring
 position on this device. Sharding comes with a later slice.
 
+Op state (BatchNorm's running statistics, f32) is ``state[op name]``
+beside the compute copy: the train step returns it moved, the eval and
+forward steps read it. It is never cast, differentiated or updated by
+the optimizer. Eval, forward and ``predict`` run the node list with
+every eligible Conv2D -> BatchNorm pair folded into one convolution
+(``layout.fold_conv_bn``; ``fold_conv_bn=False`` runs the full graph);
+the train step runs the full graph, with the pairs whose conv chose
+``_k:conv_bn_fused`` as one node (``layout.fuse_conv_bn_train``). Values
+are kept in their producer's execution layout (``layout.py``): where a
+consumer wants the other one, the walk converts the value once and
+keeps the conversion while the value lives; the model output leaves
+NCHW. Every gradient is made contiguous: cuDNN returns a conv weight's
+gradient in its channels-last memory format, and the optimizer's leaves
+(and K4) stay contiguous.
+
 Remat (``remat_ops``, the ops whose strategy choice carries ``_r``): in
 training such an op's forward runs under a non-reentrant
 ``torch.utils.checkpoint``, the counterpart of the reference's per-op
@@ -48,6 +63,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from flexflow_tpu_torch.ffconst import CompMode, LossType
+from flexflow_tpu_torch.layout import NCHW, NHWC, to_layout
 from flexflow_tpu_torch.losses import get_loss_fn
 from flexflow_tpu_torch.obs.registry import get_registry
 from flexflow_tpu_torch.ops.base import Op, OpContext
@@ -121,7 +137,8 @@ class GraphExecutor:
                  loss_type: Optional[LossType] = None, metrics=None,
                  optimizer=None, final_is_softmax: bool = False,
                  kernel_choices: Optional[Dict[str, str]] = None,
-                 mesh=None, remat_ops: Optional[set] = None):
+                 mesh=None, remat_ops: Optional[set] = None,
+                 fold_conv_bn: bool = True):
         self.nodes = nodes
         self.input_names = input_names
         # (guid, out_idx) of the user-designated model output
@@ -164,7 +181,14 @@ class GraphExecutor:
         # StepGraph}) and the memory pool their CUDA graphs share
         self.step_graphs: Dict[str, StepGraph] = {}
         self._graph_pool = None
-        self._drops = drop_schedule(nodes, [self.final_ref])
+        self.fold_conv_bn = fold_conv_bn
+        # {id(node list): its drop schedule}: the full graph's, and the
+        # folded and fused lists' once made
+        self._drops = {id(nodes): drop_schedule(nodes, [self.final_ref])}
+        self._train_nodes = self._folded_nodes = None
+        # the _k:conv_bn_fused choices that could not fuse (the pair is
+        # not eligible): they run unfused, as in the reference
+        self.unfused_conv_bn: List[str] = []
 
     def _ctx(self, training: bool, rng=None) -> OpContext:
         return OpContext(training=training, compute_dtype=self.compute_dtype,
@@ -179,6 +203,8 @@ class GraphExecutor:
             ps = node.op.init_params(generator)
             if ps:
                 params[node.op.name] = ps
+            if hasattr(node.op, "init_state"):
+                state[node.op.name] = node.op.init_state(generator.device)
         if self.use_master_copy:
             state[COMPUTE_PARAMS_KEY] = self.cast_compute_copy(params)
         return params, state
@@ -193,25 +219,106 @@ class GraphExecutor:
 
     # ---- forward graph traversal ------------------------------------------
     def run_graph(self, params, inputs: Dict[str, torch.Tensor],
-                  ctx: OpContext) -> Dict[Tuple[int, int], torch.Tensor]:
-        """Evaluate ops in topo order; returns the model output keyed by
-        (producer guid, output index), ``final_ref``. Each op output is
-        dropped once its last consumer has run (``drop_schedule``), so the
-        walk holds the values still to be read, not the whole forward's.
-        (Op state, the auxiliary losses and the Conv+BN inference fold of
-        the JAX package come with the ops that need them.)"""
+                  ctx: OpContext, state=None, nodes=None, master=None):
+        """Evaluate ``nodes`` (default: the full graph) in topo order ->
+        (values, new op state): the model output keyed by (producer guid,
+        output index), ``final_ref``, in NCHW; and ``{op name: state}``
+        for each op whose state moved. Stateful ops read ``state``; a
+        node standing for several ops (a folded or fused Conv+BN) reads
+        their parameters and state under their own names, the eval fold
+        from ``master`` (the f32 parameters) where given. Each op output
+        is dropped once its last consumer has run (``drop_schedule``),
+        with its layout conversions, so the walk holds the values still
+        to be read, not the whole forward's."""
+        nodes = self.nodes if nodes is None else nodes
+        drops = self._drops.get(id(nodes))
+        if drops is None:
+            drops = self._drops[id(nodes)] = drop_schedule(
+                nodes, [self.final_ref])
+        state = state or {}
+        layout_of = {(n.guid, i): lay for n in nodes
+                     for i, lay in enumerate(getattr(n, "output_layouts",
+                                                     None) or [])}
         values: Dict[Tuple[int, int], torch.Tensor] = {}
-        for node, drop in zip(self.nodes, self._drops):
+        relayout: Dict[Tuple, torch.Tensor] = {}
+        new_state: Dict[str, Any] = {}
+
+        def fetch(ref, want):
+            if ref[0] == "op":
+                key = (ref[1], ref[2])
+                v, have = values[key], layout_of.get(key, NCHW)
+            else:  # graph inputs are staged NCHW
+                v, have = inputs[ref[1]], NCHW
+            if want == have or v.dim() != 4:
+                return v
+            k = (tuple(ref), want)
+            if k not in relayout:
+                relayout[k] = to_layout(v, want)
+            return relayout[k]
+
+        for node, drop in zip(nodes, drops):
             op = node.op
-            args = [values[(ref[1], ref[2])] if ref[0] == "op"
-                    else inputs[ref[1]] for ref in node.input_refs]
-            outs = self._op_forward(op, params.get(op.name, {}), args, ctx)
+            wants = getattr(node, "input_layouts", None) or \
+                [NCHW] * len(node.input_refs)
+            args = [fetch(ref, want)
+                    for ref, want in zip(node.input_refs, wants)]
+            sources = getattr(op, "param_sources", None)
+            if sources is not None:
+                tree = (master if master is not None
+                        and getattr(op, "reads_master_params", False)
+                        else params)
+                outs, moved = op.forward_with_state(
+                    {s: tree.get(s, {}) for s in sources}, args, ctx,
+                    {s: state.get(s) for s in sources})
+                new_state.update(moved)
+            elif hasattr(op, "init_state"):
+                outs, moved = op.forward_with_state(
+                    params.get(op.name, {}), args, ctx, state.get(op.name))
+                if moved is not None:
+                    new_state[op.name] = moved
+            else:
+                outs = self._op_forward(op, params.get(op.name, {}), args,
+                                        ctx)
             for i, o in enumerate(outs):
                 values[(op.guid, i)] = o
             del args, outs
             for key in drop:
                 del values[key]
-        return values
+                for want in (NCHW, NHWC):
+                    relayout.pop((("op",) + key, want), None)
+        if layout_of.get(self.final_ref, NCHW) != NCHW:
+            values[self.final_ref] = to_layout(values[self.final_ref], NCHW)
+        return values, new_state
+
+    def _training_nodes(self):
+        """The node list the train step runs: the (Conv2D, BatchNorm)
+        pairs whose conv chose ``_k:conv_bn_fused`` as one fused node
+        (``layout.TrainFusedConvBN``, bit-equal to the pair), the rest the
+        full graph. A choice whose pair cannot fuse stays unfused and is
+        listed in ``unfused_conv_bn``. Made once."""
+        if self._train_nodes is None:
+            from flexflow_tpu_torch.layout import fuse_conv_bn_train
+            names = {n for n, impl in (self.kernel_choices or {}).items()
+                     if impl == "conv_bn_fused"}
+            self._train_nodes = fuse_conv_bn_train(
+                self.nodes, names, keep_guids={self.final_ref[0]})
+            fused = {n.op.conv.name for n in self._train_nodes
+                     if hasattr(n.op, "conv")}
+            self.unfused_conv_bn = sorted(names - fused)
+        return self._train_nodes
+
+    def _inference_nodes(self):
+        """The node list eval, forward and ``predict`` run: every eligible
+        Conv2D -> BatchNorm(+ReLU) pair folded into one convolution
+        (``layout.fold_conv_bn``), or the full graph under
+        ``fold_conv_bn=False``. Made once."""
+        if not self.fold_conv_bn:
+            return self.nodes
+        if self._folded_nodes is None:
+            from flexflow_tpu_torch.layout import fold_conv_bn
+            self._folded_nodes = fold_conv_bn(
+                self.nodes, keep_guids={self.final_ref[0]})
+        return self._folded_nodes
 
     def _op_forward(self, op: Op, params, args, ctx: OpContext):
         """``op.forward``; for a remat op in a forward with grad, under a
@@ -237,8 +344,9 @@ class GraphExecutor:
     def _forward_fn(self, training: bool = False):
         """The eager forward: ``fwd(params, state, inputs, rng=None) ->
         output``. Reads the compute copy of the parameters when the state
-        carries one. ``training=False`` runs under
-        ``torch.inference_mode``; ``training=True`` runs the
+        carries one. ``training=False`` runs the folded node list
+        (``_inference_nodes``) under ``torch.inference_mode``;
+        ``training=True`` runs the
         training-mode forward with grad enabled (its output carries the
         autograd graph back to the parameters it was given)."""
 
@@ -247,9 +355,12 @@ class GraphExecutor:
             cparams = state.get(COMPUTE_PARAMS_KEY, params)
             if training:
                 with torch.enable_grad():
-                    return self.run_graph(cparams, inputs, ctx)[self.final_ref]
+                    return self.run_graph(cparams, inputs, ctx,
+                                          state)[0][self.final_ref]
             with torch.inference_mode():
-                return self.run_graph(cparams, inputs, ctx)[self.final_ref]
+                return self.run_graph(cparams, inputs, ctx, state,
+                                      self._inference_nodes(),
+                                      master=params)[0][self.final_ref]
 
         return fwd
 
@@ -348,24 +459,32 @@ class GraphExecutor:
     def grads_of(self, params, state, inputs, labels, rng=None):
         """One forward and backward: (loss, logits, grads). ``grads`` has
         the tree of ``params``, in the dtype of the tensors the forward
-        read (the compute copy's, under the master-weight regime). The
-        leaves the autograd graph starts from are made fresh here, so no
-        graph outlives the call."""
+        read (the compute copy's, under the master-weight regime), every
+        leaf contiguous. The leaves the autograd graph starts from are
+        made fresh here, so no graph outlives the call."""
+        return self._forward_backward(params, state, inputs, labels, rng)[:3]
+
+    def _forward_backward(self, params, state, inputs, labels, rng=None):
+        """``grads_of``'s (loss, logits, grads) and the op state the
+        training forward moved ({op name: state})."""
         leaves = self._grad_leaves(params, state)
         flat = [(op, pn) for op, sub in leaves.items() for pn, t in sub.items()
                 if t.requires_grad]
         ctx = self._ctx(True, rng)
         with torch.enable_grad():
-            logits = self.run_graph(leaves, inputs, ctx)[self.final_ref]
+            values, new_state = self.run_graph(leaves, inputs, ctx, state,
+                                               self._training_nodes())
+            logits = values[self.final_ref]
             loss = self._loss_value(logits, labels)
             got = torch.autograd.grad(
                 loss, [leaves[op][pn] for op, pn in flat], allow_unused=True)
         got = dict(zip(flat, got))
-        grads = {op: {pn: (got.get((op, pn)) if got.get((op, pn)) is not None
+        grads = {op: {pn: (got[(op, pn)].contiguous()
+                           if got.get((op, pn)) is not None
                            else torch.zeros_like(t))
                       for pn, t in sub.items()}
                  for op, sub in leaves.items()}
-        return loss.detach(), logits.detach(), grads
+        return loss.detach(), logits.detach(), grads, new_state
 
     def saved_bytes_by_op(self, params, state, inputs, labels,
                           rng=None) -> Dict[str, int]:
@@ -404,8 +523,9 @@ class GraphExecutor:
         self._op_forward = tagged
         try:
             with torch.enable_grad(), saved_tensors_hooks(pack, lambda t: t):
-                logits = self.run_graph(leaves, inputs,
-                                        self._ctx(True, rng))[self.final_ref]
+                logits = self.run_graph(
+                    leaves, inputs, self._ctx(True, rng), state,
+                    self._training_nodes())[0][self.final_ref]
                 current[0] = "loss"
                 loss = self._loss_value(logits, labels)
         finally:
@@ -419,12 +539,13 @@ class GraphExecutor:
         opt_state, state, loss, metric sums)``."""
 
         def train_step(params, opt_state, state, inputs, labels, rng=None):
-            loss, logits, grads = self.grads_of(params, state, inputs,
-                                                labels, rng)
+            loss, logits, grads, moved = self._forward_backward(
+                params, state, inputs, labels, rng)
             with torch.no_grad():
                 new_params, new_opt_state = self._optimizer_update(
                     grads, opt_state, params)
                 new_state = dict(state)
+                new_state.update(moved)
                 if self.use_master_copy:
                     # the next step's bf16 working copy
                     new_state[COMPUTE_PARAMS_KEY] = \
@@ -498,8 +619,9 @@ class GraphExecutor:
         def eval_step(params, state, inputs, labels):
             ctx = self._ctx(False)
             with torch.inference_mode():
-                logits = self.run_graph(state.get(COMPUTE_PARAMS_KEY, params),
-                                        inputs, ctx)[self.final_ref]
+                logits = self.run_graph(
+                    state.get(COMPUTE_PARAMS_KEY, params), inputs, ctx, state,
+                    self._inference_nodes(), master=params)[0][self.final_ref]
                 loss = self._loss_value(logits, labels)
                 return loss, logits, self.metrics.compute(logits, labels)
 

@@ -19,7 +19,10 @@ data-parallel strategy; then the export (``--export-strategy``), then
 choice into its kernel: attention ops are pinned to the flash core
 (``_k:flash``) or to the einsum core, and ``_k:fused`` ops update through
 the fused-Adam kernel; an ``_r`` choice makes the op's forward a
-checkpoint in training (remat: the executor's ``remat_ops``). The port
+checkpoint in training (remat: the executor's ``remat_ops``), and a
+``_k:conv_bn_fused`` choice runs its Conv+BN pair as one node; then the
+layout pass (``layout.propagate_layouts``: the conv family channels-last
+on the card under ``conv_compute_layout="auto"``). The port
 executes on one device, and a compile prices and lays out one device
 unless ``workers_per_node`` asks for more: a strategy whose mesh needs
 more than one (a mesh axis above 1 other than a ring-attention sequence
@@ -42,6 +45,7 @@ from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
                                         DataType, LossType, MetricsType,
                                         OperatorType, PoolType)
 from flexflow_tpu_torch.layer import Layer
+from flexflow_tpu_torch.layout import propagate_layouts
 from flexflow_tpu_torch.machine import (MachineSpec, Mesh,
                                         UnknownDeviceError,
                                         detect_machine_spec, make_mesh)
@@ -177,6 +181,28 @@ class FFModel:
             kernel_h=kernel_h, kernel_w=kernel_w, stride_h=stride_h,
             stride_w=stride_w, padding_h=padding_h, padding_w=padding_w,
             pool_type=pool_type, activation=activation), name)
+        return self._finish(layer)
+
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   name: Optional[str] = None) -> Tensor:
+        layer = self._add_layer(OperatorType.BATCHNORM, [input],
+                                dict(relu=relu), name)
+        return self._finish(layer)
+
+    def group_norm(self, input: Tensor, groups: int, eps: float = 1e-5,
+                   affine: bool = True, name: Optional[str] = None) -> Tensor:
+        """Per-group channel normalization (``nn.GroupNorm``)."""
+        layer = self._add_layer(OperatorType.GROUPNORM, [input],
+                                dict(groups=groups, eps=eps, affine=affine),
+                                name)
+        return self._finish(layer)
+
+    def dropout(self, input: Tensor, rate: float = 0.5, seed: int = 0,
+                name=None) -> Tensor:
+        """Dropout at ``rate`` in training; its mask comes from the model's
+        generator (``seed`` is kept for the reference's signature)."""
+        layer = self._add_layer(OperatorType.DROPOUT, [input],
+                                dict(rate=rate, seed=seed), name)
         return self._finish(layer)
 
     def layer_norm(self, input: Tensor, axes: Sequence[int] = (-1,),
@@ -378,7 +404,6 @@ class FFModel:
         nodes, input_names, tensor_ref = self._materialize_nodes()
         if not nodes:
             raise ValueError("model has no layers")
-        self.layout_info = conv_layout_info(cfg.conv_compute_layout)
         out_t = outputs if outputs is not None else getattr(self, "outputs", None)
         if isinstance(out_t, (list, tuple)):
             if len(out_t) != 1:
@@ -482,6 +507,11 @@ class FFModel:
                 and self.mesh.shape.get("pipe", 1) == 1):
             self.remat_ops = unity.executed_remat_ops(nodes,
                                                       self.strategy) or None
+        # the conv family's execution layout: channels-last on the card
+        # under "auto" (layout.py), NCHW the API boundary either way
+        self.layout_info = propagate_layouts(
+            nodes, mode=cfg.conv_compute_layout,
+            on_accelerator=self.device.type == "cuda")
         final_op = next(n.op for n in nodes if n.guid == final_ref[0])
         final_is_softmax = final_op.op_type == OperatorType.SOFTMAX
         self._final_is_softmax = final_is_softmax
@@ -496,7 +526,7 @@ class FFModel:
                             preds_are_probs=final_is_softmax),
             optimizer=optimizer, final_is_softmax=final_is_softmax,
             kernel_choices=self.kernel_choices, mesh=self.mesh,
-            remat_ops=self.remat_ops)
+            remat_ops=self.remat_ops, fold_conv_bn=cfg.fold_conv_bn)
         self.executor.comp_mode = comp_mode
         self.params, self.state = self.executor.init_params_and_state(
             self._generator)
@@ -826,23 +856,6 @@ class FFModel:
 
     def get_layer_names(self) -> List[str]:
         return [n.op.name for n in (self.executor.nodes if self.executor else [])]
-
-
-def conv_layout_info(mode: str) -> Dict[str, Any]:
-    """The conv family's execution layout, as the JAX package's
-    ``propagate_layouts`` reports it: the port computes NCHW under
-    ``"auto"`` and ``"nchw"``; the channels-last pass is ROADMAP.md
-    Queue 1 item 9b, and ``"nhwc"`` raises until it comes."""
-    mode = (mode or "auto").lower()
-    if mode == "nhwc":
-        raise NotImplementedError(
-            "conv_compute_layout='nhwc': the channels-last layout pass "
-            "comes with a later slice of the PyTorch port (ROADMAP.md "
-            "Queue 1 item 9b); 'auto' and 'nchw' compute NCHW")
-    if mode not in ("auto", "nchw"):
-        raise ValueError(f"conv_compute_layout expects auto|nhwc|nchw, got "
-                         f"{mode!r}")
-    return dict(enabled=False, nhwc_ops=0, transposes=0, boundaries=[])
 
 
 def host_input(arr, tensor: Tensor) -> np.ndarray:

@@ -3,8 +3,8 @@
 PyTorch counterpart of ``flexflow_tpu/ops``: the ops of the BERT-proxy
 transformer, the MLP and the Llama-family decoder (embedding, RMSNorm,
 the elementwise kinds), the recommendation models' CONCAT, the conv
-family's CONV2D, POOL2D and FLAT, and the SPLIT the search's linear
-fusion emits; ROADMAP.md lists the rest.
+family's CONV2D, POOL2D, BATCHNORM, GROUPNORM and FLAT, DROPOUT, and the
+SPLIT the search's linear fusion emits; ROADMAP.md lists the rest.
 """
 
 from flexflow_tpu_torch.ops.base import Op, OpRegistry, register_op

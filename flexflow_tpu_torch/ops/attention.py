@@ -28,7 +28,11 @@ does ``kernel_impl="flash"`` give it K5's plain versions.
 ``decode_forward``, the KV-cache decode path, always runs the einsum core
 over the cache. Grouped-query attention (``num_kv_heads``) and rotary
 position embeddings (``rope``, with a position offset for decode) are
-the reference's.
+the reference's. Attention-prob dropout (``dropout`` > 0) applies in
+training only, in the einsum core (flash has none: a ``flash`` pin
+records the fallback), its mask drawn from the model's generator
+(``OpContext.next_rng``); the ring leaves it out with a warning, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -67,12 +71,14 @@ def rotary_embedding(x: torch.Tensor, *, theta: float = 10000.0,
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
-def scaled_dot_product_attention(q, k, v, *, causal=False,
-                                 compute_dtype=torch.float32):
+def scaled_dot_product_attention(q, k, v, *, causal=False, dropout_rate=0.0,
+                                 rng=None, compute_dtype=torch.float32):
     """The einsum core: q, k, v ``[B, H, S, D]`` -> ``[B, H, S, D]`` f32.
     Operands are rounded to the compute dtype and multiplied with f32
     accumulation and f32 output (JAX's ``preferred_element_type``); the
-    softmax is f32."""
+    softmax is f32. With ``dropout_rate`` and ``rng``, each probability
+    is kept with probability ``1 - dropout_rate`` (a draw from ``rng``)
+    and scaled by its inverse, the reference's attention-prob dropout."""
     cd = compute_dtype
     d = q.shape[-1]
     scores = torch.einsum("bhqd,bhkd->bhqk", q.to(cd).float(),
@@ -83,6 +89,10 @@ def scaled_dot_product_attention(q, k, v, *, causal=False,
                           device=q.device).tril(diagonal=s_k - s_q)
         scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0 and rng is not None:
+        keep = (torch.empty_like(probs).uniform_(generator=rng)
+                < 1.0 - dropout_rate)
+        probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(cd).float(),
                         v.to(cd).float())
 
@@ -185,16 +195,21 @@ class MultiHeadAttention(Op):
                                causal=self.causal,
                                interpret=(self.kernel_impl == "flash"
                                           and q.device.type == "cpu"))
-        elif dropout > 0:
-            raise NotImplementedError(
-                f"attention '{self.name}': attention-prob dropout in "
-                f"training comes with a later slice of the PyTorch port "
-                f"(ROADMAP.md)")
-        elif self._use_flash(q, k, dropout):
+        elif dropout == 0 and self._use_flash(q, k, dropout):
             o = flash_attention(q, k, v, causal=self.causal)
         else:
-            o = scaled_dot_product_attention(q, k, v, causal=self.causal,
-                                             compute_dtype=cd)
+            if (dropout > 0 and self.kernel_impl == "flash"
+                    and self._kernel_fallback is None):
+                # flash has no dropout: the einsum core runs, recorded in
+                # the reference's words
+                self._kernel_fallback = (
+                    f"flash has no lowering for this forward "
+                    f"(dropout_rate={dropout}, Sq={q.shape[2]}, "
+                    f"Sk={k.shape[2]}) — einsum executed instead")
+            o = scaled_dot_product_attention(
+                q, k, v, causal=self.causal, dropout_rate=dropout,
+                rng=ctx.next_rng() if dropout > 0 else None,
+                compute_dtype=cd)
         y = torch.einsum("bhsd,hde->bse", o.to(cd), params["wo"].to(cd)).float()
         if self.use_bias:
             y = y + params["bo"].float()

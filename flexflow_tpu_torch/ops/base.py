@@ -33,9 +33,9 @@ class DimRole(enum.Enum):
 
 class OpContext:
     """Per-call context threaded through forward: training flag, compute
-    dtype, the ``torch.Generator`` that training-time randomness
-    (attention dropout, a later slice) draws from, and the mesh the model
-    was compiled on (``machine.Mesh`` or None), whose axes decide whether
+    dtype, the ``torch.Generator`` that training-time randomness (Dropout
+    and attention-prob dropout) draws from, and the mesh the model was
+    compiled on (``machine.Mesh`` or None), whose axes decide whether
     attention runs as a ring (the reference's ``ctx.mesh``)."""
 
     def __init__(self, training: bool = False,
@@ -45,6 +45,15 @@ class OpContext:
         self.compute_dtype = compute_dtype
         self.rng = rng
         self.mesh = mesh
+
+    def next_rng(self) -> torch.Generator:
+        """The generator a random draw takes its numbers from. Where the
+        reference splits a fresh key for each draw, a torch generator
+        advances itself (inside a CUDA-graph capture too: the compiled
+        step registers it, so each replay draws anew)."""
+        if self.rng is None:
+            raise ValueError("op needs rng but none provided")
+        return self.rng
 
     @property
     def mesh_axes(self) -> Dict[str, int]:
@@ -117,9 +126,9 @@ class OpRegistry:
             raise NotImplementedError(
                 f"no Op registered for {layer.op_type} in the PyTorch port "
                 f"(it ports LINEAR, EMBEDDING, LAYERNORM, RMSNORM, "
-                f"MULTIHEAD_ATTENTION, SOFTMAX, CONCAT, SPLIT, CONV2D, "
-                f"POOL2D, FLAT and the elementwise kinds; ROADMAP.md "
-                f"lists the rest)")
+                f"GROUPNORM, BATCHNORM, DROPOUT, MULTIHEAD_ATTENTION, "
+                f"SOFTMAX, CONCAT, SPLIT, CONV2D, POOL2D, FLAT and the "
+                f"elementwise kinds; ROADMAP.md lists the rest)")
         return cls._by_type[layer.op_type](layer, input_shapes)
 
 

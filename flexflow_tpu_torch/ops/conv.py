@@ -1,20 +1,27 @@
-"""Conv2D, Pool2D and Flat.
+"""Conv2D, Pool2D, BatchNorm and Flat.
 
-PyTorch counterpart of ``flexflow_tpu/ops/conv.py``'s ``Conv2D``,
-``Pool2D`` and ``Flat``. The API and parameter layout is NCHW with OIHW
-kernels, as in the JAX package, and the port also computes NCHW: the
-channels-last execution mode of the JAX package's layout pass
-(``exec_layout``) is ROADMAP.md Queue 1 item 9b, as are BatchNorm and
-its Conv+BN folds. The convolution is ``F.conv2d`` (cuDNN on the card):
-the JAX package convolves through XLA, outside any Pallas kernel, so no
-hand kernel stands in for it.
+PyTorch counterpart of ``flexflow_tpu/ops/conv.py``. The API and the
+parameter layout are NCHW with OIHW kernels, as in the JAX package. The
+layout pass (``layout.propagate_layouts``) may have the conv family run
+channels-last: there a value is still a logical ``[N, C, H, W]``
+tensor, held in ``torch.channels_last`` memory, so these forwards read the same dims in
+either mode and cuDNN convolves NHWC without transforming around each
+call; the parameters stay contiguous OIHW. The convolution is
+``F.conv2d`` (cuDNN on the card): the JAX package convolves through XLA,
+outside any Pallas kernel, so no hand kernel stands in for it, nor for
+BatchNorm, which XLA generates too.
 
 Numerics kept from the reference: the convolution takes x and the
 kernel in the compute dtype and returns the compute dtype (no f32
 result requested); only then is it cast to f32, the bias added and the
 activation applied, and the result cast back to x's dtype. A max pool
 counts padding as -inf; an average pool divides by ``kh * kw`` whatever
-the padding; a pool's activation follows, in x's dtype.
+the padding; a pool's activation follows, in x's dtype. BatchNorm takes
+its statistics over N, H, W of x in f32 (the biased variance), applies
+``(x - mean) * (rsqrt(var + eps) * scale) + bias`` and the optional ReLU
+in f32 and casts back; its running statistics (op state, f32) move as
+``momentum * old + (1 - momentum) * batch`` with the biased variance
+(not ``F.batch_norm``'s convention), and eval normalizes with them.
 """
 
 from __future__ import annotations
@@ -81,12 +88,20 @@ class Conv2D(Op):
 
     def forward(self, params, inputs, ctx: OpContext):
         (x,) = inputs
+        return [self._conv_forward(params["kernel"],
+                                   params.get("bias") if self.use_bias
+                                   else None, x, ctx, self.activation)]
+
+    def _conv_forward(self, kernel, bias, x, ctx: OpContext, activation):
+        """The shared conv core: ``kernel`` OIHW, ``bias`` [Cout] or None,
+        then the f32 bias and activation epilogue. Also the body of the
+        Conv+BN eval fold (``layout.FoldedConvBN``)."""
         cd = ctx.compute_dtype
-        y = F.conv2d(x.to(cd), params["kernel"].to(cd), stride=self.stride,
+        y = F.conv2d(x.to(cd), kernel.to(cd), stride=self.stride,
                      padding=self.padding, groups=self.groups).float()
-        if self.use_bias:
-            y = y + params["bias"].float()[None, :, None, None]
-        return [apply_activation(y, self.activation).to(x.dtype)]
+        if bias is not None:
+            y = y + bias.float()[None, :, None, None]
+        return apply_activation(y, activation).to(x.dtype)
 
     def output_dim_roles(self):
         return [_NCHW_ROLES]
@@ -127,6 +142,70 @@ class Pool2D(Op):
 
     def output_dim_roles(self):
         return [_NCHW_ROLES]
+
+
+@register_op(OperatorType.BATCHNORM)
+class BatchNorm(Op):
+    """Batch normalization over N, H, W of an NCHW input. Its running
+    statistics are op state (``init_state``), kept apart from the
+    parameters and updated outside autograd: ``forward_with_state``
+    returns the new state beside the output."""
+
+    def __init__(self, layer, input_shapes):
+        self.relu = layer.get_property("relu", True)
+        self.momentum = layer.get_property("momentum", 0.9)
+        self.eps = layer.get_property("eps", 1e-5)
+        super().__init__(layer, input_shapes)
+
+    def compute_output_shapes(self):
+        return [self.input_shapes[0]]
+
+    def param_shapes(self):
+        c = self.input_shapes[0][1]
+        return {"scale": (c,), "bias": (c,)}
+
+    def init_params(self, generator):
+        c = self.input_shapes[0][1]
+        dev = generator.device
+        return {"scale": torch.ones(c, device=dev),
+                "bias": torch.zeros(c, device=dev)}
+
+    def init_state(self, device):
+        c = self.input_shapes[0][1]
+        return {"mean": torch.zeros(c, device=device),
+                "var": torch.ones(c, device=device)}
+
+    def forward(self, params, inputs, ctx: OpContext, state=None):
+        return self.forward_with_state(params, inputs, ctx, state)[0]
+
+    def forward_with_state(self, params, inputs, ctx: OpContext, state):
+        """-> (outputs, the new running statistics): in training the batch
+        statistics normalize and, with ``state``, move it; in eval
+        ``state`` normalizes (the batch's statistics without one) and
+        stays. The new state is None where it does not move."""
+        (x,) = inputs
+        xf = x.float()
+        new_state = None
+        if ctx.training or state is None:
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        if ctx.training and state is not None:
+            m = self.momentum
+            new_state = {"mean": m * state["mean"] + (1 - m) * mean.detach(),
+                         "var": m * state["var"] + (1 - m) * var.detach()}
+        elif state is not None:
+            mean, var = state["mean"], state["var"]
+        inv = torch.rsqrt(var + self.eps) * params["scale"].float()
+        y = ((xf - mean[None, :, None, None]) * inv[None, :, None, None]
+             + params["bias"].float()[None, :, None, None])
+        if self.relu:
+            y = torch.relu(y)
+        return [y.to(x.dtype)], new_state
+
+    def output_dim_roles(self):
+        return [_NCHW_ROLES]
+
+    def params_elems(self):
+        return 2 * self.input_shapes[0][1]
 
 
 @register_op(OperatorType.FLAT)

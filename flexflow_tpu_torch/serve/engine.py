@@ -15,7 +15,9 @@ bucket whose search fails reuses the model's
 strategy and says so on stderr, as the reference does. Without a budget
 every bucket reuses the model's strategy ("reused-training-strategy").
 
-Each bucket runs its compiled forward (``GraphExecutor.make_forward``):
+Each bucket runs the model's layout pass and its compiled forward
+(``GraphExecutor.make_forward``, Conv+BN pairs folded unless the model
+turned the fold off):
 on the card one CUDA-graph replay a batch, captured when the engine is
 built, before ``start()`` launches the serving thread (in the
 "thread_local" capture mode, so client threads never meet a capture); a
@@ -171,6 +173,7 @@ class ServingEngine:
 
     def _build_bucket(self, bucket: int, budget: int) -> BucketExecutor:
         from flexflow_tpu_torch.executor import GraphExecutor
+        from flexflow_tpu_torch.layout import propagate_layouts
         from flexflow_tpu_torch.parallel.strategy import apply_strategy
         from flexflow_tpu_torch.search.unity import (executed_kernel_choices,
                                                      switched_off)
@@ -217,8 +220,11 @@ class ServingEngine:
             kernel_choices = executed_kernel_choices(
                 nodes, None, mesh.shape, device=full.device)
         _sanitize_output_specs(nodes, mesh)
+        propagate_layouts(nodes, mode=ff.config.conv_compute_layout,
+                          on_accelerator=full.device.type == "cuda")
         ex = GraphExecutor(nodes, input_names, final_ref, full.device,
-                           compute_dtype=full.compute_dtype, mesh=mesh)
+                           compute_dtype=full.compute_dtype, mesh=mesh,
+                           fold_conv_bn=full.fold_conv_bn)
         ex.comp_mode = CompMode.INFERENCE
         be = BucketExecutor(
             bucket=bucket, executor=ex, objective=objective,

@@ -6,8 +6,10 @@ layouts are identical by construction (dense ``kernel [in, out]`` and
 ``bias [out]``, LayerNorm ``scale``/``bias``, attention ``wq/wk/wv
 [H, E, D]``, ``wo [H, D, E]``, ``bo [E]``, embedding ``kernel
 [entries, out]``, conv ``kernel [Cout, Cin/groups, KH, KW]`` (OIHW in
-both packages) and ``bias [Cout]``), so the copy is a cast and a device
-move.
+both packages) and ``bias [Cout]``, BatchNorm and GroupNorm
+``scale``/``bias [C]``), so the copy is a cast and a device move. Op state
+(BatchNorm's running ``mean``/``var``) carries across the same way
+(``from_jax_state``).
 """
 
 from __future__ import annotations
@@ -58,6 +60,29 @@ def from_jax_params(params: Mapping[str, Mapping[str, np.ndarray]],
             model.set_parameter(layer, np.asarray(arr), name)
     model._refresh_compute_params()
     return model.params
+
+
+def from_jax_state(state: Mapping[str, Mapping[str, np.ndarray]], model
+                   ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Carry the JAX model's op state (``ff.state`` without its ``__``
+    entries, each leaf as numpy: BatchNorm's running ``mean`` and
+    ``var``) into a compiled port ``FFModel``, in place: the trees must
+    match leaf for leaf, in shape and dtype, or it raises. Returns the
+    port's op state (``model.state`` without its compute copy)."""
+    state = {k: v for k, v in state.items() if not k.startswith("__")}
+    ours = {k: v for k, v in model.state.items() if not k.startswith("__")}
+    if {l: set(sub) for l, sub in state.items()} != \
+            {l: set(sub) for l, sub in ours.items()}:
+        raise ValueError(f"op state trees differ: {sorted(state)} vs the "
+                         f"port's {sorted(ours)}")
+    new = {l: {n: _tensor_like(a, ours[l][n], f"state/{l}/{n}")
+               for n, a in sub.items()}
+           for l, sub in state.items()}
+    with torch.no_grad():
+        for l, sub in new.items():
+            for n, t in sub.items():
+                ours[l][n].copy_(t)
+    return ours
 
 
 def _tensor_like(arr, like: torch.Tensor, where: str) -> torch.Tensor:

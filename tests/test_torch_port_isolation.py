@@ -48,7 +48,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.models.dlrm, flexflow_tpu_torch.models.xdl, "
         "flexflow_tpu_torch.models.candle_uno, "
         "flexflow_tpu_torch.models.resnext, "
-        "flexflow_tpu_torch.models.inception\n"
+        "flexflow_tpu_torch.models.inception, "
+        "flexflow_tpu_torch.models.resnet, flexflow_tpu_torch.models.alexnet, "
+        "flexflow_tpu_torch.transforms, flexflow_tpu_torch.ops.norm\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -130,3 +132,14 @@ def test_cpu_compute_dtype_is_f32():
     assert "__compute_params__" not in ff.state
     assert all(t.dtype == torch.float32 and t.device.type == "cpu"
                for sub in ff.params.values() for t in sub.values())
+
+
+@pytest.mark.parametrize("build", ["resnet", "alexnet"])
+def test_conv_bn_builders_raise_without_cuda(monkeypatch, build):
+    import flexflow_tpu_torch.models as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if build == "resnet":
+            M.create_resnet(M.ResNetConfig(batch_norm=True))
+        else:
+            M.create_alexnet()

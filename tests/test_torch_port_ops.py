@@ -173,9 +173,9 @@ def test_mha_kernel_impl_flash_raises_where_kernel_cannot_run():
 
 
 def test_unported_op_raises():
-    layer = PLayer(pconst.OperatorType.BATCHNORM, "bn", [])
+    layer = PLayer(pconst.OperatorType.BATCHMATMUL, "bmm", [])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PRegistry.create(layer, [(1, 3, 8, 8)])
+        PRegistry.create(layer, [(2, 3, 4), (2, 4, 5)])
 
 
 @pytest.mark.parametrize("name", ["OperatorType", "DataType", "ActiMode",

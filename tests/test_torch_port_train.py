@@ -419,11 +419,47 @@ def test_inference_model_does_not_train():
 
 
 def test_attention_dropout_in_training_raises():
+    """Attention-prob dropout trains (the einsum core, its mask drawn
+    from the model's generator); a training forward given no generator
+    raises, as the reference's ``ctx.next_rng`` does."""
     ff = _tiny(dropout=0.1)
     ff.compile(AdamOptimizer(), P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ff.fit(np.zeros((2, 8, 64), np.float32),
-               np.zeros((2, 8, 1), np.float32), verbose=False)
+    x = np.random.RandomState(0).randn(2, 8, 64).astype(np.float32)
+    y = np.zeros((2, 8, 1), np.float32)
+    ff.fit(x, y, verbose=False)
+    assert np.isfinite(ff._last_loss)
+    with pytest.raises(ValueError, match="needs rng"):
+        ff.executor.grads_of(ff.params, ff.state, ff._stage_inputs([x]),
+                             ff._stage_labels(y), rng=None)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25, 0.5])
+def test_attention_dropout_statistics(rate):
+    """The einsum core with dropout at ``rate``: with V the identity its
+    output is the dropped probabilities. The share of zeros lies within 5
+    binomial standard deviations of ``rate``, every kept probability is
+    the undropped one over ``1 - rate`` (f32 rounding), one generator
+    seed gives one mask, and rate 0 is the core without dropout."""
+    from flexflow_tpu_torch.ops.attention import scaled_dot_product_attention
+    b, h, s = 2, 4, 64
+    rs = np.random.RandomState(3)
+    q = torch.from_numpy(rs.randn(b, h, s, s).astype(np.float32))
+    k = torch.from_numpy(rs.randn(b, h, s, s).astype(np.float32))
+    v = torch.eye(s).expand(b, h, s, s)
+    plain = scaled_dot_product_attention(q, k, v)
+    got = [scaled_dot_product_attention(
+        q, k, v, dropout_rate=rate,
+        rng=torch.Generator().manual_seed(7)) for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    if rate == 0.0:
+        assert torch.equal(got[0], plain)
+        return
+    zero = got[0] == 0
+    n = zero.numel()
+    assert abs(zero.float().mean().item() - rate) \
+        <= 5 * (rate * (1 - rate) / n) ** 0.5
+    torch.testing.assert_close(got[0][~zero], plain[~zero] / (1 - rate),
+                               rtol=1e-6, atol=0)
 
 
 def test_export_strategy_raises(tmp_path):

@@ -253,18 +253,28 @@ def test_loop_refuses_a_shorter_sequence():
 
 @pytest.mark.parametrize("mode", ["auto", "nchw", "nhwc"])
 def test_conv_layout(mode):
-    """The port computes the conv family NCHW: ``"auto"`` and ``"nchw"``
-    report no layout pass; ``"nhwc"`` is refused until it comes."""
-    ff = create_resnext50(ResNeXtConfig(batch_size=1, image_size=32,
-                                        stages=(1, 1, 1, 1), cardinality=2),
+    """The layout pass: ``"auto"`` (NCHW on the CPU) and ``"nchw"`` report
+    no pass; ``"nhwc"`` runs it, and its ``layout_info`` is the JAX
+    package's for the same ResNeXt graph."""
+    kw = dict(batch_size=1, image_size=32, stages=(1, 1, 1, 1),
+              cardinality=2)
+    starts = _aligned()
+    jff = j_create_resnext(JResNeXtConfig(**kw), J.FFConfig(
+        batch_size=1, workers_per_node=1, conv_compute_layout=mode))
+    jff.compile(JAdam(), getattr(J.LossType, SCE))
+    PLayer._next_guid[0], PTensor._next_guid[0] = starts
+    ff = create_resnext50(ResNeXtConfig(**kw),
                           P.FFConfig(batch_size=1, conv_compute_layout=mode),
                           device="cpu")
-    if mode == "nhwc":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-            ff.compile(AdamOptimizer(), P.LossType[SCE])
-        return
     ff.compile(AdamOptimizer(), P.LossType[SCE])
-    assert ff.layout_info == NCHW_LAYOUT
+    assert ff.layout_info == jff.layout_info
+    if mode == "nhwc":
+        # every conv and pool (13 convs, 2 pools) channels-last; the
+        # input and the flat's input are the two boundaries
+        assert ff.layout_info["enabled"] and ff.layout_info["nhwc_ops"] == 15
+        assert ff.layout_info["transposes"] == 2
+    else:
+        assert ff.layout_info == NCHW_LAYOUT
 
 
 @pytest.mark.cuda
