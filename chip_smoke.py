@@ -236,17 +236,39 @@ package. Phases:
              within DROPOUT_SIGMAS binomial deviations of 0.5 and its
              kept values scaled exactly; ``predict`` with dropout the
              identity; 3 ``fit`` steps finite.
-12. report — one JSON line ``{"kernels": [...]}``, then the final line
+12. ckpt    — [ckpt] the full-width BERT-proxy through train (b)'s
+             strategy file (K1, K2, K4 every step): (a) 2 x CKPT_N
+             uninterrupted steps against CKPT_N steps saved with
+             ``checkpoint_every`` and a fresh model resumed with
+             ``fit(resume=True)``: losses and every leaf (parameters, m,
+             v, t) bit for bit, the resumed steps' launches (K1 and K2 12
+             a step, K4 1) one capture then replays; bytes written, the
+             snapshot's stall against the step, the writer's seconds and
+             GB/s, the restore, goodput. (b) a child (``--ckpt-child``)
+             preempted by ``FFS_FAULT=sigterm`` exits PREEMPTED_EXIT with
+             a verified grace checkpoint; a second child resumes it to
+             (a)'s losses bit for bit, its kernels already built. (c)
+             ``load_for_serving`` on (a)'s checkpoint: ``predict`` equal
+             to a training model's after ``load_checkpoint`` and
+             ``serve()``'s rows equal to ``predict``. [ckpt zoo]:
+             ResNet-50-BN and AlexNet (D) resumed at step CKPT_ZOO_EVERY
+             of CKPT_ZOO_STEPS, bit for bit (BN statistics, dropout
+             masks through the generator), cuDNN deterministic.
+13. report — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``. Each phase's seconds are
              printed as ``[time]`` lines.
 
 Any failed check exits non-zero without printing the final line.
+
+One other mode: ``--ckpt-child DIR STRATEGY_DIR STEPS [--resume]`` is
+one child process of the ``[ckpt]`` phase's preemption leg.
 """
 
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4599,7 +4621,462 @@ def phase_zoo_bn(strategy_dir):
     return out
 
 
-def main() -> int:
+# [ckpt]: the BERT-proxy's checkpoint, resume, preemption and deploy. The
+# uninterrupted run takes 2 * CKPT_N steps; the interrupted one saves at
+# step CKPT_N and a fresh model resumes it. The preempted child raises
+# SIGTERM on itself after step slot CKPT_SIGTERM_SLOT (FFS_FAULT), so its
+# grace checkpoint holds step CKPT_SIGTERM_SLOT + 1, inside CKPT_GRACE_S.
+CKPT_N = 3
+CKPT_SIGTERM_SLOT = 1
+CKPT_GRACE_S = 300.0
+CKPT_CHILD_TIMEOUT_S = 300
+# the zoo's resumes: checkpoint every CKPT_ZOO_EVERY steps, against an
+# uninterrupted run of CKPT_ZOO_STEPS
+CKPT_ZOO_STEPS, CKPT_ZOO_EVERY = 4, 2
+# PREEMPTED_EXIT of flexflow_tpu_torch/runtime_health.py (the reference's)
+PREEMPTED_EXIT = 78
+
+
+def state_bits(ff):
+    """{leaf key: its bits as host numpy} of every leaf of the live
+    training state, read from the trees themselves (``ff.params``,
+    ``ff.opt_state``'s m, v and t, ``ff.state`` without the bf16 compute
+    copy), and the payload bytes of ``ckpt.snapshot(ff)``, which must hold
+    exactly these leaves with these bits: a leaf the checkpoint leaves out
+    fails here, not only through the losses."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.ckpt import snapshot
+    from flexflow_tpu_torch.executor import COMPUTE_PARAMS_KEY
+
+    def leaves(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(f"{prefix}/{k}", v)
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(f"{prefix}/{i}", v)
+        elif isinstance(tree, torch.Tensor):
+            yield prefix, tree
+
+    def bits(arr):
+        return arr.view(np.dtype(f"uint{8 * arr.dtype.itemsize}"))
+
+    int_of = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    live = {}
+    for key, t in [*leaves("params", ff.params),
+                   *leaves("opt_state", ff.opt_state),
+                   *leaves("op_state", {k: v for k, v in ff.state.items()
+                                        if k != COMPUTE_PARAMS_KEY})]:
+        t = t.detach()
+        if t.dtype.is_floating_point:
+            t = t.contiguous().view(int_of[t.element_size()])
+        live[key] = bits(t.to("cpu", copy=True).numpy())
+    snap = snapshot(ff)
+    missing = sorted(set(live) - set(snap.shards))
+    extra = sorted(set(snap.shards) - set(live))
+    check(not missing and not extra,
+          f"the snapshot's leaves differ from the live state's: missing "
+          f"{missing[:8]}, not in the state {extra[:8]}")
+    wrong = sorted(k for k, [(_, arr)] in snap.shards.items()
+                   if arr.shape != live[k].shape
+                   or arr.dtype.itemsize != live[k].dtype.itemsize
+                   or not np.array_equal(bits(arr), live[k]))
+    check(not wrong, f"snapshot leaves differ from the live state's bits: "
+                     f"{wrong[:8]}")
+    return live, snap.payload_bytes
+
+
+def bits_differ(a, b):
+    """Keys whose bits differ between two ``state_bits`` dicts."""
+    import numpy as np
+
+    if set(a) != set(b):
+        return sorted(set(a) ^ set(b))
+    return sorted(k for k in a if not np.array_equal(a[k], b[k]))
+
+
+def registry_obs(name):
+    """(count, sum) of a registry observation series."""
+    from flexflow_tpu_torch.obs.registry import get_registry
+
+    o = get_registry().to_dict()["observations"].get(name, {})
+    return o.get("count", 0.0), o.get("sum", 0.0)
+
+
+def obs_since(name, before):
+    """(count, sum) of a registry observation series since ``before``."""
+    now = registry_obs(name)
+    return now[0] - before[0], now[1] - before[1]
+
+
+def ckpt_child(argv):
+    """``chip_smoke.py --ckpt-child DIR STRATEGY_DIR STEPS [--resume]``:
+    one process of the [ckpt] phase's preemption leg. Trains the
+    full-width BERT-proxy through ``fit(epochs=STEPS)`` with
+    ``checkpoint_dir=DIR`` and a grace window (``FFS_FAULT`` comes from
+    the environment); prints one ``[ckpt child]`` JSON line with its
+    losses, launches and whether the kernels were built before it
+    started. A SIGTERM makes ``fit`` raise ``Preempted``, which exits
+    the process with PREEMPTED_EXIT."""
+    import torch
+    from flexflow_tpu_torch import cuda_build
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+
+    ckpt_dir, strategy_dir, steps = argv[0], argv[1], int(argv[2])
+    resume = "--resume" in argv[3:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    names = ["flash_attn_fwd", "flash_attn_bwd", "fused_adam"]
+    prebuilt = {n: cuda_build._paths(n)[1].exists() for n in names}
+    cfg = TransformerConfig()
+    ff = compile_for_training(cfg, strategy_dir)
+    ff.config.grace_window_s = CKPT_GRACE_S
+    x, y = training_batch(cfg)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        ff.fit(x, y, epochs=steps, verbose=False, checkpoint_dir=ckpt_dir,
+               resume=resume)
+    finally:
+        print("[ckpt child] " + json.dumps(dict(
+            losses=list(ff.epoch_losses), iteration=ff._iter,
+            launches=read_launches(), prebuilt=prebuilt,
+            fit_s=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
+def run_ckpt_child(ckpt_dir, strategy_dir, steps, resume, fault=None):
+    """One ``--ckpt-child`` process -> (exit code, its JSON line, its
+    seconds); stdout and stderr go to the caller's."""
+    env = dict(os.environ)
+    env.pop("FFS_FAULT", None)
+    if fault:
+        env["FFS_FAULT"] = fault
+    cmd = [sys.executable, os.path.abspath(__file__), "--ckpt-child",
+           ckpt_dir, strategy_dir, str(steps)] + (["--resume"] if resume
+                                                  else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=CKPT_CHILD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in proc.stderr.splitlines()[-12:]:
+        print(f"[ckpt child stderr] {line}")
+    lines = [l for l in proc.stdout.splitlines()
+             if l.startswith("[ckpt child] ")]
+    out = json.loads(lines[-1][len("[ckpt child] "):]) if lines else None
+    return proc.returncode, out, secs
+
+
+def phase_ckpt(strategy_dir):
+    """[ckpt] the BERT-proxy at full width through train (b)'s strategy
+    file (K1, K2, K4 in every step): (a) 2N uninterrupted steps against N
+    steps saved with ``checkpoint_every=N`` and a fresh model resumed by
+    ``fit(resume=True)``, bit for bit, the resumed steps' launches and
+    replays counted; (b) a child preempted by SIGTERM, its grace
+    checkpoint, and a second child resuming it bit-equal to (a); (c)
+    ``load_for_serving`` on (a)'s checkpoint against a training model's
+    ``load_checkpoint``, ``predict`` and ``serve()`` bit for bit. Returns
+    the resumed steps' launches and the figures."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.ckpt import (latest_complete, list_steps,
+                                         load_manifest, load_sharded,
+                                         snapshot, verify_step_dir)
+    from flexflow_tpu_torch.ckpt import manifest as mf
+    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       create_transformer)
+    from flexflow_tpu_torch.obs.registry import get_registry
+    from flexflow_tpu_torch.serve import load_for_serving
+
+    cfg = TransformerConfig()
+    x, y = training_batch(cfg)
+    n = CKPT_N
+    reg = get_registry()
+    out = {}
+    root = tempfile.mkdtemp(prefix="ff_ckpt_")
+    try:
+        # (a) the uninterrupted run, step by step to time the steps
+        ref = compile_for_training(cfg, strategy_dir)
+        step_s = []
+        for _ in range(2 * n):
+            t0 = time.perf_counter()
+            ref.fit(x, y, epochs=1, verbose=False)
+            step_s.append(time.perf_counter() - t0)
+        ref_losses = list(ref.epoch_losses)
+        ref_bits, nbytes = state_bits(ref)
+        leaves = len(ref_bits)
+        n_params = sum(a.size for k, a in ref_bits.items()
+                       if k.startswith("params/"))
+        del ref
+        release()
+        print(f"[ckpt] uninterrupted {2 * n} steps: losses "
+              + ", ".join(repr(v) for v in ref_losses)
+              + f"; checkpoint payload {nbytes} bytes ({nbytes / 1e9:.3f} "
+              f"GB) in {leaves} leaves, {n_params} parameters")
+        d = os.path.join(root, "a")
+        stall0 = registry_obs("fit/ckpt_save_stall_s")
+        write0 = registry_obs("fit/ckpt_async_write_s")
+        bytes0 = reg.get("fit/ckpt_bytes_written")
+        first = compile_for_training(cfg, strategy_dir)
+        first.fit(x, y, epochs=n, verbose=False, checkpoint_dir=d,
+                  checkpoint_every=n)
+        check(first.epoch_losses == ref_losses[:n],
+              "checkpointing changed the first steps' losses")
+        del first
+        release()
+        stalls, stall_sum = obs_since("fit/ckpt_save_stall_s", stall0)
+        writes, write_sum = obs_since("fit/ckpt_async_write_s", write0)
+        written = reg.get("fit/ckpt_bytes_written") - bytes0
+        step, sdir = latest_complete(d)
+        rep = verify_step_dir(sdir)
+        check(step == n and rep["complete"],
+              f"no complete checkpoint at step {n}: {rep['errors']}")
+        check(written == nbytes == rep["payload_bytes"],
+              f"bytes written {written} against a payload of {nbytes}")
+        resumed = compile_for_training(cfg, strategy_dir)
+        reset_launches()
+        stall1 = registry_obs("fit/ckpt_save_stall_s")
+        t0 = time.perf_counter()
+        resumed.fit(x, y, epochs=2 * n, verbose=False, checkpoint_dir=d,
+                    resume=True)
+        resume_fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        graph = resumed.executor.step_graphs["train_step"]
+        restore_s = reg.get("fit/ckpt_restore_s")
+        goodput = reg.get("fit/goodput_effective")
+        final_stalls = obs_since("fit/ckpt_save_stall_s", stall1)
+        got_bits, _ = state_bits(resumed)
+        differ = bits_differ(ref_bits, got_bits)
+        del got_bits
+        # a snapshot once its pinned host buffers are cached, as every
+        # save after a process's first finds them
+        snap_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            snap = snapshot(resumed)
+            snap_ms.append((time.perf_counter() - t0) * 1e3)
+            del snap
+        print(f"[ckpt] (a) resumed at step {step}: losses "
+              + ", ".join(repr(v) for v in resumed.epoch_losses)
+              + f"; leaves differing from the uninterrupted run: "
+              f"{len(differ)} of {leaves} {differ[:5]}; launches {launches}; "
+              f"train_step captures {graph.captures}, replays "
+              f"{graph.replays}")
+        check(resumed.epoch_losses == ref_losses[n:],
+              "the resumed losses differ from the uninterrupted run's")
+        check(not differ, f"resumed leaves differ: {differ[:8]}")
+        want = dict(flash_attn_fwd=cfg.num_layers * n,
+                    flash_attn_bwd=cfg.num_layers * n, fused_adam=n,
+                    flash_lse_fwd=0, flash_lse_bwd=0)
+        check(launches == want, f"resumed launches {launches}, expected "
+                                f"{want}")
+        check(graph.captures == 1 and graph.replays == n - 1,
+              "the resumed steps were not one capture and then replays")
+        replay_launches = graph.launches_a_replay()
+        check(replay_launches.get("flash_fwd.launches") == cfg.num_layers
+              and replay_launches.get("flash_bwd.launches") == cfg.num_layers
+              and replay_launches.get("fused_adam_multi.launches") == 1,
+              f"a resumed replay's kernel nodes: {replay_launches}")
+        # where a save's and a restore's time goes: the writer's CRC pass
+        # over the payload, one read of the shards file, and the restore
+        # with and without its CRC checks
+        snap = snapshot(resumed)
+        t0 = time.perf_counter()
+        for entries in snap.shards.values():
+            for _, arr in entries:
+                mf.crc32_bytes(arr.tobytes())
+        crc_s = time.perf_counter() - t0
+        del snap
+        t0 = time.perf_counter()
+        with open(os.path.join(latest_complete(d)[1], mf.shards_name(0)),
+                  "rb") as f:
+            while f.read(1 << 26):
+                pass
+        read_s = time.perf_counter() - t0
+        load_s = []
+        for verify in (False, True):
+            t0 = time.perf_counter()
+            load_sharded(d, resumed, verify=verify)
+            torch.cuda.synchronize()
+            load_s.append(time.perf_counter() - t0)
+        print(f"[ckpt] breakdown: a CRC32 pass over the payload "
+              f"{crc_s:.3f} s; one read of the shards file {read_s:.3f} s; "
+              f"load_sharded {load_s[0]:.3f} s without CRC checks, "
+              f"{load_s[1]:.3f} s with them")
+        del resumed
+        release()
+        steady = statistics.median(step_s[2:])
+        stall_ms = stall_sum / max(stalls, 1) * 1e3
+        write_s = write_sum / max(writes, 1)
+        print(f"[ckpt] save at step {n}: {nbytes} bytes written, snapshot "
+              f"stall {stall_ms:.3f} ms ({stall_ms / (steady * 1e3):.2f} "
+              f"replayed steps of {steady * 1e3:.3f} ms, p50 of steps "
+              f"3-{2 * n}), async write {write_s:.3f} s "
+              f"({nbytes / write_s / 1e9:.3f} GB/s); the resumed fit's "
+              f"final save stalled {final_stalls[1] * 1e3:.3f} ms; two "
+              f"snapshots after it {snap_ms[0]:.3f} and {snap_ms[1]:.3f} ms "
+              f"({nbytes / snap_ms[1] / 1e6:.3f} GB/s device to host); "
+              f"restore "
+              f"{restore_s:.3f} s; resumed fit {resume_fit_s:.3f} s; "
+              f"goodput_effective {goodput:.6f}")
+        out["a"] = dict(bytes=nbytes, leaves=leaves, params=n_params,
+                        stall_ms=stall_ms, step_ms=steady * 1e3,
+                        snapshot_ms=snap_ms,
+                        write_s=write_s, write_gbps=nbytes / write_s / 1e9,
+                        restore_s=restore_s, goodput=goodput,
+                        crc_s=crc_s, read_s=read_s, load_s=load_s,
+                        launches=launches)
+
+        # (b) a child preempted by SIGTERM, then a child resuming it
+        d2 = os.path.join(root, "b")
+        k = CKPT_SIGTERM_SLOT
+        rc, first_out, secs = run_ckpt_child(
+            d2, strategy_dir, 2 * n, False, fault=f"sigterm:0@step:{k}")
+        print(f"[ckpt] (b) preempted child: exit {rc} in {secs:.1f} s: "
+              f"{first_out}")
+        check(rc == PREEMPTED_EXIT,
+              f"the preempted child exited {rc}, not {PREEMPTED_EXIT}")
+        steps = [(s_, ok) for s_, _, ok in list_steps(d2)]
+        step, sdir = latest_complete(d2) or (None, None)
+        rep = verify_step_dir(sdir) if sdir else {"complete": False,
+                                                  "errors": ["none"]}
+        check(step == k + 1 and rep["complete"],
+              f"grace checkpoint: steps {steps}, {rep['errors']}")
+        # one batch an epoch: the preempted slot's epoch reads no loss
+        check(first_out["losses"] == ref_losses[:k]
+              and first_out["iteration"] == k + 1,
+              "the preempted child's losses differ from (a)'s")
+        rc, second, secs2 = run_ckpt_child(d2, strategy_dir, 2 * n, True)
+        print(f"[ckpt] (b) resuming child: exit {rc} in {secs2:.1f} s: "
+              f"{second}")
+        check(rc == 0, f"the resuming child exited {rc}")
+        check(second["losses"] == ref_losses[k + 1:],
+              "the resumed child's losses differ from the uninterrupted "
+              "run's")
+        check(all(second["prebuilt"].values()),
+              f"the second child rebuilt kernels: {second['prebuilt']}")
+        rest = 2 * n - (k + 1)
+        check(second["launches"]["fused_adam"] == rest
+              and second["launches"]["flash_attn_fwd"] ==
+              cfg.num_layers * rest,
+              f"the resumed child's launches: {second['launches']}")
+        out["b"] = dict(exit=PREEMPTED_EXIT, grace_step=k + 1,
+                        child_s=[secs, secs2])
+
+        # (c) deploy (a)'s checkpoint
+        manifest = load_manifest(d)
+        trained = compile_for_training(cfg, strategy_dir)
+        t0 = time.perf_counter()
+        it = trained.load_checkpoint(d)
+        load_s = time.perf_counter() - t0
+        want_rows = trained.predict(x)
+        del trained
+        release()
+        reset_launches()
+        t0 = time.perf_counter()
+        served = load_for_serving(
+            d, create_transformer(cfg, FFConfig(batch_size=cfg.batch_size),
+                                  device="cuda"), search_budget=0)
+        deploy_s = time.perf_counter() - t0
+        rows = served.predict(x)
+        k1 = read_launches()["flash_attn_fwd"]
+        engine = served.serve()
+        reqs = [engine.submit([x[i]]) for i in range(cfg.batch_size)]
+        check(engine.pump() == cfg.batch_size, "the engine served no batch")
+        served_rows = np.stack([r.wait(60) for r in reqs])
+        info = served.serve_load_info
+        print(f"[ckpt] (c) load_for_serving of step {manifest['step']} "
+              f"(iteration {it}) in {deploy_s:.3f} s (load_checkpoint into "
+              f"a training model {load_s:.3f} s): mode {info['mode']}, "
+              f"cross mesh {info['cross_mesh']}; predict equal to the "
+              f"training model's: {np.array_equal(rows, want_rows)}; served "
+              f"rows equal: {np.array_equal(served_rows, rows)}; K1 "
+              f"launches in predict {k1}")
+        check(info["mode"] == "reused-saved-strategy"
+              and manifest["step"] == 2 * n, f"deploy: {info}")
+        check(np.array_equal(rows, want_rows),
+              "the deployed predict differs from the training model's")
+        check(np.array_equal(served_rows, rows),
+              "the served rows differ from predict")
+        check(k1 == cfg.num_layers, f"K1 launched {k1} times in predict")
+        del served, engine
+        release()
+        out["c"] = dict(deploy_s=deploy_s, load_s=load_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["zoo"] = {name: ckpt_zoo_resume(name, strategy_dir)
+                  for name in ("resnet_bn", "alexnet")}
+    return out
+
+
+def ckpt_zoo_resume(name, strategy_dir):
+    """[ckpt zoo] ``name`` (D) at its default width: CKPT_ZOO_STEPS
+    uninterrupted steps against a run saved every CKPT_ZOO_EVERY steps and
+    a fresh model resumed, bit for bit (losses, parameters, moments, BN
+    running statistics; AlexNet's dropout masks from the restored
+    generator), cuDNN deterministic."""
+    import torch
+
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    root = tempfile.mkdtemp(prefix=f"ff_ckpt_{name}_")
+    try:
+        _, cfg, _, _ = zoo_spec(name)
+        xs, y = zoo_batch(name, cfg)
+        ref = compile_zoo(name, "D", strategy_dir)
+        ref.fit(xs, y, epochs=CKPT_ZOO_STEPS, verbose=False)
+        ref_losses = list(ref.epoch_losses)
+        ref_bits, nbytes = state_bits(ref)
+        ref_generator = ref._generator.get_state()
+        del ref
+        release()
+        first = compile_zoo(name, "D", strategy_dir)
+        first.fit(xs, y, epochs=CKPT_ZOO_EVERY, verbose=False,
+                  checkpoint_dir=root, checkpoint_every=CKPT_ZOO_EVERY)
+        del first
+        release()
+        resumed = compile_zoo(name, "D", strategy_dir)
+        t0 = time.perf_counter()
+        resumed.fit(xs, y, epochs=CKPT_ZOO_STEPS, verbose=False,
+                    checkpoint_dir=root, resume=True)
+        secs = time.perf_counter() - t0
+        got_bits, _ = state_bits(resumed)
+        differ = bits_differ(ref_bits, got_bits)
+        losses = list(resumed.epoch_losses)
+        generator_equal = torch.equal(resumed._generator.get_state(),
+                                      ref_generator)
+        op_state = sorted(k for k in ref_bits if k.startswith("op_state/"))
+        del resumed
+        release()
+        print(f"[ckpt zoo {name}] {nbytes} bytes a checkpoint, "
+              f"{len(ref_bits)} leaves ({len(op_state)} of op state); "
+              f"resumed at step {CKPT_ZOO_EVERY}, fit of "
+              f"{CKPT_ZOO_STEPS - CKPT_ZOO_EVERY} steps {secs:.2f} s; "
+              f"uninterrupted losses {ref_losses}, resumed {losses}; leaves "
+              f"differing: {len(differ)} {differ[:5]}; generator state "
+              f"equal: {generator_equal}")
+        check(losses == ref_losses[CKPT_ZOO_EVERY:],
+              f"{name}: the resumed losses differ from the uninterrupted "
+              f"run's")
+        check(not differ, f"{name}: resumed leaves differ: {differ[:8]}")
+        check(generator_equal, f"{name}: the generator's state differs")
+        check(name != "resnet_bn" or len(op_state) == 2 * BN_PAIRS,
+              f"{name}: {len(op_state)} BN statistics leaves in the "
+              f"checkpoint")
+        return dict(bytes=nbytes, leaves=len(ref_bits),
+                    op_state_leaves=len(op_state))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     try:
         import torch
     except ImportError as e:
@@ -4616,6 +5093,8 @@ def main() -> int:
         print(f"chip_smoke: FAIL: the port package is not beside this "
               f"script: {e}", file=sys.stderr)
         return 1
+    if argv[:1] == ["--ckpt-child"]:
+        return ckpt_child(argv[1:])
     def run_phase(label, fn, *args, **kw):
         t0 = time.perf_counter()
         result = fn(*args, **kw)
@@ -4671,6 +5150,7 @@ def main() -> int:
                         f"layout {model}", layout_pair, model,
                         zoo[model]["rows"]["D"])
             zoo.update(run_phase("zoo bn", phase_zoo_bn, tmp))
+            ckpt = run_phase("ckpt", phase_ckpt, tmp)
         print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -4686,13 +5166,15 @@ def main() -> int:
                                    llama_serve=llama_serve["launches"])
     fwd["launches_by_path"].update(
         llama_train=llama_train["plain"]["launches"]["flash_attn_fwd"],
-        llama_train_remat=llama_train["remat"]["launches"]["flash_attn_fwd"])
+        llama_train_remat=llama_train["remat"]["launches"]["flash_attn_fwd"],
+        ckpt_resume=ckpt["a"]["launches"]["flash_attn_fwd"])
     bwd["launches"] = train_b["flash_attn_bwd"]
     bwd["launches_by_path"] = dict(
         train_b=train_b["flash_attn_bwd"],
         search_train=search_train["flash_attn_bwd"],
         llama_train=llama_train["plain"]["launches"]["flash_attn_bwd"],
-        llama_train_remat=llama_train["remat"]["launches"]["flash_attn_bwd"])
+        llama_train_remat=llama_train["remat"]["launches"]["flash_attn_bwd"],
+        ckpt_resume=ckpt["a"]["launches"]["flash_attn_bwd"])
     bwd["llama_train"] = dict(
         llama_k2, launches=llama_train["plain"]["launches"]["flash_attn_bwd"])
     bwd_k3["launches"] = train_a["launches"]["flash_attn_bwd"]
@@ -4700,7 +5182,8 @@ def main() -> int:
     adam["launches_by_path"] = dict(
         train_b=train_b["fused_adam"], search_train=search_train["fused_adam"],
         llama_train=llama_train["plain"]["launches"]["fused_adam"],
-        llama_train_remat=llama_train["remat"]["launches"]["fused_adam"])
+        llama_train_remat=llama_train["remat"]["launches"]["fused_adam"],
+        ckpt_resume=ckpt["a"]["launches"]["fused_adam"])
     adam["llama_train"] = llama_k4
     adam["launches_by_path"].update(
         {f"zoo_{n}": z["k4"]["launches"] for n, z in zoo.items()})

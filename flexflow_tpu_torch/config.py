@@ -4,11 +4,13 @@ PyTorch counterpart of ``flexflow_tpu/config.py``: the same field names
 and defaults, so a configuration carries over between the two packages.
 ``parse_args`` consumes the flags of the fields the port reads (the
 training flags, the machine model, the auto-parallelization search and
-strategy files, the conv layout and the Conv+BN fold) and leaves every other flag to the application, as the
-reference leaves flags it does not know. ``--search-measure-ops`` and
-``--profiling`` raise ``NotImplementedError``: per-op measurement on the
-card is ROADMAP.md Queue 1 item 11. Tracing and checkpointing fields are
-refused where they are read (``FFModel.fit``).
+strategy files, the conv layout and the Conv+BN fold, checkpointing,
+resume and the runtime-health flags) and leaves every other flag to the
+application, as the reference leaves flags it does not know.
+``--search-measure-ops`` and ``--profiling`` raise
+``NotImplementedError``: per-op measurement on the card is ROADMAP.md
+Queue 1 item 11. Tracing fields are refused where they are read
+(``FFModel.fit``).
 """
 
 from __future__ import annotations
@@ -192,6 +194,37 @@ class FFConfig:
             elif a == "--weight-update-sharding":
                 self.weight_update_sharding = _choice(
                     a, take(), ("auto", "on", "off"))
+            elif a == "--checkpoint-dir":
+                self.checkpoint_dir = take()
+            elif a == "--checkpoint-every":
+                self.checkpoint_every = int(take())
+            elif a == "--checkpoint-retain":
+                v = int(take())
+                if v < 1:
+                    raise ValueError(
+                        f"--checkpoint-retain expects >= 1 (the last "
+                        f"complete checkpoint is never deleted), got {v}")
+                self.checkpoint_retain = v
+            elif a == "--checkpoint-sync":
+                # commit on the training thread (the async writer is the
+                # default)
+                self.checkpoint_async = False
+            elif a == "--resume":
+                self.resume = True
+            elif a == "--grace-window":
+                v = float(take())
+                if v < 0:
+                    raise ValueError(
+                        f"--grace-window expects seconds >= 0 (0 = no "
+                        f"preemption handler), got {v}")
+                self.grace_window_s = v
+            elif a == "--watchdog-timeout":
+                v = float(take())
+                if v < 0:
+                    raise ValueError(
+                        f"--watchdog-timeout expects seconds >= 0 (0 = "
+                        f"no watchdog), got {v}")
+                self.watchdog_timeout_s = v
             elif a in ("--search-measure-ops", "--profiling"):
                 raise NotImplementedError(
                     f"{a}: per-op measurement on the card comes with a "

@@ -614,23 +614,76 @@ class FFModel:
                 "capture come with slice 6 of the PyTorch port (ROADMAP.md "
                 "Queue 1 item 11)")
 
-    def _refuse_checkpointing(self, checkpoint_dir=None,
-                              checkpoint_every=None, resume=None) -> None:
+    def _make_health(self):
+        """RuntimeHealth for one fit call (None when supervision is off).
+        ``--grace-window`` turns SIGTERM/SIGINT into a graceful stop the
+        step loop honors (final checkpoint + ``PREEMPTED_EXIT``);
+        ``--watchdog-timeout`` starts the hung-step watchdog."""
         cfg = self.config
-        if (checkpoint_dir or cfg.checkpoint_dir or checkpoint_every
-                or cfg.checkpoint_every or resume or cfg.resume
-                or cfg.grace_window_s or cfg.watchdog_timeout_s):
-            raise NotImplementedError(
-                "checkpoint_dir/checkpoint_every/resume and the runtime "
-                "health flags come with slice 6 of the PyTorch port "
-                "(ROADMAP.md Queue 1 item 11)")
+        if cfg.grace_window_s <= 0 and cfg.watchdog_timeout_s <= 0:
+            return None
+        from flexflow_tpu_torch.runtime_health import RuntimeHealth
+
+        return RuntimeHealth(grace_window_s=cfg.grace_window_s,
+                             watchdog_timeout_s=cfg.watchdog_timeout_s)
+
+    def _make_checkpointer(self, checkpoint_dir, checkpoint_every, resume,
+                           heartbeat=None):
+        """(CheckpointManager, start step) for one fit call ((None, 0) when
+        checkpointing is off). Explicit arguments win over the
+        ``--checkpoint-*`` / ``--resume`` config flags. With resume on,
+        the newest COMPLETE checkpoint restores (a directory holding only
+        partial ones raises) and the returned start step tells the epoch
+        loop how many step slots to skip; an empty directory is a fresh
+        launch, so one command line serves the first start and every
+        restart."""
+        cfg = self.config
+        cdir = checkpoint_dir or cfg.checkpoint_dir
+        do_resume = resume if resume is not None else cfg.resume
+        every = (checkpoint_every if checkpoint_every is not None
+                 else cfg.checkpoint_every)
+        if not cdir:
+            if do_resume:
+                raise ValueError(
+                    "resume requested but no checkpoint directory — pass "
+                    "fit(checkpoint_dir=...) or --checkpoint-dir")
+            if every:
+                # a cadence with nowhere to write would train for hours
+                # saving nothing
+                raise ValueError(
+                    f"checkpoint_every={every} requested but no checkpoint "
+                    f"directory — pass fit(checkpoint_dir=...) or "
+                    f"--checkpoint-dir")
+            return None, 0
+        from flexflow_tpu_torch.ckpt import CheckpointManager
+        mgr = CheckpointManager(self, cdir, every=every,
+                                retain=cfg.checkpoint_retain,
+                                async_write=cfg.checkpoint_async,
+                                heartbeat=heartbeat)
+        start = mgr.resume() if do_resume else 0
+        return mgr, start
 
     def _run_epochs(self, next_batch, num_batches: int, bs: int,
-                    epochs: int, verbose: bool) -> float:
+                    epochs: int, verbose: bool, ckpt_mgr=None,
+                    start_step: int = 0, health=None) -> float:
         """Epoch loop: one compiled train step per batch (a CUDA-graph
         replay on the card), metric sums added up on the device and read
         once per epoch, the ELAPSED TIME / THROUGHPUT report.
         ``next_batch(epoch, b)`` -> (inputs dict, labels).
+
+        ``ckpt_mgr`` (a ``ckpt.CheckpointManager``) saves every
+        ``checkpoint_every`` iterations (blocking only for the snapshot's
+        device→host copy; the files and the manifest commit run on its
+        writer thread) and once more at the end. A resumed run passes
+        ``start_step``: the first ``start_step`` step slots of the epoch
+        grid are skipped at no cost, the slots the checkpoint covers, so
+        epochs and batch indices line up with the uninterrupted schedule.
+        After each step ``faults.step_hook`` runs (``FFS_FAULT``), and
+        ``health`` (``runtime_health.RuntimeHealth``) takes the watchdog
+        heartbeat and the preemption check: a pending SIGTERM raises
+        ``Preempted`` after the in-flight step, and this loop cuts the
+        grace-window checkpoint before it propagates. Steps that neither
+        save nor stop read nothing from the card.
 
         Registry (``obs/registry.py``): ``train/step_latency_s`` observes
         each step's host time since the previous step ended. Steps are
@@ -639,6 +692,7 @@ class FFModel:
         batch per epoch every observation is a whole step. The counters
         ``flash_bwd.launches`` and ``fused_adam.launches`` grow by the
         kernel launches of the run."""
+        from flexflow_tpu_torch.ckpt import faults
         from flexflow_tpu_torch.obs.registry import get_registry
         from flexflow_tpu_torch.ops.flash_attention import flash_bwd
         from flexflow_tpu_torch.ops.fused_update import fused_adam_multi
@@ -649,28 +703,55 @@ class FFModel:
         launched = (flash_bwd.launches, fused_adam_multi.launches)
         start = time.time()
         executed = 0
+        step_idx = -1  # the global step slot
         for epoch in range(epochs):
             self._metrics_acc = PerfMetrics()
             mtotals = None
             loss = None
+            epoch_executed = 0
             t_prev = time.perf_counter()
             for b in range(num_batches):
+                step_idx += 1
+                if step_idx < start_step:
+                    continue  # inside the restored checkpoint
                 inputs, labels = next_batch(epoch, b)
                 (self.params, self.opt_state, self.state, loss,
                  mvals) = train_step(self.params, self.opt_state, self.state,
                                      inputs, labels, self._generator)
                 self._iter += 1
                 executed += 1
+                epoch_executed += 1
                 # the step's metric sums are overwritten by its next call
                 mtotals = ({k: v.clone() for k, v in mvals.items()}
                            if mtotals is None else
                            {k: mtotals[k] + v for k, v in mvals.items()})
+                faults.step_hook(step_idx)
+                if health is not None:
+                    try:
+                        health.step_done(step_idx)
+                    except BaseException:
+                        if ckpt_mgr is not None:
+                            t_grace = time.perf_counter()
+                            ckpt_mgr.finalize(elapsed_s=time.time() - start,
+                                              steps=executed)
+                            reg.gauge(
+                                f"{ckpt_mgr.run_name}/grace_checkpoint_s",
+                                time.perf_counter() - t_grace)
+                        raise
+                if ckpt_mgr is not None:
+                    if ckpt_mgr.should_save(self._iter):
+                        ckpt_mgr.save(self._iter)
+                    else:
+                        ckpt_mgr.note_step(self._iter)
                 if b + 1 < num_batches:
                     now = time.perf_counter()
                     reg.observe("train/step_latency_s", now - t_prev)
                     t_prev = now
-            # the epoch's one host read
-            self._metrics_acc.update(mtotals or {}, bs * num_batches)
+            if not epoch_executed:
+                continue  # the whole epoch is inside the checkpoint
+            # the epoch's one host read; a resumed run's partial epoch
+            # averages over the steps it ran
+            self._metrics_acc.update(mtotals or {}, bs * epoch_executed)
             self._last_loss = float(loss)
             self.epoch_losses.append(self._last_loss)
             reg.observe("train/step_latency_s", time.perf_counter() - t_prev)
@@ -679,8 +760,12 @@ class FFModel:
                 print(f"epoch {epoch}: loss={self._last_loss:.4f} " +
                       " ".join(f"{k}={v:.4f}" for k, v in rep.items()))
         elapsed = time.time() - start
+        if ckpt_mgr is not None:
+            # final save + durability barrier + goodput gauge
+            ckpt_mgr.finalize(elapsed_s=elapsed, steps=executed)
         reg.inc("flash_bwd.launches", flash_bwd.launches - launched[0])
         reg.inc("fused_adam.launches", fused_adam_multi.launches - launched[1])
+        # throughput counts only the samples this run processed
         thr = bs * executed / elapsed
         if verbose:
             print(f"ELAPSED TIME = {elapsed:.4f}s, THROUGHPUT = {thr:.2f} "
@@ -703,13 +788,24 @@ class FFModel:
             checkpoint_every: Optional[int] = None,
             resume: Optional[bool] = None) -> float:
         """Keras-style whole-dataset training loop, streaming batches from
-        the host; returns samples/s. Tracing, profiling, checkpointing and
-        resume (the arguments and their flags) come with slice 6 and
-        raise here."""
+        the host; returns samples/s.
+
+        ``checkpoint_dir`` + ``checkpoint_every`` (or the
+        ``--checkpoint-*`` flags) turn on v2 per-shard async
+        checkpointing (``flexflow_tpu_torch/ckpt``): every N iterations
+        the step's state is snapshotted to the host (the only blocking
+        cost) and a writer thread commits it manifest-last, keeping the
+        newest ``--checkpoint-retain`` checkpoints. ``resume`` (or
+        ``--resume``) restores the newest complete checkpoint first and
+        skips the step slots it covers, so ``epochs`` keeps meaning the
+        TOTAL schedule: an interrupted and an uninterrupted run of the
+        same command line end bit-identically. ``--grace-window`` and
+        ``--watchdog-timeout`` supervise the run (``runtime_health.py``).
+        Tracing and profiling (``trace_dir``, ``profile_steps``) come with
+        a later slice and raise here."""
         if self.executor is None:
             raise ValueError("compile() the model before fit()")
         self._refuse_tracing(trace_dir, profile_steps)
-        self._refuse_checkpointing(checkpoint_dir, checkpoint_every, resume)
         epochs = epochs or self.config.epochs
         xs, bs, num_batches = self._batches(x, batch_size)
 
@@ -718,7 +814,19 @@ class FFModel:
             return (self._host_inputs([xx[sl] for xx in xs]),
                     np.asarray(y[sl]))
 
-        return self._run_epochs(next_batch, num_batches, bs, epochs, verbose)
+        health = self._make_health()
+        try:
+            if health is not None:
+                health.install()
+            ckpt_mgr, start_step = self._make_checkpointer(
+                checkpoint_dir, checkpoint_every, resume,
+                heartbeat=health.heartbeat if health is not None else None)
+            return self._run_epochs(next_batch, num_batches, bs, epochs,
+                                    verbose, ckpt_mgr=ckpt_mgr,
+                                    start_step=start_step, health=health)
+        finally:
+            if health is not None:
+                health.close()
 
     def evaluate(self, x=None, y=None, batch_size: Optional[int] = None,
                  trace_dir: Optional[str] = None) -> Dict[str, float]:
@@ -815,6 +923,23 @@ class FFModel:
         self._refresh_compute_params()
         fwd = self.executor.make_forward(training=False)
         return host_copy(fwd(self.params, self.state, self._host_inputs(x)))
+
+    # ---- checkpoint / resume / recompile -----------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """The v1 single-file checkpoint (``checkpoint.py``)."""
+        from flexflow_tpu_torch.checkpoint import save_checkpoint
+        save_checkpoint(path, self)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore a v1 file stem or a v2 checkpoint directory (either
+        package's) into this compiled model, in place; returns the saved
+        iteration counter."""
+        from flexflow_tpu_torch.checkpoint import load_checkpoint
+        return load_checkpoint(path, self)
+
+    def recompile_on_condition(self, recompile_state) -> bool:
+        from flexflow_tpu_torch.recompile import recompile_on_condition
+        return recompile_on_condition(self, recompile_state)
 
     # ---- weight I/O --------------------------------------------------------
     def get_parameter(self, layer_name: str, param_name: str = "kernel") -> np.ndarray:

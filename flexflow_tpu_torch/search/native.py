@@ -106,6 +106,16 @@ def build() -> Path:
     return out
 
 
+def available() -> bool:
+    """Whether the core can be had here: its sources and a C++ compiler
+    are present (nothing is built)."""
+    try:
+        _cxx()
+    except RuntimeError:
+        return False
+    return (NATIVE_DIR / SOURCE).is_file()
+
+
 def _load() -> ctypes.CDLL:
     """The current build of the core, loaded once into this process."""
     global _lib, _lib_path

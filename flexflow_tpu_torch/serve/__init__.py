@@ -3,8 +3,8 @@
 PyTorch counterpart of ``flexflow_tpu/serve``: continuous/dynamic
 batching (``batching``) over per-batch-bucket executors (``engine``),
 KV-cache prefill and incremental decode for causal decoders
-(``kv_cache``), and closed-loop load generation (``loadgen``). Manifest
-loading comes with a later slice.
+(``kv_cache``), closed-loop load generation (``loadgen``), and deploying
+a checkpoint manifest (``loader.load_for_serving``).
 """
 
 from flexflow_tpu_torch.serve.batching import (BatchScheduler, Request,
@@ -12,6 +12,7 @@ from flexflow_tpu_torch.serve.batching import (BatchScheduler, Request,
                                                pick_bucket)
 from flexflow_tpu_torch.serve.engine import ServingEngine
 from flexflow_tpu_torch.serve.kv_cache import DecodeSession, init_kv_cache
+from flexflow_tpu_torch.serve.loader import load_for_serving
 from flexflow_tpu_torch.serve.loadgen import (run_closed_loop,
                                               warm_buckets)
 
@@ -22,6 +23,7 @@ __all__ = [
     "RequestQueue",
     "ServingEngine",
     "init_kv_cache",
+    "load_for_serving",
     "pad_to_bucket",
     "pick_bucket",
     "run_closed_loop",

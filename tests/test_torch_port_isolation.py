@@ -26,6 +26,7 @@ PORT = REPO / "flexflow_tpu_torch"
 def _forbidden(module: str) -> bool:
     # mind the prefix: flexflow_tpu_torch itself starts with flexflow_tpu
     return (module == "jax" or module.startswith("jax.")
+            or module == "ml_dtypes" or module.startswith("ml_dtypes.")
             or module == "flexflow_tpu" or module.startswith("flexflow_tpu."))
 
 
@@ -50,7 +51,13 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.models.resnext, "
         "flexflow_tpu_torch.models.inception, "
         "flexflow_tpu_torch.models.resnet, flexflow_tpu_torch.models.alexnet, "
-        "flexflow_tpu_torch.transforms, flexflow_tpu_torch.ops.norm\n"
+        "flexflow_tpu_torch.transforms, flexflow_tpu_torch.ops.norm, "
+        "flexflow_tpu_torch.ckpt, flexflow_tpu_torch.ckpt.tree, "
+        "flexflow_tpu_torch.ckpt.manifest, flexflow_tpu_torch.ckpt.faults, "
+        "flexflow_tpu_torch.ckpt.sharded, flexflow_tpu_torch.ckpt.manager, "
+        "flexflow_tpu_torch.ckpt.elastic, flexflow_tpu_torch.checkpoint, "
+        "flexflow_tpu_torch.runtime_health, flexflow_tpu_torch.recompile, "
+        "flexflow_tpu_torch.serve.loader\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
