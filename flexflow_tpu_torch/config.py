@@ -6,11 +6,12 @@ and defaults, so a configuration carries over between the two packages.
 training flags, the machine model, the auto-parallelization search and
 strategy files, the conv layout and the Conv+BN fold, checkpointing,
 resume and the runtime-health flags) and leaves every other flag to the
-application, as the reference leaves flags it does not know.
-``--search-measure-ops`` and ``--profiling`` raise
-``NotImplementedError``: per-op measurement on the card is ROADMAP.md
-Queue 1 item 11. Tracing fields are refused where they are read
-(``FFModel.fit``).
+application, as the reference leaves flags it does not know. The
+observability flags are the reference's: ``--search-measure-ops`` and
+``--measured-cache`` (per-op times on the device priced by the search,
+``search/profile.py``), ``--profiling`` (the per-op table at compile),
+``--trace-dir`` and ``--profile-steps`` (``obs/``), the window checked
+when it is parsed.
 """
 
 from __future__ import annotations
@@ -225,11 +226,21 @@ class FFConfig:
                         f"--watchdog-timeout expects seconds >= 0 (0 = "
                         f"no watchdog), got {v}")
                 self.watchdog_timeout_s = v
-            elif a in ("--search-measure-ops", "--profiling"):
-                raise NotImplementedError(
-                    f"{a}: per-op measurement on the card comes with a "
-                    f"later slice of the PyTorch port (ROADMAP.md Queue 1 "
-                    f"item 11)")
+            elif a == "--search-measure-ops":
+                self.search_measure_ops = True
+            elif a == "--measured-cache":
+                self.measured_cache_file = take()
+            elif a == "--profiling":
+                self.profiling = True
+            elif a == "--trace-dir":
+                self.trace_dir = take()
+            elif a == "--profile-steps":
+                v = take()
+                # a bad window fails here, not steps into the traced run
+                from flexflow_tpu_torch.obs.devtrace import \
+                    parse_profile_steps
+                parse_profile_steps(v)
+                self.profile_steps = v
             else:
                 rest.append(a)
             i += 1

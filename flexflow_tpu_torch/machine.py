@@ -33,8 +33,10 @@ CHIP_SPECS: Dict[str, Dict[str, float]] = {
     "cpu-sim": dict(flops=1e12, hbm_bw=100e9, hbm_cap=16e9, ici_bw=10e9,
                     ici_links=4),
     # NVIDIA H100 SXM5 80GB in an 8-GPU NVSwitch node (HGX/DGX H100).
-    # Datasheet figures and two readings; uncalibrated: no measured
-    # per-op rows replace them yet (ROADMAP.md Queue 1 item 11).
+    # Datasheet figures and two readings. A compile under
+    # --search-measure-ops prices each op on times taken on the card
+    # (search/profile.py) instead; no calibration rows of the card exist
+    # yet (ROADMAP.md Queue 1 item 11).
     "h100-sxm": dict(
         flops=989e12,      # bf16 dense Tensor Core peak (H100 SXM datasheet)
         hbm_bw=3.35e12,    # HBM3 bandwidth (H100 SXM datasheet)
@@ -253,6 +255,40 @@ class MachineSpec:
         if not math.isfinite(worst_bw):
             worst_bw = self.dcn_bw
         return worst_bw, self.dcn_latency * worst_hops
+
+
+def resolve_device(device=None):
+    """``None`` means the card: CUDA device 0, or an error when there is
+    no CUDA device. The CPU runs only when asked for by name."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "PyTorch port on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA device "
+                           f"is available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev
+
+
+def check_spec_device(machine_spec, device) -> None:
+    """Raise unless ``machine_spec`` describes ``device``: the CPU pairs
+    with ``"cpu-sim"`` only, a card with a card's entry only, so that no
+    time taken on one is read against the other's peaks."""
+    import torch
+
+    on_cpu = torch.device(device).type == "cpu"
+    if on_cpu != (machine_spec.chip == "cpu-sim"):
+        raise ValueError(
+            f"machine spec {machine_spec.chip!r} does not describe the "
+            f"device {str(device)!r}: times taken there would be read "
+            f"against another machine's peaks")
 
 
 class UnknownDeviceError(RuntimeError):

@@ -13,7 +13,9 @@ on the CPU.
 ``compile`` takes the reference's branch order: the machine model
 (``machine_spec``, ``--machine-model-file``, or ``detect_machine_spec``),
 then an imported strategy file, or the Unity search when
-``search_budget > 0`` (``search/unity.py``), else the heuristic mesh and
+``search_budget > 0`` (``search/unity.py``; under ``search_measure_ops``
+priced on per-op times taken on the device, ``search/profile.py``),
+else the heuristic mesh and
 data-parallel strategy; then the export (``--export-strategy``), then
 ``apply_strategy``, which also turns each op's searched or imported
 choice into its kernel: attention ops are pinned to the flash core
@@ -48,29 +50,12 @@ from flexflow_tpu_torch.layer import Layer
 from flexflow_tpu_torch.layout import propagate_layouts
 from flexflow_tpu_torch.machine import (MachineSpec, Mesh,
                                         UnknownDeviceError,
-                                        detect_machine_spec, make_mesh)
+                                        detect_machine_spec, make_mesh,
+                                        resolve_device)
 from flexflow_tpu_torch.metrics import Metrics, PerfMetrics
 from flexflow_tpu_torch.ops import OpRegistry
 from flexflow_tpu_torch.ops.attention import MultiHeadAttention
 from flexflow_tpu_torch.tensor import Tensor
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card: CUDA device 0, or an error when there is
-    no CUDA device. The CPU runs only when asked for by name."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "PyTorch port on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA device "
-                           f"is available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
-    return dev
 
 
 def devices_to_run(cfg: FFConfig, device: torch.device) -> int:
@@ -388,11 +373,6 @@ class FFModel:
             raise NotImplementedError(
                 "lint: static analysis comes with a later slice of the "
                 "PyTorch port (ROADMAP.md Queue 1 item 12)")
-        if cfg.search_measure_ops or cfg.profiling:
-            raise NotImplementedError(
-                "search_measure_ops/profiling: per-op measurement on the "
-                "card comes with a later slice of the PyTorch port "
-                "(ROADMAP.md Queue 1 item 11)")
         if comp_mode == CompMode.TRAINING and optimizer is None:
             raise ValueError("compile(comp_mode=CompMode.TRAINING) needs an "
                              "optimizer")
@@ -412,6 +392,9 @@ class FFModel:
         self.outputs = out_t
         final_ref = self._select_final_ref(nodes, tensor_ref)
 
+        compute_dtype = (torch.bfloat16
+                         if cfg.allow_mixed_precision and self.device.type == "cuda"
+                         else torch.float32)
         # --- machine + mesh + strategy -----------------------------------
         n_dev = devices_to_run(cfg, self.device)
         batch0 = self.input_tensors[0].shape[0] if self.input_tensors else 1
@@ -456,10 +439,23 @@ class FFModel:
                 cfg.opt_state_factor = 1.0 if optimizer.momentum else 0.0
             else:
                 cfg.opt_state_factor = 2.0
+            measured = None
+            if cfg.search_measure_ops:
+                # price the search on per-op times taken on the model's
+                # device, in its compute dtype and execution layout (the
+                # original FlexFlow's measure_operator_cost pass)
+                from flexflow_tpu_torch.search.profile import microbenchmark
+                propagate_layouts(nodes, mode=cfg.conv_compute_layout,
+                                  on_accelerator=self.device.type == "cuda")
+                measured = microbenchmark(
+                    nodes, machine_spec=self.machine_spec,
+                    device=self.device, dtype=compute_dtype,
+                    cache_file=cfg.measured_cache_file)
             try:
                 mesh_axes, self.strategy, self.search_info = \
                     unity.graph_optimize(nodes, self.machine_spec, cfg, n_dev,
-                                         batch=batch0, final_ref=final_ref)
+                                         measured=measured, batch=batch0,
+                                         final_ref=final_ref)
             except (RuntimeError, OSError) as e:
                 # a requested search never degrades to data parallelism
                 raise RuntimeError(
@@ -516,9 +512,12 @@ class FFModel:
         final_is_softmax = final_op.op_type == OperatorType.SOFTMAX
         self._final_is_softmax = final_is_softmax
 
-        compute_dtype = (torch.bfloat16
-                         if cfg.allow_mixed_precision and self.device.type == "cuda"
-                         else torch.float32)
+        self.op_profile = None
+        if cfg.profiling:
+            # --profiling (the original FlexFlow's profiling mode): each op
+            # timed on the device, the per-op fwd/bwd table reported
+            # through the RecursiveLogger and kept as op_profile
+            self.op_profile = self._profile_ops(nodes, compute_dtype)
         self.executor = GraphExecutor(
             nodes, input_names, final_ref, self.device,
             compute_dtype=compute_dtype, loss_type=loss_type,
@@ -541,6 +540,22 @@ class FFModel:
             cuda_build.build_all(names)
             for name in names:
                 cuda_build.load(name)
+
+    def _profile_ops(self, nodes, compute_dtype) -> Dict[str, float]:
+        from flexflow_tpu_torch.search.profile import microbenchmark
+        from flexflow_tpu_torch.utils.logger import RecursiveLogger
+        plog = RecursiveLogger("profiling")
+        with plog.enter(f"per-op device microbenchmarks ({len(nodes)} ops)"):
+            prof = microbenchmark(nodes, machine_spec=self.machine_spec,
+                                  device=self.device, dtype=compute_dtype,
+                                  cache_file=self.config.measured_cache_file)
+            for node in nodes:
+                f_s = prof.get(f"{node.guid}:fwd")
+                b_s = prof.get(f"{node.guid}:bwd")
+                if f_s is not None:
+                    plog.info(f"{node.op.name}: fwd {f_s * 1e6:9.1f}us  "
+                              f"bwd {b_s * 1e6:9.1f}us")
+        return prof
 
     def _heuristic_mesh(self, n_dev: int, batch0: int) -> Mesh:
         """The mesh without a search: data parallel over the devices the
@@ -606,26 +621,134 @@ class FFModel:
         return stage_array(y, self.device, torch.float32)
 
     # ======================= train / eval loops ============================
-    def _refuse_tracing(self, trace_dir=None, profile_steps=None) -> None:
-        cfg = self.config
-        if trace_dir or cfg.trace_dir or profile_steps or cfg.profile_steps:
-            raise NotImplementedError(
-                "trace_dir/profile_steps: step tracing and device-trace "
-                "capture come with slice 6 of the PyTorch port (ROADMAP.md "
-                "Queue 1 item 11)")
+    def _make_tracer(self, trace_dir, run_name: str):
+        """Tracer for one fit/evaluate call: the explicit ``trace_dir``
+        wins over ``--trace-dir``; both unset returns the shared no-op
+        (``obs/``: the untraced path pays nothing)."""
+        from flexflow_tpu_torch.obs import make_tracer, model_context
+        tracer = make_tracer(trace_dir or self.config.trace_dir,
+                             run_name=run_name, device=self.device)
+        if tracer.active:
+            tracer.set_meta(**model_context(self))
+        return tracer
 
-    def _make_health(self):
+    def _train_captures(self) -> int:
+        """Captures the compiled train step has made (the card's)."""
+        graph = self.executor.step_graphs.get("train_step")
+        return graph.captures if graph is not None else 0
+
+    def _make_capture(self, tracer, profile_steps):
+        """Windowed torch.profiler device-trace capture (``obs/devtrace``):
+        the explicit ``profile_steps`` wins over ``--profile-steps``; both
+        unset (or no active tracer) returns the shared no-op capture. On
+        the card a window step that captures the train step's CUDA graph
+        is named and left out of the attribution."""
+        from flexflow_tpu_torch.obs import make_capture
+        return make_capture(
+            tracer, profile_steps or self.config.profile_steps,
+            capture_count=(self._train_captures
+                           if self.device.type == "cuda" else None))
+
+    def _finalize_trace(self, tracer, success: bool = True,
+                        devtrace=None) -> None:
+        """Export the trace, the step summary (FLOPs, memory, collective
+        census), the simulated schedule and the drift report, in the
+        reference's order: the device trace first (its lanes land in the
+        exported trace and its per-collective times join the drift
+        report), then the step metrics, the simulated schedule, the
+        export, the search trace, the summary, the drift report and the
+        counters. A failure warns instead of killing the run that
+        produced the data; ``success=False`` (the run raised) flushes the
+        trace and counters only."""
+        if not tracer.active:
+            return
+        import os
+        import sys
+        from flexflow_tpu_torch.obs import (drift_report, export_step_summary,
+                                            get_registry, record_step_metrics,
+                                            write_artifact, write_simtrace)
+        devrep = None
+        if devtrace is not None and devtrace.active:
+            try:
+                devrep = devtrace.finalize(self, tracer)
+            except Exception as e:
+                print(f"[obs] device-trace attribution failed: {e!r}",
+                      file=sys.stderr)
+        step_metrics = None
+        try:
+            step_metrics = record_step_metrics(self, tracer)
+        except Exception as e:
+            print(f"[obs] step metrics failed: {e!r}", file=sys.stderr)
+        if success:
+            try:
+                write_simtrace(self, tracer)
+            except Exception as e:
+                print(f"[obs] simulated-schedule trace failed: {e!r}",
+                      file=sys.stderr)
+        try:
+            tracer.export()
+        except Exception as e:
+            print(f"[obs] trace export failed: {e!r}", file=sys.stderr)
+        stem = os.path.join(tracer.trace_dir, tracer.file_stem)
+        extra = dict(run_name=tracer.run_name, run_seq=tracer.run_seq)
+        if (isinstance(self.search_info, dict)
+                and self.search_info.get("search_trace")):
+            try:
+                write_artifact(stem + ".searchtrace.json",
+                               dict(self.search_info["search_trace"]),
+                               host_id=tracer.host_id, kind="searchtrace",
+                               header_extra=extra, device=self.device)
+            except Exception as e:
+                print(f"[obs] search-trace artifact failed: {e!r}",
+                      file=sys.stderr)
+        if success:
+            summary = None
+            try:
+                summary = export_step_summary(self, tracer)
+            except Exception as e:
+                print(f"[obs] step inspection failed: {e!r}",
+                      file=sys.stderr)
+            try:
+                rep = drift_report(
+                    self, tracer.step_time_s(),
+                    census=(summary or {}).get("collectives"),
+                    phase_summary=tracer.phase_summary(),
+                    measured_collectives=(devrep or {}).get("collectives"),
+                    step_metrics=step_metrics)
+                write_artifact(stem + ".drift.json", rep,
+                               host_id=tracer.host_id, kind="drift",
+                               header_extra=extra, device=self.device)
+            except Exception as e:
+                print(f"[obs] drift report failed: {e!r}", file=sys.stderr)
+        else:
+            print(f"[obs] run failed: wrote trace/counters only "
+                  f"({tracer.file_stem})", file=sys.stderr)
+        try:
+            get_registry().export(stem + ".counters.json",
+                                  host_id=tracer.host_id, device=self.device)
+        except Exception as e:
+            print(f"[obs] counter export failed: {e!r}", file=sys.stderr)
+
+    def _make_health(self, tracer=None, devtrace=None,
+                     run_name: str = "fit"):
         """RuntimeHealth for one fit call (None when supervision is off).
         ``--grace-window`` turns SIGTERM/SIGINT into a graceful stop the
         step loop honors (final checkpoint + ``PREEMPTED_EXIT``);
-        ``--watchdog-timeout`` starts the hung-step watchdog."""
+        ``--watchdog-timeout`` starts the hung-step watchdog, whose trip
+        flushes this run's trace from the watchdog thread first."""
         cfg = self.config
         if cfg.grace_window_s <= 0 and cfg.watchdog_timeout_s <= 0:
             return None
         from flexflow_tpu_torch.runtime_health import RuntimeHealth
 
-        return RuntimeHealth(grace_window_s=cfg.grace_window_s,
-                             watchdog_timeout_s=cfg.watchdog_timeout_s)
+        def _flush_trace():
+            self._finalize_trace(tracer, success=False, devtrace=devtrace)
+
+        return RuntimeHealth(
+            grace_window_s=cfg.grace_window_s,
+            watchdog_timeout_s=cfg.watchdog_timeout_s, run_name=run_name,
+            finalize_fn=(_flush_trace if tracer is not None
+                         and tracer.active else None))
 
     def _make_checkpointer(self, checkpoint_dir, checkpoint_every, resume,
                            heartbeat=None):
@@ -665,7 +788,8 @@ class FFModel:
 
     def _run_epochs(self, next_batch, num_batches: int, bs: int,
                     epochs: int, verbose: bool, ckpt_mgr=None,
-                    start_step: int = 0, health=None) -> float:
+                    start_step: int = 0, health=None, tracer=None,
+                    devtrace=None) -> float:
         """Epoch loop: one compiled train step per batch (a CUDA-graph
         replay on the card), metric sums added up on the device and read
         once per epoch, the ELAPSED TIME / THROUGHPUT report.
@@ -685,6 +809,20 @@ class FFModel:
         grace-window checkpoint before it propagates. Steps that neither
         save nor stop read nothing from the card.
 
+        With an active ``tracer`` (``obs/tracer.py``) each step is a span
+        with dispatch and device_wait phases (device_wait fences the step
+        on the card: an observer effect tracing accepts, so that a step's
+        span holds its device time) beside the phases ``next_batch``
+        records, checkpoints are checkpoint / grace_checkpoint spans, and
+        each epoch's read is a metrics_sync span; on the card each
+        replayed step's peak memory is read
+        (``torch.cuda.max_memory_allocated`` after
+        ``reset_peak_memory_stats``) into ``_step_peak_bytes``, the
+        largest of this run's steps (a traced run starts it afresh).
+        ``devtrace`` (``obs/devtrace.py``) wraps each step of its window
+        in the profiler session, outside the step span. Without either,
+        no step fences and none reads memory statistics.
+
         Registry (``obs/registry.py``): ``train/step_latency_s`` observes
         each step's host time since the previous step ended. Steps are
         asynchronous on the card except the last of each epoch, which
@@ -693,17 +831,24 @@ class FFModel:
         ``flash_bwd.launches`` and ``fused_adam.launches`` grow by the
         kernel launches of the run."""
         from flexflow_tpu_torch.ckpt import faults
+        from flexflow_tpu_torch.obs import NULL_CAPTURE, NULL_TRACER
         from flexflow_tpu_torch.obs.registry import get_registry
         from flexflow_tpu_torch.ops.flash_attention import flash_bwd
         from flexflow_tpu_torch.ops.fused_update import fused_adam_multi
 
+        tracer = tracer or NULL_TRACER
+        devtrace = devtrace or NULL_CAPTURE
+        traced = tracer.active or devtrace.active
+        read_peak = traced and self.device.type == "cuda"
+        if traced:
+            self._step_peak_bytes = None
         reg = get_registry()
         train_step = self.executor.make_train_step()
         self._refresh_compute_params()
         launched = (flash_bwd.launches, fused_adam_multi.launches)
         start = time.time()
         executed = 0
-        step_idx = -1  # the global step slot
+        step_idx = -1  # the global step slot, the --profile-steps index
         for epoch in range(epochs):
             self._metrics_acc = PerfMetrics()
             mtotals = None
@@ -714,17 +859,35 @@ class FFModel:
                 step_idx += 1
                 if step_idx < start_step:
                     continue  # inside the restored checkpoint
-                inputs, labels = next_batch(epoch, b)
-                (self.params, self.opt_state, self.state, loss,
-                 mvals) = train_step(self.params, self.opt_state, self.state,
-                                     inputs, labels, self._generator)
-                self._iter += 1
+                # devtrace outside tracer.step: the profiler's start and
+                # stop at the window's edges are not step time
+                with devtrace.step(step_idx), tracer.step():
+                    if read_peak:
+                        captures = self._train_captures()
+                        torch.cuda.reset_peak_memory_stats(self.device)
+                    inputs, labels = next_batch(epoch, b)
+                    with tracer.phase("dispatch"):
+                        (self.params, self.opt_state, self.state, loss,
+                         mvals) = train_step(self.params, self.opt_state,
+                                             self.state, inputs, labels,
+                                             self._generator)
+                    self._iter += 1
+                    # the step's metric sums are overwritten by its next
+                    # call
+                    mtotals = ({k: v.clone() for k, v in mvals.items()}
+                               if mtotals is None else
+                               {k: mtotals[k] + v for k, v in mvals.items()})
+                    if traced:
+                        with tracer.phase("device_wait"):
+                            if self.device.type == "cuda":
+                                torch.cuda.synchronize(self.device)
+                        if read_peak and self._train_captures() == captures:
+                            self._step_peak_bytes = max(
+                                self._step_peak_bytes or 0.0,
+                                float(torch.cuda.max_memory_allocated(
+                                    self.device)))
                 executed += 1
                 epoch_executed += 1
-                # the step's metric sums are overwritten by its next call
-                mtotals = ({k: v.clone() for k, v in mvals.items()}
-                           if mtotals is None else
-                           {k: mtotals[k] + v for k, v in mvals.items()})
                 faults.step_hook(step_idx)
                 if health is not None:
                     try:
@@ -732,15 +895,18 @@ class FFModel:
                     except BaseException:
                         if ckpt_mgr is not None:
                             t_grace = time.perf_counter()
-                            ckpt_mgr.finalize(elapsed_s=time.time() - start,
-                                              steps=executed)
+                            with tracer.phase("grace_checkpoint"):
+                                ckpt_mgr.finalize(
+                                    elapsed_s=time.time() - start,
+                                    steps=executed)
                             reg.gauge(
                                 f"{ckpt_mgr.run_name}/grace_checkpoint_s",
                                 time.perf_counter() - t_grace)
                         raise
                 if ckpt_mgr is not None:
                     if ckpt_mgr.should_save(self._iter):
-                        ckpt_mgr.save(self._iter)
+                        with tracer.phase("checkpoint"):
+                            ckpt_mgr.save(self._iter)
                     else:
                         ckpt_mgr.note_step(self._iter)
                 if b + 1 < num_batches:
@@ -751,8 +917,9 @@ class FFModel:
                 continue  # the whole epoch is inside the checkpoint
             # the epoch's one host read; a resumed run's partial epoch
             # averages over the steps it ran
-            self._metrics_acc.update(mtotals or {}, bs * epoch_executed)
-            self._last_loss = float(loss)
+            with tracer.phase("metrics_sync", epoch=epoch):
+                self._metrics_acc.update(mtotals or {}, bs * epoch_executed)
+                self._last_loss = float(loss)
             self.epoch_losses.append(self._last_loss)
             reg.observe("train/step_latency_s", time.perf_counter() - t_prev)
             if verbose:
@@ -801,53 +968,90 @@ class FFModel:
         TOTAL schedule: an interrupted and an uninterrupted run of the
         same command line end bit-identically. ``--grace-window`` and
         ``--watchdog-timeout`` supervise the run (``runtime_health.py``).
-        Tracing and profiling (``trace_dir``, ``profile_steps``) come with
-        a later slice and raise here."""
+
+        ``trace_dir`` (or ``--trace-dir``) turns on the observability of
+        ``obs/``: per-step Chrome-trace/JSONL artifacts, the step summary
+        (FLOPs, peak memory, collective census), the simulated schedule
+        and the drift report land in that directory when the loop ends,
+        also when it raises (then the trace and counters only).
+        ``profile_steps`` (or ``--profile-steps``, e.g. "2:4") wraps that
+        window of steps in a ``torch.profiler`` session whose device time
+        by step and kernel lands there too (``.devtrace.json``). Without
+        ``trace_dir`` nothing is written and the steps run as before."""
         if self.executor is None:
             raise ValueError("compile() the model before fit()")
-        self._refuse_tracing(trace_dir, profile_steps)
         epochs = epochs or self.config.epochs
         xs, bs, num_batches = self._batches(x, batch_size)
+        tracer = self._make_tracer(trace_dir, "fit")
+        devtrace = self._make_capture(tracer, profile_steps)
 
         def next_batch(epoch, b):
             sl = slice(b * bs, (b + 1) * bs)
-            return (self._host_inputs([xx[sl] for xx in xs]),
-                    np.asarray(y[sl]))
+            with tracer.phase("data_load"):
+                host = [xx[sl] for xx in xs]
+                labels = y[sl]
+            # the compiled step copies the host batch to the card: here it
+            # only takes the model's input dtypes
+            with tracer.phase("device_put"):
+                return self._host_inputs(host), np.asarray(labels)
 
-        health = self._make_health()
+        run_name = tracer.run_name if tracer.active else "fit"
+        health = self._make_health(tracer, devtrace, run_name=run_name)
         try:
             if health is not None:
                 health.install()
             ckpt_mgr, start_step = self._make_checkpointer(
                 checkpoint_dir, checkpoint_every, resume,
                 heartbeat=health.heartbeat if health is not None else None)
-            return self._run_epochs(next_batch, num_batches, bs, epochs,
-                                    verbose, ckpt_mgr=ckpt_mgr,
-                                    start_step=start_step, health=health)
+            out = self._run_epochs(next_batch, num_batches, bs, epochs,
+                                   verbose, ckpt_mgr=ckpt_mgr,
+                                   start_step=start_step, health=health,
+                                   tracer=tracer, devtrace=devtrace)
+        except BaseException:
+            self._finalize_trace(tracer, success=False, devtrace=devtrace)
+            raise
         finally:
             if health is not None:
                 health.close()
+        self._finalize_trace(tracer, devtrace=devtrace)
+        return out
 
     def evaluate(self, x=None, y=None, batch_size: Optional[int] = None,
                  trace_dir: Optional[str] = None) -> Dict[str, float]:
         """Loss and metrics over the dataset -> {metric: mean, "loss":
         mean batch loss}, through the compiled eval step; each batch's
-        loss and metric sums are read as the reference reads them."""
+        loss and metric sums are read as the reference reads them.
+        ``trace_dir`` (or ``--trace-dir``) writes the batches' spans
+        (device_put, dispatch, metrics_sync) as an ``evaluate`` trace."""
         if self.executor is None:
             raise ValueError("compile() the model before evaluate()")
-        self._refuse_tracing(trace_dir)
         xs, bs, num_batches = self._batches(x, batch_size)
         eval_step = self.executor.make_eval_step()
         self._refresh_compute_params()
+        tracer = self._make_tracer(trace_dir, "evaluate")
         acc = PerfMetrics()
         loss_sum = 0.0
-        for b in range(num_batches):
-            sl = slice(b * bs, (b + 1) * bs)
-            loss, _, mvals = eval_step(
-                self.params, self.state,
-                self._host_inputs([xx[sl] for xx in xs]), np.asarray(y[sl]))
-            loss_sum += float(loss)
-            acc.update(mvals, bs)
+        try:
+            for b in range(num_batches):
+                with tracer.step():
+                    sl = slice(b * bs, (b + 1) * bs)
+                    with tracer.phase("device_put"):
+                        inputs = self._host_inputs([xx[sl] for xx in xs])
+                        labels = np.asarray(y[sl])
+                    with tracer.phase("dispatch"):
+                        loss, _, mvals = eval_step(self.params, self.state,
+                                                   inputs, labels)
+                    with tracer.phase("metrics_sync"):
+                        loss_sum += float(loss)
+                        acc.update(mvals, bs)
+        finally:
+            if tracer.active:
+                try:
+                    tracer.export()
+                except Exception as e:
+                    import sys
+                    print(f"[obs] trace export failed: {e!r}",
+                          file=sys.stderr)
         rep = acc.report()
         rep["loss"] = loss_sum / num_batches
         return rep

@@ -2,7 +2,9 @@
 
 The PyTorch port's own copy of ``flexflow_tpu/obs/registry.py``: the
 serving path (``serve/batching.py``, ``serve/engine.py``) counts requests,
-batches and errors here and observes latencies and batch occupancy.
+batches and errors here and observes latencies and batch occupancy; a
+traced ``fit`` adds its step-time, goodput, MFU and device-trace series
+(``obs/devtrace.py``) and exports the snapshot as ``.counters.json``.
 
 ``observe()`` keeps a bounded reservoir of samples per series so p50/p99
 survive into the snapshot without unbounded memory: at most
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import random
 import threading
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 RESERVOIR_SIZE = 512
 
@@ -98,6 +100,13 @@ class CounterRegistry:
             self._gauges.clear()
             self._observations.clear()
             self._samples.clear()
+
+    def export(self, path: str, host_id: Optional[int] = None,
+               device=None) -> str:
+        """Write the snapshot as the ``.counters.json`` artifact."""
+        from flexflow_tpu_torch.obs.artifacts import write_artifact
+        return write_artifact(path, self.to_dict(), host_id=host_id,
+                              kind="counters", device=device)
 
 
 _REGISTRY = CounterRegistry()

@@ -1,0 +1,298 @@
+"""Simulated-schedule observability: the search's predicted timeline.
+
+The port's counterpart of ``flexflow_tpu/obs/simtrace.py``, with the
+same artifact, lanes, corpus schema and row fields. The native simulator
+produces a task schedule for the compiled strategy (per-task
+``start``/``finish`` seconds on its compute and interconnect streams,
+``ffs_simulate``); this module renders it as Perfetto lanes
+(``sim:compute`` / ``sim:comms``) beside the measured device lanes of
+the devtrace capture (``device:compute`` / ``device:comms``,
+``obs/devtrace.py``), so that the predicted and the measured step sit
+side by side in one timeline.
+
+It also writes the ``.simtrace.json`` artifact: the predicted step
+breakdown plus per-op priced rows joined with measured per-op seconds
+where a profile table exists: the corpus rows the learned cost model
+trains on (``CORPUS_SCHEMA_VERSION``). The port prices analytically
+(no learned table exists for a GPU), so every row's priced source is
+``"analytic"`` and no analytic twin rides along.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional
+
+# Perfetto lane tids for the predicted schedule, disjoint from the
+# devtrace lanes (64-66) and below the merge tid-block size (256), so
+# sim lanes keep their own rows in both per-host and merged traces.
+SIM_TID_COMPUTE, SIM_TID_COMMS = 72, 73
+SIM_LANE_THREADS = {SIM_TID_COMPUTE: "sim:compute",
+                    SIM_TID_COMMS: "sim:comms"}
+
+# SimTask kind -> lane (mirrors the simulator's two-stream scheduler:
+# comm/gradsync ride the ICI stream, everything else the compute
+# stream). Public: explain.py's timeline rendering uses the same map.
+SIM_COMMS_KINDS = ("comm", "gradsync")
+
+# Corpus-row schema version of the ``per_op`` rows below. v2 added the
+# featurization fields the learned cost model trains on (flops,
+# io_bytes, param_bytes, dtype_size, mesh degrees, ring sizes); v3 adds
+# the ``impl`` column — WHICH KERNEL ran the op (einsum/flash/ring/
+# conv/conv_bn_fused/triad/fused, the searched ``_k:`` dimension) — so
+# ``scripts/costmodel.py train`` learns per-impl coefficients
+# ("TYPE:impl" classes) instead of blending two lowerings into one
+# regression. The costmodel corpus loader
+# (flexflow_tpu/costmodel/corpus.py) refuses rows NEWER than what it
+# understands, so a schema drift here fails the CI costmodel stage
+# loudly instead of silently training on garbage; v2 rows stay
+# trainable (impl derived from the choice suffix).
+CORPUS_SCHEMA_VERSION = 3
+
+
+def sim_lane_events(tasks: List[Dict[str, Any]],
+                    name_of: Dict[int, str],
+                    t0_us: float = 0.0) -> List[Dict[str, Any]]:
+    """Chrome-trace ``X`` events for a simulated task schedule.
+
+    ``tasks``: ``ffs_simulate`` response rows ({kind, node, start,
+    finish, collective?, bytes?}, seconds). Zero-duration rows (the
+    census records pipe simulation emits) are skipped — they carry
+    bytes, not time. ``name_of`` maps node INDEX -> op name. ``t0_us``
+    places the schedule on the host timeline (e.g. at a measured step's
+    start) so predicted and measured lanes share a clock base."""
+    events: List[Dict[str, Any]] = []
+    for t in tasks:
+        start = float(t.get("start", 0.0))
+        finish = float(t.get("finish", 0.0))
+        if finish <= start:
+            continue
+        kind = str(t.get("kind", ""))
+        tid = SIM_TID_COMMS if kind in SIM_COMMS_KINDS else SIM_TID_COMPUTE
+        node = t.get("node", -1)
+        label = name_of.get(node, "step")
+        args: Dict[str, Any] = dict(kind=kind)
+        if t.get("collective"):
+            args["collective"] = t["collective"]
+            args["bytes"] = t.get("bytes", 0)
+        if t.get("hidden_s"):
+            # predicted-hidden interval: seconds of this comm
+            # task the simulator scheduled under busy compute — in the
+            # merged view, compare against the devtrace lanes' measured
+            # overlapped_comms_s to check the hiding actually landed
+            args["hidden_s"] = round(float(t["hidden_s"]), 9)
+        events.append(dict(
+            name=f"{label}:{kind}", ph="X", tid=tid,
+            ts=round(t0_us + start * 1e6, 3),
+            dur=round((finish - start) * 1e6, 3),
+            cat="simtrace", args=args))
+    return events
+
+
+def per_op_predicted(tasks: List[Dict[str, Any]]
+                     ) -> Dict[int, Dict[str, float]]:
+    """Node index -> priced seconds per term, aggregated from the
+    simulated schedule (fwd_s / bwd_s / comm_s / gradsync_s). Collective
+    census bytes accumulate under ``collective_bytes``."""
+    out: Dict[int, Dict[str, float]] = {}
+    for t in tasks:
+        node = t.get("node", -1)
+        if node is None or node < 0:
+            continue
+        row = out.setdefault(int(node), dict(
+            fwd_s=0.0, bwd_s=0.0, comm_s=0.0, gradsync_s=0.0,
+            hidden_s=0.0, collective_bytes=0.0))
+        dur = max(0.0, float(t.get("finish", 0.0))
+                  - float(t.get("start", 0.0)))
+        kind = str(t.get("kind", ""))
+        if kind in ("fwd", "bwd"):
+            row[f"{kind}_s"] += dur
+        elif kind == "comm":
+            row["comm_s"] += dur
+        elif kind == "gradsync":
+            row["gradsync_s"] += dur
+        row["hidden_s"] += float(t.get("hidden_s", 0.0))
+        if t.get("collective"):
+            row["collective_bytes"] += float(t.get("bytes", 0.0))
+    return out
+
+
+def _row_impl(ff, op, choice: Optional[str]) -> Optional[str]:
+    """Kernel impl of one corpus row: the ``_k:`` choice suffix when the
+    search picked one, else the executor's recorded kernel choice, else
+    (attention only) the impl ``forward`` dispatches on this platform.
+    None for ops with no registered kernel alternatives."""
+    from flexflow_tpu_torch.search.unity import kernel_choice_of
+    k = kernel_choice_of(choice)
+    if k is not None:
+        return k
+    kc = getattr(ff.executor, "kernel_choices", None) or {}
+    if op.name in kc:
+        return kc[op.name]
+    if hasattr(op, "selected_impl"):
+        try:
+            return op.selected_impl(ff.device, dict(ff.mesh.shape),
+                                    training=True)
+        except Exception:
+            return None
+    return None
+
+
+def corpus_rows(ff, resp: Dict[str, Any],
+                measured: Optional[Dict[str, float]] = None
+                ) -> List[Dict[str, Any]]:
+    """Learned-cost-model corpus rows: one per op, joining the op's
+    identity (class, shape, sharding choice) -> the simulator's priced
+    terms -> measured per-op seconds where a profile table has them
+    (``ff.op_profile`` from ``--profiling`` / ``--search-measure-ops``,
+    or an explicit ``measured`` table). ``measured.source`` records
+    whether the measured half is real ("measured") or absent (None) so
+    a training-set builder can filter."""
+    from flexflow_tpu_torch.obs.drift import work_division
+
+    measured = measured if measured is not None else (ff.op_profile or {})
+    priced = per_op_predicted(resp.get("tasks") or [])
+    # which model priced each node's compute (analytic roofline vs
+    # learned regression vs measured profile) — ffs_simulate reports it
+    # per guid when the machine carried a learned table
+    sources = resp.get("cost_sources") or {}
+    mesh_axes = {k: int(v) for k, v in ff.mesh.shape.items()}
+    rows: List[Dict[str, Any]] = []
+    for idx, node in enumerate(ff.executor.nodes):
+        op = node.op
+        st = (ff.strategy or {}).get(op.guid)
+        p = priced.get(idx, dict(fwd_s=0.0, bwd_s=0.0, comm_s=0.0,
+                                 gradsync_s=0.0, collective_bytes=0.0))
+        mf = measured.get(f"{op.guid}:fwd")
+        mb = measured.get(f"{op.guid}:bwd")
+        dts = op.dtype.size
+        # native total_io_bytes convention (ffs_graph.hpp): params +
+        # every input + every output at the op's dtype width — the
+        # byte half of the learned model's featurization
+        io_bytes = float(op.params_elems()) * dts
+        for s in op.input_shapes:
+            io_bytes += float(math.prod(s)) * dts
+        for s in op.output_shapes:
+            io_bytes += float(math.prod(s)) * dts
+        choice = getattr(st, "choice", None)
+        rows.append(dict(
+            schema=CORPUS_SCHEMA_VERSION,
+            guid=op.guid,
+            name=op.name,
+            type=op.op_type.name,
+            out_shape=list(op.output_shapes[0]) if op.output_shapes else [],
+            choice=choice,
+            # which kernel implementation executed the op (the searched
+            # "_k:" dimension): the executor's recorded choice
+            # wins; attention ops without one report the impl forward
+            # actually dispatches (ring/flash/einsum)
+            impl=_row_impl(ff, op, choice),
+            # priced terms are PER-CHIP SHARDED schedule durations;
+            # measured fwd/bwd are WHOLE-OP unsharded profile seconds —
+            # work_div is the strategy's split so consumers can compare
+            # measured/work_div against priced fwd+bwd (compute only)
+            work_div=work_division(node, ff.mesh),
+            # featurization fields (op class x shape x choice x mesh):
+            # whole-op analytic FLOPs/bytes; the trainer shards them by
+            # work_div to match the per-chip pricing the DP queries
+            flops=float(op.flops()),
+            io_bytes=io_bytes,
+            param_bytes=float(op.params_elems()) * dts,
+            dtype_size=dts,
+            mesh_axes=mesh_axes,
+            priced=dict(p, source=sources.get(str(op.guid), "analytic")),
+            measured=dict(
+                fwd_s=mf, bwd_s=mb,
+                source="measured" if mf is not None else None),
+        ))
+    return rows
+
+
+def simtrace_report(ff, resp: Dict[str, Any],
+                    measured: Optional[Dict[str, float]] = None,
+                    resp_analytic: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
+    """The ``.simtrace.json`` payload: predicted step breakdown + the
+    per-op corpus rows + the mesh the prediction assumed.
+
+    ``resp_analytic``: a second simulation of the same strategy with the
+    learned cost table disabled — when the active prediction used
+    learned per-op costs, the analytic twin rides along so the obs
+    report can show simulator accuracy analytic-vs-learned side by side
+    (the SCALE-Sim-style tracked metric)."""
+    rows = corpus_rows(ff, resp, measured=measured)
+    src_census: Dict[str, int] = {}
+    for r in rows:
+        s = (r.get("priced") or {}).get("source") or "analytic"
+        src_census[s] = src_census.get(s, 0) + 1
+    report = dict(
+        corpus_schema=CORPUS_SCHEMA_VERSION,
+        predicted=dict(
+            step_s=resp.get("iteration_time"),
+            fwd_s=resp.get("fwd_time"),
+            bwd_s=resp.get("bwd_time"),
+            comm_s=resp.get("comm_time"),
+            gradsync_s=resp.get("gradsync_time"),
+            # predicted comm seconds hidden under compute (the schedule's
+            # overlapped intervals + the '_ovl'/pipeline analytic hidden
+            # terms) — the predicted twin of the devtrace's measured
+            # overlapped_comms_s
+            hidden_comm_s=resp.get("hidden_comm_time"),
+            memory_bytes=resp.get("memory"),
+        ),
+        search_predicted_s=(ff.search_info or {}).get("predicted_time")
+        if isinstance(ff.search_info, dict) else None,
+        mesh_axes=dict(ff.mesh.shape),
+        tasks=sum(1 for t in (resp.get("tasks") or [])
+                  if float(t.get("finish", 0.0))
+                  > float(t.get("start", 0.0))),
+        # which model priced the compute terms, per op (the learned
+        # cost model's engagement census: all-analytic when no trained
+        # table is loaded / FFS_NO_LEARNED_COSTS is set)
+        cost_sources=src_census,
+        per_op=rows,
+    )
+    if resp_analytic is not None:
+        report["predicted_analytic"] = dict(
+            step_s=resp_analytic.get("iteration_time"),
+            fwd_s=resp_analytic.get("fwd_time"),
+            bwd_s=resp_analytic.get("bwd_time"),
+            comm_s=resp_analytic.get("comm_time"),
+            gradsync_s=resp_analytic.get("gradsync_time"),
+        )
+    return report
+
+
+def write_simtrace(ff, tracer, align_ts_us: Optional[float] = None
+                   ) -> Optional[Dict[str, Any]]:
+    """Replay the compiled strategy through the native simulator, write
+    the ``.simtrace.json`` artifact, and inject the predicted schedule
+    as ``sim:`` Perfetto lanes into the tracer's export (must run BEFORE
+    ``tracer.export()``).
+
+    ``align_ts_us``: where on the tracer timeline the simulated step
+    begins. Defaults to the start of the LAST traced step (steady state
+    — never the compile-carrying first step) so the predicted lanes
+    overlay a measured step in the merged view. Returns the simtrace
+    report, or None when the tracer is inactive."""
+    if not getattr(tracer, "active", False):
+        return None
+    from flexflow_tpu_torch.obs.artifacts import write_artifact
+    from flexflow_tpu_torch.search.validate import simulate_strategy
+    import os
+
+    resp = simulate_strategy(ff)
+    report = simtrace_report(ff, resp)
+    if align_ts_us is None:
+        align_ts_us = tracer.last_step_start_us() or 0.0
+    name_of = {i: n.op.name for i, n in enumerate(ff.executor.nodes)}
+    events = sim_lane_events(resp.get("tasks") or [], name_of,
+                             t0_us=align_ts_us)
+    if events:
+        tracer.add_trace_events(events, dict(SIM_LANE_THREADS))
+    stem = os.path.join(tracer.trace_dir, tracer.file_stem)
+    write_artifact(stem + ".simtrace.json", report,
+                   host_id=tracer.host_id, kind="simtrace", device=ff.device,
+                   header_extra=dict(run_name=tracer.run_name,
+                                     run_seq=tracer.run_seq))
+    return report

@@ -1,0 +1,425 @@
+"""Step tracer: per-step wall time + phase spans, Perfetto-viewable.
+
+The port's counterpart of ``flexflow_tpu/obs/tracer.py``, with the same
+artifact names and fields. Records a span tree per training step:
+data_load (host slicing), device_put (host->device staging), dispatch
+(the compiled step's launch or graph replay), device_wait (the fence on
+the step's loss, made only while tracing) and metrics_sync (the epoch's
+host read); and exports two artifacts:
+
+- ``<run>_rNN_hostNN.trace.json``: Chrome-trace/Perfetto ``traceEvents``
+  JSON (ui.perfetto.dev or chrome://tracing). One ``pid`` per host, so
+  multi-host traces merge into one timeline (``merge_host_traces``).
+- ``<run>_rNN_hostNN.events.jsonl``: the same events as a line-delimited
+  stream (first line = provenance header) for programmatic consumers.
+
+``make_tracer(None)`` returns the shared ``NULL_TRACER``: every method
+is a no-op returning a preallocated context manager, so untraced runs
+pay only an attribute lookup per step. The host id is the
+``torch.distributed`` rank (0 without a process group); ``device`` (the
+model's) goes into every header.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import glob
+import itertools
+import json
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+from flexflow_tpu_torch.obs.artifacts import (artifact_header,
+                                             atomic_write_text, host_index)
+
+# distinguishes repeated fit()/evaluate() calls sharing one trace_dir
+_RUN_SEQ = itertools.count()
+
+
+class NullTracer:
+    """Inert tracer: the no-trace_dir fast path."""
+
+    active = False
+    _NULL = contextlib.nullcontext()
+
+    def step(self):
+        return self._NULL
+
+    def phase(self, name, **args):
+        return self._NULL
+
+    def instant(self, name, **args):
+        pass
+
+    def set_meta(self, **meta):
+        pass
+
+    def add_trace_events(self, events, threads=None):
+        pass
+
+    def step_time_s(self):
+        return None
+
+    def last_step_start_us(self):
+        return None
+
+    def run_wall_s(self):
+        return None
+
+    def export(self):
+        return {}
+
+
+NULL_TRACER = NullTracer()
+
+
+def _clock_pair(samples: int = 5):
+    """A (perf_counter, unix-wall) pair sampled with minimal skew: each
+    wall read is bracketed by two perf_counter reads and the tightest
+    bracket wins. The pair is the shared epoch ``merge_host_traces``
+    uses to line up per-host lanes, so its uncertainty (the bracket
+    width) is stamped into the trace header."""
+    best = None
+    for _ in range(samples):
+        p0 = time.perf_counter()
+        w = time.time()
+        p1 = time.perf_counter()
+        if best is None or (p1 - p0) < best[2]:
+            best = ((p0 + p1) / 2, w, p1 - p0)
+    return best
+
+
+class _Span:
+    __slots__ = ("tracer", "name", "args", "t0")
+
+    def __init__(self, tracer, name, args):
+        self.tracer = tracer
+        self.name = name
+        self.args = args
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        self.tracer._record(self.name, self.t0, t1, self.args)
+        return False
+
+
+class _StepSpan(_Span):
+    """The whole-step span: flags the tracer so phase events recorded
+    inside it carry the step index."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        self.tracer._in_step = True
+        return _Span.__enter__(self)
+
+    def __exit__(self, *exc):
+        r = _Span.__exit__(self, *exc)
+        self.tracer._in_step = False
+        return r
+
+
+class StepTracer:
+    """Records phase spans and exports Chrome-trace JSON + JSONL."""
+
+    active = True
+
+    # events kept in memory before export; ~5 spans/step so the default
+    # covers ~100k steps. Past the cap, spans are counted but not stored
+    # (dropped_events lands in the header) — a week-long traced run must
+    # degrade to a truncated trace, not an OOM.
+    MAX_EVENTS = 500_000
+
+    def __init__(self, trace_dir: str, host_id: Optional[int] = None,
+                 run_name: str = "fit", max_events: Optional[int] = None,
+                 device=None):
+        if host_id is None:
+            host_id = host_index()
+        self.device = device
+        self.trace_dir = trace_dir
+        self.host_id = int(host_id)
+        self.run_name = run_name
+        self.run_seq = next(_RUN_SEQ)
+        self.max_events = (self.MAX_EVENTS if max_events is None
+                           else max_events)
+        self._dropped = 0
+        self.meta: Dict[str, Any] = {}
+        self._events: List[Dict[str, Any]] = []
+        self._extra_events: List[Dict[str, Any]] = []
+        self._extra_threads: Dict[int, str] = {}
+        # shared wall-clock epoch: a tight (perf_counter, unix) pairing
+        # so merge_host_traces can shift every host onto one timeline
+        self._origin, self._wall_origin, pair_spread = _clock_pair()
+        self._clock_pair_spread_us = pair_spread * 1e6
+        self._step_index = -1
+        self._in_step = False
+        os.makedirs(trace_dir, exist_ok=True)
+
+    # ---- recording --------------------------------------------------------
+    def _record(self, name: str, t0: float, t1: float,
+                args: Optional[Dict[str, Any]]) -> None:
+        if len(self._events) >= self.max_events:
+            self._dropped += 1
+            return
+        ev = dict(name=name,
+                  ts=(t0 - self._origin) * 1e6,
+                  dur=(t1 - t0) * 1e6)
+        if self._in_step or name == "step":
+            ev["step"] = self._step_index
+        if args:
+            ev["args"] = args
+        self._events.append(ev)
+
+    def step(self):
+        """Span wrapping one whole training step (phases nest inside)."""
+        self._step_index += 1
+        return _StepSpan(self, "step", None)
+
+    def phase(self, name: str, **args):
+        """Span for one phase (data_load / device_put / step_dispatch /
+        metrics_sync / ...) — nests under the current step span."""
+        return _Span(self, name, args or None)
+
+    def instant(self, name: str, **args) -> None:
+        if len(self._events) >= self.max_events:
+            self._dropped += 1
+            return
+        t = time.perf_counter()
+        ev = dict(name=name, ts=(t - self._origin) * 1e6, dur=0.0,
+                  instant=True)
+        if args:
+            ev["args"] = args
+        self._events.append(ev)
+
+    def set_meta(self, **meta) -> None:
+        self.meta.update(meta)
+
+    def add_trace_events(self, events: List[Dict[str, Any]],
+                         threads: Optional[Dict[int, str]] = None) -> None:
+        """Attach externally-sourced Chrome-trace events (the devtrace
+        capture's device lanes + attribution counter tracks) to this
+        host's export. ``events`` are complete Chrome dicts except
+        ``pid`` (stamped at export with this host's pid); ``threads``
+        maps each lane tid to its Perfetto row label. Extra events land
+        in the ``.trace.json`` only — the ``.events.jsonl`` stream stays
+        the host-phase record (device spans have their own
+        ``.devtrace.json`` artifact)."""
+        self._extra_events.extend(events)
+        self._extra_threads.update(threads or {})
+
+    # ---- summaries --------------------------------------------------------
+    def step_durations_s(self) -> List[float]:
+        return [e["dur"] / 1e6 for e in self._events if e["name"] == "step"
+                and not e.get("instant")]
+
+    def step_time_s(self) -> Optional[float]:
+        """Median steady-state step wall time. The first step carries the
+        step's capture (a CUDA graph on the card), so it is dropped
+        whenever more than one step exists."""
+        ds = self.step_durations_s()
+        if not ds:
+            return None
+        if len(ds) > 1:
+            ds = ds[1:]
+        ds = sorted(ds)
+        return ds[len(ds) // 2]
+
+    def last_step_start_us(self) -> Optional[float]:
+        """Timeline timestamp (µs, tracer origin) where the LAST traced
+        step began — the steady-state anchor the simtrace lanes align
+        to (never the capture-carrying first step when more than one
+        step ran)."""
+        starts = [e["ts"] for e in self._events
+                  if e["name"] == "step" and not e.get("instant")]
+        return starts[-1] if starts else None
+
+    def run_wall_s(self) -> Optional[float]:
+        """Wall span the recorded events cover (first event start to
+        last event end) — the denominator of the goodput gauge."""
+        spans = [(e["ts"], e["ts"] + e.get("dur", 0.0))
+                 for e in self._events]
+        if not spans:
+            return None
+        return (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e6
+
+    def phase_summary(self) -> Dict[str, Dict[str, float]]:
+        out: Dict[str, Dict[str, float]] = {}
+        for e in self._events:
+            if e.get("instant"):
+                continue
+            s = out.setdefault(e["name"],
+                               dict(count=0.0, total_s=0.0, max_s=0.0))
+            d = e["dur"] / 1e6
+            s["count"] += 1
+            s["total_s"] += d
+            s["max_s"] = max(s["max_s"], d)
+        return out
+
+    # ---- export -----------------------------------------------------------
+    @property
+    def file_stem(self) -> str:
+        return (f"{self.run_name}_r{self.run_seq:02d}"
+                f"_host{self.host_id:02d}")
+
+    def export(self) -> Dict[str, str]:
+        """Write the Chrome-trace JSON + JSONL stream; returns paths."""
+        header = artifact_header(host_id=self.host_id, kind="trace",
+                                 device=self.device)
+        header.update(run_name=self.run_name, run_seq=self.run_seq,
+                      wall_origin_unix=self._wall_origin,
+                      clock_pair_spread_us=round(
+                          self._clock_pair_spread_us, 3),
+                      **self.meta)
+        if self._dropped:
+            header["dropped_events"] = self._dropped
+        trace_events = [
+            dict(name="process_name", ph="M", pid=self.host_id, tid=0,
+                 args=dict(name=f"host{self.host_id}:{self.run_name}")),
+            dict(name="thread_name", ph="M", pid=self.host_id, tid=0,
+                 args=dict(name="train_loop")),
+        ]
+        for tid, label in sorted(self._extra_threads.items()):
+            trace_events.append(dict(name="thread_name", ph="M",
+                                     pid=self.host_id, tid=tid,
+                                     args=dict(name=label)))
+        for e in self._events:
+            ev = dict(name=e["name"], pid=self.host_id, tid=0,
+                      ts=round(e["ts"], 3), cat="flexflow_tpu")
+            if e.get("instant"):
+                ev.update(ph="i", s="t")
+            else:
+                ev.update(ph="X", dur=round(e["dur"], 3))
+            args = dict(e.get("args") or {})
+            if "step" in e:
+                args["step"] = e["step"]
+            if args:
+                ev["args"] = args
+            trace_events.append(ev)
+        for ev in self._extra_events:  # devtrace lanes, pre-rebased
+            trace_events.append(dict(ev, pid=self.host_id))
+        trace_path = os.path.join(self.trace_dir,
+                                  self.file_stem + ".trace.json")
+        atomic_write_text(trace_path, json.dumps(
+            dict(traceEvents=trace_events, displayTimeUnit="ms",
+                 metadata=header)))
+        jsonl_path = os.path.join(self.trace_dir,
+                                  self.file_stem + ".events.jsonl")
+        lines = [json.dumps(dict(header, record="header"))]
+        lines += [json.dumps(e) for e in self._events]
+        atomic_write_text(jsonl_path, "\n".join(lines) + "\n")
+        return dict(trace=trace_path, events=jsonl_path)
+
+
+def make_tracer(trace_dir: Optional[str], host_id: Optional[int] = None,
+                run_name: str = "fit", device=None):
+    """StepTracer when ``trace_dir`` is set, else the shared no-op.
+
+    An unusable trace dir (unwritable, path is a file, ...) degrades to
+    the no-op with a warning: observability must never be the thing
+    that kills the training run or bench it was asked to watch."""
+    if not trace_dir:
+        return NULL_TRACER
+    try:
+        return StepTracer(trace_dir, host_id=host_id, run_name=run_name,
+                          device=device)
+    except OSError as e:
+        import sys
+        print(f"[obs] trace dir {trace_dir!r} unusable ({e}); "
+              "tracing disabled for this run", file=sys.stderr)
+        return NULL_TRACER
+
+
+def merge_host_traces(trace_dir: str,
+                      out_name: str = "merged.trace.json") -> Optional[str]:
+    """Merge every per-host ``*.trace.json`` in ``trace_dir`` into one
+    Chrome-trace file (events keep their per-host ``pid``, so Perfetto
+    shows one track group per host). Per-host timestamps are relative
+    to each tracer's own monotonic origin, so events are rebased onto a
+    shared timeline using the ``wall_origin_unix`` every header records
+    (earliest host = t0); hosts then align by real start time, not by
+    per-worker startup skew. Returns the merged path, or None when
+    there is nothing to merge."""
+    paths = sorted(p for p in glob.glob(os.path.join(trace_dir,
+                                                     "*.trace.json"))
+                   if not p.endswith(out_name))
+    if not paths:
+        return None
+    loaded: List[Dict[str, Any]] = []
+    for p in paths:
+        try:
+            with open(p) as f:
+                loaded.append(json.load(f))
+        except (OSError, ValueError):
+            continue
+    origins = [(d.get("metadata") or {}).get("wall_origin_unix")
+               for d in loaded]
+    t0 = min((o for o in origins if o is not None), default=None)
+    events: List[Dict[str, Any]] = []
+    hosts: List[int] = []
+    # One BLOCK of thread rows per source trace, keyed (run_name,
+    # run_seq): a dir holding repeated fits, evaluate legs, or stale
+    # traces from an earlier run merges into distinct row groups instead
+    # of interleaving overlapping spans on one (pid, tid). Within a
+    # block, each of the source trace's own tids (train_loop = 0 plus
+    # any devtrace lanes) keeps its own row.
+    BLOCK = 256  # > any per-trace tid (train_loop 0, devtrace lanes <128)
+    blocks: Dict[Any, str] = {}  # (pid, block) -> label
+    rows: Dict[Any, str] = {}  # (pid, out_tid) -> row label
+    for data, origin in zip(loaded, origins):
+        meta = data.get("metadata") or {}
+        hid = meta.get("host_id")
+        pid = int(hid) if hid is not None else 0
+        run = str(meta.get("run_name", "run"))
+        block = int(meta.get("run_seq", 0))
+        label = f"{run}_r{block:02d}"
+        while blocks.get((pid, block), label) != label:
+            block += 1  # same (host, seq) from different runs: next block
+        blocks[(pid, block)] = label
+        lane_names: Dict[int, str] = {}
+        for ev in data.get("traceEvents", []):
+            if ev.get("ph") == "M" and ev.get("name") == "thread_name":
+                lane_names[int(ev.get("tid", 0))] = str(
+                    (ev.get("args") or {}).get("name", ""))
+        shift_us = ((origin - t0) * 1e6
+                    if origin is not None and t0 is not None else 0.0)
+        for ev in data.get("traceEvents", []):
+            if ev.get("ph") == "M":
+                continue  # per-file metadata is re-synthesized below
+            tid = int(ev.get("tid", 0)) % BLOCK
+            out_tid = block * BLOCK + tid
+            lane = lane_names.get(tid)
+            rows[(pid, out_tid)] = (label if tid == 0 or not lane
+                                    else f"{label}:{lane}")
+            ev = dict(ev, pid=pid, tid=out_tid)
+            if shift_us and "ts" in ev:
+                ev["ts"] = round(ev["ts"] + shift_us, 3)
+            events.append(ev)
+        if hid is not None:
+            hosts.append(pid)
+    if not events:
+        return None
+    meta_events: List[Dict[str, Any]] = []
+    for pid in sorted({p for p, _ in rows}):
+        meta_events.append(dict(name="process_name", ph="M", pid=pid,
+                                tid=0, args=dict(name=f"host{pid}")))
+    for (pid, tid), label in sorted(rows.items()):
+        meta_events.append(dict(name="thread_name", ph="M", pid=pid,
+                                tid=tid, args=dict(name=label)))
+    events = meta_events + events
+    header = artifact_header(kind="merged_trace")
+    # the sources' platform and device, where they agree
+    for key in ("platform", "device"):
+        seen = {(d.get("metadata") or {}).get(key) for d in loaded}
+        if len(seen) == 1 and None not in seen:
+            header[key] = seen.pop()
+    header["merged_hosts"] = sorted(set(hosts))
+    header["merged_files"] = [os.path.basename(p) for p in paths]
+    out = os.path.join(trace_dir, out_name)
+    atomic_write_text(out, json.dumps(
+        dict(traceEvents=events, displayTimeUnit="ms", metadata=header)))
+    return out

@@ -7,7 +7,10 @@ read and write strategy files (``--export-strategy`` /
 ``--import-strategy``) in the JAX package's format, so that a file
 written by either package imports into the other. The requests are the
 JAX package's, field for field, so the same graph and machine give the
-same strategy.
+same strategy. ``graph_optimize``'s ``measured`` table is the per-op
+times ``search/profile.py`` takes on the model's device under
+``--search-measure-ops``; without it the core prices each op on the
+machine model.
 
 Three deliberate differences from the JAX package:
 - ``_memory_correction`` returns 1.0: the repo's calibration rows were

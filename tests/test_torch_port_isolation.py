@@ -57,7 +57,13 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.ckpt.sharded, flexflow_tpu_torch.ckpt.manager, "
         "flexflow_tpu_torch.ckpt.elastic, flexflow_tpu_torch.checkpoint, "
         "flexflow_tpu_torch.runtime_health, flexflow_tpu_torch.recompile, "
-        "flexflow_tpu_torch.serve.loader\n"
+        "flexflow_tpu_torch.serve.loader, flexflow_tpu_torch.version, "
+        "flexflow_tpu_torch.utils.logger, flexflow_tpu_torch.obs, "
+        "flexflow_tpu_torch.obs.artifacts, flexflow_tpu_torch.obs.tracer, "
+        "flexflow_tpu_torch.obs.inspect, flexflow_tpu_torch.obs.devtrace, "
+        "flexflow_tpu_torch.obs.drift, flexflow_tpu_torch.obs.roofline, "
+        "flexflow_tpu_torch.obs.simtrace, flexflow_tpu_torch.search.profile, "
+        "flexflow_tpu_torch.search.validate\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -80,6 +86,23 @@ def test_source_imports_nothing_of_jax(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             imported.append(node.module)
     assert [m for m in imported if _forbidden(m)] == []
+
+
+# the measurement and observability modules: no TPU figure may price or
+# bound anything measured on the card (a v5e's HBM rate, its bf16 peak,
+# its vector memory)
+MEASURE_MODULES = ("search/profile.py", "search/validate.py",
+                   "obs/artifacts.py", "obs/tracer.py", "obs/devtrace.py",
+                   "obs/inspect.py", "obs/drift.py", "obs/roofline.py",
+                   "obs/simtrace.py", "utils/logger.py", "version.py")
+
+
+@pytest.mark.parametrize("module", MEASURE_MODULES)
+def test_no_tpu_figure_in_the_measurement_modules(module):
+    src = (PORT / module).read_text()
+    for figure in ("0.82e12", "819e9", "197e12", "128 * 1024 * 1024",
+                   "_VMEM_BYTES"):
+        assert figure not in src, f"{module} holds {figure}"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -336,8 +336,14 @@ def test_search_flags_parse_like_the_reference():
 
 @pytest.mark.parametrize("flag", ["--search-measure-ops", "--profiling"])
 def test_measurement_flags_name_their_item(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        pconfig.FFConfig().parse_args([flag])
+    """The measurement flags (ROADMAP.md Queue 1 item 11's, ported) parse
+    as the reference parses them."""
+    p, j = pconfig.FFConfig(), jconfig.FFConfig()
+    assert p.parse_args([flag, "--measured-cache", "m.json"]) == []
+    j.parse_args([flag, "--measured-cache", "m.json"])
+    for field in ("search_measure_ops", "profiling", "measured_cache_file"):
+        assert getattr(p, field) == getattr(j, field), field
+    assert (p.search_measure_ops or p.profiling) is True
 
 
 @pytest.mark.parametrize("flag,value", [
