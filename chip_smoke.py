@@ -277,14 +277,41 @@ package. Phases:
              them. (c) OBS_PAIRS
              pairs of untraced and traced (no window) fits in turns: both
              p50s, and no file from an untraced fit.
-14. report — one JSON line ``{"kernels": [...]}``, then the final line
+14. costmodel — [costmodel] measure, learn, search, calibrate
+             (``costmodel/``, ``flexflow_tpu_torch/scripts``): (a) traced
+             ``fit``s of the BERT-proxy's width at COSTMODEL_LAYERS
+             layers over COSTMODEL_SHAPES (the full-width shape held
+             out), compiled with ``--search-measure-ops`` and
+             ``--profiling``: simtrace rows with per-op times on the card,
+             K1 and K2 launched by each fit; (b) ``costmodel train`` on
+             them: a "gpu" model whose COSTMODEL_CLASSES pass
+             MIN_CLASS_ROWS, each class's rows and held-out error; (c) the
+             full-width search with ``FFS_COSTMODEL_FILE`` on that model:
+             "learned" (else the run fails), its predicted step beside the
+             analytic and the measured-profile ones; a traced fit of its
+             strategy (K1/K2 against the counters, learned sources and
+             the analytic twin in the simtrace, the p50), ``costmodel
+             report`` and ``obs_report`` on it; (d) ``calibrate`` of the
+             full set (BERT-proxy, ResNet-50 batch 64 at 224 px, AlexNet
+             batch 64, the 4096-wide MLP) into a temporary
+             ``FFS_CALIBRATION_FILE``, ``--ingest-drift`` of [obs]'s
+             trace dir, every row printed with the card; the search's
+             ``_memory_correction()`` is the rows' median ``mem_ratio``; a
+             memory-capped compile divides its threshold by it, beside
+             the measured peak of 2 steps; (e) ``supervise`` over a
+             2-layer child (``--supervise-child``) preempted by
+             ``FFS_FAULT`` (exit 78, a resumed attempt, exit 0) and
+             ``ckpt_inspect`` on its checkpoint (exit 0). Nothing is
+             written into the tree.
+15. report — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``. Each phase's seconds are
              printed as ``[time]`` lines.
 
 Any failed check exits non-zero without printing the final line.
 
-One other mode: ``--ckpt-child DIR STRATEGY_DIR STEPS [--resume]`` is
-one child process of the ``[ckpt]`` phase's preemption leg.
+Two other modes: ``--ckpt-child DIR STRATEGY_DIR STEPS [--resume]`` is
+one child process of the ``[ckpt]`` phase's preemption leg, and
+``--supervise-child FLAGS...`` the supervised child of ``[costmodel]``.
 """
 
 import json
@@ -5124,13 +5151,15 @@ def session_busy_share(prof, steps):
     return busy / wall
 
 
-def phase_obs(strategy_dir, analytic_predicted_s):
+def phase_obs(strategy_dir, analytic_predicted_s, trace_root=None):
     """[obs] measurement and tracing at full width (``obs/``,
     ``search/profile.py``): (a) a search on per-op times measured on the
     card, (b) a traced ``fit`` through train (b)'s strategy file with a
     device-trace window, (c) the cost of tracing, (d) the roofline and
     ``--profiling``. Returns the launches of (a)'s measurement and of
-    (b)'s traced steps."""
+    (b)'s traced steps, and (b)'s trace dir (``trace_root/obs_trace``,
+    kept when ``trace_root`` is given, for [costmodel]'s
+    ``--ingest-drift``)."""
     import glob
 
     import numpy as np
@@ -5276,7 +5305,8 @@ def phase_obs(strategy_dir, analytic_predicted_s):
                              for i in range(OBS_STEPS)])
         ys = np.concatenate([training_batch(cfg, seed=i)[1]
                              for i in range(OBS_STEPS)])
-        td = os.path.join(tmp, "trace")
+        td = os.path.join(trace_root or tmp, "obs_trace")
+        out["trace_dir"] = td
         # keep the fit's capture: its profiler session's in-memory record
         # is the independent reader of the busy share below
         captures = []
@@ -5417,6 +5447,478 @@ def phase_obs(strategy_dir, analytic_predicted_s):
     return out
 
 
+# [costmodel]: the corpus fits' model (the BERT-proxy's width, 2 layers)
+# at distinct (batch, seq) shapes, the full-width shape (batch 8, seq 512)
+# held out of the corpus
+COSTMODEL_LAYERS = 2
+COSTMODEL_SHAPES = [(b, s) for b in (2, 4, 8, 16) for s in (128, 256)]
+COSTMODEL_HELD_OUT = (8, 512)
+COSTMODEL_STEPS = 3
+# the classes the corpus must train past MIN_CLASS_ROWS: attention's two
+# cores both, so that the search weighs learned against learned
+COSTMODEL_CLASSES = ("LINEAR", "LAYERNORM", "MULTIHEAD_ATTENTION:flash",
+                     "MULTIHEAD_ATTENTION")
+# the memory-capped compile's threshold, in MiB: at least this, and at
+# least twice the uncapped prediction times the correction, so that the
+# divided threshold stays feasible
+COSTMODEL_MEMORY_MB = 16384
+# the supervised child: 2 layers, SUPERVISE_STEPS fit steps of one batch,
+# SIGTERM after slot SUPERVISE_SIGTERM_STEP on the first attempt
+SUPERVISE_STEPS = 6
+SUPERVISE_FAULT = "sigterm:0@step:3"
+
+
+def supervise_child(argv):
+    """``chip_smoke.py --supervise-child FLAGS...``: the training child of
+    ``[costmodel]`` (e). A 2-layer BERT-proxy (the full model's width)
+    ``fit`` for SUPERVISE_STEPS steps under the ``FFConfig`` flags it is
+    given (``--checkpoint-dir``, ``--checkpoint-every``, ``--grace-window``,
+    and ``--resume`` from the supervisor's restart); a SIGTERM from
+    ``FFS_FAULT`` exits PREEMPTED_EXIT. Prints one ``[supervise child]``
+    JSON line."""
+    import torch
+    from flexflow_tpu_torch import FFConfig, LossType, MetricsType
+    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       create_transformer)
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
+    cfg = TransformerConfig(num_layers=COSTMODEL_LAYERS)
+    fcfg = FFConfig(batch_size=cfg.batch_size)
+    check(fcfg.parse_args(list(argv)) == [], f"unread flags in {argv}")
+    ff = create_transformer(cfg, fcfg, device="cuda")
+    ff.compile(AdamOptimizer(alpha=1e-4, state_dtype=torch.bfloat16),
+               LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               [MetricsType.MEAN_SQUARED_ERROR])
+    x, y = training_batch(cfg)
+    try:
+        ff.fit(x, y, epochs=SUPERVISE_STEPS, verbose=False)
+    finally:
+        print("[supervise child] " + json.dumps(dict(
+            resumed=fcfg.resume, iteration=ff._iter,
+            losses=list(ff.epoch_losses))), flush=True)
+    return 0
+
+
+def phase_costmodel(obs_trace_dir):
+    """[costmodel] measure, learn, search, calibrate (``costmodel/``,
+    ``flexflow_tpu_torch/scripts``). (a) Traced ``fit``s of the
+    BERT-proxy's width at COSTMODEL_LAYERS layers over COSTMODEL_SHAPES,
+    each compiled with the search on measured ops and ``--profiling``, so
+    that their simtrace rows carry per-op times taken on the card; K1 and
+    K2 counted. (b) ``costmodel train`` on those dirs: a "gpu" model whose
+    COSTMODEL_CLASSES pass MIN_CLASS_ROWS, the full-width shape held out.
+    (c) The full-width search under that model (``FFS_COSTMODEL_FILE``):
+    "learned", its prediction beside the analytic and the measured-profile
+    ones of the same graph; a traced fit of its strategy (learned sources
+    and the analytic twin in its simtrace, K1/K2 against the counters),
+    ``costmodel report`` and ``obs_report`` on it. (d) ``calibrate`` (the
+    full set) into a temporary ``FFS_CALIBRATION_FILE``, then
+    ``--ingest-drift`` of [obs]'s trace dir; the search's memory
+    correction is the rows' median ``mem_ratio``; a memory-capped compile
+    divides its threshold by it, beside the measured peak of 2 steps.
+    (e) ``supervise`` over a 2-layer child preempted by ``FFS_FAULT``
+    (exit 78, a resume, exit 0) and ``ckpt_inspect`` on its checkpoint.
+    Nothing is written into the tree. Returns the launches of (a) and
+    (c)."""
+    import contextlib
+    import gc
+    import glob
+    import io
+
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import FFConfig, LossType, MetricsType
+    from flexflow_tpu_torch.costmodel import MIN_CLASS_ROWS, CostModel
+    from flexflow_tpu_torch.costmodel import load_corpus
+    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       create_transformer)
+    from flexflow_tpu_torch.obs.inspect import step_footprint_bytes
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+    from flexflow_tpu_torch.scripts import calibrate as calibrate_cli
+    from flexflow_tpu_torch.scripts import ckpt_inspect as inspect_cli
+    from flexflow_tpu_torch.scripts import costmodel as costmodel_cli
+    from flexflow_tpu_torch.scripts import obs_report as obs_report_cli
+    from flexflow_tpu_torch.scripts import supervise as supervise_cli
+    from flexflow_tpu_torch.search import native, profile, unity
+
+    card = nvidia_smi_line()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tree_before = sorted(os.listdir(root))
+    env_keys = ("FFS_COSTMODEL_FILE", "FFS_NO_LEARNED_COSTS",
+                "FFS_CALIBRATION_FILE", "FFS_FAULT")
+    env_before = {k: os.environ.get(k) for k in env_keys}
+    for k in env_keys:
+        os.environ.pop(k, None)
+    out = {}
+
+    def build(cfg, argv):
+        fcfg = FFConfig(batch_size=cfg.batch_size)
+        check(fcfg.parse_args(argv) == [], f"unread flags in {argv}")
+        ff = create_transformer(cfg, fcfg, device="cuda")
+        ff.compile(AdamOptimizer(alpha=1e-4, state_dtype=torch.bfloat16),
+                   LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+                   [MetricsType.MEAN_SQUARED_ERROR])
+        return ff
+
+    def n_flash(ff):
+        return sum(1 for v in unity.executed_kernel_choices(
+            ff.executor.nodes, ff.strategy, ff.mesh.shape, training=True,
+            device=ff.device).values() if v == "flash")
+
+    def one(pattern):
+        found = glob.glob(pattern)
+        check(len(found) == 1, f"{pattern}: {found}")
+        with open(found[0]) as f:
+            return json.load(f)
+
+    def quiet(fn, *args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(*args)
+        return rc, buf.getvalue()
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="ff_costmodel_") as tmp:
+            # ---- (a) the corpus ---------------------------------------------
+            cache = os.path.join(tmp, "measured.json")
+            profile._CACHE.clear()
+            dirs = []
+            corpus_launches = dict.fromkeys(("flash_attn_fwd",
+                                             "flash_attn_bwd"), 0)
+            print(f"[costmodel] (a) corpus: traced fits of the BERT-proxy's "
+                  f"width at {COSTMODEL_LAYERS} layers, compiled with "
+                  f"--search-measure-ops and --profiling (per-op times on "
+                  f"the card; {card})")
+            t0 = time.perf_counter()
+            fits = [(b, s, core) for b, s in COSTMODEL_SHAPES
+                    for core in ("searched", "einsum")]
+            for batch, seq, core in fits:
+                cfg = TransformerConfig(num_layers=COSTMODEL_LAYERS,
+                                        seq_length=seq, batch_size=batch)
+                if core == "searched":
+                    # the search on measured ops (it gives attention
+                    # _k:flash on the card)
+                    ff = build(cfg, ["--budget", str(SEARCH_BUDGET),
+                                     "--search-measure-ops",
+                                     "--measured-cache", cache,
+                                     "--profiling"])
+                else:
+                    # the einsum core's rows: attention pinned by a
+                    # strategy file, so that the table prices both cores
+                    path = os.path.join(tmp, f"einsum_b{batch}_s{seq}.json")
+                    shell = create_transformer(cfg, FFConfig(
+                        batch_size=batch), device="cuda")
+                    write_strategy(shell, path, lambda kind: (
+                        "rep_k:einsum" if kind.name == "MULTIHEAD_ATTENTION"
+                        else "rep"))
+                    del shell
+                    ff = build(cfg, ["--import-strategy", path,
+                                     "--profiling"])
+                x, y = training_batch(cfg)
+                d = os.path.join(tmp, f"corpus_b{batch}_s{seq}_{core}")
+                flash = n_flash(ff)
+                reset_launches()
+                ff.fit(x, y, epochs=COSTMODEL_STEPS, verbose=False,
+                       trace_dir=d)
+                got = read_launches()
+                sim = one(os.path.join(d, "fit_*.simtrace.json"))
+                rows = sim["per_op"]
+                measured = sum(1 for r in rows
+                               if (r.get("measured") or {}).get("source")
+                               == "measured")
+                impls = sorted({f"{r['type']}:{r.get('impl')}" for r in rows
+                                if r.get("impl")})
+                print(f"[costmodel]   batch {batch:2d} S {seq} {core}: "
+                      f"{len(rows)} "
+                      f"rows, {measured} measured, impls {impls}; choices "
+                      f"{sorted({st.choice for st in ff.strategy.values()})};"
+                      f" launches over {COSTMODEL_STEPS} steps K1 "
+                      f"{got['flash_attn_fwd']} K2 {got['flash_attn_bwd']} "
+                      f"({flash} flash attentions)")
+                check(sim["header"]["platform"] == "gpu",
+                      f"simtrace platform {sim['header']['platform']}")
+                check(measured == len(rows) and rows,
+                      f"{len(rows) - measured} rows without a measurement")
+                check(flash == (COSTMODEL_LAYERS if core == "searched"
+                                else 0)
+                      and got["flash_attn_fwd"] == got["flash_attn_bwd"]
+                      == flash * COSTMODEL_STEPS,
+                      f"the corpus fit's launches {got} against {flash} "
+                      f"flash attentions x {COSTMODEL_STEPS} steps")
+                for k in corpus_launches:
+                    corpus_launches[k] += got[k]
+                dirs.append(d)
+                del ff
+                torch.cuda.empty_cache()
+            out["corpus_launches"] = corpus_launches
+            print(f"[costmodel] (a) {len(fits)} fits in "
+                  f"{time.perf_counter() - t0:.1f} s; K1 / K2 launches "
+                  f"{corpus_launches}")
+
+            # ---- (b) train --------------------------------------------------
+            corpus_path = os.path.join(tmp, "COSTMODEL_CORPUS_GPU.json")
+            model_path = os.path.join(tmp, "COSTMODEL_GPU.json")
+            argv = ["train", "--corpus", corpus_path, "--out", model_path]
+            for d in dirs:
+                argv += ["--trace-dir", d]
+            rc, text = quiet(costmodel_cli.main, argv)
+            for line in text.splitlines():
+                print(f"[costmodel] (b) {line}")
+            check(rc == 0, f"costmodel train exited {rc}")
+            model = CostModel.load(model_path)
+            corpus = load_corpus(corpus_path)
+            held = [r["out_shape"] for r in corpus["rows"]
+                    if list(r.get("out_shape") or [])[:2]
+                    == list(COSTMODEL_HELD_OUT)]
+            check(not held, f"the held-out shape is in the corpus: {held}")
+            print(f"[costmodel] (b) model platform {model.platform}, "
+                  f"{model.corpus_rows} rows; per class (corpus rows, train "
+                  f"/ test, held-out error factor of the forward):")
+            for name, n in sorted(corpus["classes"].items()):
+                cm = model.classes.get(name)
+                print(f"[costmodel]     {name:28s} {n:3d} rows: "
+                      + (f"{cm.n_train} / {cm.n_test}, x{cm.err_factor:.4f}"
+                         f" (backward x{math.exp(cm.err_bwd):.4f})"
+                         if cm else f"below {MIN_CLASS_ROWS}: analytic"))
+            check(model.platform == "gpu", f"model platform {model.platform}")
+            missing = [c for c in COSTMODEL_CLASSES if c not in model.classes]
+            check(not missing, f"classes under MIN_CLASS_ROWS: {missing}")
+            out["model"] = {k: dict(n_train=v.n_train, n_test=v.n_test,
+                                    err_factor=v.err_factor)
+                            for k, v in model.classes.items()}
+
+            # ---- (c) the full-width search on the learned table --------------
+            os.environ["FFS_COSTMODEL_FILE"] = model_path
+            cfg = TransformerConfig()
+            ff = build(cfg, ["--budget", str(SEARCH_BUDGET)])
+            info = ff.search_info
+            check(info["cost_model"] == "learned",
+                  f"the full-width search priced {info['cost_model']}")
+            learned_s = info["predicted_time"]
+            nodes, _, tensor_ref = ff._materialize_nodes()
+            final = ff._select_final_ref(nodes, tensor_ref)
+            os.environ["FFS_NO_LEARNED_COSTS"] = "1"
+            _, _, an = unity.graph_optimize(
+                nodes, ff.machine_spec, ff.config, 1, batch=cfg.batch_size,
+                final_ref=final, device=ff.device)
+            del os.environ["FFS_NO_LEARNED_COSTS"]
+            check(an["cost_model"] == "analytic", "FFS_NO_LEARNED_COSTS "
+                  "left the table on")
+            table = profile.microbenchmark(nodes, machine_spec=ff.machine_spec,
+                                           device=ff.device,
+                                           dtype=ff.executor.compute_dtype,
+                                           cache_file=cache)
+            _, _, me = unity.graph_optimize(
+                nodes, ff.machine_spec, ff.config, 1, batch=cfg.batch_size,
+                final_ref=final, measured=table, device=ff.device)
+            print(f"[costmodel] (c) full-width search under the model: cost "
+                  f"model {info['cost_model']}, classes "
+                  f"{info['learned_cost_classes']}; choices "
+                  f"{sorted({st.choice for st in ff.strategy.values()})}; "
+                  f"predicted step: learned {learned_s * 1e3:.3f} ms, "
+                  f"analytic {an['predicted_time'] * 1e3:.3f} ms, measured "
+                  f"profile {me['predicted_time'] * 1e3:.3f} ms ({card})")
+            xs = np.concatenate([training_batch(cfg, seed=i)[0]
+                                 for i in range(OBS_STEPS)])
+            ys = np.concatenate([training_batch(cfg, seed=i)[1]
+                                 for i in range(OBS_STEPS)])
+            td = os.path.join(tmp, "learned")
+            flash = n_flash(ff)
+            fused = bool(ff.executor.fused_update_ops & set(ff.params))
+            reset_launches()
+            ff.fit(xs, ys, epochs=1, verbose=False, trace_dir=td)
+            got = read_launches()
+            want = dict(flash_attn_fwd=flash * OBS_STEPS,
+                        flash_attn_bwd=flash * OBS_STEPS,
+                        fused_adam=OBS_STEPS if fused else 0,
+                        flash_lse_fwd=0, flash_lse_bwd=0)
+            print(f"[costmodel] (c) traced fit of the searched strategy, "
+                  f"{OBS_STEPS} steps: launches {got} (the counters; "
+                  f"expected {want} from {flash} flash attentions)")
+            check(got == want and flash == cfg.num_layers,
+                  f"the learned strategy runs {flash} flash attentions of "
+                  f"{cfg.num_layers}, or its launches differ from its "
+                  f"kernel choices")
+            out["learned_launches"] = got
+            sim = one(os.path.join(td, "fit_*.simtrace.json"))
+            drift = one(os.path.join(td, "fit_*.drift.json"))
+            p50 = drift["step_metrics"]["step_time_p50"]
+            twin = (sim.get("predicted_analytic") or {}).get("step_s")
+            print(f"[costmodel] (c) simtrace: sources {sim['cost_sources']}; "
+                  f"predicted {sim['predicted']['step_s'] * 1e3:.3f} ms, "
+                  f"analytic twin "
+                  f"{(twin or float('nan')) * 1e3:.3f} ms; measured p50 "
+                  f"{p50 * 1e3:.3f} ms: measured / learned "
+                  f"{p50 / learned_s:.3f}, / analytic "
+                  f"{p50 / an['predicted_time']:.3f}, / measured profile "
+                  f"{p50 / me['predicted_time']:.3f} ({card})")
+            check(sim["cost_sources"].get("learned", 0) > 0 and twin,
+                  "the simtrace carries no learned source or no analytic "
+                  "twin")
+            uncapped_mem = info["predicted_memory"]
+            out["search"] = dict(learned_s=learned_s,
+                                 analytic_s=an["predicted_time"],
+                                 measured_profile_s=me["predicted_time"],
+                                 simtrace_s=sim["predicted"]["step_s"],
+                                 twin_s=twin, p50_s=p50)
+            rc, text = quiet(costmodel_cli.main, [
+                "report", "--model", model_path, "--corpus", corpus_path,
+                "--trace-dir", td, "--json"])
+            check(rc == 0, f"costmodel report exited {rc}")
+            rep = json.loads(text)
+            for k, e in rep["corpus_accuracy"].items():
+                print(f"[costmodel] (c) report {k:24s} rows {e['rows']:3d}: "
+                      f"learned x{e['learned_err_factor'] or float('nan'):.3f}"
+                      f" ({e['learned_rows']}), analytic on those rows "
+                      f"x{e['analytic_err_factor_matched'] or float('nan'):.3f}"
+                      f", on all x{e['analytic_err_factor']:.3f}")
+            for row in rep["step_accuracy"]:
+                print(f"[costmodel] (c) report step accuracy {row}")
+            check(len(rep["step_accuracy"]) == 1, "no step-accuracy row")
+            obs_out = os.path.join(tmp, "OBS_REPORT.json")
+            rc, _ = quiet(obs_report_cli.main, [td, "--out", obs_out])
+            check(rc == 0, f"obs_report exited {rc}")
+            with open(obs_out) as f:
+                (run,) = json.load(f)["runs"]
+            # the counters are the process's registry: its fit/step_time_s
+            # p50 spans every fit of this process, not this run's steps
+            print(f"[costmodel] (c) obs_report: the registry's fit p50 (every "
+                  f"fit of the process) {run['step_time_p50_s'] * 1e3:.3f} "
+                  f"ms, this run's {p50 * 1e3:.3f} ms (drift); sim "
+                  f"{run['sim']}")
+            del ff
+            torch.cuda.empty_cache()
+
+            print(f"[costmodel] (b)+(c) {time.perf_counter() - t0:.1f} s "
+                  f"after (a)'s start")
+            # ---- (d) calibrate -----------------------------------------------
+            cal_path = os.path.join(tmp, "CALIBRATION_GPU.json")
+            os.environ["FFS_CALIBRATION_FILE"] = cal_path
+            t0 = time.perf_counter()
+            rc, text = quiet(calibrate_cli.main, ["--device", "cuda"])
+            for line in text.splitlines():
+                print(f"[costmodel] (d) {line}")
+            print(f"[costmodel] (d) calibrate exited {rc} in "
+                  f"{time.perf_counter() - t0:.1f} s ({card})")
+            check((rc == 0 and "calibration PASS" in text)
+                  or (rc == 1 and "calibration FAIL" in text),
+                  f"calibrate exited {rc} without its verdict")
+            rc, text = quiet(calibrate_cli.main,
+                             ["--ingest-drift", obs_trace_dir])
+            for line in text.splitlines():
+                print(f"[costmodel] (d) ingest: {line}")
+            check(rc == 0, f"--ingest-drift exited {rc}")
+            with open(cal_path) as f:
+                cal = json.load(f)
+            for r in cal["results"]:
+                print(f"[costmodel] (d) row {json.dumps(r, sort_keys=True)} "
+                      f"({card})")
+            check(cal["platform"] == "gpu"
+                  and cal["device"] == torch.cuda.get_device_name(0),
+                  f"calibration file of {cal['platform']} {cal['device']}")
+            sweep = [r for r in cal["results"]
+                     if r.get("source") != "drift_report"]
+            check(sorted(r["model"] for r in sweep)
+                  == ["alexnet", "bert_proxy", "mlp", "resnet"]
+                  and all(r["ops_measured"] == r["ops_total"]
+                          and r["actual_mem_bytes"] > 0 for r in sweep),
+                  "the sweep's rows")
+            ratios = sorted(r["mem_ratio"] for r in cal["results"]
+                            if isinstance(r.get("mem_ratio"), (int, float))
+                            and r["mem_ratio"] > 0)
+            median = ratios[len(ratios) // 2]
+            corr = unity._memory_correction()
+            print(f"[costmodel] (d) mem_ratio rows {ratios}: median {median}; "
+                  f"the search's _memory_correction() {corr}")
+            check(corr == median, "the search reads another correction")
+            out["calibration"] = dict(rows=cal["results"],
+                                      memory_correction=corr)
+            seen = []
+            real = native.native_optimize
+
+            def spy(req):
+                seen.append(req["config"]["memory_threshold"])
+                return real(req)
+
+            cap_mb = max(COSTMODEL_MEMORY_MB, math.ceil(
+                2 * corr * uncapped_mem / 2**20))
+            gc.collect()
+            torch.cuda.synchronize()
+            baseline = torch.cuda.memory_allocated()
+            native.native_optimize = spy
+            try:
+                ff = build(cfg, ["--budget", str(SEARCH_BUDGET),
+                                 "--memory-search", "--memory-threshold",
+                                 str(cap_mb)])
+            finally:
+                native.native_optimize = real
+            want = cap_mb * (1 << 20) / max(corr, 1.0)
+            check(seen and abs(seen[0] - want) <= 1e-6 * want
+                  and ff.search_info["memory_correction"] == corr,
+                  f"threshold {seen} against {want}")
+            x, y = training_batch(cfg)
+            ff.fit(x, y, epochs=1, verbose=False)  # the capture
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ff.fit(x, y, epochs=2, verbose=False)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - baseline
+            held = step_footprint_bytes(ff, peak + baseline) - baseline
+            pred = ff.search_info["predicted_memory"]
+            print(f"[costmodel] (d) memory-capped compile: threshold "
+                  f"{cap_mb} MiB / {corr} = "
+                  f"{seen[0] / 2**20:.1f} MiB; predicted memory "
+                  f"{pred / 2**30:.3f} GiB (x correction "
+                  f"{pred * corr / 2**30:.3f}); measured over 2 steps: peak "
+                  f"allocated {peak / 2**30:.3f} GiB, with the graph pool "
+                  f"{held / 2**30:.3f} GiB (the process's "
+                  f"{baseline / 2**30:.3f} GiB before the model left out): "
+                  f"measured / predicted {held / pred:.3f} ({card})")
+            out["capped"] = dict(threshold=seen[0], predicted=pred,
+                                 peak=peak, footprint=held)
+            del ff
+            torch.cuda.empty_cache()
+
+            # ---- (e) the operator tools -----------------------------------
+            ckpt = os.path.join(tmp, "supervised")
+            cmd = [sys.executable, os.path.abspath(__file__),
+                   "--supervise-child", "--checkpoint-dir", ckpt,
+                   "--checkpoint-every", "1", "--grace-window",
+                   str(CKPT_GRACE_S)]
+            os.environ["FFS_FAULT"] = SUPERVISE_FAULT
+            t0 = time.perf_counter()
+            try:
+                rc = supervise_cli.main(["--max-restarts", "2",
+                                         "--backoff-base", "0.5", "--"]
+                                        + cmd)
+            finally:
+                del os.environ["FFS_FAULT"]
+            with open(os.path.join(ckpt, "SUPERVISOR.json")) as f:
+                state = json.load(f)
+            print(f"[costmodel] (e) supervise: exit {rc} in "
+                  f"{time.perf_counter() - t0:.1f} s; attempts "
+                  + ", ".join(f"{h['outcome']}({h['code']})"
+                              for h in state["history"])
+                  + f"; downtime {state['downtime_s']:.2f} s")
+            check(rc == 0 and [h["code"] for h in state["history"]]
+                  == [PREEMPTED_EXIT, 0], f"supervise: {state['history']}")
+            rc, text = quiet(inspect_cli.main, [ckpt])
+            for line in text.splitlines():
+                print(f"[costmodel] (e) ckpt_inspect: {line}")
+            check(rc == 0, f"ckpt_inspect exited {rc}")
+            out["supervise"] = [h["code"] for h in state["history"]]
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(sorted(os.listdir(root)) == tree_before,
+          "[costmodel] wrote into the tree: "
+          f"{sorted(set(os.listdir(root)) - set(tree_before))}")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     import torch
@@ -5427,6 +5929,8 @@ def main(argv=None) -> int:
         return 1
     if argv[:1] == ["--ckpt-child"]:
         return ckpt_child(argv[1:])
+    if argv[:1] == ["--supervise-child"]:
+        return supervise_child(argv[1:])
     def run_phase(label, fn, *args, **kw):
         t0 = time.perf_counter()
         result = fn(*args, **kw)
@@ -5483,7 +5987,10 @@ def main(argv=None) -> int:
                         zoo[model]["rows"]["D"])
             zoo.update(run_phase("zoo bn", phase_zoo_bn, tmp))
             ckpt = run_phase("ckpt", phase_ckpt, tmp)
-            obs = run_phase("obs", phase_obs, tmp, analytic_predicted)
+            obs = run_phase("obs", phase_obs, tmp, analytic_predicted,
+                            trace_root=tmp)
+            costmodel = run_phase("costmodel", phase_costmodel,
+                                  obs["trace_dir"])
         print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -5502,7 +6009,9 @@ def main(argv=None) -> int:
         llama_train_remat=llama_train["remat"]["launches"]["flash_attn_fwd"],
         ckpt_resume=ckpt["a"]["launches"]["flash_attn_fwd"],
         obs_measure=obs["measure"]["flash_attn_fwd"],
-        obs_traced=obs["traced"]["launches"]["flash_attn_fwd"])
+        obs_traced=obs["traced"]["launches"]["flash_attn_fwd"],
+        costmodel_corpus=costmodel["corpus_launches"]["flash_attn_fwd"],
+        costmodel_learned=costmodel["learned_launches"]["flash_attn_fwd"])
     bwd["launches"] = train_b["flash_attn_bwd"]
     bwd["launches_by_path"] = dict(
         train_b=train_b["flash_attn_bwd"],
@@ -5511,7 +6020,9 @@ def main(argv=None) -> int:
         llama_train_remat=llama_train["remat"]["launches"]["flash_attn_bwd"],
         ckpt_resume=ckpt["a"]["launches"]["flash_attn_bwd"],
         obs_measure=obs["measure"]["flash_attn_bwd"],
-        obs_traced=obs["traced"]["launches"]["flash_attn_bwd"])
+        obs_traced=obs["traced"]["launches"]["flash_attn_bwd"],
+        costmodel_corpus=costmodel["corpus_launches"]["flash_attn_bwd"],
+        costmodel_learned=costmodel["learned_launches"]["flash_attn_bwd"])
     bwd["llama_train"] = dict(
         llama_k2, launches=llama_train["plain"]["launches"]["flash_attn_bwd"])
     bwd_k3["launches"] = train_a["launches"]["flash_attn_bwd"]

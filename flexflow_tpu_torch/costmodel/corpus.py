@@ -1,0 +1,310 @@
+"""Training-corpus store for the learned cost model.
+
+The port's counterpart of ``flexflow_tpu/costmodel/corpus.py``, with the
+same rows, features, keys and schema checks, so that a corpus built by
+either package trains the same model. It ingests the measurement
+artifacts the port's obs subsystem writes into one deduplicated,
+schema-versioned corpus:
+
+- ``*.simtrace.json``: the primary source. Per-op rows carry the op's
+  identity (class, shape, sharding choice, mesh), the simulator's priced
+  terms, the featurization fields (flops, io bytes, param bytes), and
+  measured whole-op seconds where a profile table ran (a traced ``fit``
+  of a model compiled with ``--profiling``).
+- ``*.drift.json``: joined by run stem; a traced fit's measured per-op
+  seconds fill the measured half of simtrace rows whose profile column
+  is empty.
+- ``roofline*.json``: ``python -m flexflow_tpu_torch.scripts.roofline``
+  reports, standalone per-op measurements at work division 1.
+
+Rows are keyed by (platform, op class, impl, shape, choice, mesh,
+work_div, flops): re-ingesting a directory replaces its rows; distinct
+shapes and choices accumulate. ``python -m
+flexflow_tpu_torch.scripts.costmodel train`` writes the corpus to
+``COSTMODEL_CORPUS_GPU.json``.
+
+Featurization: log-space features over the sharded work; the native
+evaluator (``native/ffs_machine.hpp`` ``learned_predict``) computes the
+same vector from (Node, Choice). A row newer than the writer's schema
+(``obs/simtrace.py`` ``CORPUS_SCHEMA_VERSION``) raises
+``CorpusSchemaError``. The module uses numpy only.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import math
+import os
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+# the loader understands rows up to the port's simtrace writer's version
+from flexflow_tpu_torch.obs.simtrace import CORPUS_SCHEMA_VERSION
+
+# Oldest row schema still trainable: v2 introduced the featurization
+# fields; v3 only added the ``impl`` column (derived from the choice
+# suffix for v2 rows).
+CORPUS_MIN_TRAINABLE = 2
+
+# Kernel impls that change the compute lowering get their own learned
+# class ("TYPE:impl", the native evaluator's lookup in ffs_strategy.hpp
+# learned_compute). Ring attention and the fused update keep the base
+# class: ring's per-block compute is the einsum and "fused" moves only
+# the update term.
+_COMPUTE_IMPLS = frozenset({"flash", "conv_bn_fused"})
+
+
+def row_impl(row: Dict[str, Any]) -> Optional[str]:
+    """Kernel impl of a corpus row: the v3 ``impl`` column, else derived
+    from the choice suffix (v2 rows)."""
+    impl = row.get("impl")
+    if impl:
+        return str(impl)
+    from flexflow_tpu_torch.search.unity import kernel_choice_of
+    ch = row.get("choice") or ""
+    k = kernel_choice_of(ch)
+    if k is not None:
+        return k
+    t = row.get("type")
+    if t == "MULTIHEAD_ATTENTION":
+        return "ring" if "_ring" in ch else "einsum"
+    if t == "CONV2D":
+        return "conv"
+    return None
+
+
+def row_class(row: Dict[str, Any]) -> str:
+    """Learned-model class key of a row: the op type, suffixed ``:impl``
+    for compute-kernel impls, so that two lowerings of one type train
+    apart."""
+    impl = row_impl(row)
+    if impl in _COMPUTE_IMPLS:
+        return f"{row.get('type')}:{impl}"
+    return str(row.get("type"))
+
+
+# The features the regression trains over, in the native evaluator's
+# order and transforms (ffs_machine.hpp kLearnedFeatures). All log-space:
+# per-op seconds span six orders of magnitude.
+FEATURE_NAMES: Tuple[str, ...] = (
+    "log_flops_sharded",   # log1p(analytic FLOPs / work_div)
+    "log_bytes_sharded",   # log1p(io bytes (params+in+out) / work_div)
+    "log_param_bytes",     # log1p(whole-op parameter bytes)
+    "log_work_div",        # log(work division the choice applies)
+)
+
+
+class CorpusSchemaError(ValueError):
+    """A trace artifact carries corpus rows newer than this loader
+    understands: the simtrace schema moved without this loader."""
+
+
+def featurize(row: Dict[str, Any]) -> np.ndarray:
+    """Feature vector of one corpus row (FEATURE_NAMES order)."""
+    div = max(1.0, float(row.get("work_div") or 1.0))
+    flops = max(0.0, float(row.get("flops") or 0.0))
+    io_bytes = max(0.0, float(row.get("io_bytes") or 0.0))
+    pbytes = max(0.0, float(row.get("param_bytes") or 0.0))
+    return np.array([
+        math.log1p(flops / div),
+        math.log1p(io_bytes / div),
+        math.log1p(pbytes),
+        math.log(div),
+    ], dtype=np.float64)
+
+
+def row_key(row: Dict[str, Any]) -> Tuple:
+    """Dedup identity: platform x op class x impl x shape x choice x
+    mesh x work division x flops. Two measurements of one configuration
+    collapse (last wins)."""
+    mesh = row.get("mesh_axes") or {}
+    return (
+        row.get("platform") or "unknown",
+        row.get("type"),
+        row_impl(row),
+        tuple(row.get("out_shape") or ()),
+        row.get("choice"),
+        tuple(sorted((str(k), int(v)) for k, v in mesh.items())),
+        int(row.get("work_div") or 1),
+        round(float(row.get("flops") or 0.0), 3),
+    )
+
+
+def _check_schema(ver: Optional[int], path: str) -> None:
+    if ver is not None and int(ver) > CORPUS_SCHEMA_VERSION:
+        raise CorpusSchemaError(
+            f"{os.path.basename(path)}: corpus rows are schema v{ver} but "
+            f"this loader understands <= v{CORPUS_SCHEMA_VERSION}: the "
+            f"simtrace corpus schema moved; update "
+            f"flexflow_tpu_torch/costmodel/corpus.py in the same change as "
+            f"the writer (flexflow_tpu_torch/obs/simtrace.py)")
+
+
+def _trainable(row: Dict[str, Any]) -> bool:
+    # zero-FLOP rows stay trainable: pooling, dropout and view classes
+    # regress on their byte features alone
+    m = row.get("measured") or {}
+    return (m.get("source") == "measured" and m.get("fwd_s")
+            and float(m["fwd_s"]) > 0 and (row.get("io_bytes") or 0) > 0)
+
+
+def rows_from_simtrace(payload: Dict[str, Any], path: str,
+                       drift: Optional[Dict[str, Any]] = None
+                       ) -> Tuple[List[Dict[str, Any]], int]:
+    """Corpus rows of one simtrace artifact, measured seconds joined
+    from the stem's drift report where the profile column is empty.
+    Returns (rows, skipped); skipped counts rows too old to carry the
+    featurization fields (schema v1) or without a measurement."""
+    _check_schema(payload.get("corpus_schema"), path)
+    header = payload.get("header") or {}
+    platform = header.get("platform") or "unknown"
+    drift_ops = {r.get("guid"): r
+                 for r in (drift or {}).get("per_op") or []
+                 if r.get("source") == "measured"}
+    out: List[Dict[str, Any]] = []
+    skipped = 0
+    for r in payload.get("per_op") or []:
+        ver = r.get("schema", 1)
+        _check_schema(ver, path)
+        if int(ver) < CORPUS_MIN_TRAINABLE:
+            skipped += 1
+            continue
+        row = dict(r)
+        row.setdefault("mesh_axes", payload.get("mesh_axes") or {})
+        row["platform"] = platform
+        row["source_artifact"] = os.path.basename(path)
+        m = dict(row.get("measured") or {})
+        if m.get("source") != "measured":
+            d = drift_ops.get(r.get("guid"))
+            if d is not None and d.get("fwd_s"):
+                m = dict(fwd_s=d["fwd_s"], bwd_s=d.get("bwd_s"),
+                         source="measured")
+        row["measured"] = m
+        if _trainable(row):
+            out.append(row)
+        else:
+            skipped += 1
+    return out, skipped
+
+
+def rows_from_roofline(payload: Dict[str, Any], path: str
+                       ) -> List[Dict[str, Any]]:
+    """Corpus rows from a roofline report: standalone per-op
+    measurements, replicated (work_div 1). The roofline's ``bytes``
+    column is in+out+params at the report's width; the parameter bytes
+    are what is left after the f32 activations."""
+    platform = ((payload.get("meta") or {}).get("platform")
+                or (payload.get("header") or {}).get("platform")
+                or "unknown")
+    out: List[Dict[str, Any]] = []
+    for r in payload.get("rows") or []:
+        if "fwd_s" not in r:
+            continue
+        oshape = (r.get("output_shapes") or [[]])[0]
+        pbytes = max(0.0, float(r.get("bytes") or 0.0)
+                     - 4.0 * sum(float(np.prod(s))
+                                 for s in (r.get("input_shapes") or [])
+                                 + (r.get("output_shapes") or [])))
+        row = dict(
+            schema=CORPUS_SCHEMA_VERSION,
+            guid=None, name=r.get("name"), type=r.get("type"),
+            out_shape=list(oshape), choice="rep", work_div=1,
+            flops=float(r.get("flops") or 0.0),
+            io_bytes=float(r.get("bytes") or 0.0),
+            param_bytes=pbytes,
+            dtype_size=4,
+            mesh_axes={},
+            platform=platform,
+            source_artifact=os.path.basename(path),
+            priced=dict(source="analytic"),
+            measured=dict(fwd_s=r.get("fwd_s"), bwd_s=r.get("bwd_s"),
+                          source="measured"),
+        )
+        if _trainable(row):
+            out.append(row)
+    return out
+
+
+def _load_json(path: str) -> Optional[Any]:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def load_trace_dir(trace_dir: str) -> Tuple[List[Dict[str, Any]],
+                                            Dict[str, int]]:
+    """All trainable corpus rows of one trace dir (simtrace joined with
+    drift by run stem, plus roofline reports). Returns (rows, stats)."""
+    rows: List[Dict[str, Any]] = []
+    stats = dict(simtrace_files=0, roofline_files=0, rows=0, skipped=0)
+    drifts: Dict[str, Dict[str, Any]] = {}
+    for p in glob.glob(os.path.join(trace_dir, "*.drift.json")):
+        data = _load_json(p)
+        if data is not None:
+            drifts[os.path.basename(p)[:-len(".drift.json")]] = data
+    for p in sorted(glob.glob(os.path.join(trace_dir, "*.simtrace.json"))):
+        payload = _load_json(p)
+        if payload is None:
+            continue
+        stem = os.path.basename(p)[:-len(".simtrace.json")]
+        got, skipped = rows_from_simtrace(payload, p, drift=drifts.get(stem))
+        rows.extend(got)
+        stats["simtrace_files"] += 1
+        stats["skipped"] += skipped
+    for pattern in ("*.roofline.json", "roofline_*.json"):
+        for p in sorted(glob.glob(os.path.join(trace_dir, pattern))):
+            payload = _load_json(p)
+            if not isinstance(payload, dict) or "rows" not in payload:
+                continue
+            rows.extend(rows_from_roofline(payload, p))
+            stats["roofline_files"] += 1
+    stats["rows"] = len(rows)
+    return rows, stats
+
+
+def build_corpus(trace_dirs: Sequence[str]) -> Dict[str, Any]:
+    """Deduplicated training corpus over one or many trace dirs."""
+    by_key: Dict[Tuple, Dict[str, Any]] = {}
+    stats = dict(simtrace_files=0, roofline_files=0, skipped=0,
+                 duplicates=0)
+    for d in trace_dirs:
+        rows, s = load_trace_dir(d)
+        for k in ("simtrace_files", "roofline_files", "skipped"):
+            stats[k] += s[k]
+        for r in rows:
+            k = row_key(r)
+            if k in by_key:
+                stats["duplicates"] += 1
+            by_key[k] = r
+    rows = list(by_key.values())
+    classes: Dict[str, int] = {}
+    for r in rows:
+        c = row_class(r)
+        classes[c] = classes.get(c, 0) + 1
+    return dict(
+        schema_version=1,
+        corpus_schema=CORPUS_SCHEMA_VERSION,
+        feature_names=list(FEATURE_NAMES),
+        trace_dirs=[os.path.abspath(d) for d in trace_dirs],
+        stats=stats,
+        classes=classes,
+        rows=rows,
+    )
+
+
+def save_corpus(path: str, corpus: Dict[str, Any]) -> None:
+    from flexflow_tpu_torch.obs.artifacts import atomic_write_text
+    atomic_write_text(path, json.dumps(corpus, indent=1))
+
+
+def load_corpus(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        corpus = json.load(f)
+    _check_schema(corpus.get("corpus_schema"), path)
+    for r in corpus.get("rows") or []:
+        _check_schema(r.get("schema"), path)
+    return corpus

@@ -35,8 +35,10 @@ CHIP_SPECS: Dict[str, Dict[str, float]] = {
     # NVIDIA H100 SXM5 80GB in an 8-GPU NVSwitch node (HGX/DGX H100).
     # Datasheet figures and two readings. A compile under
     # --search-measure-ops prices each op on times taken on the card
-    # (search/profile.py) instead; no calibration rows of the card exist
-    # yet (ROADMAP.md Queue 1 item 11).
+    # (search/profile.py) instead, a learned table (costmodel/) the
+    # classes it covers, and the calibration file's gpu buckets scale
+    # the measured ops and the collectives (search/profile.py
+    # calibration_path).
     "h100-sxm": dict(
         flops=989e12,      # bf16 dense Tensor Core peak (H100 SXM datasheet)
         hbm_bw=3.35e12,    # HBM3 bandwidth (H100 SXM datasheet)
@@ -114,6 +116,10 @@ class MachineSpec:
     collective_launch_overhead: float = 2e-6
     # explicit slice-pair links [(i, j, bytes_per_s), ...]; None = uniform
     dcn_links: Optional[Sequence[Tuple[int, int, float]]] = None
+    # measured per-collective-kind factors (kind -> measured/predicted)
+    # of the calibration file's platform bucket (load_collective_
+    # corrections); None or {} = uncalibrated
+    collective_corrections: Optional[Dict[str, float]] = None
 
     def __post_init__(self):
         if self.chip not in CHIP_SPECS:
@@ -291,6 +297,29 @@ def check_spec_device(machine_spec, device) -> None:
             f"against another machine's peaks")
 
 
+def load_collective_corrections(platform: str,
+                                path: Optional[str] = None
+                                ) -> Dict[str, float]:
+    """Measured per-collective-kind factors (kind -> measured/predicted
+    ratio) of the calibration file's ``collective_corrections`` bucket
+    for one platform ("gpu", "cpu", ...). The file is the port's
+    (``search/profile.py`` ``calibration_path``: ``path``, else
+    ``FFS_CALIBRATION_FILE``, else the repo root's
+    ``CALIBRATION_GPU.json``). {} when the file or bucket is absent:
+    uncalibrated."""
+    from flexflow_tpu_torch.search.profile import read_calibration
+
+    bucket = (read_calibration(path).get("collective_corrections")
+              or {}).get(platform) or {}
+    out: Dict[str, float] = {}
+    for kind, e in bucket.items():
+        try:
+            out[kind] = float(e["factor"] if isinstance(e, dict) else e)
+        except (KeyError, TypeError, ValueError):
+            continue
+    return out
+
+
 class UnknownDeviceError(RuntimeError):
     """The card has no entry in the machine table."""
 
@@ -316,7 +345,12 @@ def detect_machine_spec(num_devices: Optional[int] = None, slices: int = 1,
     ``FFModel``'s is: ``None`` means the card, and raises when no CUDA
     device is present; the CPU only when asked for by name.
     ``num_devices`` defaults to the visible cards (1 on the CPU);
-    ``slices > 1`` splits them into that many DCN-joined nodes."""
+    ``slices > 1`` splits them into that many DCN-joined nodes. On a card
+    the calibration file's ``gpu`` collective corrections engage
+    (``load_collective_corrections``); never on the CPU, and not under
+    ``FFS_NO_DRIFT_CORRECTIONS``."""
+    import os
+
     import torch
 
     if device is None and not torch.cuda.is_available():
@@ -336,7 +370,12 @@ def detect_machine_spec(num_devices: Optional[int] = None, slices: int = 1,
     if s > 1 and n % s != 0:
         raise ValueError(
             f"--slices {s} does not divide the {n} devices")
-    return MachineSpec(chip=chip, chips_per_slice=n // s, num_slices=s)
+    spec = MachineSpec(chip=chip, chips_per_slice=n // s, num_slices=s)
+    if dev.type == "cuda" and not os.environ.get("FFS_NO_DRIFT_CORRECTIONS"):
+        corr = load_collective_corrections("gpu")
+        if corr:
+            spec.collective_corrections = corr
+    return spec
 
 
 class Mesh:

@@ -455,7 +455,8 @@ class FFModel:
                 mesh_axes, self.strategy, self.search_info = \
                     unity.graph_optimize(nodes, self.machine_spec, cfg, n_dev,
                                          measured=measured, batch=batch0,
-                                         final_ref=final_ref)
+                                         final_ref=final_ref,
+                                         device=self.device)
             except (RuntimeError, OSError) as e:
                 # a requested search never degrades to data parallelism
                 raise RuntimeError(

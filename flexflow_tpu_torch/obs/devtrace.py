@@ -29,7 +29,12 @@ the step it starts in. The step window is the annotation's host span; a traced s
 fences on its loss (``device_wait``), so the step's kernels end inside
 it. A step inside the window that captured a CUDA graph ran the eager
 warm-up and the capture, not the replay the other steps run: it is
-left out of the attribution and named in ``refused_steps``.
+left out of the attribution and named in ``refused_steps``. The session
+starts one step before the window where there is one: a session
+can record no device event for its first milliseconds (4-6 ms on an
+H100, late in a process that had run many sessions), which would drop
+the window's first kernels; that step is neither annotated nor
+attributed.
 
 On a model the caller put on the CPU the session records CPU activity
 only: ``device_events`` is 0 and the report says so in ``note``.
@@ -429,9 +434,9 @@ NULL_CAPTURE = NullCapture()
 
 
 class _CaptureStep:
-    """Per-step context: starts the profiler session when the window
-    opens, wraps the step in its ``ff_step#<step>`` annotation while
-    capturing, and stops the session when the window closes, recording
+    """Per-step context: starts the profiler session one step before the
+    window opens, wraps each window step in its ``ff_step#<step>``
+    annotation, and stops the session when the window closes, recording
     the host perf_counter bracket of every annotated step for the clock
     correlation of the Perfetto lanes."""
 
@@ -444,9 +449,11 @@ class _CaptureStep:
 
     def __enter__(self):
         cap = self.cap
-        if cap.state == "idle" and self.idx >= cap.window[0]:
+        # one step early: the window's first step begins with the
+        # session already recording
+        if cap.state == "idle" and self.idx >= cap.window[0] - 1:
             cap._start()
-        if cap.state == "capturing":
+        if cap.state == "capturing" and self.idx >= cap.window[0]:
             try:
                 import torch
                 self._ann = torch.profiler.record_function(
@@ -483,8 +490,9 @@ class DeviceTraceCapture:
     """One windowed ``torch.profiler`` session around a step range.
 
     Wrap each training step in ``capture.step(i)``; the session starts
-    when step ``window[0]`` begins and stops after step ``window[1]-1``
-    completes. ``finalize`` parses the exported trace, writes the
+    when step ``window[0] - 1`` begins (``window[0]`` when it is the first
+    step run) and stops after step ``window[1]-1`` completes; only the
+    window's steps are annotated and attributed. ``finalize`` parses the exported trace, writes the
     ``.devtrace.json`` attribution artifact, feeds the counter registry,
     and injects rebased device lanes + per-step attribution counter
     tracks into the StepTracer's Perfetto output. ``capture_count``

@@ -35,7 +35,7 @@ census agree.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 _DTYPE_BYTES = {
     "f64": 8, "f32": 4, "f16": 2, "bf16": 2, "s32": 4, "u32": 4,
@@ -130,6 +130,19 @@ def _graph_pool_segments(ff):
             if tuple(seg.get("segment_pool_id") or ()) == pool]
 
 
+def step_footprint_bytes(ff, peak: Optional[float]) -> Optional[float]:
+    """What the compiled train step holds on the card: ``peak``, the
+    allocator's peak over replayed steps, less the CUDA-graph pool's live
+    blocks plus the pool's reservation (a replay's activations live in
+    the pool's free blocks, which the peak does not count). None on the
+    CPU, before any capture, or without a peak."""
+    segs = _graph_pool_segments(ff)
+    if peak is None or segs is None:
+        return None
+    return (peak - sum(seg["allocated_size"] for seg in segs)
+            + float(sum(seg["total_size"] for seg in segs)))
+
+
 def inspect_compiled(ff) -> Dict[str, Any]:
     """FLOPs, memory and collective census of a compiled model's train
     step (see the module docstring for each field's source)."""
@@ -145,8 +158,7 @@ def inspect_compiled(ff) -> Dict[str, Any]:
     segs = _graph_pool_segments(ff)
     pool = (None if segs is None
             else float(sum(seg["total_size"] for seg in segs)))
-    footprint = (None if peak is None or segs is None else
-                 peak - sum(seg["allocated_size"] for seg in segs) + pool)
+    footprint = step_footprint_bytes(ff, peak)
     memory = dict(
         argument_bytes=args,
         peak_bytes=peak,

@@ -13,9 +13,11 @@ side by side in one timeline.
 It also writes the ``.simtrace.json`` artifact: the predicted step
 breakdown plus per-op priced rows joined with measured per-op seconds
 where a profile table exists: the corpus rows the learned cost model
-trains on (``CORPUS_SCHEMA_VERSION``). The port prices analytically
-(no learned table exists for a GPU), so every row's priced source is
-``"analytic"`` and no analytic twin rides along.
+trains on (``CORPUS_SCHEMA_VERSION``). Each row's priced source says
+which model priced the op (``"analytic"``, ``"learned"`` or
+``"measured"``); when the replay priced any op with the learned table
+(``costmodel/``), the same strategy is simulated again without it and
+that analytic twin rides along as ``predicted_analytic``.
 """
 
 from __future__ import annotations
@@ -282,7 +284,12 @@ def write_simtrace(ff, tracer, align_ts_us: Optional[float] = None
     import os
 
     resp = simulate_strategy(ff)
-    report = simtrace_report(ff, resp)
+    resp_analytic = None
+    if any(v == "learned" for v in (resp.get("cost_sources") or {}).values()):
+        # the replay priced ops with the learned table: the analytic
+        # twin of the same strategy, for the side-by-side accuracy
+        resp_analytic = simulate_strategy(ff, learned=False)
+    report = simtrace_report(ff, resp, resp_analytic=resp_analytic)
     if align_ts_us is None:
         align_ts_us = tracer.last_step_start_us() or 0.0
     name_of = {i: n.op.name for i, n in enumerate(ff.executor.nodes)}

@@ -42,9 +42,12 @@ dependence loop alone is timed as well and subtracted, with the bytes
 it moves over the machine's HBM rate (``machine_spec.hbm_bw``: no
 literal figure here).
 
-Drift corrections (``load_op_corrections``) are CALIBRATION.json's
-per-op-type factors of the model's platform bucket; the file holds no
-``gpu`` bucket, so a table measured on the card is not scaled.
+Drift corrections (``load_op_corrections``) are the per-op-type
+factors of the model's platform bucket in the port's calibration file
+(``calibration_path``: ``FFS_CALIBRATION_FILE``, else the repo root's
+``CALIBRATION_GPU.json``, which ``python -m
+flexflow_tpu_torch.scripts.calibrate --ingest-drift`` writes). The port
+never reads the JAX package's ``CALIBRATION.json``.
 """
 
 from __future__ import annotations
@@ -97,11 +100,18 @@ def op_cost_key(op, device=None, layout: Optional[str] = None,
     execution layout and dtype are part of it (an NHWC and an NCHW conv
     are different programs), and so are the platform and device kind of
     ``device`` (the card when None; the CPU only by name), so that a CPU
-    measurement or another card's never prices this card's search."""
+    measurement or another card's never prices this card's search. A
+    kernel the strategy pinned (``kernel_impl``: attention's flash or
+    einsum core) is part of it too: one core's time never stands for the
+    other's."""
     platform, kind = device_identity(resolve_device(device))
     layout = layout or getattr(op, "exec_layout", "NCHW")
-    raw = repr((op.param_key(), layout, platform, kind,
-                str(dtype if dtype is not None else torch.float32)))
+    parts = (op.param_key(), layout, platform, kind,
+             str(dtype if dtype is not None else torch.float32))
+    pinned = getattr(op, "kernel_impl", None)
+    if pinned is not None:
+        parts += (pinned,)
+    raw = repr(parts)
     return hashlib.sha1(raw.encode()).hexdigest()[:16]
 
 
@@ -508,24 +518,41 @@ def measure_runtime_constants(device=None) -> Dict[str, float]:
     return {"__step_overhead__": overhead, "__update_bw__": bw}
 
 
-def load_op_corrections(path: Optional[str] = None,
-                        platform: Optional[str] = None
-                        ) -> Dict[str, Dict[str, float]]:
-    """Drift-derived per-op-type correction factors from CALIBRATION.json
-    (``scripts/calibrate.py --ingest-drift``), keyed platform-first
-    ({platform: {op type: {"factor": ..}}}): the bucket of ``platform``
-    ("gpu", "cpu", ...), so a correction derived on one platform never
-    scales another's measurements. {} when no file or bucket exists.
-    ``FFS_CALIBRATION_FILE`` overrides the path (tests)."""
-    path = path or os.environ.get("FFS_CALIBRATION_FILE") or os.path.join(
+# the port's calibration file at the repo root (the JAX package's is
+# CALIBRATION.json, which the port never opens)
+CALIBRATION_FILE = "CALIBRATION_GPU.json"
+
+
+def calibration_path(path: Optional[str] = None) -> str:
+    """The calibration file every reader and writer of the port uses:
+    ``path``, else ``FFS_CALIBRATION_FILE``, else the repo root's
+    ``CALIBRATION_GPU.json``. Its format is the JAX package's:
+    ``platform``, ``device``, ``results[]``, and ``op_corrections`` and
+    ``collective_corrections`` keyed by platform."""
+    return path or os.environ.get("FFS_CALIBRATION_FILE") or os.path.join(
         os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__)))), "CALIBRATION.json")
+            os.path.abspath(__file__)))), CALIBRATION_FILE)
+
+
+def read_calibration(path: Optional[str] = None) -> Dict:
+    """The calibration file's contents ({} when absent or unreadable)."""
     try:
-        with open(path) as f:
+        with open(calibration_path(path)) as f:
             data = json.load(f)
     except (OSError, ValueError):
         return {}
-    corr = data.get("op_corrections", {})
+    return data if isinstance(data, dict) else {}
+
+
+def load_op_corrections(path: Optional[str] = None,
+                        platform: Optional[str] = None
+                        ) -> Dict[str, Dict[str, float]]:
+    """Drift-derived per-op-type correction factors of the calibration
+    file (``calibration_path``), keyed platform-first ({platform: {op
+    type: {"factor": ..}}}): the bucket of ``platform`` ("gpu", "cpu",
+    ...), so a correction derived on one platform never scales another's
+    measurements. {} when no file or bucket exists."""
+    corr = read_calibration(path).get("op_corrections", {})
     if not isinstance(corr, dict) or platform is None:
         return {}
     bucket = corr.get(platform, {})
@@ -538,7 +565,7 @@ def apply_drift_corrections(measured: Dict[str, float], nodes,
                             ) -> Dict[str, float]:
     """Scale each op's measured fwd/bwd seconds by its op type's
     drift-correction factor. ``corrections`` defaults to the bucket of
-    ``platform`` in CALIBRATION.json."""
+    ``platform`` in the calibration file."""
     if corrections is None:
         corrections = load_op_corrections(platform=platform)
     if not corrections:
@@ -582,7 +609,7 @@ def microbenchmark(nodes, machine_spec=None, device=None,
     required, and a ``machine_spec`` must describe ``device``
     (``machine.check_spec_device``). ``drift_corrections``
     (``FFS_NO_DRIFT_CORRECTIONS=1`` turns it off) scales the table by the
-    platform's CALIBRATION.json factors on the way out; the cache keeps
+    platform's calibration-file factors on the way out; the cache keeps
     the raw times."""
     if hbm_bw is None:
         if machine_spec is None:

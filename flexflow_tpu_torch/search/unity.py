@@ -7,19 +7,18 @@ read and write strategy files (``--export-strategy`` /
 ``--import-strategy``) in the JAX package's format, so that a file
 written by either package imports into the other. The requests are the
 JAX package's, field for field, so the same graph and machine give the
-same strategy. ``graph_optimize``'s ``measured`` table is the per-op
-times ``search/profile.py`` takes on the model's device under
-``--search-measure-ops``; without it the core prices each op on the
-machine model.
+same strategy. ``graph_optimize``'s ``measured`` table is the per-op times
+``search/profile.py`` takes on the model's device under
+``--search-measure-ops``; where no measured time exists, a learned table
+(``costmodel/``: ``FFS_COSTMODEL_FILE`` or the repo root's
+``COSTMODEL_GPU.json``, gated on the platform of the model's device)
+prices the op classes it covers, and the machine model the rest. The
+memory-capped search aims under its threshold divided by the median
+``mem_ratio`` of the port's calibration file (``CALIBRATION_GPU.json``).
 
-Three deliberate differences from the JAX package:
-- ``_memory_correction`` returns 1.0: the repo's calibration rows were
-  taken on a TPU or the CPU, and no GPU rows exist yet (ROADMAP.md
-  Queue 1 item 11).
-- The learned cost table is not loaded: none exists for a GPU, so the
-  search prices analytically (``info["cost_model"] == "analytic"``).
-- ``info`` carries no ``rewrite_verification``: the dataflow verifier is
-  ROADMAP.md Queue 1 item 12.
+One deliberate difference from the JAX package: ``info`` carries no
+``rewrite_verification``; the dataflow verifier is ROADMAP.md Queue 1
+item 12.
 """
 
 from __future__ import annotations
@@ -178,10 +177,15 @@ def serialize_graph(nodes, final_guid: Optional[int] = None
 
 
 def machine_to_json(spec, num_devices: int,
-                    comm_bytes_factor: float = 1.0) -> Dict[str, Any]:
+                    comm_bytes_factor: float = 1.0,
+                    learned: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
     """The machine as the native core reads it. With explicit slice-pair
     links the raw link matrix goes along (the core prices each
-    collective's span on it); else the effective DCN figures."""
+    collective's span on it); else the effective DCN figures.
+    ``learned``: the trained cost model's coefficient table
+    (``costmodel`` ``native_table()``), which the core prices the op
+    classes it covers with; None keeps analytic pricing."""
     dcn_links = list(getattr(spec, "dcn_links", None) or [])
     if dcn_links:
         dcn_bw, dcn_latency = spec.dcn_bw, spec.dcn_latency
@@ -209,6 +213,8 @@ def machine_to_json(spec, num_devices: int,
     if dcn_links:
         out["dcn_links"] = [[int(a), int(b), float(bw)]
                             for a, b, bw in dcn_links]
+    if learned:
+        out["learned"] = learned
     return out
 
 
@@ -289,8 +295,15 @@ def graph_optimize(nodes, machine_spec, config, num_devices: int,
                    measured: Optional[Dict[str, float]] = None,
                    batch: int = 0,
                    final_ref: Optional[Tuple[int, int]] = None,
+                   device=None,
                    ) -> Tuple[Dict[str, int], Strategy, Dict[str, Any]]:
     """Run the native Unity search. Returns (mesh_axes, strategy, info).
+
+    ``device`` is the model's torch device: its platform picks the
+    learned table (``costmodel.load_native_table``); with None only a
+    table of platform "unknown" loads. ``info["cost_model"]`` is
+    "learned" when the table covers one of the graph's op types (named
+    in ``info["learned_cost_classes"]``), else "analytic".
 
     When the substitution engine rewrites the graph, ``info`` carries
     ``rewritten_nodes`` (the node list the strategy is keyed to) and
@@ -302,19 +315,36 @@ def graph_optimize(nodes, machine_spec, config, num_devices: int,
     t0 = time.perf_counter()
     rules, subst_rules = _load_rules(config)
     threshold = 0
-    mem_correction = _memory_correction()
+    mem_correction = 1.0
     if config.memory_search and config.memory_threshold_mb:
         threshold = config.memory_threshold_mb * (1 << 20)
     elif config.memory_search:
         threshold = config.memory_per_chip_mb * (1 << 20)
+    if threshold:
+        # when the step's measured footprint runs corr x the prediction,
+        # aim for budget / corr so that the measured bytes fit
+        mem_correction = _memory_correction()
+        if mem_correction > 1.0:
+            threshold /= mem_correction
     comm_factor = 0.5 if (getattr(config, "allow_mixed_precision", True)
                           and machine_spec.chip != "cpu-sim") else 1.0
+    # the learned cost table of the device's platform (None: no model,
+    # another platform's, or FFS_NO_LEARNED_COSTS)
+    from flexflow_tpu_torch.costmodel import load_native_table
+    learned = load_native_table(device=device)
+    # provenance is about this graph: classes (per-impl "TYPE:impl" ones
+    # by their base type) that meet none of its op types price nothing
+    graph_types = {n.op.op_type.name for n in nodes}
+    learned_classes = sorted(
+        c for c in set((learned or {}).get("classes") or ())
+        if c.split(":", 1)[0] in graph_types)
     request = dict(
         nodes=serialize_graph(
             nodes,
             final_guid=final_ref[0] if final_ref is not None else None),
         machine=machine_to_json(machine_spec, num_devices,
-                                comm_bytes_factor=comm_factor),
+                                comm_bytes_factor=comm_factor,
+                                learned=learned),
         config=dict(
             budget=config.search_budget,
             alpha=config.search_alpha,
@@ -385,9 +415,11 @@ def graph_optimize(nodes, machine_spec, config, num_devices: int,
                 predicted_memory=resp.get("predicted_memory"),
                 memory_correction=mem_correction,
                 objective=objective,
-                cost_model="analytic",
+                cost_model="learned" if learned_classes else "analytic",
                 stats=resp.get("stats", {}),
                 rewrites=resp.get("rewrites", []))
+    if learned_classes:
+        info["learned_cost_classes"] = learned_classes
     if resp.get("search_trace"):
         trace = dict(resp["search_trace"])
         trace.setdefault("objective", objective)
@@ -407,9 +439,19 @@ def graph_optimize(nodes, machine_spec, config, num_devices: int,
 
 
 def _memory_correction() -> float:
-    """The predicted -> actual memory correction the memory-aware search
-    aims under. 1.0: no calibration rows exist for a GPU yet."""
-    return 1.0
+    """The median measured/predicted memory ratio (``mem_ratio``) of the
+    port's calibration file's rows (``python -m
+    flexflow_tpu_torch.scripts.calibrate`` writes them; the file is
+    ``search/profile.py`` ``calibration_path``), 1.0 when none exist."""
+    from flexflow_tpu_torch.search.profile import read_calibration
+
+    ratios = sorted(r["mem_ratio"]
+                    for r in read_calibration().get("results", [])
+                    if isinstance(r.get("mem_ratio"), (int, float))
+                    and r["mem_ratio"] > 0)
+    if not ratios:
+        return 1.0
+    return float(ratios[len(ratios) // 2])
 
 
 # ---- strategy files (--export-strategy / --import-strategy) ---------------

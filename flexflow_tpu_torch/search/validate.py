@@ -86,17 +86,28 @@ def predicted_vs_actual_memory(ff) -> Dict[str, float]:
                 ratio=float(actual) / float(predicted))
 
 
-def simulate_strategy(ff) -> Dict[str, Any]:
+def simulate_strategy(ff, learned: Any = "auto") -> Dict[str, Any]:
     """Replay the strategy ``FFModel.compile`` selected through the
     native simulator; returns the full response: iteration_time, memory,
-    the fwd/bwd/comm/gradsync breakdown and the scheduled task list
+    the fwd/bwd/comm/gradsync breakdown, the scheduled task list
     (per-task start/finish seconds and collective census records), which
-    ``obs/simtrace.py`` renders as the predicted Perfetto lanes. The port
-    loads no learned cost table (none exists for a GPU): the replay
-    prices analytically, as its search does."""
+    ``obs/simtrace.py`` renders as the predicted Perfetto lanes, and
+    ``cost_sources`` (which model priced each op).
+
+    ``learned``: "auto" prices with the table the search found for the
+    model's device (``costmodel.load_native_table``), so that the replay
+    matches the search; False prices analytically (the control arm of
+    the learned-against-analytic comparison); a native-table dict prices
+    with that table."""
     from flexflow_tpu_torch.search.native import native_simulate
     from flexflow_tpu_torch.search.unity import (machine_to_json,
                                                  serialize_graph)
+
+    if learned == "auto":
+        from flexflow_tpu_torch.costmodel import load_native_table
+        learned = load_native_table(device=ff.device)
+    elif not learned:
+        learned = None
 
     nodes = ff.executor.nodes
     axes = dict(ff.mesh.shape)
@@ -136,7 +147,8 @@ def simulate_strategy(ff) -> Dict[str, Any]:
         assignment[str(node.op.guid)] = choice
     req = dict(
         nodes=serialize_graph(nodes, final_guid=ff.executor.final_ref[0]),
-        machine=machine_to_json(ff.machine_spec, ff.mesh.size),
+        machine=machine_to_json(ff.machine_spec, ff.mesh.size,
+                                learned=learned),
         config=dict(training=True, overlap=True,
                     opt_state_factor=getattr(ff.config, "opt_state_factor",
                                              2.0)),

@@ -263,7 +263,7 @@ class ServingEngine:
         cfg.opt_state_factor = 0.0
         mesh_axes, strategy, info = unity.graph_optimize(
             nodes, ff.machine_spec, cfg, n_live, batch=bucket,
-            final_ref=final_ref)
+            final_ref=final_ref, device=ff.device)
         if math.prod(mesh_axes.values()) == n_live:
             mesh = make_mesh(n_live, mesh_axes)
         else:

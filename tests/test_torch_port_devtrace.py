@@ -345,6 +345,27 @@ def test_a_capturing_step_is_refused_by_name(tmp_path):
     assert [r["step"] for r in rep["per_step"]] == [1]
 
 
+def test_the_session_starts_one_step_before_the_window(tmp_path):
+    """The session is recording when the window's first step begins; the
+    step before it is neither annotated nor attributed. A window that
+    opens on the first step run starts with it."""
+    tracer = StepTracer(str(tmp_path), host_id=0, run_name="fit")
+    cap = pdev.DeviceTraceCapture(tracer, (2, 4))
+    states = []
+    for i in range(5):
+        with cap.step(i):
+            states.append(cap.state)
+    assert states == ["idle", "capturing", "capturing", "capturing", "done"]
+    assert sorted(cap.host_steps) == [2, 3]
+    rep = cap.finalize(None, tracer)
+    assert [r["step"] for r in rep["per_step"]] == [2, 3]
+    first = pdev.DeviceTraceCapture(
+        StepTracer(str(tmp_path / "b"), host_id=0, run_name="fit"), (0, 1))
+    with first.step(0):
+        assert first.state == "capturing"
+    assert sorted(first.host_steps) == [0] and first.state == "done"
+
+
 # ---- a profiled fit on the CPU ---------------------------------------------
 
 @pytest.fixture(scope="module")

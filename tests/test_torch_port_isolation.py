@@ -63,7 +63,15 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.obs.inspect, flexflow_tpu_torch.obs.devtrace, "
         "flexflow_tpu_torch.obs.drift, flexflow_tpu_torch.obs.roofline, "
         "flexflow_tpu_torch.obs.simtrace, flexflow_tpu_torch.search.profile, "
-        "flexflow_tpu_torch.search.validate\n"
+        "flexflow_tpu_torch.search.validate, flexflow_tpu_torch.costmodel, "
+        "flexflow_tpu_torch.costmodel.corpus, "
+        "flexflow_tpu_torch.costmodel.model, flexflow_tpu_torch.scripts, "
+        "flexflow_tpu_torch.scripts.costmodel, "
+        "flexflow_tpu_torch.scripts.calibrate, "
+        "flexflow_tpu_torch.scripts.obs_report, "
+        "flexflow_tpu_torch.scripts.roofline, "
+        "flexflow_tpu_torch.scripts.ckpt_inspect, "
+        "flexflow_tpu_torch.scripts.supervise\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -94,7 +102,10 @@ def test_source_imports_nothing_of_jax(path):
 MEASURE_MODULES = ("search/profile.py", "search/validate.py",
                    "obs/artifacts.py", "obs/tracer.py", "obs/devtrace.py",
                    "obs/inspect.py", "obs/drift.py", "obs/roofline.py",
-                   "obs/simtrace.py", "utils/logger.py", "version.py")
+                   "obs/simtrace.py", "utils/logger.py", "version.py",
+                   "costmodel/corpus.py", "costmodel/model.py",
+                   "scripts/costmodel.py", "scripts/calibrate.py",
+                   "scripts/roofline.py")
 
 
 @pytest.mark.parametrize("module", MEASURE_MODULES)
