@@ -11,7 +11,14 @@ builds and
 compiles a model, ``fit`` trains it, ``serve()`` answers requests through
 the continuous-batching ``ServingEngine``, and the attention ops run
 hand-written CUDA flash-attention kernels (``ops/flash_attention.py``,
-``csrc/``).
+``csrc/``). Models written elsewhere come in through the frontends:
+``flexflow_tpu_torch.torch`` (torch.fx), ``.onnx`` and ``.keras``;
+``python -m flexflow_tpu_torch.driver`` launches a script with parsed
+``FFConfig`` flags.
+
+The subpackage ``flexflow_tpu_torch.torch`` becomes this package's
+attribute ``torch`` once imported, so this module binds no global of
+that name and the port's modules import PyTorch absolutely.
 
 The package imports torch and numpy only: never jax, and nothing of
 ``flexflow_tpu``. Entry points run on CUDA unless the caller asks for the
@@ -24,22 +31,28 @@ from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.tensor import Tensor
 from flexflow_tpu_torch.model import FFModel, resolve_device
-from flexflow_tpu_torch.initializers import (GlorotUniformInitializer,
+from flexflow_tpu_torch.initializers import (ConstantInitializer,
+                                             GlorotUniformInitializer,
+                                             NormInitializer,
+                                             UniformInitializer,
                                              ZeroInitializer)
 
 __all__ = [
     "ActiMode",
     "AggrMode",
     "CompMode",
+    "ConstantInitializer",
     "DataType",
     "FFConfig",
     "FFModel",
     "GlorotUniformInitializer",
     "LossType",
     "MetricsType",
+    "NormInitializer",
     "OperatorType",
     "PoolType",
     "Tensor",
+    "UniformInitializer",
     "ZeroInitializer",
     "resolve_device",
 ]

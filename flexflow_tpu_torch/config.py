@@ -128,6 +128,9 @@ class FFConfig:
                 self.workers_per_node = int(take())
             elif a in ("-ll:fsize", "--memory-per-chip"):
                 self.memory_per_chip_mb = int(take())
+            elif a == "--nodes":
+                # hosts of a multi-host launch; the driver refuses > 1
+                self.num_nodes = int(take())
             elif a in ("--budget", "--search-budget"):
                 self.search_budget = int(take())
             elif a in ("--alpha", "--search-alpha"):

@@ -192,7 +192,7 @@ class GraphExecutor:
 
     def _ctx(self, training: bool, rng=None) -> OpContext:
         return OpContext(training=training, compute_dtype=self.compute_dtype,
-                         rng=rng, mesh=self.mesh)
+                         rng=rng, mesh=self.mesh, device=self.device)
 
     # ---- parameter / state initialization ---------------------------------
     def init_params_and_state(self, generator: torch.Generator
@@ -476,8 +476,11 @@ class GraphExecutor:
                                                self._training_nodes())
             logits = values[self.final_ref]
             loss = self._loss_value(logits, labels)
-            got = torch.autograd.grad(
+            # a model without trainable leaves (a parameter-free graph)
+            # takes an empty update, as the reference's grad of {} does
+            got = (torch.autograd.grad(
                 loss, [leaves[op][pn] for op, pn in flat], allow_unused=True)
+                if flat else ())
         got = dict(zip(flat, got))
         grads = {op: {pn: (got[(op, pn)].contiguous()
                            if got.get((op, pn)) is not None

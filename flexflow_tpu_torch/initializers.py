@@ -1,7 +1,10 @@
 """Parameter initializers on an explicit ``torch.Generator``.
 
 PyTorch counterpart of ``flexflow_tpu/initializers.py``: the default
-weight (Glorot uniform) and bias (zero) initializers. The draws differ
+weight (Glorot uniform) and bias (zero) initializers, and the constant,
+uniform and normal ones a layer may name (``kernel_initializer``,
+``bias_initializer``). Each draws from the ``torch.Generator`` it is
+called with (the model's, on the model's device). The draws differ
 from JAX's PRNG for the same seed: parity with the JAX package goes
 through carried weights (``flexflow_tpu_torch.weights``), never through
 matching random numbers.
@@ -23,6 +26,39 @@ class Initializer:
 class ZeroInitializer(Initializer):
     def __call__(self, generator, shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=generator.device)
+
+
+class ConstantInitializer(Initializer):
+    def __init__(self, value: float):
+        self.value = value
+
+    def __call__(self, generator, shape, dtype=torch.float32):
+        return torch.full(tuple(shape), self.value, dtype=dtype,
+                          device=generator.device)
+
+
+class UniformInitializer(Initializer):
+    """Uniform in [min_val, max_val). ``seed`` is kept for the
+    reference's signature: the draw comes from the generator given."""
+
+    def __init__(self, seed: int = 0, min_val: float = -0.05,
+                 max_val: float = 0.05):
+        self.seed, self.min_val, self.max_val = seed, min_val, max_val
+
+    def __call__(self, generator, shape, dtype=torch.float32):
+        out = torch.empty(tuple(shape), dtype=dtype, device=generator.device)
+        return out.uniform_(self.min_val, self.max_val, generator=generator)
+
+
+class NormInitializer(Initializer):
+    """``mean + stddev * N(0, 1)``; ``seed`` as in ``UniformInitializer``."""
+
+    def __init__(self, seed: int = 0, mean: float = 0.0, stddev: float = 1.0):
+        self.seed, self.mean, self.stddev = seed, mean, stddev
+
+    def __call__(self, generator, shape, dtype=torch.float32):
+        out = torch.empty(tuple(shape), dtype=dtype, device=generator.device)
+        return out.normal_(self.mean, self.stddev, generator=generator)
 
 
 class GlorotUniformInitializer(Initializer):

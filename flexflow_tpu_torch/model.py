@@ -291,6 +291,97 @@ class FFModel:
                                 dict(sizes=tuple(sizes), axis=axis), name)
         return self._finish(layer)
 
+    def reshape(self, input: Tensor, shape, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.RESHAPE, [input],
+                                dict(shape=tuple(shape)), name)
+        return self._finish(layer)
+
+    def transpose(self, input: Tensor, perm, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.TRANSPOSE, [input],
+                                dict(perm=tuple(perm)), name)
+        return self._finish(layer)
+
+    def reverse(self, input: Tensor, axis: int, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.REVERSE, [input],
+                                dict(axis=axis), name)
+        return self._finish(layer)
+
+    def cast(self, input: Tensor, dtype: DataType, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.CAST, [input], dict(dtype=dtype),
+                                name, dtype)
+        return self._finish(layer)
+
+    def gather(self, input: Tensor, index: Tensor, axis: int = 0,
+               name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.GATHER, [input, index],
+                                dict(axis=axis), name)
+        return self._finish(layer)
+
+    def batch_matmul(self, a: Tensor, b: Tensor, a_seq_length_dim: int = -1,
+                     b_seq_length_dim: int = -1, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.BATCHMATMUL, [a, b], dict(
+            a_seq_length_dim=a_seq_length_dim,
+            b_seq_length_dim=b_seq_length_dim), name)
+        return self._finish(layer)
+
+    def reduce_sum(self, input: Tensor, axes, keepdims: bool = False,
+                   name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.REDUCE_SUM, [input],
+                                dict(axes=tuple(axes), keepdims=keepdims),
+                                name)
+        return self._finish(layer)
+
+    def reduce_max(self, input: Tensor, axes, keepdims: bool = False,
+                   name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.REDUCE_MAX, [input],
+                                dict(axes=tuple(axes), keepdims=keepdims),
+                                name)
+        return self._finish(layer)
+
+    def constant(self, value, name=None, trainable=False) -> Tensor:
+        """Embedded constant tensor (fx get_attr buffers, masks, tables).
+
+        ``trainable=True`` makes it a leaf parameter (``weight``, with
+        ``value`` as its initial value) that the optimizer updates: a
+        bare learned tensor used directly in forward, e.g. a positional
+        embedding."""
+        layer = self._add_layer(OperatorType.CONST, [],
+                                dict(value=np.asarray(value),
+                                     trainable=bool(trainable)), name)
+        return self._finish(layer)
+
+    def where(self, cond: Tensor, a: Tensor, b: Tensor, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.WHERE, [cond, a, b], {}, name)
+        return self._finish(layer)
+
+    def expand(self, input: Tensor, shape, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.EXPAND, [input],
+                                dict(shape=tuple(shape)), name)
+        return self._finish(layer)
+
+    def einsum(self, equation: str, tensors: Sequence[Tensor],
+               name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.EINSUM, list(tensors),
+                                dict(equation=equation), name)
+        return self._finish(layer)
+
+    def mean(self, input: Tensor, dims, keepdims: bool = False,
+             name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.MEAN, [input],
+                                dict(axes=tuple(dims), keepdims=keepdims),
+                                name)
+        return self._finish(layer)
+
+    def top_k(self, input: Tensor, k: int, sorted: bool = True, name=None):
+        layer = self._add_layer(OperatorType.TOPK, [input],
+                                dict(k=k, sorted=sorted), name)
+        return self._finish(layer)
+
+    def arg_top_k(self, input: Tensor, k: int, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.ARG_TOPK, [input], dict(k=k),
+                                name)
+        return self._finish(layer)
+
     # ======================= compile ========================================
     def _materialize_nodes(self, input_shape_overrides=None):
         """Layer -> Op materialization. With ``input_shape_overrides``
@@ -1107,6 +1198,13 @@ class FFModel:
         self._iter += 1
 
     # ======================= inference =====================================
+    def begin_trace(self, trace_id: int = 0):
+        """No-op: the reference's Legion trace capture; every step here is
+        a compiled step already."""
+
+    def end_trace(self, trace_id: int = 0):
+        """No-op (``begin_trace``)."""
+
     def serve(self, batch_buckets=None, max_wait_ms: float = 5.0,
               search_budget: Optional[int] = None, start: bool = False,
               verbose: bool = False):

@@ -3,8 +3,10 @@
 PyTorch counterpart of ``flexflow_tpu/ops``: the ops of the BERT-proxy
 transformer, the MLP and the Llama-family decoder (embedding, RMSNorm,
 the elementwise kinds), the recommendation models' CONCAT, the conv
-family's CONV2D, POOL2D, BATCHNORM, GROUPNORM and FLAT, DROPOUT, and the
-SPLIT the search's linear fusion emits; ROADMAP.md lists the rest.
+family's CONV2D, POOL2D, BATCHNORM, GROUPNORM and FLAT, DROPOUT, the
+SPLIT the search's linear fusion emits, and the tensor-op surface the
+frontends import graphs into (BATCHMATMUL, the shape ops, the reductions
+and top-k); ROADMAP.md lists the rest (the MoE and parallel ops).
 """
 
 from flexflow_tpu_torch.ops.base import Op, OpRegistry, register_op
@@ -15,5 +17,7 @@ import flexflow_tpu_torch.ops.elementwise  # noqa: F401
 import flexflow_tpu_torch.ops.embedding  # noqa: F401
 import flexflow_tpu_torch.ops.tensor_ops  # noqa: F401
 import flexflow_tpu_torch.ops.conv  # noqa: F401
+import flexflow_tpu_torch.ops.matmul  # noqa: F401
+import flexflow_tpu_torch.ops.reduce  # noqa: F401
 
 __all__ = ["Op", "OpRegistry", "register_op"]

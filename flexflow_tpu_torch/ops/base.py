@@ -34,17 +34,21 @@ class DimRole(enum.Enum):
 class OpContext:
     """Per-call context threaded through forward: training flag, compute
     dtype, the ``torch.Generator`` that training-time randomness (Dropout
-    and attention-prob dropout) draws from, and the mesh the model was
+    and attention-prob dropout) draws from, the mesh the model was
     compiled on (``machine.Mesh`` or None), whose axes decide whether
-    attention runs as a ring (the reference's ``ctx.mesh``)."""
+    attention runs as a ring (the reference's ``ctx.mesh``), and the
+    device the graph runs on, where an op with no input (a constant)
+    puts its output (None: the CPU)."""
 
     def __init__(self, training: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 rng: Optional[torch.Generator] = None, mesh=None):
+                 rng: Optional[torch.Generator] = None, mesh=None,
+                 device=None):
         self.training = training
         self.compute_dtype = compute_dtype
         self.rng = rng
         self.mesh = mesh
+        self.device = device
 
     def next_rng(self) -> torch.Generator:
         """The generator a random draw takes its numbers from. Where the
@@ -127,8 +131,9 @@ class OpRegistry:
                 f"no Op registered for {layer.op_type} in the PyTorch port "
                 f"(it ports LINEAR, EMBEDDING, LAYERNORM, RMSNORM, "
                 f"GROUPNORM, BATCHNORM, DROPOUT, MULTIHEAD_ATTENTION, "
-                f"SOFTMAX, CONCAT, SPLIT, CONV2D, POOL2D, FLAT and the "
-                f"elementwise kinds; ROADMAP.md lists the rest)")
+                f"SOFTMAX, CONV2D, POOL2D, FLAT, BATCHMATMUL, the shape, "
+                f"reduction and top-k ops and the elementwise kinds; "
+                f"ROADMAP.md lists the rest)")
         return cls._by_type[layer.op_type](layer, input_shapes)
 
 

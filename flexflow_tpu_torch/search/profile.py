@@ -369,7 +369,7 @@ def measure_op(op, hbm_bw: float, device=None,
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    ctx = OpContext(training=True, compute_dtype=dtype, rng=gen)
+    ctx = OpContext(training=True, compute_dtype=dtype, rng=gen, device=dev)
     rs = np.random.RandomState(0)
     init = torch.Generator(device=dev)
     init.manual_seed(0)

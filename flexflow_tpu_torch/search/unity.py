@@ -329,9 +329,14 @@ def graph_optimize(nodes, machine_spec, config, num_devices: int,
     comm_factor = 0.5 if (getattr(config, "allow_mixed_precision", True)
                           and machine_spec.chip != "cpu-sim") else 1.0
     # the learned cost table of the device's platform (None: no model,
-    # another platform's, or FFS_NO_LEARNED_COSTS)
-    from flexflow_tpu_torch.costmodel import load_native_table
-    learned = load_native_table(device=device)
+    # another platform's, or FFS_NO_LEARNED_COSTS); a table that fails to
+    # load (a newer schema, a malformed class) prices analytically, as
+    # the reference does
+    try:
+        from flexflow_tpu_torch.costmodel import load_native_table
+        learned = load_native_table(device=device)
+    except Exception:
+        learned = None
     # provenance is about this graph: classes (per-impl "TYPE:impl" ones
     # by their base type) that meet none of its op types price nothing
     graph_types = {n.op.op_type.name for n in nodes}

@@ -104,8 +104,13 @@ def simulate_strategy(ff, learned: Any = "auto") -> Dict[str, Any]:
                                                  serialize_graph)
 
     if learned == "auto":
-        from flexflow_tpu_torch.costmodel import load_native_table
-        learned = load_native_table(device=ff.device)
+        # a table that fails to load prices analytically, as the search
+        # does
+        try:
+            from flexflow_tpu_torch.costmodel import load_native_table
+            learned = load_native_table(device=ff.device)
+        except Exception:
+            learned = None
     elif not learned:
         learned = None
 

@@ -125,6 +125,7 @@ class _BlockStep:
         self._drops = drop_schedule(self.nodes, [self.final_ref])
         self.compute_dtype = ff.executor.compute_dtype
         self.mesh = ff.mesh
+        self.device = ff.device
         self.graph = StepGraph(self.body, ff.device, f"decode_t{t}",
                                donate=True, pool=pool)
 
@@ -137,7 +138,8 @@ class _BlockStep:
         cd = self.compute_dtype
         inputs = {n: x.to(cd) if x.is_floating_point() else x
                   for n, x in inputs.items()}
-        ctx = OpContext(training=False, compute_dtype=cd, mesh=self.mesh)
+        ctx = OpContext(training=False, compute_dtype=cd, mesh=self.mesh,
+                        device=self.device)
         values: Dict[Tuple[int, int], torch.Tensor] = {}
         with torch.no_grad():
             for node, drop in zip(self.nodes, self._drops):

@@ -351,6 +351,43 @@ def test_a_gpu_table_never_prices_a_cpu_compile(models, tmp_path,
     assert "learned_cost_classes" not in pff.search_info
 
 
+BAD_TABLES = {
+    # a schema newer than either package reads
+    "newer_schema": {"schema_version": 2, "platform": "unknown",
+                     "classes": {"LINEAR": {}}},
+    # a class entry without its forward coefficients
+    "class_without_coef_fwd": {"schema_version": 1, "platform": "unknown",
+                               "classes": {"LINEAR": {}}},
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_TABLES))
+def test_a_table_that_fails_to_load_prices_analytically(bad, tmp_path,
+                                                        monkeypatch):
+    """A cost-model file that cannot be loaded leaves the search (and the
+    replay) analytic in both packages, with the same strategy JSON; the
+    port raised here once (ROADMAP.md Queue 3, closed)."""
+    path = tmp_path / "COSTMODEL.json"
+    path.write_text(json.dumps(BAD_TABLES[bad]))
+    monkeypatch.setenv("FFS_COSTMODEL_FILE", str(path))
+    monkeypatch.delenv("FFS_NO_LEARNED_COSTS", raising=False)
+    jff, pff = _pair("mlp", search_budget=2)
+    jff.config.workers_per_node = 1
+    for ff, pkg, adam in ((jff, J, J.AdamOptimizer), (pff, P, AdamOptimizer)):
+        ff.config.export_strategy_file = str(tmp_path / f"{pkg.__name__}.json")
+        ff.compile(adam(alpha=1e-3),
+                   pkg.LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [])
+        assert ff.search_info["cost_model"] == "analytic"
+    with open(jff.config.export_strategy_file) as f:
+        want = json.load(f)
+    with open(pff.config.export_strategy_file) as f:
+        assert json.load(f) == want
+    assert pff.search_info["predicted_time"] == \
+        jff.search_info["predicted_time"]
+    assert _dumps(pvalidate.simulate_strategy(pff, learned="auto")) == \
+        _dumps(jvalidate.simulate_strategy(jff, learned="auto"))
+
+
 def test_a_pinned_attention_core_is_its_own_measurement():
     """The measured-op cache keys a pinned core apart: a corpus of flash
     and einsum fits of one shape keeps two attention times."""

@@ -184,3 +184,115 @@ def test_conv_bn_builders_raise_without_cuda(monkeypatch, build):
             M.create_resnet(M.ResNetConfig(batch_norm=True))
         else:
             M.create_alexnet()
+
+
+def test_frontends_load_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "import flexflow_tpu_torch.torch, flexflow_tpu_torch.torch.model, "
+        "flexflow_tpu_torch.onnx, flexflow_tpu_torch.onnx.proto, "
+        "flexflow_tpu_torch.onnx.model, flexflow_tpu_torch.keras, "
+        "flexflow_tpu_torch.keras.layers, flexflow_tpu_torch.keras.models, "
+        "flexflow_tpu_torch.keras.datasets, "
+        "flexflow_tpu_torch.keras.callbacks, "
+        "flexflow_tpu_torch.keras.optimizers, "
+        "flexflow_tpu_torch.keras.backend, flexflow_tpu_torch.driver, "
+        "flexflow_tpu_torch.ops.matmul, flexflow_tpu_torch.ops.reduce\n"
+        "print('\\n'.join(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    assert "flexflow_tpu_torch.torch" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_the_torch_subpackage_shadows_nothing():
+    """Importing ``flexflow_tpu_torch.torch`` sets the package attribute
+    ``torch`` to the subpackage; the port's modules still reach PyTorch
+    itself, and the package's normal path (build, compile, fit,
+    predict) runs after it."""
+    code = (
+        "import flexflow_tpu_torch.torch as sub\n"
+        "import flexflow_tpu_torch as P\n"
+        "import flexflow_tpu_torch.model as M\n"
+        "import numpy as np\n"
+        "assert P.torch is sub and sub.__name__ == 'flexflow_tpu_torch.torch'\n"
+        "assert M.torch.__name__ == 'torch' and hasattr(M.torch, 'matmul')\n"
+        "from flexflow_tpu_torch.models.transformer import (\n"
+        "    TransformerConfig, create_transformer)\n"
+        "from flexflow_tpu_torch.optimizers import AdamOptimizer\n"
+        "cfg = TransformerConfig(num_layers=1, hidden_size=32, num_heads=2,\n"
+        "                        seq_length=8, batch_size=2)\n"
+        "ff = create_transformer(cfg, device='cpu')\n"
+        "ff.compile(AdamOptimizer(alpha=1e-3),\n"
+        "           P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, [])\n"
+        "rs = np.random.RandomState(0)\n"
+        "x = rs.randn(2, 8, 32).astype(np.float32)\n"
+        "ff.fit(x, rs.randn(2, 8, 1).astype(np.float32), epochs=1,\n"
+        "       verbose=False)\n"
+        "assert np.isfinite(ff.predict(x)).all()\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+def test_frontends_raise_without_cuda(monkeypatch):
+    """A Keras ``Model.compile`` and an fx ``torch_to_ff`` + ``compile``,
+    asked for the card on a machine without one, raise rather than run
+    on the CPU."""
+    import numpy as np
+    import torch.nn as nn
+    from flexflow_tpu_torch.keras import Sequential
+    from flexflow_tpu_torch.keras.layers import Dense, Input
+    from flexflow_tpu_torch.optimizers import SGDOptimizer
+    from flexflow_tpu_torch.torch import PyTorchModel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Sequential([Input((16,)), Dense(4)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.compile(optimizer="sgd", loss="mse", batch_size=8)
+    assert model.ff is None
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ff = P.FFModel(P.FFConfig(batch_size=8), device=device)
+            out = PyTorchModel(nn.Linear(16, 4)).torch_to_ff(
+                ff, [ff.create_tensor((8, 16))])
+            ff.compile(SGDOptimizer(lr=0.1),
+                       P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, [])
+            ff.predict(np.zeros((8, 16), np.float32))
+
+
+def test_driver_refuses_a_multi_host_launch(tmp_path):
+    from flexflow_tpu_torch import driver
+
+    script = tmp_path / "s.py"
+    script.write_text("raise SystemExit('must not run')\n")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        driver.main(["--nodes", "2", str(script)])
+
+
+def test_driver_runs_a_script_with_its_config(tmp_path):
+    """``python -m flexflow_tpu_torch.driver`` hands the script its parsed
+    flags through ``get_config()`` and the rest as argv. (The JAX
+    package's ``python -m flexflow_tpu.driver`` gives the script a
+    default config: the script imports a second copy of the module.)"""
+    script = tmp_path / "s.py"
+    out = tmp_path / "out.txt"
+    script.write_text(
+        "import sys\n"
+        "from flexflow_tpu_torch.driver import get_config\n"
+        "cfg = get_config()\n"
+        f"open({str(out)!r}, 'w').write(f'{{cfg.batch_size}} "
+        "{cfg.search_budget} {sys.argv[1:]}')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = subprocess.run(
+        [sys.executable, "-m", "flexflow_tpu_torch.driver", "-b", "32",
+         "--budget", "5", str(script), "--my-flag", "7"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert out.read_text() == "32 5 ['--my-flag', '7']"

@@ -173,9 +173,11 @@ def test_mha_kernel_impl_flash_raises_where_kernel_cannot_run():
 
 
 def test_unported_op_raises():
-    layer = PLayer(pconst.OperatorType.BATCHMATMUL, "bmm", [])
+    # GROUP_BY stays unported until the MoE slice (ROADMAP.md item 9d)
+    layer = PLayer(pconst.OperatorType.GROUP_BY, "group_by", [])
+    layer.properties.update(n=2, alpha=1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PRegistry.create(layer, [(2, 3, 4), (2, 4, 5)])
+        PRegistry.create(layer, [(8, 16), (8, 1)])
 
 
 @pytest.mark.parametrize("name", ["OperatorType", "DataType", "ActiMode",
