@@ -327,7 +327,32 @@ package. Phases:
              (GPT2_LOSS_RTOL). (c) the Keras CNN and the ONNX conv net (the
              port's writer) of the reference tests, each one epoch on the
              card, ``predict`` against torch ops on their weights.
-16. report — one JSON line ``{"kernels": [...]}``, then the final line
+16. lint —   [lint] static analysis and the example scripts (last; its
+             budget LINT_BUDGET_S printed as a ``[time]`` line, and a
+             run over it fails): (1)
+             ``examples_torch/transformer.py --lint error -b 8
+             --import-strategy`` on the kernel path's strategy file as a
+             child process at the reference config (``mesh:``, the
+             samples/s, exit 0), then that model in-process through
+             ``compile(lint="error")`` and LINT_STEPS steps twice: no
+             error, each pass ok or skipped with its reason, K1 12 / K2
+             12 / K4 1 a step by the counters and by name in two
+             profiled replays, the two runs bit-equal; (2) the full-width
+             search on ``--search-measure-ops`` and [costmodel]'s learned
+             table and calibration file, ``lint="error"``: "learned", the
+             calibration pass ok on platform gpu without FFL703, the
+             attention's einsum and flash rows in the measured table and
+             different, the lint's wall time beside the compile's; the
+             two-linear graph searched: ``rewrite_verification`` ok; (3)
+             the batch-6 MLP with a ``data=8`` strategy file:
+             ``compile(lint="error")`` raises ValueError "fflint" with
+             ``torch.cuda.memory_allocated()`` unchanged; (4) ``python -m
+             flexflow_tpu_torch.scripts.fflint --model <m> --json`` for
+             the ten zoo models that are not MoE (exit 0, one device) and
+             ``explain --model transformer --budget 2 --measure-ops
+             --trace-dir`` [obs]'s dir: the three artifacts, the merged
+             trace with ``sim:*`` and ``device:*`` lanes.
+17. report — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``. Each phase's seconds are
              printed as ``[time]`` lines.
 
@@ -5269,11 +5294,14 @@ def phase_obs(strategy_dir, analytic_predicted_s, trace_root=None):
               f"{len(by_key)} distinct ops of {len(nodes)}")
         for key, group in by_key.items():
             op = group[0].op
-            f_s, b_s = table.get(f"{op.guid}:fwd"), table.get(f"{op.guid}:bwd")
+            # the row of the core that runs the op (attention: flash)
+            impl = profile.executed_impl(ff, op)
+            f_s, b_s = profile.executed_rows(table, op.guid, impl)
             if f_s is not None:
+                core = f"  [{impl}]" if impl else ""
                 print(f"[obs]   {key} {op.op_type.name:20s} x{len(group):2d} "
                       f"({op.name}...): fwd {f_s * 1e6:9.2f} us  bwd "
-                      f"{b_s * 1e6:9.2f} us")
+                      f"{b_s * 1e6:9.2f} us{core}")
         print(f"[obs]   __step_overhead__ {table['__step_overhead__'] * 1e6:.3f}"
               f" us, __update_bw__ {table['__update_bw__'] / 1e9:.1f} GB/s")
         skipped = [n.op.name for n in nodes
@@ -5342,9 +5370,10 @@ def phase_obs(strategy_dir, analytic_predicted_s, trace_root=None):
         print(f"[obs]   --profiling's per-op table ({len(prof.op_profile)} "
               f"entries; the RecursiveLogger's lines are on stderr):")
         for n in prof.executor.nodes[:8]:
-            print(f"[obs]     {n.op.name}: fwd "
-                  f"{prof.op_profile[f'{n.guid}:fwd'] * 1e6:.2f} us, bwd "
-                  f"{prof.op_profile[f'{n.guid}:bwd'] * 1e6:.2f} us")
+            impl = profile.executed_impl(prof, n.op)
+            f_s, b_s = profile.executed_rows(prof.op_profile, n.guid, impl)
+            print(f"[obs]     {n.op.name}: fwd {f_s * 1e6:.2f} us, bwd "
+                  f"{b_s * 1e6:.2f} us" + (f"  [{impl}]" if impl else ""))
         check(all(f"{n.guid}:fwd" in prof.op_profile
                   for n in prof.executor.nodes), "--profiling missed an op")
         del prof
@@ -5884,6 +5913,12 @@ def phase_costmodel(obs_trace_dir):
             check(corr == median, "the search reads another correction")
             out["calibration"] = dict(rows=cal["results"],
                                       memory_correction=corr)
+            # the learned table and the calibration file, for [lint]'s
+            # searched compile (this phase's directory goes with it)
+            with open(model_path) as f:
+                out["files"] = {"COSTMODEL_GPU.json": f.read()}
+            with open(cal_path) as f:
+                out["files"]["CALIBRATION_GPU.json"] = f.read()
             seen = []
             real = native.native_optimize
 
@@ -6410,6 +6445,368 @@ def phase_frontends(strategy_dir):
     return out
 
 
+# [lint]: the phase's budget on the card, printed beside its [time] line
+LINT_BUDGET_S = 150.0
+# the in-process run of the example's model: its steps (the first one
+# captures the step; the launches are counted over the rest)
+LINT_STEPS = 4
+LINT_CHILD_TIMEOUT_S = 300
+LINT_CLI_TIMEOUT_S = 300
+
+
+def phase_lint(strategy_dir, obs_trace_dir, costmodel_files):
+    """[lint] static analysis and the example scripts on the card
+    (``analysis/``, ``compile(lint=)``, the fflint and explain CLIs,
+    ``examples_torch/``). (1) ``examples_torch/transformer.py --lint error
+    -b 8 --import-strategy`` (the kernel path's strategy file) as a child
+    process at the reference config: ``mesh:`` and the throughput line,
+    exit 0; then the same model in-process, ``compile(lint="error")`` and
+    LINT_STEPS steps, twice from one seed: no error, every pass ok or
+    skipped with its reason, K1/K2/K4 by the counters and by name in
+    profiled replays, the two runs bit-equal. (2) The full-width
+    BERT-proxy searched with ``--search-measure-ops`` on [costmodel]'s
+    learned table and calibration file, ``lint="error"``: "learned", the
+    calibration pass on platform gpu without FFL703, the attention's
+    einsum and flash rows in the measured table (different), the lint's
+    wall time beside the compile's; and the two-linear graph the
+    substitution engine fuses, searched: ``rewrite_verification``
+    recorded and ok. (3) The reference test's batch-6 MLP with a
+    ``data=8`` strategy file: ``compile(lint="error")`` raises ValueError
+    "fflint" with ``torch.cuda.memory_allocated()`` unchanged. (4) ``python
+    -m flexflow_tpu_torch.scripts.fflint --model <m> --json`` for the ten
+    zoo models that are not MoE (exit 0, one device), and ``explain
+    --model transformer --budget 2 --measure-ops --trace-dir`` [obs]'s
+    trace dir: the three artifacts, the merged trace with the ``sim:*``
+    and the devtrace's ``device:*`` lanes. Returns the in-process run's
+    launches."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import FFConfig, LossType, MetricsType
+    from flexflow_tpu_torch import analysis
+    from flexflow_tpu_torch.model import host_copy
+    from flexflow_tpu_torch.models.mlp import create_mlp
+    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       create_transformer)
+    from flexflow_tpu_torch.optimizers import AdamOptimizer, SGDOptimizer
+    from flexflow_tpu_torch.scripts import fflint as fflint_cli
+    from flexflow_tpu_torch.search import native, profile
+
+    card = nvidia_smi_line()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    cfg = TransformerConfig()
+    work = os.path.join(strategy_dir, "lint")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "strategy.json")
+    write_strategy(create_transformer(cfg, FFConfig(), device="cuda"), path,
+                   kernel_path())
+
+    # ---- (1) the example script, a child process at the reference config
+    cmd = [sys.executable, os.path.join(root, "examples_torch",
+                                        "transformer.py"),
+           "--lint", "error", "-b", str(cfg.batch_size),
+           "--import-strategy", path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=LINT_CHILD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"[lint] (1) transformer.py: {line}")
+    check(proc.returncode == 0, f"examples_torch/transformer.py exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    thr = re.findall(r"ELAPSED TIME = ([0-9.]+)s, THROUGHPUT = ([0-9.]+) "
+                     r"samples/s", proc.stdout)
+    check(any(l.startswith("mesh: ") for l in proc.stdout.splitlines())
+          and len(thr) == 1, "the example printed no mesh or throughput")
+    out["example_samples_s"] = float(thr[0][1])
+    print(f"[lint] (1) examples_torch/transformer.py --lint error -b "
+          f"{cfg.batch_size} --import-strategy (12 layers, hidden 1024, 16 "
+          f"heads, S 512): {float(thr[0][1]):.2f} samples/s over its timed "
+          f"steps ({float(thr[0][0]):.4f} s), {secs:.1f} s with the "
+          f"process's start and compile ({card})")
+
+    # ---- (1) the same model in-process, twice from one seed -------------
+    rs = np.random.RandomState(FFConfig().seed)
+    x = rs.randn(cfg.batch_size, cfg.seq_length,
+                 cfg.hidden_size).astype(np.float32)
+    y = rs.randn(cfg.batch_size, cfg.seq_length, 1).astype(np.float32)
+    L = cfg.num_layers
+    runs = []
+    for run in range(2):
+        ff = create_transformer(cfg, FFConfig(batch_size=cfg.batch_size),
+                                device="cuda")
+        ff.config.import_strategy_file = path
+        t0 = time.perf_counter()
+        ff.compile(AdamOptimizer(alpha=1e-4),
+                   LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+                   [MetricsType.MEAN_SQUARED_ERROR], lint="error")
+        compile_s = time.perf_counter() - t0
+        rep = ff.lint_report
+        check(rep is not None and not rep.has_errors(),
+              f"(1) the lint found errors: {rep and rep.format_human()}")
+        check(all(v == "ok" or v.startswith("skipped: ")
+                  for v in rep.passes.values()),
+              f"(1) a pass neither ran nor stated its skip: {rep.passes}")
+        if run == 0:
+            print(f"[lint] (1) in-process compile(lint=\"error\") in "
+                  f"{compile_s:.2f} s: {rep.context}; "
+                  f"{len(rep.errors)} errors, {len(rep.warnings)} warnings")
+            for name, status in rep.passes.items():
+                print(f"[lint] (1)   pass {name:22s} {status}")
+        ff.fit(x, y, epochs=1, verbose=False)  # the capture
+        reset_launches()
+        for _ in range(LINT_STEPS - 1):
+            ff.fit(x, y, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        runs.append((list(ff.epoch_losses),
+                     {f"{op}/{pn}": host_copy(t)
+                      for op, sub in ff.params.items()
+                      for pn, t in sub.items()}))
+        if run == 0:
+            n = LINT_STEPS - 1
+            want_l = dict(flash_attn_fwd=L * n, flash_attn_bwd=L * n,
+                          fused_adam=n, flash_lse_fwd=0, flash_lse_bwd=0)
+            print(f"[lint] (1) steps 2-{LINT_STEPS}: launches {launches} "
+                  f"(expected {want_l}); losses {runs[0][0]}")
+            check(launches == want_l, "(1) the steps did not launch K1, K2 "
+                  "and K4 as expected")
+            out["launches"] = launches
+            prof = profile_train(ff, x, y, label="[lint] (1) the example's "
+                                 "model, 2 train steps")
+            out["replay"] = check_replay_launches(
+                "[lint] (1) the example's model", prof, 2,
+                dict(flash_attn_fwd=L, flash_attn_bwd=L, fused_adam=1))
+        del ff
+        release()
+    (la, pa), (lb, pb) = runs
+    differ = [k for k in pa if not np.array_equal(pa[k], pb[k])]
+    print(f"[lint] (1) two runs from one seed: losses equal "
+          f"{la == lb}; {len(pa)} leaves, {len(differ)} differ")
+    check(la == lb and not differ and np.isfinite(la).all(),
+          "(1) two runs from one seed differ")
+
+    # ---- (2) the searched lint at full width ----------------------------
+    env_keys = ("FFS_COSTMODEL_FILE", "FFS_CALIBRATION_FILE")
+    env_before = {k: os.environ.get(k) for k in env_keys}
+    files = {}
+    for name, text in costmodel_files.items():
+        files[name] = os.path.join(work, name)
+        with open(files[name], "w") as f:
+            f.write(text)
+    seen = []
+    real = native.native_optimize
+    real_lint = analysis.lint_model
+    lint_s = []
+
+    def spy(req):
+        seen.append(req)
+        return real(req)
+
+    def timed_lint(ff, **kw):
+        t = time.perf_counter()
+        try:
+            return real_lint(ff, **kw)
+        finally:
+            lint_s.append(time.perf_counter() - t)
+
+    os.environ["FFS_COSTMODEL_FILE"] = files["COSTMODEL_GPU.json"]
+    os.environ["FFS_CALIBRATION_FILE"] = files["CALIBRATION_GPU.json"]
+    profile._CACHE.clear()  # the compile measures its ops afresh
+    native.native_optimize = spy
+    analysis.lint_model = timed_lint
+    try:
+        fcfg = FFConfig(batch_size=cfg.batch_size)
+        check(fcfg.parse_args(["--budget", str(SEARCH_BUDGET),
+                               "--search-measure-ops"]) == [],
+              "unread search flags")
+        ff = create_transformer(cfg, fcfg, device="cuda")
+        t0 = time.perf_counter()
+        ff.compile(AdamOptimizer(alpha=1e-4, state_dtype=torch.bfloat16),
+                   LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+                   [MetricsType.MEAN_SQUARED_ERROR], lint="error")
+        compile_s = time.perf_counter() - t0
+        rep = ff.lint_report
+        info = ff.search_info
+        print(f"[lint] (2) full-width search (budget {SEARCH_BUDGET}, "
+              f"--search-measure-ops, cost model {info['cost_model']}): "
+              f"compile(lint=\"error\") {compile_s:.2f} s, of it the lint "
+              f"{lint_s[-1]:.3f} s; {rep.to_json()['counts']} ({card})")
+        for d in rep.diagnostics:
+            print(f"[lint] (2)   {d.format()}")
+        for name, status in rep.passes.items():
+            print(f"[lint] (2)   pass {name:22s} {status}")
+        check(info["cost_model"] == "learned",
+              f"(2) the search priced {info['cost_model']}")
+        check(rep.passes["calibration"] == "ok"
+              and not rep.by_rule("FFL703") and not rep.has_errors(),
+              "(2) the calibration pass did not audit the card's file")
+        measured = seen[-1]["measured"]
+        att = [n.op.guid for n in ff.executor.nodes
+               if n.op.op_type.name == "MULTIHEAD_ATTENTION"]
+        rows = {g: (measured.get(f"{g}:fwd"), measured.get(f"{g}:fwd:flash"),
+                    measured.get(f"{g}:bwd"), measured.get(f"{g}:bwd:flash"))
+                for g in att}
+        g0 = att[0]
+        # the same rows before the calibration file's drift corrections
+        # (the cache holds them: no op is timed again)
+        raw = profile.microbenchmark(ff.executor.nodes,
+                                     machine_spec=ff.machine_spec,
+                                     device=ff.device,
+                                     dtype=ff.executor.compute_dtype,
+                                     drift_corrections=False)
+        print(f"[lint] (2) the measured table's attention rows (s, the "
+              f"search's, drift-corrected): einsum fwd {rows[g0][0]}, bwd "
+              f"{rows[g0][2]}; flash fwd {rows[g0][1]}, bwd {rows[g0][3]}; "
+              f"as timed: einsum fwd {raw[f'{g0}:fwd']}, bwd "
+              f"{raw[f'{g0}:bwd']}; flash fwd {raw[f'{g0}:fwd:flash']}, bwd "
+              f"{raw[f'{g0}:bwd:flash']} ({len(att)} ops, {card})")
+        check(all(None not in r and r[0] != r[1] and r[2] != r[3]
+                  for r in rows.values()),
+              "(2) the measured table lacks an attention core's rows")
+        out["measured_attention_s"] = {
+            k: raw[f"{g0}:{leg}"] for k, leg in (
+                ("einsum_fwd", "fwd"), ("flash_fwd", "fwd:flash"),
+                ("einsum_bwd", "bwd"), ("flash_bwd", "bwd:flash"))}
+        out["search_lint_s"] = lint_s[-1]
+        out["search_compile_s"] = compile_s
+        del ff
+        release()
+        # the two-linear graph the substitution engine fuses
+        fuse = fusion_model()
+        fuse.compile(SGDOptimizer(lr=0.1),
+                     LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, [],
+                     outputs=fuse.outputs, lint="error")
+        rv = fuse.search_info.get("rewrite_verification")
+        print(f"[lint] (2) two linears on one input, searched: "
+              f"{len(fuse.search_info['rewrites'])} rewrites, ops "
+              f"{[n.op.op_type.name for n in fuse.executor.nodes]}; "
+              f"rewrite_verification {rv}")
+        check(rv is not None and rv["ok"] and "error" not in rv,
+              "(2) no rewrite verification recorded")
+        del fuse
+    finally:
+        native.native_optimize = real
+        analysis.lint_model = real_lint
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # ---- (3) the seeded refusal on the card -----------------------------
+    bad = os.path.join(work, "data8.json")
+    with open(bad, "w") as f:
+        json.dump(dict(version=1, mesh=dict(data=8), ops={
+            "mlp_0": dict(choice=None, outputs=[["data"]], params={})}), f)
+    mcfg = FFConfig(batch_size=6)
+    mcfg.import_strategy_file = bad
+    mlp = create_mlp(batch_size=6, in_dim=64, hidden_dims=(128,),
+                     out_dim=10, ff_config=mcfg, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    raised = None
+    try:
+        mlp.compile(SGDOptimizer(lr=0.01),
+                    LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [],
+                    lint="error")
+    except ValueError as e:
+        raised = str(e)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    print(f"[lint] (3) batch-6 MLP, a data=8 strategy file, "
+          f"compile(lint=\"error\"): {raised!r}; rules "
+          f"{sorted({d.rule for d in mlp.lint_report.errors})}; "
+          f"memory_allocated {before} -> {after} bytes")
+    check(raised is not None and "fflint" in raised and before == after
+          and mlp.params == {}, "(3) the illegal strategy was not refused "
+          "before allocation")
+    del mlp
+
+    # ---- (4) the CLIs on the card ---------------------------------------
+    models = [m for m in fflint_cli.ZOO if not m.startswith("moe")]
+    t0 = time.perf_counter()
+    procs = {m: subprocess.Popen(
+        [sys.executable, "-m", "flexflow_tpu_torch.scripts.fflint",
+         "--model", m, "--json"], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for m in models}
+    docs = {}
+    try:
+        for m, p in procs.items():
+            so, se = p.communicate(timeout=LINT_CLI_TIMEOUT_S)
+            check(p.returncode == 0, f"(4) fflint --model {m} exited "
+                  f"{p.returncode}: {se[-2000:]}")
+            docs[m] = json.loads(so)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for m, d in docs.items():
+        print(f"[lint] (4) fflint --model {m} --json: mesh "
+              f"{d['context']['mesh_axes']}, {d['context']['num_ops']} ops, "
+              f"{d['counts']}")
+        check(d["context"]["mesh_axes"] == {"data": 1},
+              f"(4) fflint {m} planned {d['context']['mesh_axes']}")
+    print(f"[lint] (4) the ten fflint runs (in parallel) in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    out_dir = os.path.join(work, "explain")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "flexflow_tpu_torch.scripts.explain",
+         "--model", "transformer", "--budget", "2", "--measure-ops",
+         "--trace-dir", obs_trace_dir, "--out-dir", out_dir],
+        cwd=root, capture_output=True, text=True,
+        timeout=LINT_CLI_TIMEOUT_S)
+    explain_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(4) explain exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    st_path = os.path.join(out_dir, "SEARCH_TRACE.json")
+    with open(st_path) as f:
+        st = json.load(f)
+    check(os.path.exists(os.path.join(out_dir, "EXPLAIN.md"))
+          and os.path.exists(st["merged_trace"]), "(4) an artifact is missing")
+    with open(st["merged_trace"]) as f:
+        merged = json.load(f)
+    labels = sorted({e["args"]["name"] for e in merged["traceEvents"]
+                     if e.get("name") == "thread_name"})
+    check(any(l.endswith(":sim:compute") for l in labels)
+          and any(l.endswith(":device:compute") for l in labels),
+          f"(4) the merged trace's lanes {labels}")
+    m = st["measured_ops"]
+    att = [r for r in st["corpus"] if r["type"] == "MULTIHEAD_ATTENTION"]
+    check(att and all(f"{r['guid']}:fwd" in m for r in att),
+          "(4) explain's measured table has no attention row")
+    flash_rows = [r["guid"] for r in att if f"{r['guid']}:fwd:flash" in m]
+    print(f"[lint] (4) explain --model transformer --budget 2 --measure-ops "
+          f"--trace-dir [obs]: {explain_s:.1f} s with the process's start; "
+          f"{proc.stdout.strip()}; {len(st['corpus'])} corpus rows; merged "
+          f"lanes {labels}; attention einsum rows "
+          f"{[m[str(r['guid']) + ':fwd'] for r in att]} s, flash rows "
+          f"{[m[str(g) + ':fwd:flash'] for g in flash_rows]} s (the zoo "
+          f"transformer's head_dim 32 is outside the kernel's 64/128, so "
+          f"it has none; (2) holds both at full width) ({card})")
+    check(not flash_rows, "(4) a flash row for a head_dim the kernel "
+          "does not take")
+    out["explain_s"] = explain_s
+    return out
+
+
+def fusion_model():
+    """Two linears on one input, summed, batch 64 x 256 -> 128, on the
+    card with a search budget: the substitution engine fuses them into one
+    wide LINEAR and a SPLIT (``tests/test_torch_port_search.py``)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    ff = FFModel(FFConfig(batch_size=64, search_budget=3,
+                          enable_parameter_parallel=False), device="cuda")
+    t = ff.create_tensor((64, 256))
+    a = ff.dense(t, 128, name="qa")
+    b = ff.dense(t, 128, name="qb")
+    ff.outputs = ff.add(a, b)
+    return ff
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     import torch
@@ -6483,6 +6880,17 @@ def main(argv=None) -> int:
             costmodel = run_phase("costmodel", phase_costmodel,
                                   obs["trace_dir"])
             frontends = run_phase("frontends", phase_frontends, tmp)
+            t_lint = time.perf_counter()
+            lint = run_phase("lint", phase_lint, tmp, obs["trace_dir"],
+                             costmodel["files"])
+            t_lint = time.perf_counter() - t_lint
+            print(f"[time] lint budget: {LINT_BUDGET_S:.0f} s, used "
+                  f"{t_lint:.1f} s ("
+                  + ("within" if t_lint <= LINT_BUDGET_S else "OVER")
+                  + " its budget)")
+            check(t_lint <= LINT_BUDGET_S,
+                  f"[lint] took {t_lint:.1f} s, over its "
+                  f"{LINT_BUDGET_S:.0f} s budget")
         print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -6506,7 +6914,8 @@ def main(argv=None) -> int:
         costmodel_learned=costmodel["learned_launches"]["flash_attn_fwd"],
         frontends_predict=frontends["serve_predict"],
         frontends_serve=frontends["serve"],
-        frontends_train=frontends["train"]["flash_attn_fwd"])
+        frontends_train=frontends["train"]["flash_attn_fwd"],
+        lint_train=lint["launches"]["flash_attn_fwd"])
     bwd["launches"] = train_b["flash_attn_bwd"]
     bwd["launches_by_path"] = dict(
         train_b=train_b["flash_attn_bwd"],
@@ -6518,7 +6927,8 @@ def main(argv=None) -> int:
         obs_traced=obs["traced"]["launches"]["flash_attn_bwd"],
         costmodel_corpus=costmodel["corpus_launches"]["flash_attn_bwd"],
         costmodel_learned=costmodel["learned_launches"]["flash_attn_bwd"],
-        frontends_train=frontends["train"]["flash_attn_bwd"])
+        frontends_train=frontends["train"]["flash_attn_bwd"],
+        lint_train=lint["launches"]["flash_attn_bwd"])
     bwd["llama_train"] = dict(
         llama_k2, launches=llama_train["plain"]["launches"]["flash_attn_bwd"])
     bwd_k3["launches"] = train_a["launches"]["flash_attn_bwd"]
@@ -6529,7 +6939,8 @@ def main(argv=None) -> int:
         llama_train_remat=llama_train["remat"]["launches"]["fused_adam"],
         ckpt_resume=ckpt["a"]["launches"]["fused_adam"],
         obs_traced=obs["traced"]["launches"]["fused_adam"],
-        frontends_train=frontends["train"]["fused_adam"])
+        frontends_train=frontends["train"]["fused_adam"],
+        lint_train=lint["launches"]["fused_adam"])
     adam["llama_train"] = llama_k4
     adam["launches_by_path"].update(
         {f"zoo_{n}": z["k4"]["launches"] for n, z in zoo.items()})
@@ -6560,17 +6971,20 @@ def main(argv=None) -> int:
         serve=serve_replay, llama_serve=llama_serve["replay"],
         llama_train=llama_train["plain"]["replay"]["flash_attn_fwd"],
         llama_train_remat=llama_train["remat"]["replay"]["flash_attn_fwd"],
-        frontends_train=frontends["replay"]["flash_attn_fwd"])
+        frontends_train=frontends["replay"]["flash_attn_fwd"],
+        lint_train=lint["replay"]["flash_attn_fwd"])
     bwd["launches_a_replay_by_path"] = dict(
         train_b=graph["replay_launches"]["flash_attn_bwd"],
         llama_train=llama_train["plain"]["replay"]["flash_attn_bwd"],
         llama_train_remat=llama_train["remat"]["replay"]["flash_attn_bwd"],
-        frontends_train=frontends["replay"]["flash_attn_bwd"])
+        frontends_train=frontends["replay"]["flash_attn_bwd"],
+        lint_train=lint["replay"]["flash_attn_bwd"])
     adam["launches_a_replay_by_path"] = dict(
         train_b=graph["replay_launches"]["fused_adam"],
         llama_train=llama_train["plain"]["replay"]["fused_adam"],
         llama_train_remat=llama_train["remat"]["replay"]["fused_adam"],
-        frontends_train=frontends["replay"]["fused_adam"])
+        frontends_train=frontends["replay"]["fused_adam"],
+        lint_train=lint["replay"]["fused_adam"])
     fwd["llama_serve"] = llama_serve["k1"]
     bwd_k3["launches_a_replay"] = train_a["replay_launches"]["flash_attn_bwd"]
     print("[kernels] earlier times, not measured by this run (the mma.sync "

@@ -14,7 +14,9 @@ hand-written CUDA flash-attention kernels (``ops/flash_attention.py``,
 ``csrc/``). Models written elsewhere come in through the frontends:
 ``flexflow_tpu_torch.torch`` (torch.fx), ``.onnx`` and ``.keras``;
 ``python -m flexflow_tpu_torch.driver`` launches a script with parsed
-``FFConfig`` flags.
+``FFConfig`` flags. ``flexflow_tpu_torch.analysis`` is fflint, the
+static strategy and graph verifier (``compile(lint=...)``, ``--lint``,
+``python -m flexflow_tpu_torch.scripts.fflint``).
 
 The subpackage ``flexflow_tpu_torch.torch`` becomes this package's
 attribute ``torch`` once imported, so this module binds no global of
@@ -31,6 +33,8 @@ from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.tensor import Tensor
 from flexflow_tpu_torch.model import FFModel, resolve_device
+from flexflow_tpu_torch.analysis import (EdgeReshard, LintReport, Severity,
+                                         edge_reshard_table, lint_model)
 from flexflow_tpu_torch.initializers import (ConstantInitializer,
                                              GlorotUniformInitializer,
                                              NormInitializer,
@@ -43,16 +47,21 @@ __all__ = [
     "CompMode",
     "ConstantInitializer",
     "DataType",
+    "EdgeReshard",
     "FFConfig",
     "FFModel",
     "GlorotUniformInitializer",
+    "LintReport",
     "LossType",
     "MetricsType",
     "NormInitializer",
     "OperatorType",
     "PoolType",
+    "Severity",
     "Tensor",
     "UniformInitializer",
     "ZeroInitializer",
+    "edge_reshard_table",
+    "lint_model",
     "resolve_device",
 ]

@@ -1,0 +1,694 @@
+"""Edge-level sharding dataflow: per-edge reshard inference.
+
+PyTorch counterpart of ``flexflow_tpu/analysis/dataflow.py``, rule for
+rule, so both packages derive the same edge table from one graph and
+strategy. A spec here is the port's tuple (``parallel/strategy.py``:
+one entry per dim, an axis name, a tuple of names, or None) where the
+JAX package has a ``PartitionSpec``; "GSPMD" below names the collective
+a sharded execution must insert at the seam, whichever runtime does it.
+
+The collective-inference pass (passes/collectives.py) historically
+inferred collectives per *kind* from node-local strategy entries, so an
+implicit GSPMD reshard at a producer→consumer spec disagreement was only
+a heuristic FFL205 WARNING and the native simulator's replay stayed the
+arbiter. This module is the static arbiter: an abstract interpretation
+over the materialized PCG that
+
+1. derives, per op, the spec each INPUT must arrive in given
+   the op's chosen output/param specs (``required_input_specs`` — the
+   Python mirror of the native ``Choice.in`` vectors,
+   native/ffs_strategy.hpp enumerate_choices);
+2. diffs that requirement against the producer's output spec on every
+   producer→consumer edge and classifies the disagreement into the
+   exact collective GSPMD must insert (``classify_transition`` — the
+   set-logic mirror of native ``reshard_cost``: src ⊆ dst is a free
+   local slice, dst ⊆ src is an all-gather, mixed is an all-to-all
+   reshard), with per-device payload bytes (census convention), the
+   mesh axes communicated over, and the fabric (``ici`` within a
+   slice, ``dcn`` when the ``slice`` axis moves);
+3. exposes the result as a per-edge ``EdgeReshard`` table
+   (``edge_reshard_table``) the collective-inference pass, the fflint
+   CLI (``--edges``), and explain.py all read.
+
+The weight-movement rule (``weight_movement_edges``) generalizes the
+tiny-batch special case the native row-parallel Linear/Conv choices
+price (ffs_strategy.hpp tiny_batch_weight_movement): a row-parallel
+contraction with fewer MXU rows per chip than one tile edge resolves by
+moving the WEIGHT — an all-gather of the model-sharded kernel — which
+the static inference now derives from the spec + shape alone instead of
+leaving to a per-op special case.
+
+``verify_rewrite_dataflow`` is the substitution-engine hook: after
+``graph_optimize`` accepts a rewrite, the post-rewrite edge-spec map
+must be collective-equivalent-or-cheaper than the pre-rewrite map —
+a rewrite that introduces a reshard seam the DP's local pricing missed
+is an FFL213 ERROR, caught statically, before anything compiles.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from flexflow_tpu_torch.ffconst import OperatorType
+from flexflow_tpu_torch.ops.base import DimRole
+
+# sentinel: "this input accepts any layout" (unmodeled op class) — NOT
+# the same as an all-None spec, which is a hard replication requirement
+ANY = object()
+
+# mesh axes that carry batch replicas (grad-sync rings) — matches
+# passes/collectives.py
+_DATA_AXES = ("data", "replica")
+
+# activation payloads below this are scalar-ish and never priced —
+# matches passes/collectives._MIN_BYTES and the simulator
+MIN_EDGE_BYTES = float(1 << 12)
+
+# the MXU tile edge the tiny-batch weight-movement rule keys on
+# (native/ffs_strategy.hpp uses the same 128-row threshold)
+_MXU_ROWS = 128.0
+
+# shape-preserving same-rank ops whose inputs must arrive in the op's
+# own output layout (the native rep/dp choices carry identical in/out
+# specs for these)
+_SAME_RANK_FOLLOW = frozenset({
+    OperatorType.RELU, OperatorType.GELU, OperatorType.SIGMOID,
+    OperatorType.TANH, OperatorType.ELU, OperatorType.EXP,
+    OperatorType.SIN, OperatorType.COS, OperatorType.POW,
+    OperatorType.RSQRT, OperatorType.IDENTITY, OperatorType.LOG,
+    OperatorType.SCALAR_MULTIPLY, OperatorType.SCALAR_ADD,
+    OperatorType.SCALAR_SUB, OperatorType.SCALAR_TRUE_DIV,
+    OperatorType.DROPOUT, OperatorType.CAST, OperatorType.SOFTMAX,
+    OperatorType.LAYERNORM, OperatorType.RMSNORM, OperatorType.BATCHNORM,
+    OperatorType.GROUPNORM, OperatorType.POOL2D, OperatorType.REVERSE,
+    OperatorType.EW_ADD, OperatorType.EW_SUB, OperatorType.EW_MUL,
+    OperatorType.EW_DIV, OperatorType.EW_MAX, OperatorType.EW_MIN,
+    OperatorType.WHERE,
+})
+
+
+@dataclasses.dataclass
+class EdgeReshard:
+    """One producer→consumer edge whose specs disagree.
+
+    ``kind``: ``allgather`` | ``reshard`` | ``ppermute`` (pipe hop) |
+    ``slice`` (pure additional slicing — free locally, recorded for the
+    FFL212 replicated-materialization rule). ``bytes`` follow the census
+    convention (per-device payload at compute dtype). ``explicit`` edges
+    terminate at a parallel op whose boundary IS the reshard — the
+    node-level inference prices those; implicit edges are the GSPMD
+    insertions this module exists to catch."""
+
+    producer: str
+    producer_guid: int
+    out_idx: int
+    consumer: str
+    consumer_guid: int
+    in_idx: int
+    src_spec: Tuple
+    dst_spec: Tuple
+    kind: str
+    bytes: float
+    axes: Tuple[str, ...]
+    fabric: str
+    explicit: bool = False
+    reason: str = ""
+
+    @property
+    def edge(self) -> str:
+        return (f"{self.producer}.out[{self.out_idx}] -> "
+                f"{self.consumer}.in[{self.in_idx}]")
+
+    def to_json(self) -> Dict[str, Any]:
+        return dict(
+            edge=self.edge, producer=self.producer, out_idx=self.out_idx,
+            consumer=self.consumer, in_idx=self.in_idx,
+            src_spec=_spec_str(self.src_spec),
+            dst_spec=_spec_str(self.dst_spec),
+            kind=self.kind, bytes=self.bytes, axes=list(self.axes),
+            fabric=self.fabric, explicit=self.explicit, reason=self.reason)
+
+
+# ---- spec algebra ----------------------------------------------------------
+
+def _norm(spec, rank: int) -> Tuple:
+    """spec tuple | None -> entry tuple of length ``rank``."""
+    if spec is None:
+        return (None,) * rank
+    entries = list(spec)
+    return tuple((entries + [None] * rank)[:rank])
+
+
+def _spec_str(entries: Tuple) -> str:
+    if not any(e is not None for e in entries):
+        return "replicated"
+    return "(" + ", ".join(
+        "+".join(e) if isinstance(e, tuple) else (e or "·")
+        for e in entries) + ")"
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _pairs(entries: Tuple) -> set:
+    """(dim, axis) pair set; tuple entries (the ('slice','data') prefix
+    or 2-D sample partitions) expand into their base axes so
+    data ⊂ slice+data reads as pure additional slicing — the Python
+    mirror of the native kDataModel expansion in reshard_cost."""
+    out = set()
+    for d, entry in enumerate(entries):
+        for ax in _entry_axes(entry):
+            out.add((d, ax))
+    return out
+
+
+def spec_degree(entries: Tuple, axis_sizes: Dict[str, int]) -> int:
+    deg = 1
+    for _, ax in _pairs(entries):
+        deg *= axis_sizes.get(ax, 1)
+    return deg
+
+
+def classify_transition(src: Tuple, dst: Tuple, shape: Tuple[int, ...],
+                        axis_sizes: Dict[str, int], elem: float = 4.0
+                        ) -> Optional[Dict[str, Any]]:
+    """The collective a src→dst layout change implies, or None when the
+    tensor moves nowhere (specs agree, or both are effectively
+    unsharded on this mesh). Mirrors native reshard_cost:
+
+    * src ⊆ dst — pure additional slicing, local (kind ``slice``,
+      0 bytes; recorded so FFL212 can see replicated materializations);
+    * dst ⊆ src — all-gather: every device ends with its dst shard,
+      payload = global / deg(dst) per device;
+    * mixed — all-to-all reshard within the communicating group,
+      payload = the larger shard that moves.
+    """
+    sa, sb = _pairs(src), _pairs(dst)
+    # drop axes of size 1 (or absent): sharding over them moves nothing
+    sa = {p for p in sa if axis_sizes.get(p[1], 1) > 1}
+    sb = {p for p in sb if axis_sizes.get(p[1], 1) > 1}
+    if sa == sb:
+        return None
+    ka = spec_degree(src, axis_sizes)
+    kb = spec_degree(dst, axis_sizes)
+    if ka <= 1 and kb <= 1:
+        return None
+    global_bytes = float(np.prod(shape)) * elem if shape else 0.0
+    moved = sorted({ax for _, ax in sa.symmetric_difference(sb)})
+    fabric = "dcn" if "slice" in moved else "ici"
+    if sa <= sb:
+        return dict(kind="slice", bytes=0.0, axes=tuple(moved),
+                    fabric=fabric)
+    if sb <= sa:
+        return dict(kind="allgather", bytes=global_bytes / max(1, kb),
+                    axes=tuple(moved), fabric=fabric)
+    return dict(kind="reshard", bytes=global_bytes / max(1, ka, kb),
+                axes=tuple(moved), fabric=fabric)
+
+
+# ---- per-op transfer rules -------------------------------------------------
+
+def _copy_matching(out_entries: Tuple, out_shape: Tuple[int, ...],
+                   in_shape: Tuple[int, ...]) -> Tuple:
+    """Same-rank spec transfer: copy the output entry onto every input
+    dim with the same extent (a dim whose extent changed — pooled H/W,
+    the concat axis — cannot inherit the sharding)."""
+    if len(in_shape) != len(out_shape):
+        # broadcast input: only a leading batch dim can follow
+        if in_shape and out_shape and in_shape[0] == out_shape[0]:
+            return (out_entries[0],) + (None,) * (len(in_shape) - 1)
+        return (None,) * len(in_shape)
+    return tuple(e if in_shape[d] == out_shape[d] else None
+                 for d, e in enumerate(out_entries))
+
+
+def _reshape_transfer(out_entries: Tuple, out_shape: Tuple[int, ...],
+                      in_shape: Tuple[int, ...]) -> Tuple:
+    """Axis-mapping through a reshape/flat: factor both shapes into
+    aligned groups by prefix products; a sharded output dim transfers to
+    the input dim that OPENS its group (the outermost factor — the only
+    placement a sharded reshape keeps local). Anything murkier drops to
+    replicated, which errs toward inferring a gather (a lower bound must
+    not invent freedom GSPMD does not have)."""
+    req = [None] * len(in_shape)
+    i = j = 0
+    while i < len(in_shape) and j < len(out_shape):
+        gi, gj = [i], [j]
+        pi, pj = in_shape[i], out_shape[j]
+        while pi != pj:
+            if pi < pj and len(gi) + gi[0] < len(in_shape):
+                gi.append(gi[0] + len(gi))
+                pi *= in_shape[gi[-1]]
+            elif pj < pi and len(gj) + gj[0] < len(out_shape):
+                gj.append(gj[0] + len(gj))
+                pj *= out_shape[gj[-1]]
+            else:
+                return tuple(req)  # shapes don't factor — give up
+        # the group's leading output entry maps to the leading input dim
+        # when the sharded extent survives (same leading extent, or the
+        # input leading dim is divisible by the sharding — conservative:
+        # require equal leading extents for a transfer)
+        lead = out_entries[gj[0]]
+        if lead is not None and in_shape[gi[0]] == out_shape[gj[0]]:
+            req[gi[0]] = lead
+        i, j = gi[-1] + 1, gj[-1] + 1
+    return tuple(req)
+
+
+def required_input_specs(node, getspec, getparam) -> List[Any]:
+    """Per-input required layout of ``node`` given its chosen specs —
+    the Python mirror of the native ``Choice.in`` vectors. ``getspec``
+    maps (node) -> normalized output entry tuple for output 0;
+    ``getparam`` maps (node, name) -> param spec or None. Returns one
+    entry per input: a normalized entry tuple, or ``ANY`` when the op
+    class is unmodeled (accepts whatever arrives — no edge inferred)."""
+    op = node.op
+    t = op.op_type
+    in_shapes = op.input_shapes
+    out_shape = op.output_shapes[0] if op.output_shapes else ()
+    out0 = getspec(node)
+
+    if getattr(op, "is_parallel_op", False):
+        # the boundary IS the reshard: inputs arrive however the
+        # producer left them; the node-level inference prices it
+        return [ANY] * len(in_shapes)
+
+    if t in _SAME_RANK_FOLLOW:
+        return [_copy_matching(out0, out_shape, s) for s in in_shapes]
+
+    if t == OperatorType.LINEAR:
+        kspec = _norm(getparam(node, "kernel"), 2)
+        req = list(_copy_matching(out0, out_shape, in_shapes[0]))
+        if req:
+            # contraction dim: row-parallel (kernel dim0 model-sharded)
+            # consumes a contraction-sharded input; col keeps it whole
+            req[-1] = kspec[0]
+        return [tuple(req)] + [ANY] * (len(in_shapes) - 1)
+
+    if t == OperatorType.CONV2D:
+        kspec = _norm(getparam(node, "kernel"), 4)  # OIHW
+        req = [None] * len(in_shapes[0])
+        if len(in_shapes[0]) == 4:
+            req[0] = out0[0] if in_shapes[0][0] == out_shape[0] else None
+            req[1] = kspec[1]  # row-parallel conv: in-channel sharded
+        return [tuple(req)] + [ANY] * (len(in_shapes) - 1)
+
+    if t == OperatorType.EMBEDDING:
+        # ids follow the output's batch sharding; the table lookup
+        # itself is the op's own (psum-priced) business
+        reqs = []
+        for s in in_shapes:
+            r = [None] * len(s)
+            if r and s[0] == out_shape[0]:
+                r[0] = out0[0]
+            reqs.append(tuple(r))
+        return reqs
+
+    if t == OperatorType.MULTIHEAD_ATTENTION:
+        # q/k/v arrive [B,S,E]: batch and seq follow the output (ring
+        # attention keeps K/V seq-sharded — the rotation is priced as
+        # the ring ppermute, not as an edge); E stays whole
+        reqs = []
+        for s in in_shapes:
+            r = [None] * len(s)
+            if r and s and s[0] == out_shape[0]:
+                r[0] = out0[0]
+            if len(r) > 1 and len(out_shape) > 1 and s[1] == out_shape[1]:
+                r[1] = out0[1]
+            reqs.append(tuple(r))
+        return reqs
+
+    if t == OperatorType.BATCHMATMUL:
+        reqs = []
+        for s in in_shapes:
+            r = [None] * len(s)
+            if r and s and out_shape and s[0] == out_shape[0]:
+                r[0] = out0[0]
+            reqs.append(tuple(r))
+        return reqs
+
+    if t in (OperatorType.RESHAPE, OperatorType.FLAT):
+        return [_reshape_transfer(out0, out_shape, in_shapes[0])]
+
+    if t == OperatorType.TRANSPOSE:
+        perm = getattr(op, "perm", None)
+        if perm is None:
+            return [ANY]
+        req = [None] * len(in_shapes[0])
+        for j, p in enumerate(perm):  # out dim j carries in dim perm[j]
+            req[p] = out0[j]
+        return [tuple(req)]
+
+    if t == OperatorType.CONCAT:
+        ax = getattr(op, "axis", 0) % max(1, len(out_shape))
+        reqs = []
+        for s in in_shapes:
+            r = list(_copy_matching(out0, out_shape, s))
+            if r:
+                r[ax] = None  # per-input extents differ on the seam
+            reqs.append(tuple(r))
+        return reqs
+
+    if t == OperatorType.SPLIT:
+        ax = getattr(op, "axis", 0) % max(1, len(in_shapes[0]))
+        r = list(_copy_matching(out0, out_shape, in_shapes[0]))
+        if r:
+            r[ax] = None
+        return [tuple(r)]
+
+    # reductions, gathers, MoE dispatch ops, loss heads: index- or
+    # reduction-dependent layouts this pass does not model — accept
+    # whatever arrives (the inference stays a lower bound)
+    return [ANY] * len(in_shapes)
+
+
+# ---- the edge table --------------------------------------------------------
+
+class _TableCtx:
+    """The slice of LintContext edge_reshard_table needs — constructed
+    directly by verify_rewrite_dataflow for pre/post node lists that
+    never saw apply_strategy."""
+
+    def __init__(self, nodes, strategy, axis_sizes, elem=4.0, ff=None):
+        self.nodes = nodes
+        self.strategy = strategy or {}
+        self.axis_sizes = axis_sizes
+        self.elem = elem
+        self.ff = ff
+        self.by_guid = {n.op.guid: n for n in nodes}
+
+
+def _ctx_elem(ctx) -> float:
+    elem = getattr(ctx, "elem", None)
+    if elem:
+        return float(elem)
+    ff = getattr(ctx, "ff", None)
+    if ff is not None and ff.executor is not None:
+        return float(ff.executor.compute_dtype.itemsize)
+    return 4.0
+
+
+def _out_entries(ctx, node, idx: int) -> Tuple:
+    rank = len(node.op.output_shapes[idx]) if idx < len(
+        node.op.output_shapes) else 0
+    specs = getattr(node, "output_specs", None)
+    if specs and idx < len(specs) and specs[idx] is not None:
+        return _norm(specs[idx], rank)
+    st = ctx.strategy.get(node.op.guid)
+    if st is not None and st.output_specs and idx < len(st.output_specs):
+        return _norm(st.output_specs[idx], rank)
+    return (None,) * rank
+
+
+def _param_spec(ctx, node, name: str):
+    ps = getattr(node, "param_specs", None)
+    if ps and name in ps:
+        return ps[name]
+    st = ctx.strategy.get(node.op.guid)
+    if st is not None:
+        return st.param_specs.get(name)
+    return None
+
+
+def _block_of(ctx) -> Dict[int, int]:
+    """guid -> repeated-block index on pipe meshes (pipe-hop edges are
+    ppermutes over the stage boundary, not GSPMD reshards)."""
+    ff = getattr(ctx, "ff", None)
+    if ctx.axis_sizes.get("pipe", 1) <= 1 or ff is None:
+        return {}
+    pb = getattr(ff.executor, "pb", None) if ff.executor is not None else None
+    if pb is None:
+        return {}
+    return {ctx.nodes[i].op.guid: bi
+            for bi, blk in enumerate(pb.blocks) for i in blk}
+
+
+def edge_reshard_table(ctx) -> List[EdgeReshard]:
+    """Every producer→consumer edge whose specs disagree, classified.
+
+    ``ctx`` is a LintContext (or _TableCtx). Memoized on the context —
+    the graph is never mutated during a lint run."""
+    cached = getattr(ctx, "_edge_table", None)
+    if cached is not None:
+        return cached
+    axis_sizes = ctx.axis_sizes
+    elem = _ctx_elem(ctx)
+    blocks = _block_of(ctx)
+    out: List[EdgeReshard] = []
+    for node in ctx.nodes:
+        op = node.op
+        reqs = None
+        for j, ref in enumerate(node.input_refs):
+            if not ref or ref[0] != "op":
+                continue
+            prod = ctx.by_guid.get(ref[1])
+            if prod is None:
+                continue
+            src = _out_entries(ctx, prod, ref[2])
+            shape = (prod.op.output_shapes[ref[2]]
+                     if ref[2] < len(prod.op.output_shapes) else ())
+            explicit = bool(getattr(op, "is_parallel_op", False))
+            if explicit:
+                # the boundary's own constraint is the destination
+                dst = _out_entries(ctx, node, 0)
+            else:
+                if reqs is None:
+                    reqs = required_input_specs(
+                        node,
+                        lambda n: _out_entries(ctx, n, 0),
+                        lambda n, name: _param_spec(ctx, n, name))
+                dst = reqs[j] if j < len(reqs) else ANY
+                if dst is ANY:
+                    continue
+            cls = classify_transition(src, dst, shape, axis_sizes, elem)
+            if cls is None:
+                continue
+            kind, reason = cls["kind"], ""
+            if blocks and blocks.get(prod.op.guid) != blocks.get(op.guid) \
+                    and prod.op.guid in blocks and op.guid in blocks:
+                # stage boundary: the hop is the pipeline ppermute the
+                # node-level inference prices (pipeline:hop), not a
+                # GSPMD reshard
+                kind, reason, explicit = "ppermute", "pipe-hop", True
+            out.append(EdgeReshard(
+                producer=prod.op.name, producer_guid=prod.op.guid,
+                out_idx=ref[2], consumer=op.name, consumer_guid=op.guid,
+                in_idx=j, src_spec=src, dst_spec=dst, kind=kind,
+                bytes=cls["bytes"], axes=cls["axes"], fabric=cls["fabric"],
+                explicit=explicit, reason=reason))
+    try:
+        ctx._edge_table = out
+    except AttributeError:
+        pass
+    return out
+
+
+def weight_movement_edges(ctx) -> List[EdgeReshard]:
+    """The tiny-batch weight-movement rule, generalized: a row-parallel
+    contraction (model-sharded contraction dim on the kernel, output
+    NOT model-sharded — the psum pairing) whose per-chip MXU row count
+    is at most one tile edge and whose output is smaller than its
+    weight resolves, under GSPMD, by ALL-GATHERING the weight instead
+    of psumming activations. One rule over shapes+specs, covering what
+    native/ffs_strategy.hpp's per-op special case priced for the
+    row-parallel Linear and Conv2D (searched XDL emitted 7x the priced
+    bytes before that term existed — ROADMAP / fflint FFL202)."""
+    axis_sizes = ctx.axis_sizes
+    elem = _ctx_elem(ctx)
+    out: List[EdgeReshard] = []
+    for node in ctx.nodes:
+        op = node.op
+        if op.op_type not in (OperatorType.LINEAR, OperatorType.CONV2D):
+            continue
+        kspec = _param_spec(ctx, node, "kernel")
+        if kspec is None:
+            continue
+        kentries = tuple(kspec)
+        model_deg = 1
+        for entry in kentries:
+            for ax in _entry_axes(entry):
+                if ax not in _DATA_AXES:
+                    model_deg *= axis_sizes.get(ax, 1)
+        if model_deg <= 1:
+            continue
+        out0 = _out_entries(ctx, node, 0)
+        if any(ax not in _DATA_AXES and ax != "seq"
+               for _, ax in _pairs(out0)):
+            continue  # col-parallel: the output moves, not the weight
+        shape = op.output_shapes[0]
+        roles = op.output_dim_roles()[0]
+        ch = roles.index(DimRole.CHANNEL) if DimRole.CHANNEL in roles \
+            else len(shape) - 1
+        rows = float(np.prod(shape)) / max(1, shape[ch])
+        eff_dp = 1
+        for ax in _entry_axes(out0[0] if out0 else None):
+            if ax in _DATA_AXES:
+                eff_dp *= axis_sizes.get(ax, 1)
+        pbytes = float(op.params_elems()) * elem
+        out_bytes = float(np.prod(shape)) * elem
+        if rows <= 0 or rows / eff_dp > _MXU_ROWS or out_bytes >= pbytes:
+            continue
+        moved = sorted({ax for entry in kentries
+                        for ax in _entry_axes(entry)
+                        if ax not in _DATA_AXES})
+        out.append(EdgeReshard(
+            producer=op.name, producer_guid=op.guid, out_idx=0,
+            consumer=op.name, consumer_guid=op.guid, in_idx=-1,
+            src_spec=tuple(kentries), dst_spec=(None,) * len(kentries),
+            kind="allgather", bytes=pbytes, axes=tuple(moved),
+            fabric="dcn" if "slice" in moved else "ici",
+            explicit=False, reason="tiny-batch weight movement"))
+    return out
+
+
+# ---- rewrite verification (FFL213) ----------------------------------------
+
+def _implicit_kind_bytes(table: List[EdgeReshard]) -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    for e in table:
+        if e.explicit or e.kind == "slice" or e.bytes < MIN_EDGE_BYTES:
+            continue
+        out[e.kind] = out.get(e.kind, 0.0) + e.bytes
+    return out
+
+
+def _adapt_donor(node, donor, donor_st, di: int):
+    """Project a post-rewrite donor op's strategy back onto a removed
+    pre-rewrite node: output entries transfer on dims whose extent
+    matches or divides the donor's (a fused [B,S,3H] linear's
+    ``model``-sharded dim 2 shards each constituent's [B,S,H] dim 2
+    identically); param specs transfer by name (``kernel`` → the
+    constituent kernel sees the same row/col split)."""
+    import types
+    dshape = (donor.op.output_shapes[di]
+              if di < len(donor.op.output_shapes) else ())
+    dspec = _norm(donor_st.output_specs[di]
+                  if getattr(donor_st, "output_specs", None)
+                  and di < len(donor_st.output_specs) else None,
+                  len(dshape))
+    specs = []
+    for oshape in node.op.output_shapes:
+        ent = [None] * len(oshape)
+        for d in range(min(len(oshape), len(dshape))):
+            if oshape[d] > 0 and (oshape[d] == dshape[d]
+                                  or dshape[d] % oshape[d] == 0):
+                ent[d] = dspec[d]
+        specs.append(tuple(ent))
+    return types.SimpleNamespace(
+        output_specs=specs,
+        param_specs=dict(getattr(donor_st, "param_specs", None) or {}),
+        choice=getattr(donor_st, "choice", None))
+
+
+def _project_strategy(pre_nodes, post_strategy, post_nodes=None,
+                      rewrites=None) -> Dict[int, Any]:
+    """Strategy for the PRE-rewrite graph under the post-rewrite
+    decision: surviving guids keep their entries; removed ops take the
+    (shape-adapted) entry of the post node their output was remapped to
+    by the rewrite trace; anything still unresolved follows its first
+    op-input producer (the layout a folded interior op would run in)."""
+    by_guid = {n.op.guid: n for n in pre_nodes}
+    post_by_guid = {n.op.guid: n for n in (post_nodes or ())}
+    post_by_name = {n.op.name: n for n in (post_nodes or ())}
+    remap: Dict[Tuple[int, int], Tuple[int, int]] = {}
+    # removed guid -> the rewrite entry's added post nodes (a removed
+    # op's layout donor should be the added op of ITS OWN type — a
+    # fused LINEAR's output remap points at the adapter SPLIT, whose
+    # spec has lost the col-parallel sharding the constituents ran in)
+    twins: Dict[int, list] = {}
+    for entry in (rewrites or ()):
+        for a, b, c, d in entry.get("output_remap", ()):
+            remap[(int(a), int(b))] = (int(c), int(d))
+        added = [post_by_name[a["name"]] for a in entry.get("added", ())
+                 if a.get("name") in post_by_name]
+        for g in entry.get("removed", ()):
+            twins[int(g)] = added
+
+    def follow_remap(key):
+        for _ in range(len(remap) + 1):
+            if key not in remap:
+                break
+            key = remap[key]
+        return key
+
+    def donor_of(n):
+        dg, di = follow_remap((n.op.guid, 0))
+        donor = post_by_guid.get(dg)
+        if donor is not None and donor.op.op_type == n.op.op_type:
+            return donor, di
+        for cand in twins.get(n.op.guid, ()):
+            if cand.op.op_type == n.op.op_type \
+                    and cand.op.guid in post_strategy:
+                return cand, 0
+        return donor, di
+
+    def resolve(guid, depth=0):
+        if guid in post_strategy or depth > len(by_guid):
+            return post_strategy.get(guid)
+        node = by_guid.get(guid)
+        if node is None:
+            return None
+        for ref in node.input_refs:
+            if ref and ref[0] == "op":
+                return resolve(ref[1], depth + 1)
+        return None
+
+    out = {}
+    for n in pre_nodes:
+        guid = n.op.guid
+        st = post_strategy.get(guid)
+        if st is None:
+            donor, di = donor_of(n)
+            donor_st = (post_strategy.get(donor.op.guid)
+                        if donor is not None else None)
+            if donor is not None and donor_st is not None:
+                st = _adapt_donor(n, donor, donor_st, di)
+        if st is None:
+            st = resolve(guid)
+        if st is not None:
+            out[guid] = st
+    return out
+
+
+def verify_rewrite_dataflow(pre_nodes, post_nodes, strategy, axis_sizes,
+                            elem: float = 4.0, tol: float = 1.5,
+                            rewrites=None) -> Dict[str, Any]:
+    """Static collective-equivalence check for an accepted substitution
+    rewrite: the post-rewrite graph's implicit edge-reshard map must be
+    collective-equivalent-or-cheaper than the pre-rewrite graph under
+    the projected strategy. Compared as TOTAL implicit bytes across
+    kinds — a rewrite legitimately trades N small reshards for one
+    larger all-gather (the kinds cover each other, COLLECTIVE_COVER),
+    and the pre-side strategy is a projection, so only a substantial
+    regression (> ``tol`` x, default 1.5) is flagged. Returns
+    ``{ok, findings, pre_bytes, post_bytes}``; a finding carries the
+    dominant post-rewrite kind and its worst edge — the FFL213
+    payload."""
+    pre_ctx = _TableCtx(pre_nodes,
+                        _project_strategy(pre_nodes, strategy,
+                                          post_nodes, rewrites),
+                        axis_sizes, elem)
+    post_ctx = _TableCtx(post_nodes, strategy, axis_sizes, elem)
+    pre = _implicit_kind_bytes(edge_reshard_table(pre_ctx))
+    post = _implicit_kind_bytes(edge_reshard_table(post_ctx))
+    pre_total = sum(pre.values())
+    post_total = sum(post.values())
+    findings = []
+    if post_total > pre_total * tol + MIN_EDGE_BYTES:
+        kind = max(post, key=lambda k: post[k] - pre.get(k, 0.0))
+        worst = max((e for e in edge_reshard_table(post_ctx)
+                     if not e.explicit and e.kind == kind),
+                    key=lambda e: e.bytes, default=None)
+        findings.append(dict(
+            kind=kind, pre_bytes=pre_total, post_bytes=post_total,
+            edge=worst.edge if worst else None,
+            src_spec=_spec_str(worst.src_spec) if worst else None,
+            dst_spec=_spec_str(worst.dst_spec) if worst else None))
+    return dict(ok=not findings, findings=findings,
+                pre_bytes=pre, post_bytes=post)

@@ -1,0 +1,755 @@
+"""collective-inference: the static census invariant.
+
+PyTorch counterpart of ``flexflow_tpu/analysis/passes/collectives.py``:
+the same inference, pricing and diff, over the port's tuple specs and
+the port's simulator replay (``search/validate.py``). "GSPMD" below
+names the collective a sharded execution must insert at a spec seam.
+The one place the packages part is the kernel-choice check (FFL209):
+the reference asks whether Pallas runs on this platform, the port
+whether the hand-written CUDA kernel takes the op on the model's device
+(on the CPU it runs its plain PyTorch version).
+
+The classic silent failure (SURVEY §7, search/validate.py): a searched
+strategy underperforms its prediction because GSPMD inserted collectives
+the simulator never priced. This pass closes the loop in three layers:
+
+1. *Infer* — derive, from the strategy alone (no compile, no native
+   core), the collective kinds the program must contain: the gradient
+   all-reduce of every data-replicated parameter, the partial-sum psum
+   of every row-parallel contraction, the all-gather behind every
+   Combine/Replicate boundary, the reshard behind every
+   axis-moving Repartition, the ring ppermute of seq-parallel
+   attention, the expert-dispatch all-to-all. This is a LOWER bound:
+   GSPMD may insert more, never less.
+2. *Price* — replay the strategy through the native simulator
+   (validate.priced_collectives) when it is available. An inferred
+   kind the simulator never charged is an FFL204 error: the search
+   compared candidate strategies while blind to a cost this one
+   provably carries.
+3. *Emit* — when the caller supplies the optimized HLO, diff the
+   priced set against the emitted census (validate.diff_collectives):
+   an emitted kind with no priced coverage is the FFL201 error the
+   ROADMAP's "census as a search invariant" item asks for.
+
+Since the edge-level dataflow pass (analysis/dataflow.py) the *Infer*
+layer is edge-attributed, not kind-aggregated: every producer→consumer
+spec disagreement contributes its exact implied collective (kind,
+per-device bytes, mesh axes, fabric) to the inferred set, and the
+rules that used to be heuristic became exact:
+
+* FFL205 is an ERROR — an implicit edge reshard nothing prices,
+  named ``producer.out[i] -> consumer.in[j]`` with the spec pair and
+  bytes (no simulator replay needed);
+* FFL210 (ERROR) — an implicit edge reshard whose kind the simulator
+  replay priced zero bytes for: the search ranked this strategy blind
+  to an edge cost it provably carries;
+* FFL211 (WARNING) — two implicit reshards on one chain that compose
+  to a round trip (resharded into a layout and straight back out);
+* FFL212 (WARNING) — a large output materialized replicated although
+  every consumer immediately shards it;
+* FFL213 (ERROR) — an accepted substitution rewrite whose post-rewrite
+  edge-spec map implies MORE collective bytes than the pre-rewrite map
+  (dataflow.verify_rewrite_dataflow, recorded by graph_optimize).
+
+The tiny-batch weight-movement special case is gone: the general rule
+(dataflow.weight_movement_edges) derives the weight all-gather from
+spec + shape for any row-parallel contraction.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from flexflow_tpu_torch.analysis.dataflow import (edge_reshard_table,
+                                            weight_movement_edges)
+from flexflow_tpu_torch.analysis.diagnostics import (Diagnostic, error, info,
+                                               warning)
+from flexflow_tpu_torch.ffconst import CompMode, OperatorType
+
+# which priced kinds cover an inferred/emitted kind — the shared
+# definition (XLA AR decomposition, reshard covering permute/a2a) lives
+# next to diff_collectives so both layers always classify alike
+from flexflow_tpu_torch.search.validate import COLLECTIVE_COVER as _COVER
+
+# payloads below this are scalar loss/metric reductions the simulator
+# deliberately does not price — the inference skips them symmetrically
+_MIN_BYTES = float(1 << 12)
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _spec_degree(spec, axis_sizes) -> int:
+    if spec is None:
+        return 1
+    deg = 1
+    for entry in spec:
+        for ax in _entry_axes(entry):
+            deg *= axis_sizes.get(ax, 1)
+    return deg
+
+
+def _node_param_specs(node, ctx) -> Dict[str, Any]:
+    ps = getattr(node, "param_specs", None)
+    if ps:
+        return ps
+    st = ctx.strategy.get(node.op.guid)
+    return st.param_specs if st is not None else {}
+
+
+def infer_strategy_collectives(ctx, edge_table=None,
+                               weight_moves=None) -> Dict[str, Dict[str, Any]]:
+    """{kind: {bytes, sources: [op names], edges: [...]}} the strategy
+    implies. Edge-attributed: node-local terms (grad sync, psum,
+    explicit parallel-op boundaries, rings, pipeline hops) carry their
+    op name as the source; implicit producer→consumer reshards carry
+    the full edge (``a.out[i] -> b.in[j]`` plus spec pair) under the
+    ``edges`` key so a diagnostic can name the exact seam.
+
+    Bytes are per-device payloads (the census convention): an
+    all-reduce of a replicated gradient moves the full tensor per
+    device; a reshard moves the shard. Grad/activation payloads use
+    the executor's compute dtype width (bf16 halves them under the
+    master-weight regime, matching the simulator's
+    ``comm_bytes_factor``)."""
+    axis_sizes = ctx.axis_sizes
+    out: Dict[str, Dict[str, Any]] = {}
+
+    def add(kind: str, nbytes: float, src: str, edge=None):
+        if nbytes < _MIN_BYTES:
+            return
+        e = out.setdefault(kind, dict(bytes=0.0, sources=[], edges=[]))
+        e["bytes"] += nbytes
+        e["sources"].append(src)
+        if edge is not None:
+            e["edges"].append(edge.to_json())
+
+    elem = 4.0
+    training = True
+    if ctx.ff is not None and ctx.ff.executor is not None:
+        elem = float(ctx.ff.executor.compute_dtype.itemsize)
+        training = getattr(ctx.ff.executor, "comp_mode",
+                           CompMode.TRAINING) == CompMode.TRAINING
+    data_deg = 1
+    for ax in ("data", "replica"):
+        data_deg *= axis_sizes.get(ax, 1)
+    # weight-update sharding: the executor's runtime flag is the truth
+    # (searched strategies additionally mark per-op "_wus" choices)
+    executor = ctx.ff.executor if ctx.ff is not None else None
+    wus_on = bool(executor is not None
+                  and getattr(executor, "weight_update_sharding", False))
+    # leaves the executor ACTUALLY shards (per-param divisibility): the
+    # gather payload is their element count, not the op's full nelem —
+    # non-divisible leaves keep a plain all-reduce with no gather
+    wus_specs = (executor.wus_param_specs()
+                 if wus_on and hasattr(executor, "wus_param_specs") else {})
+    # pipeline: stacked body params live 1/pp per device, so their
+    # grad-sync payloads divide by pp (per-device census convention —
+    # matches simulate_pipeline's body_gs_*/pp records)
+    pp = axis_sizes.get("pipe", 1)
+    pb = getattr(executor, "pb", None)
+    body_guids = ({ctx.nodes[i].op.guid for blk in pb.blocks for i in blk}
+                  if pp > 1 and pb is not None else set())
+
+    for node in ctx.nodes:
+        op = node.op
+        nelem = float(op.params_elems())
+        pspecs = _node_param_specs(node, ctx)
+        specs = getattr(node, "output_specs", None) or []
+        spec0 = specs[0] if specs else None
+        if spec0 is None:
+            st = ctx.strategy.get(op.guid)
+            if st is not None and st.output_specs:
+                spec0 = st.output_specs[0]
+        data_sharded = any(
+            ax in ("data", "replica")
+            for entry in (tuple(spec0) if spec0 is not None else ())
+            for ax in _entry_axes(entry))
+        if training and data_deg > 1 and nelem > 0 and data_sharded:
+            # gradient sync: a batch-sharded op's replicated params see
+            # different rows per device, so their grads all-reduce over
+            # the data axes. A fully replicated op ("rep" choice)
+            # computes identical grads on every device and needs no sync.
+            st_choice = getattr(ctx.strategy.get(op.guid), "choice",
+                                None) or ""
+            stage_div = pp if op.guid in body_guids else 1
+            if wus_on or "_wus" in st_choice:
+                # weight-update sharding: the sync is a reduce-scatter
+                # (XLA's AR-decomposition half — stays in the allreduce
+                # bucket) plus the all-gather rebuilding the next step's
+                # compute params from the updated shards. Only the
+                # leaves the executor shards gather; hand-built contexts
+                # without an executor conservatively gather everything.
+                sharded = nelem
+                if executor is not None:
+                    from flexflow_tpu_torch.search.unity import _param_shapes
+                    leaf_specs = wus_specs.get(op.name, {})
+                    sharded = float(sum(
+                        int(np.prod(shp))
+                        for pname, shp in _param_shapes(op).items()
+                        if pname in leaf_specs))
+                add("allreduce", nelem * elem / stage_div,
+                    f"{op.name}:grad-rs")
+                if sharded > 0:
+                    add("allgather", sharded * elem / stage_div,
+                        f"{op.name}:wus-gather")
+            else:
+                add("allreduce", nelem * elem / stage_div,
+                    f"{op.name}:grad")
+        # row-parallel contractions produce partial sums -> psum: a
+        # contraction-dim-sharded kernel (Linear in-dim, attention
+        # head-dim on wo, embedding vocab-dim)
+        psum_axes = ()
+        if op.op_type == OperatorType.LINEAR:
+            psum_axes = _entry_axes(_dim0(pspecs.get("kernel")))
+        elif op.op_type == OperatorType.MULTIHEAD_ATTENTION:
+            psum_axes = _entry_axes(_dim0(pspecs.get("wo")))
+        elif op.op_type == OperatorType.EMBEDDING:
+            psum_axes = _entry_axes(_dim0(pspecs.get("kernel")))
+        if psum_axes:
+            out_bytes = float(np.prod(op.output_shapes[0])) * elem
+            specs = getattr(node, "output_specs", None) or []
+            shard = out_bytes / _spec_degree(specs[0] if specs else None,
+                                             axis_sizes)
+            add("allreduce", shard, f"{op.name}:psum")
+        # explicit PCG resharding boundaries
+        if getattr(op, "is_parallel_op", False):
+            self_bytes = float(np.prod(op.output_shapes[0])) * elem
+            src_spec = _producer_spec(node, ctx)
+            src_deg = _spec_degree(src_spec, axis_sizes)
+            t = op.op_type
+            if t == OperatorType.COMBINE and src_deg > 1:
+                add("allgather", self_bytes, op.name)
+            elif t == OperatorType.REPLICATE and src_deg > 1:
+                add("allgather", self_bytes, op.name)
+            elif t == OperatorType.REPARTITION and src_spec is not None:
+                # moving an axis between dims is an all-to-all reshard
+                d = op.repartition_dim % len(op.output_shapes[0])
+                entries = list(src_spec) + [None] * len(op.output_shapes[0])
+                if op.axis in axis_sizes \
+                        and any(op.axis in _entry_axes(e)
+                                for i, e in enumerate(entries) if i != d):
+                    add("reshard",
+                        self_bytes / axis_sizes[op.axis], op.name)
+            elif t == OperatorType.REDUCTION and src_deg > 1:
+                add("allreduce", self_bytes, op.name)
+        # ring attention: per-step K/V rotation over the seq axis
+        if getattr(op, "seq_parallel", None) and axis_sizes.get("seq", 1) > 1:
+            sp = axis_sizes["seq"]
+            kv_bytes = sum(float(np.prod(s)) for s in op.input_shapes[1:3])
+            add("ppermute", kv_bytes * elem / sp * (3 if training else 1),
+                f"{op.name}:ring")
+        # expert parallelism: token dispatch/combine all-to-all
+        if getattr(op, "expert_parallel", None) \
+                and axis_sizes.get("expert", 1) > 1:
+            add("reshard", float(np.prod(op.output_shapes[0])) * elem,
+                f"{op.name}:dispatch")
+    # pipeline parallelism: every tick ppermutes the in-flight microbatch
+    # activation one hop (backward: the returning gradient too); the
+    # sharded microbatch queue adds the input/output streams
+    if pp > 1 and pb is not None:
+        last = ctx.nodes[pb.blocks[-1][-1]]
+        shp = last.op.output_shapes[pb.body_out[2]]
+        M = int(getattr(executor, "microbatches", 0) or 2 * pp)
+        k = max(1, pb.num_blocks // pp)
+        rounds = k if getattr(executor, "schedule", "gpipe") == "circular" \
+            else 1
+        ticks = rounds * M + pp - 1
+        qshard = bool(getattr(executor, "shard_queue", False)) \
+            and M % pp == 0
+        # byte width: the op's declared dtype, matching the priced side
+        # (pipeline_meta_json ships block_out_bytes at op dtype into
+        # simulate_pipeline's census record) — NOT the compute dtype,
+        # which would diverge 2x under the bf16 regime
+        hop = float(np.prod(shp)) * last.op.dtype.size / (M * data_deg)
+        # sharded queue: 3 streams per tick + the pp-1 output-drain hops
+        # (must match simulate_pipeline's census record, or the
+        # priced-vs-inferred drift gate reports a permanent discrepancy)
+        hops = ticks * (3.0 if qshard else 1.0) + (pp - 1 if qshard else 0)
+        add("ppermute", hops * hop * (2.0 if training else 1.0),
+            "pipeline:hop")
+    # implicit GSPMD reshards at producer→consumer spec disagreements:
+    # the edge table is the general rule (explicit parallel-op
+    # boundaries and pipe hops were already priced above; pure
+    # additional slicing moves nothing)
+    if edge_table is None:
+        edge_table = edge_reshard_table(ctx)
+    for e in edge_table:
+        if e.explicit or e.kind == "slice":
+            continue
+        add(e.kind, e.bytes, f"{e.edge}:edge", edge=e)
+    # tiny-batch weight movement, generalized: row-parallel
+    # contractions whose per-chip row count fits one MXU tile resolve
+    # by all-gathering the model-sharded weight
+    if weight_moves is None:
+        weight_moves = weight_movement_edges(ctx)
+    for e in weight_moves:
+        add(e.kind, e.bytes, f"{e.producer}:weight-move", edge=e)
+    return out
+
+
+def _dim0(spec):
+    if spec is None:
+        return None
+    entries = tuple(spec)
+    return entries[0] if entries else None
+
+
+def _producer_spec(node, ctx):
+    ref = node.input_refs[0] if node.input_refs else None
+    if not ref or ref[0] != "op":
+        return None
+    prod = ctx.by_guid.get(ref[1])
+    if prod is None:
+        return None
+    specs = getattr(prod, "output_specs", None)
+    if specs is None:
+        st = ctx.strategy.get(ref[1])
+        specs = st.output_specs if st is not None else None
+    return specs[ref[2]] if specs and ref[2] < len(specs) else None
+
+
+class CollectiveInferencePass:
+    name = "collective-inference"
+
+    # Bucketed reduce-scatter note: under the comms-compute
+    # overlap structuring the ONE per-leaf grad reduce-scatter becomes N
+    # size-targeted bucket collectives issued in reverse-backward order.
+    # The inference above and the emitted census both aggregate BYTES per
+    # kind, so N bucket collectives summing to the unbucketed payload
+    # diff clean by construction (counts may differ; bytes must not) —
+    # asserted by tests/test_overlap.py::TestFflint.
+
+    # chosen-but-sync strategies whose priced collectives exceed this
+    # share of the op's total time get the FFL207 INFO when a
+    # latency-hiding '_ovl' twin was enumerated and rejected
+    OVL_EXPOSED_SHARE = 0.2
+
+    def _overlap_rejections(self, ctx) -> List[Diagnostic]:
+        """FFL207 (INFO): the search enumerated a latency-hiding '_ovl'
+        twin for an op, rejected it, and the chosen candidate still
+        prices a large exposed-collective share — either the rejection
+        is justified (tiny sync, launch overhead dominates) or the
+        hiding window is underpriced; the search trace's overlap sweep
+        says which."""
+        ff = ctx.ff
+        if ff is None or not isinstance(getattr(ff, "search_info", None),
+                                        dict):
+            return []
+        ops = (ff.search_info.get("search_trace") or {}).get("ops") or []
+        out: List[Diagnostic] = []
+        for oj in ops:
+            chosen_name = oj.get("chosen") or ""
+            if "_ovl" in chosen_name:
+                continue
+            cands = oj.get("candidates") or []
+            if not any("_ovl" in (c.get("choice") or "") for c in cands):
+                continue  # no twin enumerated — nothing was rejected
+            chosen = next((c for c in cands if c.get("chosen")), None)
+            terms = (chosen or {}).get("terms") or {}
+            total = terms.get("total_s") or 0.0
+            coll = terms.get("collective_s") or 0.0
+            if total > 0 and coll / total > self.OVL_EXPOSED_SHARE:
+                out.append(info(
+                    "FFL207",
+                    f"'{chosen_name}' prices {coll / total:.0%} of op time "
+                    f"as exposed collectives while a latency-hiding "
+                    f"'_ovl' twin was enumerated but rejected",
+                    op=oj.get("name"),
+                    hint="read the search trace's overlap sweep for this "
+                         "op — if the hiding window is underpriced the "
+                         "search leaves comms-compute overlap unused"))
+        return out
+
+    def _kernel_choice_checks(self, ctx) -> List[Diagnostic]:
+        """FFL208 (ERROR): a strategy's recorded ``_k:`` kernel choice
+        is structurally illegal on the executing shape — the search
+        priced a lowering decode cannot deliver (a stale strategy file,
+        or a seq-bucket/graph edit after the search). FFL209 (INFO): the
+        choice is shape-legal but THIS platform cannot run it (the CUDA kernel
+        does not take the shape, or the model is on the CPU, where the
+        plain PyTorch version runs) — the priced and the executed kernel
+        differ. The same priced-vs-executed closure FFL207 gave the
+        '_ovl' dimension."""
+        from flexflow_tpu_torch.ffconst import OperatorType
+        from flexflow_tpu_torch.search.unity import kernel_choice_of
+
+        out: List[Diagnostic] = []
+        fusable = None
+        for node in ctx.nodes:
+            ch = getattr(ctx.strategy.get(node.op.guid), "choice",
+                         None) or ""
+            impl = kernel_choice_of(ch)
+            if impl is None:
+                continue
+            op = node.op
+            if impl == "flash":
+                if op.op_type != OperatorType.MULTIHEAD_ATTENTION:
+                    out.append(error(
+                        "FFL208",
+                        f"'_k:flash' recorded on a non-attention op",
+                        op=op.name, hint="re-search the strategy"))
+                    continue
+                seq = op.input_shapes[0][1]
+                sk = (op.input_shapes[1][1]
+                      if len(op.input_shapes) > 1 else seq)
+                if sk != seq:
+                    out.append(error(
+                        "FFL208",
+                        f"'_k:flash' recorded on cross-attention "
+                        f"(Sq={seq} != Sk={sk}) — flash only lowers "
+                        f"self-attention",
+                        op=op.name,
+                        hint="the graph changed since the search — "
+                             "re-search the strategy"))
+                    continue
+                training = True
+                if ctx.ff is not None and ctx.ff.executor is not None:
+                    training = getattr(ctx.ff.executor, "comp_mode",
+                                       CompMode.TRAINING) \
+                        == CompMode.TRAINING
+                if seq % _FLASH_TILE or op.head_dim % 8:
+                    out.append(error(
+                        "FFL208",
+                        f"'_k:flash' is illegal at this shape (seq={seq}"
+                        f" % {_FLASH_TILE} != 0 or head_dim={op.head_dim} % 8"
+                        f" != 0) — the priced kernel cannot execute",
+                        op=op.name,
+                        hint="re-search (the flash gate rejects this "
+                             "shape) or drop the stale strategy file"))
+                elif training and getattr(op, "dropout", 0) > 0:
+                    # mirrors the native gate's
+                    # attention_prob_dropout_unsupported: the training
+                    # forward can never take the flash branch
+                    out.append(error(
+                        "FFL208",
+                        f"'_k:flash' recorded on an attention op with "
+                        f"prob dropout ({op.dropout}) — the training "
+                        f"forward has no flash lowering for it",
+                        op=op.name,
+                        hint="the dropout changed since the search — "
+                             "re-search the strategy"))
+                else:
+                    fallback = _flash_fallback(op, ctx)
+                    if fallback:
+                        out.append(info(
+                            "FFL209",
+                            f"'_k:flash' was priced but this platform "
+                            f"{fallback} (seq={seq}) — the executed "
+                            f"kernel differs from the priced one",
+                            op=op.name,
+                            hint="run on the card (sm_90, head_dim 64 or "
+                                 "128); predictions for this op are "
+                                 "optimistic meanwhile"))
+            elif impl == "conv_bn_fused":
+                if fusable is None:
+                    from flexflow_tpu_torch.layout import train_fusable_conv_guids
+                    # same keep_guids as the executor's fuse_conv_bn_train:
+                    # the check must agree with what EXECUTES
+                    keep = ()
+                    if ctx.ff is not None and ctx.ff.executor is not None:
+                        keep = {ctx.ff.executor.final_ref[0]}
+                    fusable = train_fusable_conv_guids(ctx.nodes,
+                                                      keep_guids=keep)
+                if op.guid not in fusable:
+                    out.append(error(
+                        "FFL208",
+                        "'_k:conv_bn_fused' recorded but the conv no "
+                        "longer has a foldable BatchNorm sole consumer",
+                        op=op.name,
+                        hint="the graph changed since the search — "
+                             "re-search the strategy"))
+            elif impl == "fused":
+                ex = ctx.ff.executor if ctx.ff is not None else None
+                if ex is not None and op.name not in (
+                        getattr(ex, "fused_update_ops", None) or ()):
+                    out.append(info(
+                        "FFL209",
+                        "'_k:fused' was priced but the executor is not "
+                        "routing this op's update through the fused "
+                        "region (kernel search disabled at compile?)",
+                        op=op.name,
+                        hint="compile with --kernel-search auto so the "
+                             "executed update matches the priced one"))
+        # runtime-recorded silent fallbacks (the executor sets
+        # _kernel_fallback the first time a forced impl cannot run)
+        for node in ctx.nodes:
+            fb = getattr(node.op, "_kernel_fallback", None)
+            if fb:
+                out.append(info(
+                    "FFL209", f"executor fell back: {fb}",
+                    op=node.op.name,
+                    hint="the priced kernel never ran — simulated "
+                         "predictions for this op are optimistic"))
+        return out
+
+    # replicated outputs below this are cheap enough to materialize
+    # everywhere without comment (FFL212)
+    REPLICATED_MAT_BYTES = float(1 << 16)
+
+    def _redundant_pairs(self, ctx, implicit) -> List[Diagnostic]:
+        """FFL211 (WARNING): two implicit reshards on one chain whose
+        specs compose to a round trip — the tensor is resharded into an
+        intermediate layout and straight back out, so either the
+        interior op's spec is wrong or the pair should cancel."""
+        out: List[Diagnostic] = []
+        by_consumer: Dict[int, list] = {}
+        for e in implicit:
+            if e.in_idx >= 0:
+                by_consumer.setdefault(e.consumer_guid, []).append(e)
+        for e2 in implicit:
+            if e2.in_idx < 0:
+                continue
+            for e1 in by_consumer.get(e2.producer_guid, ()):
+                if e1.src_spec == e2.dst_spec \
+                        and e1.dst_spec == e2.src_spec:
+                    out.append(warning(
+                        "FFL211",
+                        f"redundant reshard pair: '{e1.edge}' then "
+                        f"'{e2.edge}' compose to a round trip "
+                        f"({e1.bytes / 1e6:.2f} + {e2.bytes / 1e6:.2f} "
+                        f"MB moved to end where it started)",
+                        op=e1.consumer, tensor=f"out[{e2.out_idx}]",
+                        hint=f"give '{e1.consumer}' the producer's "
+                             f"layout (or let it follow) so neither "
+                             f"reshard is needed"))
+        return out
+
+    def _replicated_materializations(self, ctx, table) -> List[Diagnostic]:
+        """FFL212 (WARNING): a large compute-op output materialized
+        fully replicated although every consumer immediately shards it
+        — the op burns replicated FLOPs and memory to produce data
+        each device then throws most of away; shard at the producer."""
+        out: List[Diagnostic] = []
+        try:
+            cons = ctx.consumers()
+        except Exception:
+            cons = None
+        elem = 4.0
+        if ctx.ff is not None and ctx.ff.executor is not None:
+            elem = float(ctx.ff.executor.compute_dtype.itemsize)
+        by_out: Dict[tuple, list] = {}
+        for e in table:
+            if e.in_idx >= 0:
+                by_out.setdefault((e.producer_guid, e.out_idx),
+                                  []).append(e)
+        for (guid, idx), edges in sorted(by_out.items()):
+            if not all(e.kind == "slice" and not e.explicit
+                       for e in edges):
+                continue
+            if any(x is not None for x in edges[0].src_spec):
+                continue  # producer output is sharded already
+            node = ctx.by_guid.get(guid)
+            if node is None or getattr(node.op, "is_parallel_op", False):
+                continue
+            if node.op.op_type in (OperatorType.NOOP, OperatorType.CONST):
+                continue
+            gbytes = float(np.prod(node.op.output_shapes[idx])) * elem
+            if gbytes < self.REPLICATED_MAT_BYTES:
+                continue
+            if cons is not None \
+                    and len(edges) < len(cons.get((guid, idx), ())):
+                continue  # some consumer really wants it replicated
+            names = ", ".join(sorted({e.consumer for e in edges})[:4])
+            out.append(warning(
+                "FFL212",
+                f"'{node.op.name}' materializes out[{idx}] "
+                f"({gbytes / 1e6:.2f} MB) replicated but every consumer "
+                f"({names}) shards it",
+                op=node.op.name, tensor=f"out[{idx}]",
+                hint="shard the producer's output spec to the "
+                     "consumers' layout — replicated compute and "
+                     "memory are being thrown away"))
+        return out
+
+    def _rewrite_verification(self, ctx) -> List[Diagnostic]:
+        """FFL213 (ERROR): graph_optimize accepted a substitution
+        rewrite whose post-rewrite edge-spec map implies MORE implicit
+        collective bytes than the pre-rewrite map — the rewrite won on
+        the simulator's op-local terms while opening a reshard seam the
+        static dataflow can see (dataflow.verify_rewrite_dataflow,
+        recorded in search_info['rewrite_verification'])."""
+        ff = ctx.ff
+        if ff is None or not isinstance(getattr(ff, "search_info", None),
+                                        dict):
+            return []
+        rv = ff.search_info.get("rewrite_verification")
+        if not rv or rv.get("ok", True):
+            return []
+        out: List[Diagnostic] = []
+        for f in rv.get("findings", ()):
+            where = f" (worst edge '{f['edge']}', {f['src_spec']} -> " \
+                    f"{f['dst_spec']})" if f.get("edge") else ""
+            out.append(error(
+                "FFL213",
+                f"accepted rewrite regressed the edge-reshard map: "
+                f"implicit {f['kind']} bytes "
+                f"{f['pre_bytes'] / 1e6:.2f} -> "
+                f"{f['post_bytes'] / 1e6:.2f} MB{where}",
+                hint="the substitution won on op-local simulated terms "
+                     "but introduced a reshard seam — reject the "
+                     "rewrite or re-search with it pinned off"))
+        return out
+
+    def run(self, ctx) -> List[Diagnostic]:
+        diags: List[Diagnostic] = []
+        diags.extend(self._overlap_rejections(ctx))
+        diags.extend(self._kernel_choice_checks(ctx))
+        diags.extend(self._rewrite_verification(ctx))
+        table = edge_reshard_table(ctx)
+        wmoves = weight_movement_edges(ctx)
+        inferred = infer_strategy_collectives(ctx, edge_table=table,
+                                              weight_moves=wmoves)
+        priced: Optional[Dict[str, float]] = None
+        try:
+            priced = ctx.ensure_priced()
+        except NotImplementedError as e:
+            diags.append(info(
+                "FFL206", f"priced-side diff skipped: {e}",
+                hint="pipeline strategies cannot be replayed through "
+                     "the simulator yet"))
+        except Exception as e:
+            diags.append(warning(
+                "FFL206", f"simulator replay failed: {e!r}",
+                hint="the priced-vs-inferred diff did not run — fix the "
+                     "replay before trusting this strategy's prediction"))
+        emitted = ctx.ensure_emitted()
+
+        # edge-level rules: every implicit producer→consumer reshard
+        # must be PRICED (searched or replayed) — an edge cost nothing
+        # accounted for means the strategy was ranked blind to it
+        implicit = [e for e in table
+                    if not e.explicit and e.kind in ("allgather",
+                                                     "reshard")
+                    and e.bytes >= _MIN_BYTES]
+        implicit += [e for e in wmoves if e.bytes >= _MIN_BYTES]
+        if priced is not None:
+            for e in implicit:
+                pb = sum(priced.get(k, 0.0)
+                         for k in _COVER.get(e.kind, {e.kind}))
+                if pb <= 0:
+                    diags.append(error(
+                        "FFL210",
+                        f"unpriced edge reshard: '{e.edge}' "
+                        f"({_fmt_spec(e.src_spec)} -> "
+                        f"{_fmt_spec(e.dst_spec)}) implies a "
+                        f"{e.kind} of {e.bytes / 1e6:.2f} MB over "
+                        f"{list(e.axes)} ({e.fabric}) the simulator "
+                        f"priced zero bytes for",
+                        op=e.consumer, tensor=f"in[{e.in_idx}]"
+                        if e.in_idx >= 0 else "param[kernel]",
+                        hint="the native cost model replayed this "
+                             "strategy without charging the edge — its "
+                             "ranking is unreliable here"))
+        elif not getattr(ctx, "searched", False):
+            # no replay and no search: nothing has EVER priced these
+            # edges — the exact failure mode FFL205 exists for, now
+            # named per edge instead of guessed from the HLO census
+            for e in implicit:
+                diags.append(error(
+                    "FFL205",
+                    f"implicit edge reshard nothing prices: '{e.edge}' "
+                    f"({_fmt_spec(e.src_spec)} -> "
+                    f"{_fmt_spec(e.dst_spec)}) implies a {e.kind} of "
+                    f"{e.bytes / 1e6:.2f} MB over {list(e.axes)} "
+                    f"({e.fabric})",
+                    op=e.consumer, tensor=f"in[{e.in_idx}]"
+                    if e.in_idx >= 0 else "param[kernel]",
+                    hint="GSPMD will insert this collective at the "
+                         "spec seam — search the strategy (or price "
+                         "it via the simulator) before trusting any "
+                         "prediction for this model"))
+        diags.extend(self._redundant_pairs(ctx, implicit))
+        diags.extend(self._replicated_materializations(ctx, table))
+
+        if priced is not None:
+            # inferred kind the simulator never charged: the search
+            # compared strategies blind to a cost this one provably has
+            for kind, entry in inferred.items():
+                pb = sum(priced.get(k, 0.0)
+                         for k in _COVER.get(kind, {kind}))
+                if pb <= 0:
+                    srcs = ", ".join(entry["sources"][:4])
+                    diags.append(error(
+                        "FFL204",
+                        f"strategy implies {kind} "
+                        f"({entry['bytes'] / 1e6:.2f} MB from {srcs}) but "
+                        f"the simulator priced none",
+                        hint="the native cost model is blind to this "
+                             "collective — its strategy ranking is "
+                             "unreliable here"))
+        if emitted is not None and priced is not None:
+            from flexflow_tpu_torch.search.validate import diff_collectives
+            for problem in diff_collectives(priced, emitted):
+                if "priced none" in problem:
+                    diags.append(error(
+                        "FFL201", f"unpriced collective: {problem}",
+                        hint="GSPMD inserted data movement the search "
+                             "never costed — the predicted iteration "
+                             "time is an undercount"))
+                elif "emitted none" in problem:
+                    diags.append(warning(
+                        "FFL203", f"phantom priced collective: {problem}",
+                        hint="the simulator charges for movement XLA "
+                             "optimized away — predictions overcount"))
+                else:
+                    diags.append(warning(
+                        "FFL202", f"collective byte drift: {problem}",
+                        hint="priced and emitted payloads disagree "
+                             "beyond tolerance — recalibrate "
+                             "(scripts/calibrate.py)"))
+        elif emitted is not None:
+            # no simulator: the static inference (node terms + the
+            # edge table) is the only priced-side proxy; an emitted
+            # kind it cannot explain means GSPMD inserted movement the
+            # dataflow never derived — since edge-level inference that
+            # is an ERROR, not a shrug
+            for kind, eb in emitted.items():
+                ib = sum(inferred.get(k, {}).get("bytes", 0.0)
+                         for k in _COVER.get(kind, {kind}))
+                if ib <= 0:
+                    diags.append(error(
+                        "FFL205",
+                        f"emitted {kind} ({eb / 1e6:.2f} MB) matches no "
+                        f"statically-inferred collective (node terms or "
+                        f"edge reshards)",
+                        hint="the edge-level dataflow cannot explain "
+                             "this movement — a transfer rule is "
+                             "missing or the strategy file is stale"))
+        return diags
+
+
+# the native core's flash legality gate (native/ffs_strategy.hpp: the
+# sequence must fill whole 128-row query tiles)
+_FLASH_TILE = 128
+
+
+def _flash_fallback(op, ctx) -> Optional[str]:
+    """Why a ``_k:flash`` attention op does not run the CUDA kernel on
+    the model's device (None when it does): the kernel does not take the
+    shape on the card, or the device is the CPU."""
+    from flexflow_tpu_torch.ops.flash_attention import (MAX_BATCH_HEADS,
+                                                        SUPPORTED_HEAD_DIMS)
+    dev = getattr(ctx.ff, "device", None) if ctx.ff is not None else None
+    if dev is None:
+        import torch
+        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if dev.type != "cuda":
+        return (f"runs the kernel's plain PyTorch version (device "
+                f"'{dev.type}')")
+    b = op.input_shapes[0][0]
+    if op.head_dim not in SUPPORTED_HEAD_DIMS \
+            or b * op.num_heads > MAX_BATCH_HEADS:
+        return (f"falls back to einsum (head_dim={op.head_dim}, "
+                f"batch x heads={b * op.num_heads})")
+    return None
+
+
+def _fmt_spec(entries) -> str:
+    from flexflow_tpu_torch.analysis.dataflow import _spec_str
+    return _spec_str(entries)

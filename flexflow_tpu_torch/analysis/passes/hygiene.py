@@ -1,0 +1,173 @@
+"""graph-hygiene: dead ops, unused inputs, shape contradictions.
+
+PyTorch counterpart of ``flexflow_tpu/analysis/passes/hygiene.py``:
+the same rules, messages and anchors.
+
+The cheapest pass and the one that catches editor-class mistakes before
+they cost a compile: a dead subgraph still gets materialized, compiled,
+differentiated, and (if it owns parameters) allocated and optimizer-
+stepped — its parameter memory and gradient-sync collectives stay
+whether or not its forward output is ever read.
+
+* FFL601  dead op: no path from any of its outputs to the designated
+          model output (whole dead chains are reported at their root);
+* FFL602  unused graph input: an INPUT layer no live op consumes
+          (callers must still feed it every step);
+* FFL603  shape contradiction: a consumer's recorded input shape
+          disagrees with its producer's output shape (impossible from
+          the builder; reachable through hand-edited graphs and
+          substitution rewrites — the executor would crash deep inside
+          the step with an inscrutable broadcast error);
+* FFL604  duplicate op names: parameters are keyed by name, so two ops
+          sharing one silently share (and doubly-update) parameters.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Set
+
+from flexflow_tpu_torch.analysis.diagnostics import Diagnostic, error, warning
+
+
+class GraphHygienePass:
+    name = "graph-hygiene"
+
+    def run(self, ctx) -> List[Diagnostic]:
+        diags: List[Diagnostic] = []
+        live = self._live_set(ctx)
+        diags.extend(self._dead_ops(ctx, live))
+        diags.extend(self._unused_inputs(ctx, live))
+        diags.extend(self._shape_contradictions(ctx))
+        diags.extend(self._duplicate_names(ctx))
+        return diags
+
+    def _live_set(self, ctx) -> Set[int]:
+        """Guids reachable backward from the designated output. Without
+        a final_ref everything is considered live (a bare node list has
+        no notion of 'the' output)."""
+        if ctx.final_ref is None:
+            return {n.op.guid for n in ctx.nodes}
+        live: Set[int] = set()
+        stack = [ctx.final_ref[0]]
+        while stack:
+            g = stack.pop()
+            if g in live:
+                continue
+            live.add(g)
+            node = ctx.by_guid.get(g)
+            if node is None:
+                continue
+            for ref in node.input_refs:
+                if ref[0] == "op" and ref[1] not in live:
+                    stack.append(ref[1])
+        return live
+
+    def _dead_ops(self, ctx, live: Set[int]) -> List[Diagnostic]:
+        diags = []
+        consumers = ctx.consumers()
+        for node in ctx.nodes:
+            op = node.op
+            if op.guid in live:
+                continue
+            # report dead chains at their root: a dead op all of whose
+            # consumers are also dead is interior — flag only ops whose
+            # outputs nothing consumes at all, plus dead ops feeding a
+            # live op is impossible by construction of the live set
+            has_consumer = any(
+                consumers.get((op.guid, i))
+                for i in range(len(op.output_shapes)))
+            if has_consumer:
+                continue
+            nparams = op.params_elems()
+            extra = (f"; its {nparams} parameters still allocate, "
+                     f"gradient-sync, and optimizer-step"
+                     if nparams else "")
+            diags.append(warning(
+                "FFL601",
+                f"dead op: no path from {op.name} to the model output"
+                + extra,
+                op=op.name, guid=op.guid,
+                hint="remove the layer (or designate its output via "
+                     "compile(outputs=...) if it was meant to be "
+                     "the head)"))
+        return diags
+
+    def _unused_inputs(self, ctx, live: Set[int]) -> List[Diagnostic]:
+        diags = []
+        used: Set[str] = set()
+        for node in ctx.nodes:
+            if node.op.guid not in live:
+                continue
+            for ref in node.input_refs:
+                if ref[0] == "input":
+                    used.add(ref[1])
+        declared = None
+        if ctx.ff is not None and ctx.ff.executor is not None:
+            declared = list(ctx.ff.executor.input_names)
+        for name in declared or []:
+            if name not in used:
+                diags.append(warning(
+                    "FFL602",
+                    f"graph input {name!r} feeds no live op — callers "
+                    f"must still stage it every step",
+                    tensor=name,
+                    hint="drop the create_tensor call or wire the "
+                         "tensor into the graph"))
+        return diags
+
+    def _shape_contradictions(self, ctx) -> List[Diagnostic]:
+        diags = []
+        for node in ctx.nodes:
+            op = node.op
+            for j, ref in enumerate(node.input_refs):
+                if ref[0] != "op" or j >= len(op.input_shapes):
+                    continue
+                prod = ctx.by_guid.get(ref[1])
+                if prod is None:
+                    diags.append(error(
+                        "FFL603",
+                        f"input {j} references op guid {ref[1]} which "
+                        f"is not in the graph",
+                        op=op.name, guid=op.guid,
+                        hint="a rewrite removed the producer without "
+                             "repointing its consumers"))
+                    continue
+                if ref[2] >= len(prod.op.output_shapes):
+                    diags.append(error(
+                        "FFL603",
+                        f"input {j} references output {ref[2]} of "
+                        f"{prod.op.name}, which has only "
+                        f"{len(prod.op.output_shapes)} outputs",
+                        op=op.name, guid=op.guid))
+                    continue
+                want = tuple(op.input_shapes[j])
+                have = tuple(prod.op.output_shapes[ref[2]])
+                if want != have:
+                    diags.append(error(
+                        "FFL603",
+                        f"input {j} was materialized at shape {want} "
+                        f"but its producer {prod.op.name} emits {have}",
+                        op=op.name, guid=op.guid,
+                        hint="shape-inference contradiction — the graph "
+                             "was edited after materialization; "
+                             "re-materialize from layers"))
+        return diags
+
+    def _duplicate_names(self, ctx) -> List[Diagnostic]:
+        diags = []
+        seen: Dict[str, int] = {}
+        for node in ctx.nodes:
+            name = node.op.name
+            if name in seen:
+                diags.append(error(
+                    "FFL604",
+                    f"op name {name!r} is also used by guid "
+                    f"{seen[name]} — parameters are keyed by name, so "
+                    f"these ops silently share parameters",
+                    op=name, guid=node.op.guid,
+                    hint="rename one op; FFModel deduplicates names at "
+                         "build time, so this came from a manual edit "
+                         "or a rewrite"))
+            else:
+                seen[name] = node.op.guid
+        return diags

@@ -11,7 +11,8 @@ observability flags are the reference's: ``--search-measure-ops`` and
 ``--measured-cache`` (per-op times on the device priced by the search,
 ``search/profile.py``), ``--profiling`` (the per-op table at compile),
 ``--trace-dir`` and ``--profile-steps`` (``obs/``), the window checked
-when it is parsed.
+when it is parsed; ``--lint off|warn|error`` runs the fflint static
+verifier at compile (``analysis/``).
 """
 
 from __future__ import annotations
@@ -119,9 +120,17 @@ class FFConfig:
 
         while i < len(args):
             a = args[i]
-            if a in ("-b", "--batch-size"):
+            if a in ("-e", "--epochs"):
+                self.epochs = int(take())
+            elif a in ("-b", "--batch-size"):
                 self.batch_size = int(take())
                 self.batch_size_explicit = True
+            elif a == "--learning-rate":
+                self.learning_rate = float(take())
+            elif a == "--weight-decay":
+                self.weight_decay = float(take())
+            elif a in ("-i", "--iterations"):
+                self.iterations = int(take())
             elif a == "--seed":
                 self.seed = int(take())
             elif a in ("-ll:gpu", "-ll:tpu", "--workers-per-node"):
@@ -244,6 +253,9 @@ class FFConfig:
                     parse_profile_steps
                 parse_profile_steps(v)
                 self.profile_steps = v
+            elif a == "--lint":
+                # the fflint static verifier at compile (analysis/)
+                self.lint = _choice(a, take(), ("off", "warn", "error"))
             else:
                 rest.append(a)
             i += 1

@@ -193,18 +193,22 @@ def rows_from_roofline(payload: Dict[str, Any], path: str
                        ) -> List[Dict[str, Any]]:
     """Corpus rows from a roofline report: standalone per-op
     measurements, replicated (work_div 1). The roofline's ``bytes``
-    column is in+out+params at the report's width; the parameter bytes
-    are what is left after the f32 activations."""
-    platform = ((payload.get("meta") or {}).get("platform")
+    column is in+out+params at the report's element width (its
+    ``meta.dtype_size``: 2 for a bf16 report, and 4 where the field is
+    absent, as in the JAX package's f32 reports); the parameter bytes
+    are what is left after the activations at that width."""
+    meta = payload.get("meta") or {}
+    platform = (meta.get("platform")
                 or (payload.get("header") or {}).get("platform")
                 or "unknown")
+    width = int(meta.get("dtype_size") or 4)
     out: List[Dict[str, Any]] = []
     for r in payload.get("rows") or []:
         if "fwd_s" not in r:
             continue
         oshape = (r.get("output_shapes") or [[]])[0]
         pbytes = max(0.0, float(r.get("bytes") or 0.0)
-                     - 4.0 * sum(float(np.prod(s))
+                     - width * sum(float(np.prod(s))
                                  for s in (r.get("input_shapes") or [])
                                  + (r.get("output_shapes") or [])))
         row = dict(
@@ -214,7 +218,7 @@ def rows_from_roofline(payload: Dict[str, Any], path: str
             flops=float(r.get("flops") or 0.0),
             io_bytes=float(r.get("bytes") or 0.0),
             param_bytes=pbytes,
-            dtype_size=4,
+            dtype_size=width,
             mesh_axes={},
             platform=platform,
             source_artifact=os.path.basename(path),

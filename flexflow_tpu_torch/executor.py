@@ -74,6 +74,26 @@ from flexflow_tpu_torch.step_graph import StepGraph
 # collides with op names, which come from Layer naming)
 COMPUTE_PARAMS_KEY = "__compute_params__"
 
+# the mesh axes a batch is split over, as the JAX package names them
+DATA_AXES = ("slice", "data", "replica")
+
+
+def data_axes_of(mesh) -> Tuple[str, ...]:
+    """The data axes of ``mesh`` (a ``machine.Mesh`` or None), in its
+    axis order."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in mesh.axis_names if a in DATA_AXES)
+
+
+def data_degree(mesh) -> int:
+    """The product of ``mesh``'s data-axis sizes: 1 with none."""
+    sizes = dict(mesh.shape) if mesh is not None else {}
+    deg = 1
+    for a in data_axes_of(mesh):
+        deg *= sizes[a]
+    return deg
+
 
 class OpNode:
     """One materialized operator + where its inputs come from.
@@ -138,7 +158,10 @@ class GraphExecutor:
                  optimizer=None, final_is_softmax: bool = False,
                  kernel_choices: Optional[Dict[str, str]] = None,
                  mesh=None, remat_ops: Optional[set] = None,
-                 fold_conv_bn: bool = True):
+                 fold_conv_bn: bool = True,
+                 weight_update_sharding: bool = False,
+                 wus_ops: Optional[set] = None,
+                 overlap_grad_sync: bool = False):
         self.nodes = nodes
         self.input_names = input_names
         # (guid, out_idx) of the user-designated model output
@@ -165,6 +188,20 @@ class GraphExecutor:
             if impl == "fused"}
         # the compiled mesh (machine.Mesh or None), handed to every op
         self.mesh = mesh
+        # weight-update sharding (WUS) and the comms-compute overlap, as
+        # the JAX package decides them: on a data degree above 1 the
+        # gradient sync is a reduce-scatter onto data-sharded master
+        # parameters and moments. The port executes one device, where the
+        # data degree is 1 and both stay off; over a planned multi-device
+        # mesh (analysis.orchestrator.plan_model) they are the record the
+        # lint and the simulator replay read (wus_param_specs).
+        self.data_axes = data_axes_of(mesh)
+        self.weight_update_sharding = bool(
+            weight_update_sharding and data_degree(mesh) > 1)
+        self.wus_ops = set(wus_ops) if wus_ops is not None else None
+        self.grad_overlap = bool(overlap_grad_sync
+                                 and self.weight_update_sharding)
+        self._by_name = {n.op.name: n for n in nodes}
         # names of the ops whose forward runs under a checkpoint in
         # training (their "_r" choices); None = no remat
         self.remat_ops = set(remat_ops) if remat_ops else None
@@ -189,6 +226,48 @@ class GraphExecutor:
         # the _k:conv_bn_fused choices that could not fuse (the pair is
         # not eligible): they run unfused, as in the reference
         self.unfused_conv_bn: List[str] = []
+
+    # ---- weight-update sharding (the planning record) ---------------------
+    def _wus_axis_entry(self):
+        da = tuple(self.data_axes)
+        return da[0] if len(da) == 1 else da
+
+    def wus_spec(self, op_name: str, pname: str,
+                 shape: Tuple[int, ...]) -> Optional[Tuple]:
+        """Data-sharded spec of a master-param/optimizer-state leaf, or
+        None when the leaf stays replicated (WUS off, scalar, or no free
+        dim the data degree divides): the data axes land on the first
+        unsharded dividing dim of the strategy's param spec."""
+        if not self.weight_update_sharding:
+            return None
+        if self.wus_ops is not None and op_name not in self.wus_ops:
+            return None  # the search chose plain sync for this op
+        node = self._by_name.get(op_name)
+        if node is None:
+            return None
+        base = node.param_specs.get(pname, ())
+        entries = (list(base) + [None] * len(shape))[:len(shape)]
+        deg = data_degree(self.mesh)
+        for d, e in enumerate(entries):
+            if e is None and shape[d] > 0 and shape[d] % deg == 0:
+                entries[d] = self._wus_axis_entry()
+                return tuple(entries)
+        return None
+
+    def wus_param_specs(self) -> Dict[str, Dict[str, Tuple]]:
+        """{op name: {param name: sharded spec}} of every leaf WUS
+        shards — the sharded-state record fflint's sharding pass
+        verifies against the mesh."""
+        if not self.weight_update_sharding:
+            return {}
+        from flexflow_tpu_torch.search.unity import _param_shapes
+        out: Dict[str, Dict[str, Tuple]] = {}
+        for node in self.nodes:
+            for pname, shp in _param_shapes(node.op).items():
+                spec = self.wus_spec(node.op.name, pname, tuple(shp))
+                if spec is not None:
+                    out.setdefault(node.op.name, {})[pname] = spec
+        return out
 
     def _ctx(self, training: bool, rng=None) -> OpContext:
         return OpContext(training=training, compute_dtype=self.compute_dtype,

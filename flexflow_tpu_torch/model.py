@@ -24,11 +24,15 @@ the fused-Adam kernel; an ``_r`` choice makes the op's forward a
 checkpoint in training (remat: the executor's ``remat_ops``), and a
 ``_k:conv_bn_fused`` choice runs its Conv+BN pair as one node; then the
 layout pass (``layout.propagate_layouts``: the conv family channels-last
-on the card under ``conv_compute_layout="auto"``). The port
-executes on one device, and a compile prices and lays out one device
-unless ``workers_per_node`` asks for more: a strategy whose mesh needs
-more than one (a mesh axis above 1 other than a ring-attention sequence
-axis) raises at execution, naming the ROADMAP.md item that brings it.
+on the card under ``conv_compute_layout="auto"``); then, under
+``lint="warn"|"error"`` (``--lint``), the fflint static verifier
+(``analysis/``) over the planned model, before anything is allocated.
+The port executes on one device, and a compile prices and lays out one
+device unless ``workers_per_node`` asks for more: a strategy whose mesh
+needs more than one (a mesh axis above 1 other than a ring-attention
+sequence axis) raises after the lint, naming the ROADMAP.md item that
+brings it. ``analysis.orchestrator.plan_model`` stops before that
+refusal, so such a strategy lints without executing.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.executor import (COMPUTE_PARAMS_KEY, GraphExecutor,
-                                         OpNode)
+                                         OpNode, data_degree)
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
                                         DataType, LossType, MetricsType,
                                         OperatorType, PoolType)
@@ -62,8 +66,8 @@ def devices_to_run(cfg: FFConfig, device: torch.device) -> int:
     """The devices a compile prices and lays its mesh over: one, the
     model's device, unless the caller asks for more with
     ``workers_per_node`` (``num_devices``), capped at the visible cards.
-    A strategy over more than one then raises at ``apply_strategy``:
-    multi-GPU execution is ROADMAP.md Queue 1 item 3."""
+    A strategy over more than one then raises at compile, after the
+    lint: multi-GPU execution is ROADMAP.md Queue 1 item 3."""
     if cfg.num_devices <= 0:
         return 1
     avail = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -85,6 +89,10 @@ class FFModel:
         # names of the ops compile found an "_r" (remat) choice for
         self.remat_ops: Optional[set] = None
         self.mesh: Optional[Mesh] = None
+        # the fflint report of the last compile(lint="warn"|"error")
+        self.lint_report = None
+        # --profiling's per-op table (set by compile)
+        self.op_profile = None
         self._iter = 0
         self._last_loss: Optional[float] = None
         # the batch set_batch staged for update: (host inputs, labels)
@@ -455,15 +463,76 @@ class FFModel:
         (``machine.Mesh``) may have one axis above 1, a ring-attention
         sequence axis (``seq``, or an attention's ``seq_parallel``), whose
         ring positions all run on the model's device; a strategy needing
-        any other axis above 1 raises."""
+        any other axis above 1 raises.
+
+        ``lint`` runs the fflint static verifier (``analysis/``) on the
+        planned model before anything is allocated or refused: "warn"
+        records ``self.lint_report``, "error" also raises ValueError on
+        any ERROR-severity diagnostic. None defers to ``FFConfig.lint``
+        (the ``--lint`` flag)."""
+        cfg = self.config
+        lint_mode = (lint if lint is not None
+                     else getattr(cfg, "lint", "off")) or "off"
+        if lint_mode not in ("off", "warn", "error"):
+            raise ValueError(
+                f"lint expects off|warn|error, got {lint_mode!r}")
+        nodes = self._plan(optimizer, loss_type, metrics, comp_mode,
+                           machine_spec=machine_spec, mesh=mesh,
+                           outputs=outputs)
+        # --- fflint static verification (analysis/) ------------------------
+        # runs BEFORE parameter allocation, and before the refusal of a
+        # mesh this process cannot execute, so an illegal strategy fails
+        # fast with its diagnostics
+        self.lint_report = None
+        if lint_mode != "off":
+            from flexflow_tpu_torch.analysis import lint_model
+            self.lint_report = lint_model(self)
+            if self.lint_report.diagnostics:
+                print(self.lint_report.format_human())
+            if lint_mode == "error" and self.lint_report.has_errors():
+                raise ValueError(
+                    f"fflint: {len(self.lint_report.errors)} error-"
+                    f"severity diagnostic(s) — see report above "
+                    f"(compile with lint='warn' to proceed anyway)")
+        from flexflow_tpu_torch.parallel.strategy import check_executable
+        check_executable(nodes, self.mesh)
+
+        self.op_profile = None
+        if cfg.profiling:
+            # --profiling (the original FlexFlow's profiling mode): each op
+            # timed on the device, the per-op fwd/bwd table reported
+            # through the RecursiveLogger and kept as op_profile
+            self.op_profile = self._profile_ops(nodes,
+                                                self.executor.compute_dtype)
+        self.params, self.state = self.executor.init_params_and_state(
+            self._generator)
+        self.opt_state = (optimizer.init(self.params)
+                          if comp_mode == CompMode.TRAINING else None)
+        self._iter = 0
+        if self.device.type == "cuda":
+            # build the kernels here rather than in the first step or on
+            # the serving thread's first batch
+            from flexflow_tpu_torch import cuda_build
+            names = self._kernels_of_path(nodes, comp_mode)
+            cuda_build.build_all(names)
+            for name in names:
+                cuda_build.load(name)
+
+    def _plan(self, optimizer, loss_type, metrics, comp_mode,
+              machine_spec=None, mesh=None, outputs=None,
+              num_devices: Optional[int] = None) -> List[OpNode]:
+        """Everything of ``compile`` up to the allocation: materialize the
+        ops, choose the strategy over ``num_devices`` (default
+        ``devices_to_run``), export it when asked, record its specs and
+        kernel choices on the nodes, run the layout pass and build the
+        executor. Nothing is allocated, and a mesh this process cannot
+        execute is not refused here (``compile`` refuses it after the
+        lint; ``analysis.orchestrator.plan_model`` stops here). Returns
+        the node list the executor runs."""
         cfg = self.config
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a flexflow_tpu_torch.machine.Mesh "
                             f"(machine.make_mesh), got {type(mesh).__name__}")
-        if (lint or cfg.lint or "off") != "off":
-            raise NotImplementedError(
-                "lint: static analysis comes with a later slice of the "
-                "PyTorch port (ROADMAP.md Queue 1 item 12)")
         if comp_mode == CompMode.TRAINING and optimizer is None:
             raise ValueError("compile(comp_mode=CompMode.TRAINING) needs an "
                              "optimizer")
@@ -487,7 +556,8 @@ class FFModel:
                          if cfg.allow_mixed_precision and self.device.type == "cuda"
                          else torch.float32)
         # --- machine + mesh + strategy -----------------------------------
-        n_dev = devices_to_run(cfg, self.device)
+        n_dev = (devices_to_run(cfg, self.device) if num_devices is None
+                 else int(num_devices))
         batch0 = self.input_tensors[0].shape[0] if self.input_tensors else 1
         search = (not cfg.import_strategy_file and cfg.search_budget > 0
                   and not cfg.only_data_parallel and mesh is None)
@@ -508,7 +578,7 @@ class FFModel:
         # None (no search ran): recorded in exported strategy files
         self.search_objective = None
         from flexflow_tpu_torch.parallel.strategy import (
-            apply_strategy, data_parallel_strategy, filter_specs_to_mesh,
+            _record_strategy, data_parallel_strategy, filter_specs_to_mesh,
             tensor_parallel_overrides)
         from flexflow_tpu_torch.search import unity
 
@@ -581,7 +651,9 @@ class FFModel:
                      and not unity.switched_off(cfg, "kernel_search",
                                                 "FFS_NO_KERNEL_SEARCH")
                      and self.mesh.shape.get("pipe", 1) == 1)
-        self.kernel_choices = apply_strategy(
+        # the specs and kernel choices are recorded on any mesh here;
+        # compile refuses a mesh it cannot execute after the lint
+        self.kernel_choices = _record_strategy(
             nodes, self.strategy, self.mesh,
             kernels="all" if kernel_on else "off",
             training=comp_mode == CompMode.TRAINING, device=self.device)
@@ -604,12 +676,8 @@ class FFModel:
         final_is_softmax = final_op.op_type == OperatorType.SOFTMAX
         self._final_is_softmax = final_is_softmax
 
-        self.op_profile = None
-        if cfg.profiling:
-            # --profiling (the original FlexFlow's profiling mode): each op
-            # timed on the device, the per-op fwd/bwd table reported
-            # through the RecursiveLogger and kept as op_profile
-            self.op_profile = self._profile_ops(nodes, compute_dtype)
+        wus, wus_ops, overlap = self._weight_update_sharding(nodes,
+                                                             comp_mode)
         self.executor = GraphExecutor(
             nodes, input_names, final_ref, self.device,
             compute_dtype=compute_dtype, loss_type=loss_type,
@@ -617,24 +685,55 @@ class FFModel:
                             preds_are_probs=final_is_softmax),
             optimizer=optimizer, final_is_softmax=final_is_softmax,
             kernel_choices=self.kernel_choices, mesh=self.mesh,
-            remat_ops=self.remat_ops, fold_conv_bn=cfg.fold_conv_bn)
+            remat_ops=self.remat_ops, fold_conv_bn=cfg.fold_conv_bn,
+            weight_update_sharding=wus, wus_ops=wus_ops,
+            overlap_grad_sync=overlap)
         self.executor.comp_mode = comp_mode
-        self.params, self.state = self.executor.init_params_and_state(
-            self._generator)
-        self.opt_state = (optimizer.init(self.params)
-                          if comp_mode == CompMode.TRAINING else None)
-        self._iter = 0
-        if self.device.type == "cuda":
-            # build the kernels here rather than in the first step or on
-            # the serving thread's first batch
-            from flexflow_tpu_torch import cuda_build
-            names = self._kernels_of_path(nodes, comp_mode)
-            cuda_build.build_all(names)
-            for name in names:
-                cuda_build.load(name)
+        return nodes
+
+    def _weight_update_sharding(self, nodes, comp_mode):
+        """(wus, wus_ops, overlap): the JAX package's decision of
+        weight-update sharding and the comms-compute overlap for this
+        strategy. 'auto' follows the search's per-op '_wus'/'_ovl'
+        choices when it ran, and engages WUS at a data degree of 4 or
+        more otherwise. The executor keeps them as its planning record;
+        on one device (data degree 1) it turns both off."""
+        cfg = self.config
+        data_deg = data_degree(self.mesh)
+        wus_mode = getattr(cfg, "weight_update_sharding", "auto")
+        if wus_mode not in ("auto", "on", "off"):
+            raise ValueError(f"weight_update_sharding expects auto|on|off, "
+                             f"got {wus_mode!r}")
+        searched = isinstance(self.search_info, dict)
+        choices = [getattr(st, "choice", None) or ""
+                   for st in (self.strategy or {}).values()]
+        searched_wus = searched and any("_wus" in c for c in choices)
+        if comp_mode == CompMode.INFERENCE or wus_mode == "off":
+            wus = False
+        elif wus_mode == "on":
+            wus = data_deg > 1
+        else:
+            wus = searched_wus if searched else data_deg >= 4
+        wus_ops = None
+        if wus and wus_mode == "auto" and searched and searched_wus:
+            wus_ops = {
+                n.op.name for n in nodes
+                if "_wus" in (getattr((self.strategy or {}).get(n.op.guid),
+                                      "choice", None) or "")}
+        ovl_raw = str(getattr(cfg, "overlap_bucket_mb", "auto")).lower()
+        if ovl_raw in ("0", "off"):
+            overlap = False
+        elif ovl_raw == "auto":
+            overlap = (any("_ovl" in c for c in choices) if searched
+                       else wus)
+        else:
+            overlap = int(ovl_raw) > 0
+        return wus, wus_ops, overlap
 
     def _profile_ops(self, nodes, compute_dtype) -> Dict[str, float]:
-        from flexflow_tpu_torch.search.profile import microbenchmark
+        from flexflow_tpu_torch.search.profile import (executed_impl,
+                                                       executed_rows,
+                                                       microbenchmark)
         from flexflow_tpu_torch.utils.logger import RecursiveLogger
         plog = RecursiveLogger("profiling")
         with plog.enter(f"per-op device microbenchmarks ({len(nodes)} ops)"):
@@ -642,11 +741,14 @@ class FFModel:
                                   device=self.device, dtype=compute_dtype,
                                   cache_file=self.config.measured_cache_file)
             for node in nodes:
-                f_s = prof.get(f"{node.guid}:fwd")
-                b_s = prof.get(f"{node.guid}:bwd")
+                # the core that runs the op: attention's flash rows where
+                # the kernel takes it, else the plain rows
+                impl = executed_impl(self, node.op)
+                f_s, b_s = executed_rows(prof, node.guid, impl)
                 if f_s is not None:
+                    core = f"  [{impl}]" if impl else ""
                     plog.info(f"{node.op.name}: fwd {f_s * 1e6:9.1f}us  "
-                              f"bwd {b_s * 1e6:9.1f}us")
+                              f"bwd {b_s * 1e6:9.1f}us{core}")
         return prof
 
     def _heuristic_mesh(self, n_dev: int, batch0: int) -> Mesh:

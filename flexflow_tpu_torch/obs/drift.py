@@ -57,10 +57,13 @@ def predicted_step_time(ff, measured: Optional[Dict[str, float]] = None
 
     ``measured``: profile.py's ``{"<guid>:fwd": s, "<guid>:bwd": s}``
     table (defaults to ``ff.op_profile`` when ``--profiling`` or
-    ``--search-measure-ops`` populated it). Ops absent from the table
-    fall back to the analytic roofline — per-op rows record which
-    source priced them.
+    ``--search-measure-ops`` populated it); an op is priced at the rows
+    of the core that runs it (``profile.executed_rows``). Ops absent
+    from the table fall back to the analytic roofline — per-op rows
+    record which source priced them.
     """
+    from flexflow_tpu_torch.search.profile import (executed_impl,
+                                                   executed_rows)
     measured = measured if measured is not None else (ff.op_profile or {})
     mesh = ff.mesh
     spec = ff.machine_spec
@@ -68,8 +71,9 @@ def predicted_step_time(ff, measured: Optional[Dict[str, float]] = None
     compute_s = 0.0
     for node in ff.executor.nodes:
         op = node.op
-        fwd = measured.get(f"{op.guid}:fwd")
-        bwd = measured.get(f"{op.guid}:bwd")
+        # the core that executes: attention's "<guid>:fwd:flash" rows
+        # where the flash kernel runs it, else the plain rows
+        fwd, bwd = executed_rows(measured, op.guid, executed_impl(ff, op))
         source = "measured"
         if fwd is None:
             fwd = _analytic_op_cost(op, spec)

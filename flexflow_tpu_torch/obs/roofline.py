@@ -41,7 +41,8 @@ def roofline_report(nodes, machine_spec, repeats: int = 3, warmup: int = 1,
                     dtype=None) -> Dict[str, Any]:
     """Time every op in an OpNode list and attribute it on the roofline.
 
-    Returns ``{"rows": [...], "classes": {...}, "machine": {...}}``.
+    Returns ``{"rows": [...], "classes": {...}, "machine": {...},
+    "meta": {"dtype_size": width}}``.
     Each row: op name/type/class, shapes, flops, bytes, intensity
     (flop/byte), measured fwd/bwd seconds, achieved FLOP/s and bytes/s,
     MFU (fraction of chip peak), and ``bound`` — which roofline wall the
@@ -116,7 +117,10 @@ def roofline_report(nodes, machine_spec, repeats: int = 3, warmup: int = 1,
         rows.append(row)
     return dict(rows=rows, classes=class_aggregates(rows),
                 machine=dict(chip=machine_spec.chip, peak_flops=peak_flops,
-                             hbm_bw=hbm_bw, ridge_intensity=ridge))
+                             hbm_bw=hbm_bw, ridge_intensity=ridge),
+                # the element width the bytes column counts at: a reader
+                # splitting bytes into activations and parameters needs it
+                meta=dict(dtype_size=dtype_size))
 
 
 def class_aggregates(rows) -> Dict[str, Dict[str, float]]:

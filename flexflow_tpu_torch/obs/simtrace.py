@@ -119,27 +119,6 @@ def per_op_predicted(tasks: List[Dict[str, Any]]
     return out
 
 
-def _row_impl(ff, op, choice: Optional[str]) -> Optional[str]:
-    """Kernel impl of one corpus row: the ``_k:`` choice suffix when the
-    search picked one, else the executor's recorded kernel choice, else
-    (attention only) the impl ``forward`` dispatches on this platform.
-    None for ops with no registered kernel alternatives."""
-    from flexflow_tpu_torch.search.unity import kernel_choice_of
-    k = kernel_choice_of(choice)
-    if k is not None:
-        return k
-    kc = getattr(ff.executor, "kernel_choices", None) or {}
-    if op.name in kc:
-        return kc[op.name]
-    if hasattr(op, "selected_impl"):
-        try:
-            return op.selected_impl(ff.device, dict(ff.mesh.shape),
-                                    training=True)
-        except Exception:
-            return None
-    return None
-
-
 def corpus_rows(ff, resp: Dict[str, Any],
                 measured: Optional[Dict[str, float]] = None
                 ) -> List[Dict[str, Any]]:
@@ -151,6 +130,8 @@ def corpus_rows(ff, resp: Dict[str, Any],
     whether the measured half is real ("measured") or absent (None) so
     a training-set builder can filter."""
     from flexflow_tpu_torch.obs.drift import work_division
+    from flexflow_tpu_torch.search.profile import (executed_impl,
+                                                   executed_rows)
 
     measured = measured if measured is not None else (ff.op_profile or {})
     priced = per_op_predicted(resp.get("tasks") or [])
@@ -165,8 +146,9 @@ def corpus_rows(ff, resp: Dict[str, Any],
         st = (ff.strategy or {}).get(op.guid)
         p = priced.get(idx, dict(fwd_s=0.0, bwd_s=0.0, comm_s=0.0,
                                  gradsync_s=0.0, collective_bytes=0.0))
-        mf = measured.get(f"{op.guid}:fwd")
-        mb = measured.get(f"{op.guid}:bwd")
+        choice = getattr(st, "choice", None)
+        impl = executed_impl(ff, op, choice)
+        mf, mb = executed_rows(measured, op.guid, impl)
         dts = op.dtype.size
         # native total_io_bytes convention (ffs_graph.hpp): params +
         # every input + every output at the op's dtype width — the
@@ -176,7 +158,6 @@ def corpus_rows(ff, resp: Dict[str, Any],
             io_bytes += float(math.prod(s)) * dts
         for s in op.output_shapes:
             io_bytes += float(math.prod(s)) * dts
-        choice = getattr(st, "choice", None)
         rows.append(dict(
             schema=CORPUS_SCHEMA_VERSION,
             guid=op.guid,
@@ -188,7 +169,7 @@ def corpus_rows(ff, resp: Dict[str, Any],
             # "_k:" dimension): the executor's recorded choice
             # wins; attention ops without one report the impl forward
             # actually dispatches (ring/flash/einsum)
-            impl=_row_impl(ff, op, choice),
+            impl=impl,
             # priced terms are PER-CHIP SHARDED schedule durations;
             # measured fwd/bwd are WHOLE-OP unsharded profile seconds —
             # work_div is the strategy's split so consumers can compare

@@ -10,8 +10,10 @@ an axis name, a tuple of names, or None (replicated).
 rule that turns a choice into the kernel an op runs. The port executes a
 strategy on
 one process's device: a mesh whose only axis above 1 is a ring-attention
-sequence axis (``machine.local_ring_axis``); any other mesh raises, and
-executing it is the multi-GPU slice (ROADMAP.md Queue 1 items 3 and 10).
+sequence axis (``machine.local_ring_axis``); any other mesh raises
+(``check_executable``), and executing it is the multi-GPU slice
+(ROADMAP.md Queue 1 items 3 and 10). ``FFModel.compile`` records the
+specs first and refuses after its lint, so such a strategy still lints.
 The port has no manual parallel ops (Repartition, Combine, ...) yet, so
 the reference's propagation of their forced layouts has no counterpart
 here.
@@ -139,14 +141,30 @@ def apply_strategy(nodes, strategy: Strategy, mesh, kernels: str = "chosen",
 
     Raises NotImplementedError (``machine.local_ring_axis``) on a mesh one
     process cannot run."""
-    from flexflow_tpu_torch.search.unity import (executed_kernel_choices,
-                                                 kernel_choice_of)
-
     if kernels not in KERNEL_MODES:
         raise ValueError(f"kernels={kernels!r}: one of {KERNEL_MODES}")
+    check_executable(nodes, mesh)
+    return _record_strategy(nodes, strategy, mesh, kernels=kernels,
+                            training=training, device=device)
+
+
+def check_executable(nodes, mesh) -> None:
+    """Raise NotImplementedError (``machine.local_ring_axis``) unless one
+    process runs ``mesh``: no axis above 1, or one ring-attention
+    sequence axis ('seq', or an attention op's ``seq_parallel``)."""
     local_ring_axis(mesh, {"seq"} | {
         n.op.seq_parallel for n in nodes
         if getattr(n.op, "seq_parallel", None)})
+
+
+def _record_strategy(nodes, strategy: Strategy, mesh, kernels: str,
+                     training: bool, device) -> Optional[Dict[str, str]]:
+    """``apply_strategy`` without the refusal: the specs are recorded and
+    the kernels chosen on any mesh. ``FFModel.compile`` lints what this
+    records before it refuses a mesh it cannot execute."""
+    from flexflow_tpu_torch.search.unity import (executed_kernel_choices,
+                                                 kernel_choice_of)
+
     axis_sizes = mesh.shape
     for node in nodes:
         st = strategy.get(node.op.guid)

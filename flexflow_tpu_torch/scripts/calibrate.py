@@ -143,24 +143,42 @@ def example_batch(ff, loss_kind):
     return xs, y
 
 
-def predicted_step(ff, measured):
-    """One-device simulated iteration through the native simulator.
-    Returns (iteration_time_s, predicted_memory_bytes)."""
-    from flexflow_tpu_torch.search.native import native_simulate
+def step_request(ff, measured):
+    """The native simulator's request for one replicated step on one
+    device. Each op takes the "rep" choice; an op whose running core was
+    timed on rows of its own (attention under the flash kernel on the
+    card, "<guid>:fwd:flash") takes that core's "_k:<impl>" twin, so the
+    simulator prices the core that runs and not the default lowering
+    that "<guid>:fwd" prices."""
+    from flexflow_tpu_torch.search.profile import executed_impl
     from flexflow_tpu_torch.search.unity import (machine_to_json,
                                                  serialize_graph)
 
     nodes = ff.executor.nodes
-    req = dict(
+    assignment = {}
+    for n in nodes:
+        impl = executed_impl(ff, n.op)
+        timed_apart = impl and f"{n.op.guid}:fwd:{impl}" in measured
+        assignment[str(n.op.guid)] = "rep" + (f"_k:{impl}" if timed_apart
+                                              else "")
+    return dict(
         nodes=serialize_graph(nodes, final_guid=ff.executor.final_ref[0]),
         machine=machine_to_json(ff.machine_spec, 1),
         config=dict(training=True, overlap=True,
                     opt_state_factor=0.0),  # plain SGD: no optimizer state
         mesh=dict(data=1, model=1, seq=1, expert=1),
-        assignment={str(n.op.guid): "rep" for n in nodes},
+        assignment=assignment,
         measured=measured,
     )
-    resp = native_simulate(req)
+
+
+def predicted_step(ff, measured):
+    """One-device simulated iteration through the native simulator
+    (``step_request``). Returns (iteration_time_s,
+    predicted_memory_bytes)."""
+    from flexflow_tpu_torch.search.native import native_simulate
+
+    resp = native_simulate(step_request(ff, measured))
     return resp["iteration_time"], resp.get("memory", 0.0)
 
 

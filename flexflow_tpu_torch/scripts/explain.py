@@ -1,0 +1,652 @@
+"""Explain a searched strategy: "why this plan" as a reviewable artifact.
+
+PyTorch counterpart of the JAX package's ``scripts/explain.py``: the same
+three artifacts from the port's search. Runs the native
+auto-parallelization search over a zoo model (``scripts/fflint.py``'s
+zoo and planning: 8 planned devices on the CPU, the visible cards on
+the card) with search-trace emission on, then renders the provenance
+three ways:
+
+- ``SEARCH_TRACE.json`` — the native structured search trace (per-mesh
+  candidates with rejection reasons, frontier-DP evolution, per-op
+  candidate-choice cost table) plus the learned-cost-model corpus rows
+  (op -> priced terms -> measured seconds where a profile table exists)
+  and, under ``--measure-ops``, the measured table itself
+  (``measured_ops``: an attention op the flash kernel takes has its
+  einsum rows "<guid>:fwd"/":bwd" and its kernel rows
+  "<guid>:fwd:flash"/":bwd:flash").
+- ``EXPLAIN.md`` — human-facing: the winner mesh vs its runner-ups, a
+  chosen-vs-runner-up per-op cost table with deltas, the collectives
+  each chosen choice implies, and the simulated timeline path.
+- a merged Perfetto trace — the winner's simulated task schedule as
+  ``sim:compute`` / ``sim:comms`` lanes; when the trace dir already
+  holds a port devtrace capture (a traced ``fit`` with
+  ``profile_steps``), its measured ``device:*`` lanes merge alongside on
+  a shared clock base, so predicted and measured steps sit side by side.
+
+Usage:
+    python -m flexflow_tpu_torch.scripts.explain --model transformer
+    python -m flexflow_tpu_torch.scripts.explain --model inception \
+        --budget 4 --top 30 --device cpu
+    python -m flexflow_tpu_torch.scripts.explain --model transformer \
+        --measure-ops --trace-dir TRACE_DIR --out-dir OUT
+
+``--measure-ops`` additionally microbenchmarks every op on the model's
+device (``search/profile.py``) so the corpus rows carry real measured
+seconds (the learned-performance-model training format, PAPERS.md
+2008.01040). ``--costmodel`` prices the search with a trained table
+(``FFS_COSTMODEL_FILE``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import sys
+import time
+
+from flexflow_tpu_torch.scripts import fflint
+
+
+def _fmt_s(v, nd=3):
+    return "-" if v is None else f"{v * 1e3:.{nd}f}"
+
+
+def _fmt_bytes(b):
+    if b is None:
+        return "-"
+    if b >= 1 << 20:
+        return f"{b / (1 << 20):.2f}MB"
+    if b >= 1 << 10:
+        return f"{b / (1 << 10):.1f}KB"
+    return f"{b:.0f}B"
+
+
+def _mesh_str(mesh):
+    return "x".join(f"{k[0]}{v}" for k, v in sorted((mesh or {}).items())
+                    if v and v > 1) or "1chip"
+
+
+def chosen_vs_runner_up(trace, top=20):
+    """Per-op rows from the search trace's candidate table: the chosen
+    choice vs the best NON-chosen candidate (by total priced seconds),
+    with the delta the DP saw and the collectives the chosen choice
+    implies. Sorted by chosen cost, descending."""
+    rows = []
+    for op in trace.get("ops") or []:
+        cands = op.get("candidates") or []
+        chosen = next((c for c in cands if c.get("chosen")), None)
+        if chosen is None:
+            continue
+        others = sorted((c for c in cands if not c.get("chosen")),
+                        key=lambda c: c["terms"]["total_s"])
+        runner = others[0] if others else None
+        colls = [f"{c['kind']}({_fmt_bytes(c['bytes'])}@{c['ring']})"
+                 for c in chosen.get("collectives") or []]
+        row = dict(
+            name=op.get("name"), type=op.get("type"),
+            chosen=chosen["choice"],
+            chosen_s=chosen["terms"]["total_s"],
+            chosen_compute_s=chosen["terms"]["compute_s"],
+            chosen_collective_s=chosen["terms"]["collective_s"],
+            chosen_opt_state_s=chosen["terms"]["opt_state_s"],
+            collectives=colls,
+        )
+        if runner is not None:
+            row["runner_up"] = runner["choice"]
+            row["runner_up_s"] = runner["terms"]["total_s"]
+            if row["chosen_s"] > 0:
+                row["delta_frac"] = (runner["terms"]["total_s"]
+                                     - row["chosen_s"]) / row["chosen_s"]
+        rows.append(row)
+    rows.sort(key=lambda r: -r["chosen_s"])
+    return rows[:top], len(rows)
+
+
+def kernel_choice_rows(trace):
+    """Per-op kernel-implementation table (the searched ``_k:``
+    dimension): ops where the search priced more than one
+    kernel impl — chosen impl vs the best candidate of each OTHER impl
+    at the same sharding family — plus the legality-gate rejections
+    (e.g. flash refused on a seq the tile size doesn't divide)."""
+    rows = []
+    for op in trace.get("ops") or []:
+        cands = op.get("candidates") or []
+        impls = {c.get("impl") for c in cands if c.get("impl")}
+        rejections = op.get("kernel_rejections") or []
+        if len(impls) <= 1 and not rejections:
+            continue
+        chosen = next((c for c in cands if c.get("chosen")), None)
+        if chosen is None:
+            continue
+        best_by_impl = {}
+        for c in cands:
+            impl = c.get("impl")
+            if not impl:
+                continue
+            t = c["terms"]["total_s"]
+            if impl not in best_by_impl or t < best_by_impl[impl][1]:
+                best_by_impl[impl] = (c["choice"], t)
+        chosen_impl = chosen.get("impl") or "default"
+        alts = sorted(((i, n, t) for i, (n, t) in best_by_impl.items()
+                       if i != chosen_impl), key=lambda x: x[2])
+        rows.append(dict(
+            name=op.get("name"), type=op.get("type"),
+            chosen=chosen["choice"], chosen_impl=chosen_impl,
+            chosen_s=chosen["terms"]["total_s"],
+            cost_source=chosen.get("cost_source"),
+            alternatives=[dict(impl=i, choice=n, total_s=t)
+                          for i, n, t in alts],
+            rejections=rejections,
+        ))
+    rows.sort(key=lambda r: -r["chosen_s"])
+    return rows
+
+
+def remat_rows(trace):
+    """Per-op rematerialization table (the searched ``_r`` dimension):
+    ops where the search priced remat twins — the best
+    ``_r`` candidate's freed interior bytes vs the recompute seconds
+    its backward pays — plus the legality-gate rejections (stateful or
+    dropout interiors, an interior no larger than its boundary, ...).
+    Ops with neither a twin nor a rejection (e.g. view ops) are
+    omitted."""
+    rows = []
+    for op in trace.get("ops") or []:
+        cands = op.get("candidates") or []
+        r_cands = [c for c in cands if c.get("remat")]
+        rejections = op.get("remat_rejections") or []
+        if not r_cands and not rejections:
+            continue
+        chosen = next((c for c in cands if c.get("chosen")), None)
+        best_r = (min(r_cands, key=lambda c: c["terms"]["total_s"])
+                  if r_cands else None)
+        rows.append(dict(
+            name=op.get("name"), type=op.get("type"),
+            chosen=chosen["choice"] if chosen else None,
+            remat_won=bool(chosen and chosen.get("remat")),
+            best_r=best_r["choice"] if best_r else None,
+            freed_act_bytes=(best_r["remat"].get("freed_act_bytes")
+                             if best_r else None),
+            recompute_s=(best_r["remat"].get("recompute_s")
+                         if best_r else None),
+            total_s=best_r["terms"]["total_s"] if best_r else None,
+            rejections=[x.get("reason") for x in rejections],
+        ))
+    rows.sort(key=lambda r: -(r.get("freed_act_bytes") or 0))
+    return rows
+
+
+def learned_vs_analytic_disagreements(trace):
+    """Ops where the learned and the analytic cost model rank a
+    DIFFERENT winning choice (the disagreement is exactly
+    where retiring a heuristic changes a search decision, so it must be
+    reviewable). Uses the search trace's per-candidate side-by-side
+    columns: each candidate's total is re-read with its compute term
+    swapped to the analytic / learned pricing; the learned ranking uses
+    learned compute where the class+hull covers the candidate and
+    analytic elsewhere — the exact blend the DP prices. Returns
+    (rows, n_ops_compared); empty when no learned table was active."""
+    rows = []
+    compared = 0
+    for op in trace.get("ops") or []:
+        cands = op.get("candidates") or []
+        if not cands or "compute_analytic_s" not in cands[0].get("terms", {}):
+            continue  # no learned table was loaded for this search
+
+        def total_with(c, compute_s):
+            t = c["terms"]
+            return t["total_s"] - t["compute_s"] + compute_s
+
+        an, le = [], []
+        for c in cands:
+            t = c["terms"]
+            a = t.get("compute_analytic_s")
+            if a is None:
+                an = []
+                break
+            an.append((total_with(c, a), c))
+            le.append((total_with(c, t.get("compute_learned_s", a)), c))
+        if not an:
+            continue
+        compared += 1
+        win_an = min(an, key=lambda x: x[0])
+        win_le = min(le, key=lambda x: x[0])
+        if win_an[1]["choice"] == win_le[1]["choice"]:
+            continue
+        rows.append(dict(
+            name=op.get("name"), type=op.get("type"),
+            chosen=op.get("chosen"),
+            learned_winner=win_le[1]["choice"],
+            learned_s=win_le[0],
+            analytic_winner=win_an[1]["choice"],
+            analytic_s=win_an[0],
+            cost_source=win_le[1].get("cost_source"),
+        ))
+    rows.sort(key=lambda r: -(r.get("learned_s") or 0.0))
+    return rows, compared
+
+
+def mesh_summary(trace):
+    """(ranked feasible meshes, illegal-reason histogram)."""
+    feasible, reasons = [], {}
+    for m in trace.get("meshes") or []:
+        if m.get("status") in ("winner", "dominated", "over_budget",
+                               "infeasible"):
+            feasible.append(m)
+        if m.get("status") in ("illegal", "infeasible", "over_budget"):
+            r = m.get("reason", m["status"])
+            # illegal rows are pre-aggregated per gate with a count
+            reasons[r] = reasons.get(r, 0) + int(m.get("count", 1))
+    feasible.sort(key=lambda m: (m.get("time_s") is None,
+                                 m.get("time_s") or 0.0))
+    return feasible, reasons
+
+
+def timeline_path(sim_resp, name_of, limit=40):
+    """The simulated schedule, time-ordered — the path the simulator
+    believes the step takes."""
+    rows = []
+    for t in sim_resp.get("tasks") or []:
+        if float(t.get("finish", 0)) <= float(t.get("start", 0)):
+            continue
+        rows.append(dict(
+            start_s=float(t["start"]), finish_s=float(t["finish"]),
+            kind=t.get("kind"), op=name_of.get(t.get("node"), "-"),
+            collective=t.get("collective") or None,
+            bytes=t.get("bytes") or None))
+    rows.sort(key=lambda r: (r["start_s"], r["finish_s"]))
+    return rows[:limit], len(rows)
+
+
+def write_sim_trace_file(trace_dir, model, sim_resp, name_of):
+    """A standalone Perfetto trace carrying the sim: lanes, placed on a
+    clock base shared with any measured trace already in ``trace_dir``
+    (sim t0 = the measured run's first devtrace span, or its first step
+    span) so ``merge_host_traces`` lines the two up. Returns the path."""
+    from flexflow_tpu_torch.obs.artifacts import (artifact_header,
+                                                  atomic_write_text)
+    from flexflow_tpu_torch.obs.simtrace import (SIM_LANE_THREADS,
+                                                 sim_lane_events)
+
+    t0_us, wall_origin = 0.0, time.time()
+    measured = [p for p in sorted(glob.glob(
+        os.path.join(trace_dir, "*.trace.json")))
+        if not p.endswith("merged.trace.json")
+        and not os.path.basename(p).startswith("sim_")]
+    for p in reversed(measured):  # newest stem last in sorted order
+        try:
+            with open(p) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            continue
+        meta = data.get("metadata") or {}
+        if meta.get("wall_origin_unix") is None:
+            continue
+        wall_origin = meta["wall_origin_unix"]
+        evs = data.get("traceEvents") or []
+        dev = [e["ts"] for e in evs if e.get("cat") == "devtrace"
+               and e.get("ph") == "X"]
+        steps = [e["ts"] for e in evs if e.get("name") == "step"
+                 and e.get("ph") == "X"]
+        t0_us = min(dev) if dev else (min(steps) if steps else 0.0)
+        break
+    header = artifact_header(kind="trace")
+    header.update(run_name=f"sim:{model}", run_seq=90,
+                  wall_origin_unix=wall_origin)
+    pid = header.get("host_id", 0)
+    events = [dict(name="process_name", ph="M", pid=pid, tid=0,
+                   args=dict(name=f"host{pid}:sim:{model}"))]
+    for tid, label in sorted(SIM_LANE_THREADS.items()):
+        events.append(dict(name="thread_name", ph="M", pid=pid, tid=tid,
+                           args=dict(name=label)))
+    for ev in sim_lane_events(sim_resp.get("tasks") or [], name_of,
+                              t0_us=t0_us):
+        events.append(dict(ev, pid=pid))
+    path = os.path.join(trace_dir, f"sim_{model}_host{pid:02d}.trace.json")
+    atomic_write_text(path, json.dumps(
+        dict(traceEvents=events, displayTimeUnit="ms", metadata=header)))
+    return path
+
+
+def to_markdown(model, ff, trace, sim_resp, rows, total_ops, feasible,
+                reasons, path_rows, path_total, merged_path,
+                disagreements=None, n_compared=0, kernel_rows=None,
+                remat_table=None):
+    info = ff.search_info if isinstance(ff.search_info, dict) else {}
+    stats = info.get("stats") or {}
+    mesh = trace.get("winner_mesh") or {}
+    lines = [
+        f"# Why this strategy — {model}",
+        "",
+        f"Searched mesh: **{_mesh_str(mesh)}** "
+        f"(predicted step {_fmt_s(info.get('predicted_time'))} ms, "
+        f"predicted memory "
+        f"{_fmt_bytes(info.get('predicted_memory'))}/chip)",
+        "",
+        f"- DP states explored: {stats.get('states_explored')}",
+        f"- mesh candidates: {stats.get('mesh_candidates')}"
+        f" ({len(feasible)} priced end-to-end)",
+        f"- graphs evaluated: {stats.get('graphs_evaluated')}"
+        f" ({stats.get('rewrites_applied', 0)} rewrites applied)",
+        f"- search-trace schema: v{trace.get('schema_version')}",
+        "",
+        "## Mesh candidates",
+        "",
+        "| mesh | status | sim step ms | memory | note |",
+        "|---|---|---|---|---|",
+    ]
+    for m in feasible[:12]:
+        pl = m.get("pipeline_candidates")
+        note = m.get("reason", "")
+        if m.get("status") == "winner" and trace.get("winner_pipeline"):
+            wp = trace["winner_pipeline"]
+            note = (f"M={wp.get('microbatches')} "
+                    f"{wp.get('schedule')}"
+                    + (" remat" if wp.get("remat") else ""))
+        elif pl:
+            note = f"{len(pl)} microbatch/schedule candidates"
+        lines.append(
+            f"| {_mesh_str(m.get('mesh'))} | {m.get('status')} | "
+            f"{_fmt_s(m.get('time_s'))} | "
+            f"{_fmt_bytes(m.get('memory_bytes'))} | {note} |")
+    if reasons:
+        lines += ["", "Rejected at a legality/feasibility gate:", ""]
+        for r, n in sorted(reasons.items(), key=lambda kv: -kv[1]):
+            lines.append(f"- `{r}`: {n}")
+    lines += [
+        "",
+        f"## Chosen vs runner-up (top {len(rows)} of {total_ops} ops "
+        "by chosen cost)",
+        "",
+        "The delta compares each op's ISOLATED priced cost against its "
+        "best alternative (positive = the alternative is slower). The "
+        "DP additionally prices edge resharding between neighboring "
+        "choices, so an op can rightly keep a choice whose isolated "
+        "delta is negative — the alternative would force a reshard its "
+        "neighbors pay for. Collectives are what the chosen choice "
+        "implies on the wire.",
+        "",
+        "| op | type | chosen | ms | runner-up | ms | delta | "
+        "collectives |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for r in rows:
+        delta = r.get("delta_frac")
+        lines.append(
+            f"| {r['name']} | {r['type']} | {r['chosen']} | "
+            f"{_fmt_s(r['chosen_s'], 4)} | {r.get('runner_up', '-')} | "
+            f"{_fmt_s(r.get('runner_up_s'), 4)} | "
+            f"{'-' if delta is None else f'{delta:+.1%}'} | "
+            f"{' '.join(r['collectives']) or '-'} |")
+    if kernel_rows:
+        lines += [
+            "",
+            "## Kernel choices (the searched `_k:` dimension)",
+            "",
+            "Ops where the search priced more than one kernel "
+            "implementation (or a legality gate rejected one). The "
+            "chosen impl executes through the per-op kernel plumbing; "
+            "`rejected` names the gate that kept an impl out of the "
+            "candidate set.",
+            "",
+            "| op | type | chosen impl (choice) | ms | src | "
+            "best alternative | ms | rejected |",
+            "|---|---|---|---|---|---|---|---|",
+        ]
+        for r in kernel_rows[:20]:
+            alt = r["alternatives"][0] if r["alternatives"] else None
+            rej = "; ".join(f"{x['impl']}: {x['reason']}"
+                            for x in r["rejections"]) or "-"
+            lines.append(
+                f"| {r['name']} | {r['type']} | {r['chosen_impl']} "
+                f"(`{r['chosen']}`) | {_fmt_s(r['chosen_s'], 4)} | "
+                f"{r.get('cost_source') or '-'} | "
+                f"{alt['impl'] if alt else '-'} | "
+                f"{_fmt_s(alt['total_s'], 4) if alt else '-'} | {rej} |")
+    if remat_table:
+        lines += [
+            "",
+            "## Rematerialization (the searched `_r` dimension)",
+            "",
+            "Ops where the search priced a remat twin: freeing the "
+            "op's interior activations from the residual set (`freed`) "
+            "in exchange for recomputing its forward during backward "
+            "(`recompute`). `won` marks ops whose `_r` twin was chosen "
+            "— rare on a memory-feasible machine, since `_r` is "
+            "strictly slower; `rejected` names the legality gate that "
+            "kept a twin out (stateful/dropout interiors, or an "
+            "interior no larger than its boundary — e.g. flash "
+            "attention, whose fused kernel never materializes the "
+            "scores).",
+            "",
+            "| op | type | best `_r` twin | freed | recompute ms | "
+            "won | rejected |",
+            "|---|---|---|---|---|---|---|",
+        ]
+        for r in remat_table[:20]:
+            rej = "; ".join(r["rejections"]) or "-"
+            twin = f"`{r['best_r']}`" if r["best_r"] else "-"
+            lines.append(
+                f"| {r['name']} | {r['type']} | {twin} | "
+                f"{_fmt_bytes(r['freed_act_bytes'])} | "
+                f"{_fmt_s(r['recompute_s'], 4)} | "
+                f"{'yes' if r['remat_won'] else '-'} | {rej} |")
+    if n_compared:
+        lines += ["", "## Learned vs analytic cost model", ""]
+        if disagreements:
+            lines += [
+                f"The two models rank a DIFFERENT winner for "
+                f"{len(disagreements)} of {n_compared} ops — exactly "
+                f"where the learned table changes a search decision "
+                f"(per-candidate compute swapped between pricings, "
+                f"comms terms held fixed):",
+                "",
+                "| op | type | chosen | learned winner | ms | "
+                "analytic winner | ms |",
+                "|---|---|---|---|---|---|---|",
+            ]
+            for d in disagreements:
+                lines.append(
+                    f"| {d['name']} | {d['type']} | {d['chosen']} | "
+                    f"{d['learned_winner']} | {_fmt_s(d['learned_s'], 4)} "
+                    f"| {d['analytic_winner']} | "
+                    f"{_fmt_s(d['analytic_s'], 4)} |")
+        else:
+            lines.append(
+                f"A learned cost table was active ({n_compared} ops "
+                f"compared) and both models rank the same winner "
+                f"everywhere — the learned model refines magnitudes "
+                f"without flipping any choice on this graph.")
+    edge_rows = []
+    try:
+        edge_rows = fflint.edge_table_json(ff)
+    except Exception:
+        pass  # edge table is best-effort; the rest of the report stands
+    if edge_rows:
+        implicit = [r for r in edge_rows
+                    if not r["explicit"] and not r.get("weight_movement")]
+        lines += [
+            "",
+            f"## Per-edge reshard table ({len(edge_rows)} edges, "
+            f"{len(implicit)} implicit)",
+            "",
+            "Every producer→consumer edge whose tensor arrives under a "
+            "different spec than the consumer requires, and the "
+            "collective a sharded step inserts to fix it (per-device "
+            "bytes). "
+            "`implicit` edges are the compiler's insertions; `explicit` "
+            "edges cross a parallel-op boundary the graph already "
+            "prices; `wmove` rows are the generalized tiny-batch "
+            "weight-movement rule (gather the kernel instead of "
+            "resharding a tiny activation).",
+            "",
+            "| edge | src spec | dst spec | kind | MB | axes | fabric |",
+            "|---|---|---|---|---|---|---|",
+        ]
+        for r in edge_rows[:30]:
+            tag = ("wmove" if r.get("weight_movement")
+                   else "explicit" if r["explicit"] else "implicit")
+            lines.append(
+                f"| `{r['edge']}` ({tag}) | `{r['src_spec']}` | "
+                f"`{r['dst_spec']}` | {r['kind']} | "
+                f"{r['bytes'] / 1e6:.3f} | "
+                f"{'+'.join(r['axes']) or '-'} | {r['fabric']} |")
+        if len(edge_rows) > 30:
+            lines.append(f"| … {len(edge_rows) - 30} more | | | | | | |")
+    lines += [
+        "",
+        f"## Simulated timeline path (first {len(path_rows)} of "
+        f"{path_total} tasks)",
+        "",
+        "| t0 us | t1 us | lane | op | kind | collective |",
+        "|---|---|---|---|---|---|",
+    ]
+    from flexflow_tpu_torch.obs.simtrace import SIM_COMMS_KINDS
+    for r in path_rows:
+        lane = ("sim:comms" if r["kind"] in SIM_COMMS_KINDS
+                else "sim:compute")
+        coll = (f"{r['collective']}({_fmt_bytes(r['bytes'])})"
+                if r["collective"] else "-")
+        lines.append(
+            f"| {r['start_s'] * 1e6:.2f} | {r['finish_s'] * 1e6:.2f} | "
+            f"{lane} | {r['op']} | {r['kind']} | {coll} |")
+    lines += [
+        "",
+        "## Reading the merged trace",
+        "",
+        f"Merged Perfetto trace: `{merged_path}` "
+        "(load in ui.perfetto.dev).",
+        "",
+        "- `sim:compute` — predicted fwd/bwd/update tasks of one step",
+        "- `sim:comms` — predicted collective tasks (reshard, psum, "
+        "grad sync)",
+        "- `device:compute` / `device:comms` — measured device spans "
+        "(present when the trace dir holds a devtrace capture: a "
+        "traced `fit` with `profile_steps`); the sim lanes start at the measured capture's first "
+        "device span, so predicted and measured steps overlay",
+        "",
+    ]
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    fl = fflint
+    ap.add_argument("--model", required=True,
+                    help=f"zoo model ({', '.join(fl.ZOO)})")
+    ap.add_argument("--budget", type=int, default=2,
+                    help="search budget (default 2)")
+    ap.add_argument("--top", type=int, default=20,
+                    help="ops in the chosen-vs-runner-up table")
+    ap.add_argument("--out-dir", default=".",
+                    help="where SEARCH_TRACE.json / EXPLAIN.md land")
+    ap.add_argument("--trace-dir", default=None,
+                    help="obs trace dir to merge the sim lanes into "
+                         "(one holding a devtrace capture gives the "
+                         "side-by-side view); default "
+                         "OUT_DIR/explain_trace")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="let the search enumerate pipe meshes too")
+    ap.add_argument("--measure-ops", action="store_true",
+                    help="microbenchmark ops so corpus rows carry "
+                         "measured seconds")
+    ap.add_argument("--costmodel", default=None,
+                    help="trained cost-model table to price the search "
+                         "with (sets FFS_COSTMODEL_FILE; default: the "
+                         "usual discovery — the repo root's "
+                         "COSTMODEL_GPU.json if one exists)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the model is built and measured (default "
+                         "the card; the CPU plans 8 devices)")
+    args = ap.parse_args(argv)
+    if args.costmodel:
+        os.environ["FFS_COSTMODEL_FILE"] = args.costmodel
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.search.validate import simulate_strategy
+
+    cfg = FFConfig()
+    cfg.search_budget = args.budget
+    cfg.enable_parameter_parallel = True
+    cfg.enable_pipeline_parallel = bool(args.pipeline)
+    cfg.search_trace = True
+    ff, loss_kind = fl.build_model(args.model, cfg, device=args.device)
+    fl.compile_model(ff, loss_kind)
+    info = ff.search_info if isinstance(ff.search_info, dict) else {}
+    trace = info.get("search_trace")
+    if not trace:
+        print("explain: the search emitted no trace (native core "
+              "stale?)", file=sys.stderr)
+        return 1
+    if trace.get("error"):
+        print(f"explain: search trace failed: {trace['error']}",
+              file=sys.stderr)
+        return 1
+
+    measured = None
+    if args.measure_ops:
+        from flexflow_tpu_torch.search.profile import microbenchmark
+        measured = microbenchmark(ff.executor.nodes,
+                                  machine_spec=ff.machine_spec,
+                                  device=ff.device,
+                                  dtype=ff.executor.compute_dtype)
+
+    sim_resp = simulate_strategy(ff)
+    name_of = {i: n.op.name for i, n in enumerate(ff.executor.nodes)}
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    trace_dir = args.trace_dir or os.path.join(args.out_dir,
+                                               "explain_trace")
+    os.makedirs(trace_dir, exist_ok=True)
+    sim_path = write_sim_trace_file(trace_dir, args.model, sim_resp,
+                                    name_of)
+    from flexflow_tpu_torch.obs import merge_host_traces
+    merged_path = merge_host_traces(trace_dir) or sim_path
+
+    from flexflow_tpu_torch.obs.artifacts import write_artifact
+    from flexflow_tpu_torch.obs.simtrace import corpus_rows
+    disagreements, n_compared = learned_vs_analytic_disagreements(trace)
+    out_json = os.path.join(args.out_dir, "SEARCH_TRACE.json")
+    artifact = dict(
+        model=args.model,
+        search_trace=trace,
+        corpus=corpus_rows(ff, sim_resp, measured=measured),
+        predicted=dict(step_s=sim_resp.get("iteration_time"),
+                       memory_bytes=sim_resp.get("memory")),
+        merged_trace=merged_path,
+    )
+    if measured is not None:
+        artifact["measured_ops"] = measured
+    if n_compared:
+        artifact["cost_model_disagreements"] = dict(
+            ops_compared=n_compared, rows=disagreements)
+    kernel_rows = kernel_choice_rows(trace)
+    if kernel_rows:
+        artifact["kernel_choices"] = kernel_rows
+    remat_table = remat_rows(trace)
+    if remat_table:
+        artifact["remat_choices"] = remat_table
+    write_artifact(out_json, artifact, kind="search_trace",
+                   device=ff.device)
+
+    rows, total_ops = chosen_vs_runner_up(trace, top=args.top)
+    feasible, reasons = mesh_summary(trace)
+    path_rows, path_total = timeline_path(sim_resp, name_of)
+    md = to_markdown(args.model, ff, trace, sim_resp, rows, total_ops,
+                     feasible, reasons, path_rows, path_total,
+                     merged_path, disagreements=disagreements,
+                     n_compared=n_compared, kernel_rows=kernel_rows,
+                     remat_table=remat_table)
+    out_md = os.path.join(args.out_dir, "EXPLAIN.md")
+    with open(out_md, "w") as f:
+        f.write(md)
+    print(f"explain: {args.model} mesh {_mesh_str(trace.get('winner_mesh'))}"
+          f" -> {out_json}, {out_md}, {merged_path}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -155,7 +155,7 @@ def main(argv=None):
                              repeats=args.repeats,
                              include_bwd=not args.no_bwd, device=device,
                              dtype=ff.executor.compute_dtype)
-    report["meta"] = dict(model=args.model, batch=batch,
+    report["meta"].update(model=args.model, batch=batch,
                           layout=args.layout,
                           layout_info=dict(ff.layout_info,
                                            boundaries=None),

@@ -578,7 +578,8 @@ def apply_drift_corrections(measured: Dict[str, float], nodes,
         factor = float(entry.get("factor", 1.0))
         if factor <= 0:
             continue
-        for leg in ("fwd", "bwd"):
+        # the op type's factor scales every core's rows of the op
+        for leg in ("fwd", "bwd", "fwd:flash", "bwd:flash"):
             key = f"{node.op.guid}:{leg}"
             if key in out:
                 out[key] *= factor
@@ -592,6 +593,56 @@ def node_layout(node) -> str:
             else "NCHW")
 
 
+def _flash_runs(op, device) -> bool:
+    """Whether ``op`` is an attention op whose training forward the flash
+    kernel runs on ``device`` once pinned to it: a CUDA device and a
+    shape the kernel takes (``MultiHeadAttention.selected_impl``)."""
+    if (op.op_type != OperatorType.MULTIHEAD_ATTENTION
+            or torch.device(device).type != "cuda"):
+        return False
+    saved = op.kernel_impl
+    op.kernel_impl = "flash"
+    try:
+        return op.selected_impl(device, None, training=True) == "flash"
+    finally:
+        op.kernel_impl = saved
+
+
+def executed_impl(ff, op, choice: Optional[str] = None) -> Optional[str]:
+    """Kernel impl that runs ``op`` in the compiled model ``ff``: the
+    ``_k:`` suffix of its strategy choice when the search picked one,
+    else the executor's recorded kernel choice, else (attention only)
+    the impl ``forward`` dispatches on ``ff``'s device. None for ops with
+    no registered kernel alternatives."""
+    from flexflow_tpu_torch.search.unity import kernel_choice_of
+    if choice is None:
+        choice = getattr((ff.strategy or {}).get(op.guid), "choice", None)
+    k = kernel_choice_of(choice)
+    if k is not None:
+        return k
+    kc = getattr(ff.executor, "kernel_choices", None) or {}
+    if op.name in kc:
+        return kc[op.name]
+    if hasattr(op, "selected_impl"):
+        try:
+            return op.selected_impl(ff.device, dict(ff.mesh.shape),
+                                    training=True)
+        except Exception:
+            return None
+    return None
+
+
+def executed_rows(measured: Dict[str, float], guid: int,
+                  impl: Optional[str]) -> Tuple[Optional[float],
+                                                Optional[float]]:
+    """(fwd, bwd) seconds of the core that runs op ``guid``: a core timed
+    on its own rows ("<guid>:fwd:flash") is read there; the plain rows
+    price the default lowering. (None, None) where the table has
+    neither."""
+    leg = f":{impl}" if impl and f"{guid}:fwd:{impl}" in measured else ""
+    return measured.get(f"{guid}:fwd{leg}"), measured.get(f"{guid}:bwd{leg}")
+
+
 def microbenchmark(nodes, machine_spec=None, device=None,
                    dtype: Optional[torch.dtype] = None, repeats: int = 3,
                    warmup: int = 1, cache_file: Optional[str] = None,
@@ -600,7 +651,12 @@ def microbenchmark(nodes, machine_spec=None, device=None,
     """Measure every op of an OpNode list on ``device`` (the card when
     None; the CPU only by name) in ``dtype``; returns the search's
     measured table {"<guid>:fwd": s, "<guid>:bwd": s} plus the runtime
-    constants.
+    constants. An attention op the flash kernel takes on ``device`` is
+    timed under each core: its einsum lowering as "<guid>:fwd"/":bwd"
+    (the native core reads those rows as the default lowering's price)
+    and the kernel as "<guid>:fwd:flash"/":bwd:flash" (the ``_k:flash``
+    twin's rows, ``native/ffs_strategy.hpp``); the CPU runs no kernel,
+    so there the op has the plain rows only, as in the JAX package.
 
     An op whose forward cannot run standalone is skipped: the search
     keeps its analytic estimate. ``cache_file`` persists measurements
@@ -636,22 +692,36 @@ def microbenchmark(nodes, machine_spec=None, device=None,
     for node in nodes:
         op = node.op
         layout = node_layout(node)
-        key = op_cost_key(op, device, layout, dtype)
-        if key not in _CACHE:
+        # an attention op the flash kernel takes on this device is timed
+        # under each core: "<guid>:fwd" is the einsum lowering (the native
+        # core's default impl for attention), "<guid>:fwd:flash" the
+        # kernel; any other op under the kernel it runs
+        legs = ((("einsum", ""), ("flash", ":flash"))
+                if _flash_runs(op, device) else ((None, ""),))
+        for pin, suffix in legs:
+            saved = getattr(op, "kernel_impl", None)
+            if pin is not None:
+                op.kernel_impl = pin
             try:
-                measure_op(op, hbm_bw, device=device, dtype=dtype,
-                           layout=layout, repeats=repeats, warmup=warmup)
-                dirty = True
+                key = op_cost_key(op, device, layout, dtype)
+                if key not in _CACHE:
+                    measure_op(op, hbm_bw, device=device, dtype=dtype,
+                               layout=layout, repeats=repeats,
+                               warmup=warmup)
+                    dirty = True
             except OpNotMeasurable as e:
                 if verbose:
-                    print(f"[profile] skip {op.name}: {e}")
+                    print(f"[profile] skip {op.name}{suffix}: {e}")
                 continue
-        fwd_s, bwd_s = _CACHE[key]
-        measured[f"{op.guid}:fwd"] = fwd_s
-        measured[f"{op.guid}:bwd"] = bwd_s
-        if verbose:
-            print(f"[profile] {op.name}: fwd {fwd_s * 1e6:.1f}us "
-                  f"bwd {bwd_s * 1e6:.1f}us")
+            finally:
+                if pin is not None:
+                    op.kernel_impl = saved
+            fwd_s, bwd_s = _CACHE[key]
+            measured[f"{op.guid}:fwd{suffix}"] = fwd_s
+            measured[f"{op.guid}:bwd{suffix}"] = bwd_s
+            if verbose:
+                print(f"[profile] {op.name}{suffix}: fwd {fwd_s * 1e6:.1f}us"
+                      f" bwd {bwd_s * 1e6:.1f}us")
     n_cached = len(_CACHE)
     measured.update(measure_runtime_constants(device))
     dirty = dirty or len(_CACHE) != n_cached

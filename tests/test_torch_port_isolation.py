@@ -71,7 +71,21 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.scripts.obs_report, "
         "flexflow_tpu_torch.scripts.roofline, "
         "flexflow_tpu_torch.scripts.ckpt_inspect, "
-        "flexflow_tpu_torch.scripts.supervise\n"
+        "flexflow_tpu_torch.scripts.supervise, "
+        "flexflow_tpu_torch.analysis, flexflow_tpu_torch.analysis.dataflow, "
+        "flexflow_tpu_torch.analysis.diagnostics, "
+        "flexflow_tpu_torch.analysis.orchestrator, "
+        "flexflow_tpu_torch.analysis.passes, "
+        "flexflow_tpu_torch.analysis.passes.hygiene, "
+        "flexflow_tpu_torch.analysis.passes.sharding, "
+        "flexflow_tpu_torch.analysis.passes.layout, "
+        "flexflow_tpu_torch.analysis.passes.dtype, "
+        "flexflow_tpu_torch.analysis.passes.collectives, "
+        "flexflow_tpu_torch.analysis.passes.multihost, "
+        "flexflow_tpu_torch.analysis.passes.calibration, "
+        "flexflow_tpu_torch.analysis.passes.checkpoint, "
+        "flexflow_tpu_torch.scripts.fflint, "
+        "flexflow_tpu_torch.scripts.explain\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -82,9 +96,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+EXAMPLES = REPO / "examples_torch"
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in list(PORT.rglob("*.py"))
-    + [REPO / "chip_smoke.py"]))
+    + list(EXAMPLES.glob("*.py")) + [REPO / "chip_smoke.py"]))
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse((REPO / path).read_text())
     imported = []
@@ -94,6 +111,24 @@ def test_source_imports_nothing_of_jax(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             imported.append(node.module)
     assert [m for m in imported if _forbidden(m)] == []
+
+
+def test_example_scripts_load_neither_jax_nor_the_jax_package():
+    """Each ``examples_torch/`` script, imported as its ``python
+    examples_torch/<name>.py`` run does (its folder on the path)."""
+    names = sorted(p.stem for p in EXAMPLES.glob("*.py"))
+    assert len(names) == 11  # common and the ten scripts
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(EXAMPLES)!r})\n"
+            + "".join(f"import {n}\n" for n in names)
+            + "print('\\n'.join(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    assert "flexflow_tpu_torch" in loaded and "transformer" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
 
 
 # the measurement and observability modules: no TPU figure may price or

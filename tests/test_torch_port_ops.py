@@ -212,6 +212,6 @@ def test_parse_args_reads_the_slice_flags():
     rest = p.parse_args(argv)
     j.parse_args(argv)
     for k in ("batch_size", "batch_size_explicit", "seed",
-              "workers_per_node", "search_budget"):
+              "workers_per_node", "search_budget", "epochs"):
         assert getattr(p, k) == getattr(j, k), k
-    assert rest == ["--epochs", "3", "app-flag"]
+    assert rest == ["app-flag"]

@@ -16,6 +16,13 @@ Tolerances:
   different orders);
 - predictions of the linear-fusion graph, SPLIT and SOFTMAX forward and
   VJP: atol/rtol 1e-5 (f32; only the order of the sums differs).
+
+Where the packages part: under ``--search-measure-ops`` on the card the
+port's measured table also carries an attention op's flash-kernel rows
+("<guid>:fwd:flash", "<guid>:bwd:flash") and times "<guid>:fwd" on the
+einsum core (``search/profile.py`` ``microbenchmark``), which the JAX
+package never sends; on the CPU, where these tests run, both packages
+send the plain rows only.
 """
 
 import hashlib
