@@ -348,11 +348,52 @@ package. Phases:
              ``compile(lint="error")`` raises ValueError "fflint" with
              ``torch.cuda.memory_allocated()`` unchanged; (4) ``python -m
              flexflow_tpu_torch.scripts.fflint --model <m> --json`` for
-             the ten zoo models that are not MoE (exit 0, one device) and
+             the twelve zoo models (exit 0, one device; [moe] (c) reads
+             the two MoE reports) and
              ``explain --model transformer --budget 2 --measure-ops
              --trace-dir`` [obs]'s dir: the three artifacts, the merged
              trace with ``sim:*`` and ``device:*`` lanes.
-17. report — one JSON line ``{"kernels": [...]}``, then the final line
+17. moe —   [moe] mixture of experts (``ops/{moe,experts}.py``,
+             ``models/moe_model.py``; its budget MOE_BUDGET_S as a
+             ``[time]`` line, and a run over it fails): (a) the flat MoE
+             at the roofline CLI's card configuration (MOE_FLAT: 16
+             experts, top-2, batch 16), fused (one Experts op) and
+             unfused (top-k, group_by, 32 expert denses, aggregate),
+             MOE_FLAT_STEPS ``fit`` steps each, two runs from one seed
+             bit-equal; ``examples_torch/moe.py -b 64`` as a child
+             process, exit 0. (b) the MoE encoder at the BERT-proxy's
+             widths (MOE_ENC: 12 layers, hidden 1024, 16 heads, seq 512,
+             batch 8, 8 experts, top-2, capacity factor 2.0,
+             lambda_bal 0.04; no depth cut) through the kernel path's
+             strategy file: ``predict`` (a capture and a replay,
+             bit-equal; K1 12 a call by name), ``serve()``'s full batch
+             equal to ``predict`` of the same batch, 1 + MOE_STEPS
+             ``fit`` steps (K1 12, K2 12, K4 1 a step; p50, peak), two
+             replays profiled (by name), MOE_GRAPH_STEPS compiled steps
+             against eager ones bit for bit, the loss at lambda_bal 0.04
+             minus the loss at 0 against the load-balance term
+             recomputed from the routers' probabilities, the plain
+             path's losses within TRAJECTORY_RTOL, and a replayed
+             step's device time split into the attention kernels, the
+             dispatch/combine einsums, the dispatch build and the expert
+             FFN (one layer's parts timed apart) and the rest. (c)
+             [lint]'s fflint reports of ``moe`` and ``moe_encoder``: one
+             device, no error.
+18. loop —  [loop] ``fit_loader`` and the sequence-length buckets (its
+             budget LOOP_BUDGET_S, as [moe]'s): (1) the full-width
+             BERT-proxy through the kernel path's file, ``fit`` and
+             ``fit_loader`` over the same LOOP_BATCHES batches, 2
+             epochs, bit-equal (losses, every leaf, launches), and the
+             host-to-device bytes of a steady-state step of each by the
+             profiler's memcpy events (``fit_loader`` 0); (3) the
+             ``set_batch`` / ``forward(seq_length)`` / ``backward`` /
+             ``update`` loop at LOOP_SEQS (buckets 256 and 128) on (1)'s
+             model: the attention core each bucket runs, K1/K2 12 a
+             step, the losses against the plain path's from the same
+             state; (2) a ``fit_loader`` resume (LOOP_RESUME's depth)
+             that seeks once to the cut's batch and ends bit-equal to
+             the uninterrupted run.
+19. report — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``. Each phase's seconds are
              printed as ``[time]`` lines.
 
@@ -1721,13 +1762,13 @@ def training_batch(cfg, seed=0):
 
 
 def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4,
-                         mesh=None):
+                         mesh=None, choice_of=None):
     """The BERT-proxy ``cfg`` on the card, compiled for training as the
     reference's bert_proxy is (Adam alpha 1e-4 with bf16 moments, MSE
     avg-reduce loss, MSE metric); with ``strategy_dir``, through the
-    strategy file of path (b) written there; over ``mesh`` if given. The
-    weights come from the config's seed, so every call starts from the
-    same weights."""
+    strategy file of path (b) written there (or of ``choice_of``, a
+    choice by op type); over ``mesh`` if given. The weights come from
+    the config's seed, so every call starts from the same weights."""
     import torch
     from flexflow_tpu_torch import FFConfig, LossType, MetricsType
     from flexflow_tpu_torch.models.transformer import create_transformer
@@ -1738,7 +1779,7 @@ def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4,
                             device="cuda")
     if strategy_dir is not None:
         path = os.path.join(strategy_dir, "strategy.json")
-        write_strategy(ff, path, kernel_path())
+        write_strategy(ff, path, choice_of or kernel_path())
         ff.config.import_strategy_file = path
     ff.compile(AdamOptimizer(alpha=alpha, state_dtype=torch.bfloat16),
                LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
@@ -6724,7 +6765,7 @@ def phase_lint(strategy_dir, obs_trace_dir, costmodel_files):
     del mlp
 
     # ---- (4) the CLIs on the card ---------------------------------------
-    models = [m for m in fflint_cli.ZOO if not m.startswith("moe")]
+    models = list(fflint_cli.ZOO)
     t0 = time.perf_counter()
     procs = {m: subprocess.Popen(
         [sys.executable, "-m", "flexflow_tpu_torch.scripts.fflint",
@@ -6748,7 +6789,7 @@ def phase_lint(strategy_dir, obs_trace_dir, costmodel_files):
               f"{d['counts']}")
         check(d["context"]["mesh_axes"] == {"data": 1},
               f"(4) fflint {m} planned {d['context']['mesh_axes']}")
-    print(f"[lint] (4) the ten fflint runs (in parallel) in "
+    print(f"[lint] (4) the {len(models)} fflint runs (in parallel) in "
           f"{time.perf_counter() - t0:.1f} s ({card})")
     out_dir = os.path.join(work, "explain")
     t0 = time.perf_counter()
@@ -6789,6 +6830,655 @@ def phase_lint(strategy_dir, obs_trace_dir, costmodel_files):
     check(not flash_rows, "(4) a flash row for a head_dim the kernel "
           "does not take")
     out["explain_s"] = explain_s
+    out["fflint_moe"] = {m: docs[m] for m in models if m.startswith("moe")}
+    return out
+
+
+# [moe]: the phase's budget on the card, printed beside its [time] line
+MOE_BUDGET_S = 200.0
+# (a) the flat MoE at the roofline CLI's card configuration
+MOE_FLAT = dict(batch_size=16, input_dim=1024, num_exp=16, num_select=2,
+                hidden_size=1024, num_classes=1000)
+MOE_FLAT_STEPS = 3
+MOE_EXAMPLE_TIMEOUT_S = 300
+# (b) the slice's full-width path: the MoE encoder at the BERT-proxy's
+# widths (12 layers, hidden 1024, 16 heads, seq 512, batch 8), 8 experts,
+# top-2, capacity factor 2.0: capacity 2048 over 4096 tokens
+MOE_ENC = dict(batch_size=8, seq_length=512, hidden_size=1024,
+               num_attention_heads=16, num_exp=8, num_select=2, alpha=2.0,
+               lambda_bal=0.04, num_encoder_layers=12)
+MOE_ALPHA = 1e-4
+MOE_STEPS = 4        # fit steps after the capturing one
+MOE_GRAPH_STEPS = 2  # compiled steps against eager ones
+MOE_AUX_RTOL = 1e-3  # the loss difference against the recomputed term
+
+
+def moe_flat_run(fused):
+    """The flat MoE (MOE_FLAT) from its config's seed, MOE_FLAT_STEPS
+    ``fit`` steps on one seeded batch: (losses, every leaf after them,
+    the train step's captures and replays, the step times)."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import FFConfig, LossType
+    from flexflow_tpu_torch.models import MoEConfig, create_moe
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
+    mc = MoEConfig(**MOE_FLAT)
+    ff = create_moe(mc, FFConfig(batch_size=mc.batch_size), device="cuda",
+                    fused=fused)
+    ff.compile(AdamOptimizer(alpha=1e-3),
+               LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [])
+    rs = np.random.RandomState(0)
+    x = rs.randn(mc.batch_size, mc.input_dim).astype(np.float32)
+    y = rs.randint(0, mc.num_classes, (mc.batch_size, 1)).astype(np.int32)
+    losses, times = [], []
+    for _ in range(MOE_FLAT_STEPS):
+        t0 = time.perf_counter()
+        ff.fit(x, y, epochs=1, verbose=False)
+        times.append(time.perf_counter() - t0)
+        losses.append(ff._last_loss)
+    torch.cuda.synchronize()
+    sg = ff.executor.step_graphs["train_step"]
+    kinds = sorted({n.op.op_type.name for n in ff.executor.nodes})
+    leaves = [t.clone() for t in flatten_leaves((ff.params, ff.opt_state,
+                                                 ff.state))]
+    return losses, leaves, (sg.captures, sg.replays), times, kinds
+
+
+def moe_choice(kind_name):
+    """A strategy file's choice by op type: the kernel path
+    (``kernel_path``) or the plain one (the einsum core, plain Adam)."""
+    from flexflow_tpu_torch import OperatorType
+
+    if kind_name == "kernel":
+        return kernel_path()
+    return lambda kind: ("dp_k:einsum"
+                         if kind == OperatorType.MULTIHEAD_ATTENTION
+                         else "dp")
+
+
+def build_moe_encoder(strategy_dir, path_kind):
+    """The MoE encoder (MOE_ENC) on the card, random weights from the
+    config's seed, compiled for training (Adam MOE_ALPHA, bf16 moments,
+    MSE) through a strategy file of ``path_kind`` ("kernel" or
+    "plain")."""
+    import torch
+    from flexflow_tpu_torch import FFConfig, LossType
+    from flexflow_tpu_torch.models import MoEConfig, create_moe_encoder
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
+    mc = MoEConfig(**MOE_ENC)
+    ff = create_moe_encoder(mc, FFConfig(batch_size=mc.batch_size),
+                            device="cuda")
+    path = os.path.join(strategy_dir, f"moe_{path_kind}.json")
+    write_strategy(ff, path, moe_choice(path_kind))
+    ff.config.import_strategy_file = path
+    ff.compile(AdamOptimizer(alpha=MOE_ALPHA, state_dtype=torch.bfloat16),
+               LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, [])
+    return ff, mc
+
+
+def moe_batch(mc, seed=0):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    x = rs.randn(mc.batch_size, mc.seq_length,
+                 mc.hidden_size).astype(np.float32)
+    y = rs.rand(mc.batch_size, mc.seq_length,
+                mc.num_classes).astype(np.float32)
+    return x, y
+
+
+def moe_layer_parts_ms(mc):
+    """Device ms of one MoE layer's parts at the encoder's shapes, each
+    its forward and backward as the train step runs them, back to back
+    between CUDA events (``time_calls``): building the dispatch and
+    combine tensors, the dispatch and combine einsums (f32), and the
+    experts' FFN (f32 batched einsums, bias, ReLU)."""
+    import torch
+    from flexflow_tpu_torch.ops.moe import (expert_capacity,
+                                            make_dispatch_tensors)
+    from flexflow_tpu_torch.ops.reduce import top_k
+
+    b = mc.batch_size * mc.seq_length
+    e, k, d, h = mc.num_exp, mc.num_select, mc.hidden_size, mc.hidden_size
+    c = expert_capacity(b, k, e, mc.alpha)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, grad=False):
+        t = torch.randn(*shape, device="cuda", generator=g)
+        return t.requires_grad_() if grad else t
+
+    gate = torch.softmax(randn(b, e), -1).bfloat16()
+    vals, assign = top_k(gate, k)
+    dispatch, combine = make_dispatch_tensors(assign, vals.float(), e, c)
+    xf, cb, o = randn(b, d, grad=True), combine.clone().requires_grad_(), \
+        randn(e, c, d, grad=True)
+    g_grouped, g_y = randn(e, c, d), randn(b, d)
+
+    def build():
+        make_dispatch_tensors(assign, vals.float(), e, c)
+
+    def route():
+        grouped = torch.einsum("bd,bkec->ecd", xf, dispatch)
+        y = torch.einsum("bkec,ecd->bd", cb, o)
+        torch.autograd.grad([grouped, y], [xf, cb, o], [g_grouped, g_y])
+
+    grouped = randn(e, c, d, grad=True)
+    w_h, b_h = randn(e, d, h, grad=True), randn(e, h, grad=True)
+    w_o, b_o = randn(e, h, d, grad=True), randn(e, d, grad=True)
+    g_o = randn(e, c, d)
+
+    def ffn():
+        hid = torch.relu(torch.einsum("ecd,edh->ech", grouped, w_h)
+                         + b_h[:, None, :])
+        out = torch.einsum("ech,ehd->ecd", hid, w_o) + b_o[:, None, :]
+        torch.autograd.grad(out, [grouped, w_h, b_h, w_o, b_o], g_o)
+
+    parts = {name: time_calls(fn, target_ms=100.0)[0]
+             for name, fn in (("dispatch build", build),
+                              ("dispatch/combine einsums", route),
+                              ("expert FFN", ffn))}
+    route_flop = 5 * 2 * b * e * c * d  # 2 forward einsums, 3 backward GEMMs
+    ffn_flop = 3 * 2 * (2 * e * c * d * h)
+    print(f"[moe] (b) one layer's parts at B*S {b}, E {e}, top-{k}, C {c}, "
+          f"D {d}, H {h}, forward and backward, device ms a call: "
+          + ", ".join(f"{n} {ms:.4f}" for n, ms in parts.items())
+          + f"; the route einsums {route_flop / 1e9:.1f} GFLOP "
+          f"({route_flop / parts['dispatch/combine einsums'] / 1e9:.1f} "
+          f"TFLOP/s), the FFN {ffn_flop / 1e9:.1f} GFLOP "
+          f"({ffn_flop / parts['expert FFN'] / 1e9:.1f} TFLOP/s), f32 "
+          f"without TF32")
+    del dispatch, combine, xf, cb, o, grouped, w_h, b_h, w_o, b_o
+    return parts
+
+
+def phase_moe(strategy_dir, fflint_moe):
+    """[moe] mixture of experts on the card (``ops/{moe,experts}.py``,
+    ``models/moe_model.py``, the op-emitted load-balance loss). (a) The
+    flat MoE at the roofline CLI's card configuration, fused and unfused,
+    MOE_FLAT_STEPS steps each, two runs from one seed bit-equal; and
+    ``examples_torch/moe.py -b 64`` as a child process, exit 0. (b) The
+    MoE encoder at the BERT-proxy's widths (MOE_ENC) through the kernel
+    path's strategy file: ``predict`` (a capture, a replay bit-equal, K1
+    12 a call by name), ``serve()``'s full batch equal to ``predict`` of
+    the same batch (an MoE row depends on its batch-mates), 1 +
+    MOE_STEPS ``fit`` steps (K1 12, K2 12, K4 1 a step; step p50; peak
+    memory), two replays profiled (the kernels by name, busy share,
+    device time by kind), MOE_GRAPH_STEPS compiled steps against eager
+    ones bit for bit, the loss at lambda_bal 0.04 minus the loss at 0
+    against the load-balance term recomputed from the router's
+    probabilities, the plain path's losses (einsum core, plain Adam)
+    within TRAJECTORY_RTOL, and one layer's parts timed apart for the
+    split of the step's device time. (c) [lint]'s fflint reports of the
+    two MoE zoo models: one device, no error."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+    from flexflow_tpu_torch.ops.experts import Experts
+
+    card = nvidia_smi_line()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+
+    # ---- (a) the flat MoE, and the example ------------------------------
+    example = subprocess.Popen(
+        [sys.executable, os.path.join("examples_torch", "moe.py"), "-b",
+         "64"], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        for fused in (True, False):
+            form = "fused" if fused else "unfused"
+            runs = [moe_flat_run(fused) for _ in range(2)]
+            (l1, v1, g1, t1, kinds), (l2, v2, g2, _, _) = runs
+            same = sum(1 for a, b in zip(v1, v2) if torch.equal(a, b))
+            print(f"[moe] (a) flat MoE {MOE_FLAT}, {form} ({', '.join(kinds)}"
+                  f"): losses {l1} / {l2}; {same} of {len(v1)} leaves "
+                  f"bit-equal; captures, replays {g1} / {g2}; steps "
+                  + ", ".join(f"{t * 1e3:.2f}" for t in t1) + f" ms ({card})")
+            check(l1 == l2 and same == len(v1) and np.all(np.isfinite(l1))
+                  and g1 == (1, MOE_FLAT_STEPS - 1),
+                  f"(a) the {form} flat MoE's two runs differ")
+            check(("EXPERTS" in kinds) == fused
+                  and ("GROUP_BY" in kinds) != fused,
+                  f"(a) the {form} graph's op types {kinds}")
+            del runs, v1, v2
+        so, se = example.communicate(timeout=MOE_EXAMPLE_TIMEOUT_S)
+    finally:
+        if example.poll() is None:
+            example.kill()
+            example.wait()
+    lines = [l for l in so.splitlines() if l.startswith(("mesh:",
+                                                         "ELAPSED"))]
+    print(f"[moe] (a) examples_torch/moe.py -b 64: exit "
+          f"{example.returncode}; " + "; ".join(lines))
+    check(example.returncode == 0 and len(lines) == 2,
+          f"(a) the example exited {example.returncode}: {se[-2000:]}")
+    out["example"] = lines[-1]
+    release()
+
+    # ---- (b) the MoE encoder at full width ------------------------------
+    t0 = time.perf_counter()
+    ff, mc = build_moe_encoder(strategy_dir, "kernel")
+    compile_s = time.perf_counter() - t0
+    ex = ff.executor
+    cores = sorted({ff._selected_impl(n.op, ex.comp_mode)
+                    for n in ex.nodes if isinstance(n.op, MultiHeadAttention)})
+    n_att = sum(1 for n in ex.nodes if isinstance(n.op, MultiHeadAttention))
+    n_exp = sum(1 for n in ex.nodes if isinstance(n.op, Experts))
+    n_par = sum(t.numel() for sub in ff.params.values()
+                for t in sub.values())
+    print(f"[moe] (b) MoE encoder {MOE_ENC}: {len(ex.nodes)} ops, "
+          f"{n_att} attentions ({cores}), {n_exp} Experts, {n_par:,} "
+          f"parameters; compiled in {compile_s:.1f} s; {memory_line()}")
+    check(cores == ["flash"] and n_att == n_exp
+          == MOE_ENC["num_encoder_layers"], "(b) the graph or its cores")
+    x, y = moe_batch(mc)
+
+    # predict: a capture, then a replay, bit-equal; K1 by name
+    reset_launches()
+    t0 = time.perf_counter()
+    first = ff.predict(x)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = ff.predict(x)
+    replay_s = time.perf_counter() - t0
+    k1 = read_launches()["flash_attn_fwd"]
+    prof = profile_steps("[moe] (b) two replayed predicts",
+                         lambda: ff.predict(x), steps=2)
+    per_predict = check_replay_launches("[moe] (b) predict", prof, 2,
+                                        dict(flash_attn_fwd=n_att))
+    print(f"[moe] (b) predict: {first.shape}, finite "
+          f"{bool(np.isfinite(first).all())}, the replay bit-equal "
+          f"{np.array_equal(first, again)}; the capturing call "
+          f"{first_s * 1e3:.1f} ms, a replay {replay_s * 1e3:.3f} ms with "
+          f"its host copy; K1 launches over the two calls {k1} (want "
+          f"{2 * n_att})")
+    check(np.isfinite(first).all() and np.array_equal(first, again)
+          and k1 == 2 * n_att, "(b) predict")
+    out["predict"] = dict(launches=k1, replay=per_predict,
+                          profile=prof[0] if prof else None)
+
+    # serve(): the full batch through the engine equals predict of it
+    engine = ff.serve(batch_buckets=[mc.batch_size])
+
+    def serve_batch():
+        reqs = [engine.submit([x[i]]) for i in range(mc.batch_size)]
+        engine.pump()
+        return np.stack([r.wait(120) for r in reqs])
+
+    reset_launches()
+    rows = serve_batch()
+    served = read_launches()["flash_attn_fwd"]
+    prof = profile_steps("[moe] (b) a served batch", serve_batch, steps=1)
+    per_serve = check_replay_launches("[moe] (b) serve", prof, 1,
+                                      dict(flash_attn_fwd=n_att))
+    print(f"[moe] (b) serve(): {mc.batch_size} requests as one batch, rows "
+          f"equal to predict of the same batch {np.array_equal(rows, first)}"
+          f"; K1 launches {served}")
+    check(np.array_equal(rows, first) and served >= n_att,
+          "(b) the served rows differ from predict")
+    out["serve"] = served
+    del engine
+
+    # training through the kernel path's strategy file
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_s = [], []
+    for _ in range(1 + MOE_STEPS):
+        t0 = time.perf_counter()
+        ff.fit(x, y, epochs=1, verbose=False)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(ff._last_loss)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p50, p90 = p50_p90(step_s[1:])
+    steps = 1 + MOE_STEPS
+    print(f"[moe] (b) fit through dp_k:flash / dp_k:fused: losses "
+          + ", ".join(f"{v:.6f}" for v in losses)
+          + f"; the capturing step {step_s[0]:.2f} s, replayed steps p50 "
+          f"{p50 * 1e3:.3f} ms, p90 {p90 * 1e3:.3f} ms "
+          f"({mc.batch_size / p50:.2f} samples/s, "
+          f"{mc.batch_size * mc.seq_length / p50:.0f} tokens/s); launches "
+          f"over {steps} steps {launches}; peak allocated {peak:.2f} GiB, "
+          f"graph pool {pool_gib(ff):.2f} GiB ({card})")
+    check(np.all(np.isfinite(losses))
+          and launches["flash_attn_fwd"] == n_att * steps
+          and launches["flash_attn_bwd"] == n_att * steps
+          and launches["fused_adam"] == steps
+          and launches["flash_lse_fwd"] == launches["flash_lse_bwd"] == 0,
+          "(b) the kernel path's launches or losses")
+    prof = profile_train(ff, x, y, steps=2,
+                         label="[moe] (b) two replayed steps")
+    per_step = check_replay_launches(
+        "[moe] (b) train", prof, 2,
+        dict(flash_attn_fwd=n_att, flash_attn_bwd=n_att, fused_adam=1))
+    graph_vs_eager(ff, x, y, MOE_GRAPH_STEPS, "[moe] (b)")
+
+    # the load-balance term in the objective: the loss at lambda_bal
+    # against the loss at 0 from one state, and the term recomputed from
+    # each layer's router probabilities
+    inputs, labels = ff._stage_inputs([x]), ff._stage_labels(y)
+    gates = []
+    real = Experts.forward_with_aux
+
+    def spy(self, params, args, ctx):
+        gates.append((args[1].detach().float(), self))
+        return real(self, params, args, ctx)
+
+    Experts.forward_with_aux = spy
+    try:
+        loss_on = float(ex.grads_of(ff.params, ff.state, inputs, labels)[0])
+    finally:
+        Experts.forward_with_aux = real
+    experts = [op for _, op in gates]
+    for op in experts:
+        op.lambda_bal = 0.0
+    try:
+        loss_off = float(ex.grads_of(ff.params, ff.state, inputs,
+                                     labels)[0])
+    finally:
+        for op in experts:
+            op.lambda_bal = MOE_ENC["lambda_bal"]
+    term = 0.0
+    for g, op in gates:
+        idx = torch.sort(g, dim=-1, descending=True,
+                         stable=True).indices[:, :op.k]
+        f = torch.zeros(op.n_experts, device=g.device).scatter_add_(
+            0, idx.reshape(-1), torch.ones(idx.numel(), device=g.device)
+        ) / idx.numel()
+        term += op.lambda_bal * op.n_experts * float((f * g.mean(0)).sum())
+    gap = abs((loss_on - loss_off) - term) / term
+    print(f"[moe] (b) the objective: loss at lambda_bal "
+          f"{MOE_ENC['lambda_bal']} {loss_on:.6f}, at 0 {loss_off:.6f}, "
+          f"difference {loss_on - loss_off:.6f} against the recomputed "
+          f"load-balance term {term:.6f} over {len(gates)} layers "
+          f"(relative gap {gap:.2e}, tol {MOE_AUX_RTOL})")
+    check(len(gates) == n_exp and term > 0 and gap <= MOE_AUX_RTOL,
+          "(b) the load-balance term is not the loss's difference")
+    del gates, experts, inputs, labels
+    kinds = prof[0] if prof else {}
+    busy_step = sum(kinds.values()) / 2
+    wall_step = prof[2] / 2 if prof else 0.0
+    del ff, ex
+    release()
+
+    # the plain path from the same weights: einsum core, plain Adam
+    plain, _ = build_moe_encoder(strategy_dir, "plain")
+    reset_launches()
+    plain_losses = []
+    for _ in range(1 + MOE_STEPS):
+        plain.fit(x, y, epochs=1, verbose=False)
+        plain_losses.append(plain._last_loss)
+    plain_launches = read_launches()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    print(f"[moe] (b) plain path losses "
+          + ", ".join(f"{v:.6f}" for v in plain_losses)
+          + f"; kernel path vs plain: worst {max(rel):.3e} relative (tol "
+          f"{TRAJECTORY_RTOL}); its launches {plain_launches}")
+    check(max(rel) <= TRAJECTORY_RTOL
+          and not any(plain_launches.values()),
+          "(b) the kernel path's losses leave the plain path's")
+    del plain
+    release()
+
+    # where a replayed step's device time goes
+    parts = moe_layer_parts_ms(mc)
+    layers = MOE_ENC["num_encoder_layers"]
+    attention = (kinds.get("flash_attn_fwd", 0.0)
+                 + kinds.get("flash_attn_bwd", 0.0)) / 2
+    split = {"attention kernels (K1, K2)": attention,
+             "dispatch/combine einsums": layers * parts[
+                 "dispatch/combine einsums"],
+             "dispatch build": layers * parts["dispatch build"],
+             "expert FFN": layers * parts["expert FFN"]}
+    split["the rest"] = busy_step - sum(split.values())
+    print(f"[moe] (b) a replayed step: wall {wall_step:.3f} ms, device busy "
+          f"{busy_step:.3f} ms; by part (attention by name from the "
+          f"profile, the MoE parts x{layers} layers timed apart, the rest "
+          f"the difference): "
+          + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy_step:.1f}%)"
+                      for k, v in split.items()) + f" ({card})")
+    out.update(train=launches, replay=per_step, step_p50_ms=p50 * 1e3,
+               peak_gib=peak, split=split, serve_replay=per_serve)
+
+    # ---- (c) the fflint reports of the two MoE zoo models ---------------
+    for m, d in sorted(fflint_moe.items()):
+        print(f"[moe] (c) fflint --model {m} --json ([lint] (4)): mesh "
+              f"{d['context']['mesh_axes']}, {d['context']['num_ops']} ops, "
+              f"{d['counts']}")
+        check(d["context"]["mesh_axes"] == {"data": 1}
+              and d["counts"]["error"] == 0, f"(c) fflint {m}")
+    check(sorted(fflint_moe) == ["moe", "moe_encoder"],
+          f"(c) the MoE reports {sorted(fflint_moe)}")
+    return out
+
+
+# [loop]: the phase's budget on the card, printed beside its [time] line
+LOOP_BUDGET_S = 60.0
+LOOP_BATCHES = 4      # the staged dataset, in batches of the BERT-proxy's
+LOOP_RESUME = dict(num_layers=2)  # the resume leg's model (widths kept)
+LOOP_SEQS = (256, 100)  # seq_length of the bucketed loop: buckets 256, 128
+LOOP_BUCKET_STEPS = 2
+
+
+def h2d_bytes(fn):
+    """(bytes, copies) that a call of ``fn`` moved host to device, from
+    the profiler's memcpy events (their ``bytes``): the session opens
+    with LEAD_IN_CALLS calls (``profile_steps``) and counts the copies
+    that start after MEASURED_RANGE opens around the measured call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        with record_function(MEASURED_RANGE):
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="ff_h2d_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    opened = [e["ts"] for e in events if e.get("name") == MEASURED_RANGE
+              and e.get("cat") == "user_annotation"]
+    check(len(opened) == 1, f"the H2D profile holds {len(opened)} measured "
+                            f"ranges, want 1")
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "") and e["ts"] >= opened[0]]
+    return sum(int((e.get("args") or {}).get("bytes", 0))
+               for e in copies), len(copies)
+
+
+def loop_data(cfg, batches, seed):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    n = batches * cfg.batch_size
+    return (rs.randn(n, cfg.seq_length, cfg.hidden_size).astype(np.float32),
+            rs.randn(n, cfg.seq_length, 1).astype(np.float32))
+
+
+def phase_loop(strategy_dir):
+    """[loop] ``fit_loader`` (``dataloader.py``) and the sequence-length
+    buckets on the card. (1) The full-width BERT-proxy through the
+    kernel path's strategy file (K1, K2, K4): ``fit`` and, from the same
+    seed, ``fit_loader`` over the same LOOP_BATCHES batches, 2 epochs:
+    the losses and every leaf bit-equal, the launches equal; the
+    host-to-device bytes of a steady-state epoch of each, by the
+    profiler's memcpy events (``fit_loader``: 0). (2) The resume: the
+    model at LOOP_RESUME's depth, 3-batch epochs, saves every 2 steps,
+    cut after the step-2 save; a fresh model resumes through
+    ``on_resume``: one seek to batch 2, the 4 uncovered batches fetched,
+    the losses and leaves of the uninterrupted run. (3) The ``set_batch``
+    / ``forward(seq_length)`` / ``backward`` / ``update`` loop at
+    LOOP_SEQS on (1)'s trained model: the bucket each length runs, its
+    attention core, K1/K2 12 a step, each step's loss against the plain
+    path's (the einsum core and plain Adam from the same state) within
+    TRAJECTORY_RTOL."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import create_data_loaders
+    from flexflow_tpu_torch.ckpt.manifest import list_steps
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+
+    card = nvidia_smi_line()
+    out = {}
+    cfg = TransformerConfig()
+    x, y = loop_data(cfg, LOOP_BATCHES, seed=3)
+
+    # ---- (1) fit_loader against fit -------------------------------------
+    a = compile_for_training(cfg, strategy_dir)
+    reset_launches()
+    a.fit(x, y, epochs=2, verbose=False)
+    fit_launches = read_launches()
+    fit_losses = list(a.epoch_losses)
+    want = [t.clone() for t in flatten_leaves((a.params, a.opt_state,
+                                               a.state))]
+    t0 = time.perf_counter()
+    fit_h2d = h2d_bytes(lambda: a.fit(x, y, epochs=1, verbose=False))
+    want_h2d = x[:cfg.batch_size].nbytes + y[:cfg.batch_size].nbytes
+    fit_epoch_s = time.perf_counter() - t0
+    del a
+    release()
+    b = compile_for_training(cfg, strategy_dir)
+    loaders = create_data_loaders(b, x, y)
+    on_card = all(l.on_device for l in loaders.input_loaders
+                  + [loaders.label_loader])
+    reset_launches()
+    b.fit_loader(loaders, epochs=2, verbose=False)
+    loader_launches = read_launches()
+    loader_losses = list(b.epoch_losses)
+    got = flatten_leaves((b.params, b.opt_state, b.state))
+    differ = sum(1 for u, w in zip(got, want) if not torch.equal(u, w))
+    n_leaves = len(got)
+    t0 = time.perf_counter()
+    loader_h2d = h2d_bytes(lambda: b.fit_loader(loaders, epochs=1,
+                                                verbose=False))
+    loader_epoch_s = time.perf_counter() - t0
+    del want, got
+    print(f"[loop] (1) full-width BERT-proxy, {LOOP_BATCHES} batches x 2 "
+          f"epochs: fit losses {fit_losses}, fit_loader {loader_losses}; "
+          f"{differ} of {n_leaves} leaves differ (want 0); launches fit "
+          f"{fit_launches}, "
+          f"fit_loader {loader_launches}; the dataset staged on the card "
+          f"{on_card}; host-to-device a steady-state step: fit "
+          f"{fit_h2d[0] / LOOP_BATCHES:.0f} bytes in "
+          f"{fit_h2d[1] / LOOP_BATCHES:.1f} copies (x and y: {want_h2d}), "
+          f"fit_loader "
+          f"{loader_h2d[0] / LOOP_BATCHES:.0f} bytes in "
+          f"{loader_h2d[1] / LOOP_BATCHES:.1f} copies (want 0); the "
+          f"profiled calls {fit_epoch_s:.3f} / {loader_epoch_s:.3f} s "
+          f"({card})")
+    check(fit_losses == loader_losses and differ == 0
+          and fit_launches == loader_launches
+          and fit_launches["flash_attn_fwd"] == 12 * 2 * LOOP_BATCHES
+          and fit_launches["fused_adam"] == 2 * LOOP_BATCHES,
+          "(1) fit_loader is not fit on the same batches")
+    check(on_card and loader_h2d == (0, 0)
+          and fit_h2d[0] >= want_h2d * LOOP_BATCHES,
+          "(1) fit_loader moved host bytes to the card in steady state")
+    out.update(launches=loader_launches, h2d_step=loader_h2d[0]
+               / LOOP_BATCHES, fit_h2d_step=fit_h2d[0] / LOOP_BATCHES)
+
+    # ---- (3) the bucketed loop on (1)'s trained model -------------------
+    # the plain path through a strategy file, so that its buckets, made
+    # from the strategy, keep the einsum core too
+    plain = compile_for_training(cfg, strategy_dir,
+                                 choice_of=moe_choice("plain"))
+    with torch.no_grad():
+        for s, d in ((b.params, plain.params), (b.state, plain.state)):
+            for u, w in zip(flatten_leaves(s), flatten_leaves(d)):
+                w.copy_(u)
+        for u, w in zip(flatten_leaves(b.opt_state),
+                        flatten_leaves(plain.opt_state)):
+            w.copy_(u.to(w.dtype))
+    xb, yb = x[:cfg.batch_size], y[:cfg.batch_size]
+    bucket_launches = dict.fromkeys(read_launches(), 0)
+    for seq in LOOP_SEQS:
+        bucket = b._seq_bucket(seq)
+        rows = []
+        for ff in (b, plain):
+            reset_launches()
+            losses = []
+            for _ in range(LOOP_BUCKET_STEPS):
+                ff.set_batch(xb, yb)
+                ff.forward(seq_length=seq)
+                ff.zero_gradients()
+                ff.backward()
+                ff.update()
+                losses.append(ff._last_loss)
+            rows.append((losses, read_launches()))
+        ex = b._seq_execs[bucket]
+        cores = sorted({b._selected_impl(n.op, ex.comp_mode)
+                        for n in ex.nodes
+                        if isinstance(n.op, MultiHeadAttention)})
+        (kl, kn), (pl, pn) = rows
+        rel = max(abs(u - w) / abs(w) for u, w in zip(kl, pl))
+        print(f"[loop] (3) seq_length {seq}: bucket {bucket}, attention "
+              f"core {cores}; kernel path losses {kl}, launches {kn}; "
+              f"plain path {pl}, launches {pn}; worst {rel:.3e} relative "
+              f"(tol {TRAJECTORY_RTOL})")
+        check(bucket is not None and bucket < cfg.seq_length
+              and cores == ["flash"]
+              and kn["flash_attn_fwd"] == 12 * LOOP_BUCKET_STEPS
+              and kn["flash_attn_bwd"] == 12 * LOOP_BUCKET_STEPS
+              and not pn["flash_attn_fwd"] and rel <= TRAJECTORY_RTOL,
+              f"(3) the bucket of seq_length {seq}")
+        for k, v in kn.items():
+            bucket_launches[k] += v
+    print(f"[loop] (3) bucket executors {sorted(b._seq_execs)}; "
+          f"{memory_line()}")
+    out["bucket_launches"] = bucket_launches
+    del b, plain, loaders
+    release()
+
+    # ---- (2) the resume through on_resume --------------------------------
+    cfg2 = TransformerConfig(**LOOP_RESUME)
+    x2, y2 = loop_data(cfg2, 3, seed=5)
+    ref = compile_for_training(cfg2, strategy_dir)
+    ref.fit_loader(create_data_loaders(ref, x2, y2), epochs=2,
+                   verbose=False)
+    want = [t.clone() for t in flatten_leaves((ref.params, ref.opt_state,
+                                               ref.state))]
+    ref_losses = list(ref.epoch_losses)
+    del ref
+    ck = os.path.join(strategy_dir, "loop_ckpt")
+    cut = compile_for_training(cfg2, strategy_dir)
+    cut.fit_loader(create_data_loaders(cut, x2, y2), epochs=2,
+                   verbose=False, checkpoint_dir=ck, checkpoint_every=2)
+    del cut
+    for step, path, _ in list_steps(ck):
+        if step > 2:
+            shutil.rmtree(path)
+    res = compile_for_training(cfg2, strategy_dir)
+    loaders = create_data_loaders(res, x2, y2)
+    fetches, seeks = [], []
+    fetch, seek = loaders.next_batch, loaders.seek
+    loaders.next_batch = lambda: (fetches.append(1), fetch())[1]
+    loaders.seek = lambda i: (seeks.append(i), seek(i))[1]
+    res.fit_loader(loaders, epochs=2, verbose=False, checkpoint_dir=ck,
+                   resume=True)
+    got = flatten_leaves((res.params, res.opt_state, res.state))
+    differ = sum(1 for u, w in zip(got, want) if not torch.equal(u, w))
+    print(f"[loop] (2) resume at {LOOP_RESUME}: seeks {seeks} (want [2]), "
+          f"{len(fetches)} batches fetched (want 4), losses "
+          f"{list(res.epoch_losses)} against the uninterrupted run's "
+          f"{ref_losses}; {differ} of {len(want)} leaves differ")
+    check(seeks == [2] and len(fetches) == 4 and differ == 0
+          and res.epoch_losses == ref_losses,
+          "(2) the resumed fit_loader did not land on the right batch")
+    del res, loaders, got, want
+    shutil.rmtree(ck, ignore_errors=True)
+    release()
     return out
 
 
@@ -6805,6 +7495,19 @@ def fusion_model():
     b = ff.dense(t, 128, name="qb")
     ff.outputs = ff.add(a, b)
     return ff
+
+
+def budgeted_phase(label, budget_s, run_phase, fn, *args):
+    """``run_phase(label, fn, *args)``, then its time against ``budget_s``
+    as a ``[time]`` line; over the budget fails the run."""
+    t0 = time.perf_counter()
+    result = run_phase(label, fn, *args)
+    took = time.perf_counter() - t0
+    print(f"[time] {label} budget: {budget_s:.0f} s, used {took:.1f} s ("
+          + ("within" if took <= budget_s else "OVER") + " its budget)")
+    check(took <= budget_s,
+          f"[{label}] took {took:.1f} s, over its {budget_s:.0f} s budget")
+    return result
 
 
 def main(argv=None) -> int:
@@ -6891,6 +7594,10 @@ def main(argv=None) -> int:
             check(t_lint <= LINT_BUDGET_S,
                   f"[lint] took {t_lint:.1f} s, over its "
                   f"{LINT_BUDGET_S:.0f} s budget")
+            moe = budgeted_phase("moe", MOE_BUDGET_S, run_phase, phase_moe,
+                                 tmp, lint["fflint_moe"])
+            loop = budgeted_phase("loop", LOOP_BUDGET_S, run_phase,
+                                  phase_loop, tmp)
         print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -6915,7 +7622,11 @@ def main(argv=None) -> int:
         frontends_predict=frontends["serve_predict"],
         frontends_serve=frontends["serve"],
         frontends_train=frontends["train"]["flash_attn_fwd"],
-        lint_train=lint["launches"]["flash_attn_fwd"])
+        lint_train=lint["launches"]["flash_attn_fwd"],
+        moe_predict=moe["predict"]["launches"], moe_serve=moe["serve"],
+        moe_train=moe["train"]["flash_attn_fwd"],
+        loop_fit_loader=loop["launches"]["flash_attn_fwd"],
+        loop_buckets=loop["bucket_launches"]["flash_attn_fwd"])
     bwd["launches"] = train_b["flash_attn_bwd"]
     bwd["launches_by_path"] = dict(
         train_b=train_b["flash_attn_bwd"],
@@ -6928,7 +7639,10 @@ def main(argv=None) -> int:
         costmodel_corpus=costmodel["corpus_launches"]["flash_attn_bwd"],
         costmodel_learned=costmodel["learned_launches"]["flash_attn_bwd"],
         frontends_train=frontends["train"]["flash_attn_bwd"],
-        lint_train=lint["launches"]["flash_attn_bwd"])
+        lint_train=lint["launches"]["flash_attn_bwd"],
+        moe_train=moe["train"]["flash_attn_bwd"],
+        loop_fit_loader=loop["launches"]["flash_attn_bwd"],
+        loop_buckets=loop["bucket_launches"]["flash_attn_bwd"])
     bwd["llama_train"] = dict(
         llama_k2, launches=llama_train["plain"]["launches"]["flash_attn_bwd"])
     bwd_k3["launches"] = train_a["launches"]["flash_attn_bwd"]
@@ -6940,7 +7654,10 @@ def main(argv=None) -> int:
         ckpt_resume=ckpt["a"]["launches"]["fused_adam"],
         obs_traced=obs["traced"]["launches"]["fused_adam"],
         frontends_train=frontends["train"]["fused_adam"],
-        lint_train=lint["launches"]["fused_adam"])
+        lint_train=lint["launches"]["fused_adam"],
+        moe_train=moe["train"]["fused_adam"],
+        loop_fit_loader=loop["launches"]["fused_adam"],
+        loop_buckets=loop["bucket_launches"]["fused_adam"])
     adam["llama_train"] = llama_k4
     adam["launches_by_path"].update(
         {f"zoo_{n}": z["k4"]["launches"] for n, z in zoo.items()})
@@ -6972,19 +7689,24 @@ def main(argv=None) -> int:
         llama_train=llama_train["plain"]["replay"]["flash_attn_fwd"],
         llama_train_remat=llama_train["remat"]["replay"]["flash_attn_fwd"],
         frontends_train=frontends["replay"]["flash_attn_fwd"],
-        lint_train=lint["replay"]["flash_attn_fwd"])
+        lint_train=lint["replay"]["flash_attn_fwd"],
+        moe_predict=moe["predict"]["replay"]["flash_attn_fwd"],
+        moe_serve=moe["serve_replay"]["flash_attn_fwd"],
+        moe_train=moe["replay"]["flash_attn_fwd"])
     bwd["launches_a_replay_by_path"] = dict(
         train_b=graph["replay_launches"]["flash_attn_bwd"],
         llama_train=llama_train["plain"]["replay"]["flash_attn_bwd"],
         llama_train_remat=llama_train["remat"]["replay"]["flash_attn_bwd"],
         frontends_train=frontends["replay"]["flash_attn_bwd"],
-        lint_train=lint["replay"]["flash_attn_bwd"])
+        lint_train=lint["replay"]["flash_attn_bwd"],
+        moe_train=moe["replay"]["flash_attn_bwd"])
     adam["launches_a_replay_by_path"] = dict(
         train_b=graph["replay_launches"]["fused_adam"],
         llama_train=llama_train["plain"]["replay"]["fused_adam"],
         llama_train_remat=llama_train["remat"]["replay"]["fused_adam"],
         frontends_train=frontends["replay"]["fused_adam"],
-        lint_train=lint["replay"]["fused_adam"])
+        lint_train=lint["replay"]["fused_adam"],
+        moe_train=moe["replay"]["fused_adam"])
     fwd["llama_serve"] = llama_serve["k1"]
     bwd_k3["launches_a_replay"] = train_a["replay_launches"]["flash_attn_bwd"]
     print("[kernels] earlier times, not measured by this run (the mma.sync "

@@ -10,12 +10,11 @@ through ``set_batch`` / ``forward`` / ``zero_gradients`` / ``backward``
 ``--device cpu`` runs it on the CPU. Every ``FFConfig`` flag applies
 (``--budget``, ``--import-strategy``, ``--lint off|warn|error``, ...).
 
-The scripts are the JAX package's ``examples/`` ten: alexnet, candle_uno,
-dlrm, inception, llama_lm, mlp, resnet, resnext, transformer and xdl,
-each at the reference's config and flags. ``moe.py`` comes with the
-port's mixture-of-experts ops (ROADMAP.md Queue 1 item 9d) and
-``multihost_train.py`` with its multi-device and multi-host execution
-(items 3 and 13).
+The scripts are the JAX package's ``examples/`` eleven: alexnet,
+candle_uno, dlrm, inception, llama_lm, mlp, moe, resnet, resnext,
+transformer and xdl, each at the reference's config and flags.
+``multihost_train.py`` comes with the port's multi-device and multi-host
+execution (ROADMAP.md Queue 1 items 3 and 13).
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ models of the OSDI'22 protocol (DLRM, XDL, CANDLE-Uno, ResNeXt-50,
 Inception-v3) and the reference's ResNet-50 (with BatchNorm) and AlexNet,
 the conv family channels-last on the card (``layout.py``): ``FFModel``
 builds and
-compiles a model, ``fit`` trains it, ``serve()`` answers requests through
+compiles a model, ``fit`` trains it (``fit_loader`` from a dataset staged
+once on the card, ``dataloader.py``), ``serve()`` answers requests through
 the continuous-batching ``ServingEngine``, and the attention ops run
 hand-written CUDA flash-attention kernels (``ops/flash_attention.py``,
 ``csrc/``). Models written elsewhere come in through the frontends:
@@ -33,6 +34,8 @@ from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.tensor import Tensor
 from flexflow_tpu_torch.model import FFModel, resolve_device
+from flexflow_tpu_torch.dataloader import (DataLoaderSet, SingleDataLoader,
+                                           create_data_loaders)
 from flexflow_tpu_torch.analysis import (EdgeReshard, LintReport, Severity,
                                          edge_reshard_table, lint_model)
 from flexflow_tpu_torch.initializers import (ConstantInitializer,
@@ -46,6 +49,7 @@ __all__ = [
     "AggrMode",
     "CompMode",
     "ConstantInitializer",
+    "DataLoaderSet",
     "DataType",
     "EdgeReshard",
     "FFConfig",
@@ -58,9 +62,11 @@ __all__ = [
     "OperatorType",
     "PoolType",
     "Severity",
+    "SingleDataLoader",
     "Tensor",
     "UniformInitializer",
     "ZeroInitializer",
+    "create_data_loaders",
     "edge_reshard_table",
     "lint_model",
     "resolve_device",

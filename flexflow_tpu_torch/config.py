@@ -12,7 +12,10 @@ observability flags are the reference's: ``--search-measure-ops`` and
 ``search/profile.py``), ``--profiling`` (the per-op table at compile),
 ``--trace-dir`` and ``--profile-steps`` (``obs/``), the window checked
 when it is parsed; ``--lint off|warn|error`` runs the fflint static
-verifier at compile (``analysis/``).
+verifier at compile (``analysis/``);
+``--export-strategy-computation-graph PATH`` (the original FlexFlow's
+``--compgraph``) writes the compiled strategy's Graphviz file, with each
+op's FLOPs under ``--include-costs-dot-graph``.
 """
 
 from __future__ import annotations
@@ -178,6 +181,10 @@ class FFConfig:
                 self.export_strategy_file = take()
             elif a in ("--import-strategy", "--import"):
                 self.import_strategy_file = take()
+            elif a in ("--export-strategy-computation-graph", "--compgraph"):
+                self.export_strategy_computation_graph_file = take()
+            elif a == "--include-costs-dot-graph":
+                self.include_costs_dot_graph = True
             elif a == "--machine-model-version":
                 self.machine_model_version = int(take())
             elif a == "--machine-model-file":

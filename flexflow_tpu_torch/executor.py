@@ -26,15 +26,22 @@ regime: the gradients of the bf16 compute copy), updates the f32 master
 parameters and the optimizer state, then re-derives the compute copy from
 the new parameters: the JAX step's order. Ops whose strategy choice is
 ``_k:fused`` update through the fused pass (``ops/fused_update.py``).
+An op may emit an auxiliary loss beside its outputs (``forward_with_aux``:
+the MoE load-balance loss): ``run_graph`` returns the terms it collected,
+the train step adds them to the loss it differentiates, and the eval step
+leaves them out, as the JAX package's steps do. They travel as return
+values, never as an attribute set on the op, which a CUDA-graph capture
+would freeze at the captured tensor.
 A mesh reaches the ops through ``OpContext.mesh``: one process runs a
 mesh whose one axis above 1 is ring attention's sequence axis, every ring
 position on this device. Sharding comes with a later slice.
 
-Op state (BatchNorm's running statistics, f32) is ``state[op name]``
-beside the compute copy: the train step returns it moved, the eval and
-forward steps read it. It is never cast, differentiated or updated by
-the optimizer. Eval, forward and ``predict`` run the node list with
-every eligible Conv2D -> BatchNorm pair folded into one convolution
+Op state (BatchNorm's running statistics, Cache's last input, f32) is
+``state[op name]`` beside the compute copy: the train step returns it
+moved, the eval and forward steps read it. It is never cast,
+differentiated or updated by the optimizer. Eval, forward and
+``predict`` run the node list with every eligible Conv2D -> BatchNorm
+pair folded into one convolution
 (``layout.fold_conv_bn``; ``fold_conv_bn=False`` runs the full graph);
 the train step runs the full graph, with the pairs whose conv chose
 ``_k:conv_bn_fused`` as one node (``layout.fuse_conv_bn_train``). Values
@@ -300,11 +307,13 @@ class GraphExecutor:
     def run_graph(self, params, inputs: Dict[str, torch.Tensor],
                   ctx: OpContext, state=None, nodes=None, master=None):
         """Evaluate ``nodes`` (default: the full graph) in topo order ->
-        (values, new op state): the model output keyed by (producer guid,
-        output index), ``final_ref``, in NCHW; and ``{op name: state}``
-        for each op whose state moved. Stateful ops read ``state``; a
-        node standing for several ops (a folded or fused Conv+BN) reads
-        their parameters and state under their own names, the eval fold
+        (values, new op state, auxiliary losses): the model output keyed
+        by (producer guid, output index), ``final_ref``, in NCHW;
+        ``{op name: state}`` for each op whose state moved; and the
+        scalar terms the ops emitted (``forward_with_aux``), in graph
+        order. Stateful ops read ``state``; a node standing for several
+        ops (a folded or fused Conv+BN) reads their parameters and state
+        under their own names, the eval fold
         from ``master`` (the f32 parameters) where given. Each op output
         is dropped once its last consumer has run (``drop_schedule``),
         with its layout conversions, so the walk holds the values still
@@ -321,6 +330,7 @@ class GraphExecutor:
         values: Dict[Tuple[int, int], torch.Tensor] = {}
         relayout: Dict[Tuple, torch.Tensor] = {}
         new_state: Dict[str, Any] = {}
+        aux_losses: List[torch.Tensor] = []
 
         def fetch(ref, want):
             if ref[0] == "op":
@@ -355,6 +365,11 @@ class GraphExecutor:
                     params.get(op.name, {}), args, ctx, state.get(op.name))
                 if moved is not None:
                     new_state[op.name] = moved
+            elif hasattr(op, "forward_with_aux"):
+                outs, aux = op.forward_with_aux(params.get(op.name, {}),
+                                                args, ctx)
+                if aux is not None:
+                    aux_losses.append(aux)
             else:
                 outs = self._op_forward(op, params.get(op.name, {}), args,
                                         ctx)
@@ -367,7 +382,7 @@ class GraphExecutor:
                     relayout.pop((("op",) + key, want), None)
         if layout_of.get(self.final_ref, NCHW) != NCHW:
             values[self.final_ref] = to_layout(values[self.final_ref], NCHW)
-        return values, new_state
+        return values, new_state, aux_losses
 
     def _training_nodes(self):
         """The node list the train step runs: the (Conv2D, BatchNorm)
@@ -513,6 +528,14 @@ class GraphExecutor:
             return -torch.mean(torch.gather(logp, -1, lab[:, None]))
         return fn(logits, labels)
 
+    def _objective(self, logits, labels, aux_losses):
+        """The training objective: the loss plus every auxiliary term the
+        ops emitted, added in graph order (the JAX train step's sum)."""
+        loss = self._loss_value(logits, labels)
+        for a in aux_losses:
+            loss = loss + a
+        return loss
+
     def _optimizer_update(self, grads, opt_state, params):
         """Optimizer update honoring per-op ``_k:fused`` kernel choices:
         the chosen ops' leaves update through the fused pass
@@ -536,7 +559,8 @@ class GraphExecutor:
                 for op, sub in cparams.items()}
 
     def grads_of(self, params, state, inputs, labels, rng=None):
-        """One forward and backward: (loss, logits, grads). ``grads`` has
+        """One forward and backward: (loss, logits, grads); the loss
+        includes the ops' auxiliary terms (``_objective``). ``grads`` has
         the tree of ``params``, in the dtype of the tensors the forward
         read (the compute copy's, under the master-weight regime), every
         leaf contiguous. The leaves the autograd graph starts from are
@@ -551,10 +575,10 @@ class GraphExecutor:
                 if t.requires_grad]
         ctx = self._ctx(True, rng)
         with torch.enable_grad():
-            values, new_state = self.run_graph(leaves, inputs, ctx, state,
-                                               self._training_nodes())
+            values, new_state, aux = self.run_graph(
+                leaves, inputs, ctx, state, self._training_nodes())
             logits = values[self.final_ref]
-            loss = self._loss_value(logits, labels)
+            loss = self._objective(logits, labels, aux)
             # a model without trainable leaves (a parameter-free graph)
             # takes an empty update, as the reference's grad of {} does
             got = (torch.autograd.grad(
@@ -605,14 +629,15 @@ class GraphExecutor:
         self._op_forward = tagged
         try:
             with torch.enable_grad(), saved_tensors_hooks(pack, lambda t: t):
-                logits = self.run_graph(
+                values, _, aux = self.run_graph(
                     leaves, inputs, self._ctx(True, rng), state,
-                    self._training_nodes())[0][self.final_ref]
+                    self._training_nodes())
+                logits = values[self.final_ref]
                 current[0] = "loss"
-                loss = self._loss_value(logits, labels)
+                loss = self._objective(logits, labels, aux)
         finally:
             del self._op_forward
-        del loss, logits
+        del loss, logits, values, aux
         return by_op
 
     def _train_step_fn(self):

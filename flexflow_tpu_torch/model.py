@@ -26,7 +26,10 @@ checkpoint in training (remat: the executor's ``remat_ops``), and a
 layout pass (``layout.propagate_layouts``: the conv family channels-last
 on the card under ``conv_compute_layout="auto"``); then, under
 ``lint="warn"|"error"`` (``--lint``), the fflint static verifier
-(``analysis/``) over the planned model, before anything is allocated.
+(``analysis/``) over the planned model, before anything is allocated;
+then the strategy's Graphviz file where
+``export_strategy_computation_graph_file`` (``--compgraph``) names one
+(``utils/dot.py``).
 The port executes on one device, and a compile prices and lays out one
 device unless ``workers_per_node`` asks for more: a strategy whose mesh
 needs more than one (a mesh axis above 1 other than a ring-attention
@@ -97,6 +100,10 @@ class FFModel:
         self._last_loss: Optional[float] = None
         # the batch set_batch staged for update: (host inputs, labels)
         self._current_batch = None
+        # the iteration's seq_length (forward/backward) and the bucket
+        # executors it runs ({bucket length: GraphExecutor})
+        self._iter_seq: Optional[int] = None
+        self._seq_execs: Dict[int, GraphExecutor] = {}
         # the last step's loss of each epoch fit ran (one host read each)
         self.epoch_losses: List[float] = []
         self._used_names = set()
@@ -390,6 +397,76 @@ class FFModel:
                                 name)
         return self._finish(layer)
 
+    # ---- mixture of experts (ops/moe.py, ops/experts.py) ------------------
+    def group_by(self, input: Tensor, assign: Tensor, n: int,
+                 alpha: float = 1.0, name=None):
+        layer = self._add_layer(OperatorType.GROUP_BY, [input, assign],
+                                dict(n=n, alpha=alpha), name)
+        return self._finish(layer)
+
+    def aggregate(self, inputs: Sequence[Tensor], n: int,
+                  lambda_bal: float = 0.0, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.AGGREGATE, list(inputs),
+                                dict(n=n, lambda_bal=lambda_bal), name)
+        return self._finish(layer)
+
+    def aggregate_spec(self, inputs: Sequence[Tensor], n: int,
+                       lambda_bal: float = 0.0, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.AGGREGATE_SPEC, list(inputs),
+                                dict(n=n, lambda_bal=lambda_bal), name)
+        return self._finish(layer)
+
+    def cache(self, input: Tensor, num_batches: int = 1, score_fn=None,
+              name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.CACHE, [input],
+                                dict(num_batches=num_batches,
+                                     score_fn=score_fn), name)
+        return self._finish(layer)
+
+    def experts(self, input: Tensor, gate: Tensor, n: int, k: int,
+                hidden_size: int, alpha: float = 2.0,
+                lambda_bal: float = 0.0, expert_parallel=None,
+                name=None) -> Tensor:
+        """Fused MoE experts op: top-k dispatch -> stacked expert FFN ->
+        gate-weighted combine (``ops/experts.py``)."""
+        layer = self._add_layer(
+            OperatorType.EXPERTS, [input, gate],
+            dict(n=n, k=k, hidden_size=hidden_size, alpha=alpha,
+                 lambda_bal=lambda_bal, expert_parallel=expert_parallel),
+            name)
+        return self._finish(layer)
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 2.0,
+            lambda_bal: float = 0.04, fused: bool = True, name=None) -> Tensor:
+        """MoE layer: softmax gate -> top-k -> group_by -> an expert's two
+        dense layers -> aggregate. ``fused=True`` runs dispatch, experts
+        and combine as the one Experts op (stacked ``[E, ...]`` weights);
+        ``fused=False`` builds the reference's literal subgraph (a dense
+        pair an expert). The two forms have different parameter trees."""
+        gate = self.dense(input, num_exp, name=f"{name or 'moe'}_gate")
+        gate = self.softmax(gate)
+        if fused:
+            return self.experts(input, gate, num_exp, num_select,
+                                expert_hidden_size, alpha, lambda_bal,
+                                name=f"{name or 'moe'}_experts")
+        topk_values, topk_assign = self.top_k(gate, num_select)
+        grouped = self.group_by(input, topk_assign, num_exp, alpha,
+                                name=f"{name or 'moe'}_group_by")
+        if num_exp == 1:
+            grouped = (grouped,)
+        expert_outs = []
+        for e in range(num_exp):
+            h = self.dense(grouped[e], expert_hidden_size,
+                           activation=ActiMode.AC_MODE_RELU,
+                           name=f"{name or 'moe'}_expert{e}_h")
+            o = self.dense(h, input.shape[-1],
+                           name=f"{name or 'moe'}_expert{e}_o")
+            expert_outs.append(o)
+        return self.aggregate(
+            [topk_values, topk_assign, topk_assign, gate] + expert_outs,
+            num_exp, lambda_bal, name=f"{name or 'moe'}_aggregate")
+
     # ======================= compile ========================================
     def _materialize_nodes(self, input_shape_overrides=None):
         """Layer -> Op materialization. With ``input_shape_overrides``
@@ -494,6 +571,12 @@ class FFModel:
                     f"fflint: {len(self.lint_report.errors)} error-"
                     f"severity diagnostic(s) — see report above "
                     f"(compile with lint='warn' to proceed anyway)")
+        if cfg.export_strategy_computation_graph_file:
+            from flexflow_tpu_torch.utils.dot import export_strategy_dot
+            export_strategy_dot(nodes, self.mesh,
+                                cfg.export_strategy_computation_graph_file,
+                                include_costs=cfg.include_costs_dot_graph,
+                                search_info=self.search_info)
         from flexflow_tpu_torch.parallel.strategy import check_executable
         check_executable(nodes, self.mesh)
 
@@ -653,9 +736,9 @@ class FFModel:
                      and self.mesh.shape.get("pipe", 1) == 1)
         # the specs and kernel choices are recorded on any mesh here;
         # compile refuses a mesh it cannot execute after the lint
+        self._kernel_mode = "all" if kernel_on else "off"
         self.kernel_choices = _record_strategy(
-            nodes, self.strategy, self.mesh,
-            kernels="all" if kernel_on else "off",
+            nodes, self.strategy, self.mesh, kernels=self._kernel_mode,
             training=comp_mode == CompMode.TRAINING, device=self.device)
         # remat: the ops whose "_r" choice won run under a checkpoint in
         # training; the off switch (--remat-search off / FFS_NO_REMAT) runs
@@ -689,6 +772,7 @@ class FFModel:
             weight_update_sharding=wus, wus_ops=wus_ops,
             overlap_grad_sync=overlap)
         self.executor.comp_mode = comp_mode
+        self._seq_execs = {}
         return nodes
 
     def _weight_update_sharding(self, nodes, comp_mode):
@@ -945,7 +1029,8 @@ class FFModel:
                          and tracer.active else None))
 
     def _make_checkpointer(self, checkpoint_dir, checkpoint_every, resume,
-                           heartbeat=None):
+                           run_name: str = "fit", heartbeat=None,
+                           state_provider=None):
         """(CheckpointManager, start step) for one fit call ((None, 0) when
         checkpointing is off). Explicit arguments win over the
         ``--checkpoint-*`` / ``--resume`` config flags. With resume on,
@@ -953,7 +1038,8 @@ class FFModel:
         partial ones raises) and the returned start step tells the epoch
         loop how many step slots to skip; an empty directory is a fresh
         launch, so one command line serves the first start and every
-        restart."""
+        restart. ``state_provider()`` gives the JSON-able client state
+        each manifest records (``fit_loader``'s loader cursor)."""
         cfg = self.config
         cdir = checkpoint_dir or cfg.checkpoint_dir
         do_resume = resume if resume is not None else cfg.resume
@@ -976,14 +1062,16 @@ class FFModel:
         mgr = CheckpointManager(self, cdir, every=every,
                                 retain=cfg.checkpoint_retain,
                                 async_write=cfg.checkpoint_async,
-                                heartbeat=heartbeat)
+                                run_name=run_name, heartbeat=heartbeat,
+                                state_provider=state_provider)
         start = mgr.resume() if do_resume else 0
         return mgr, start
 
     def _run_epochs(self, next_batch, num_batches: int, bs: int,
                     epochs: int, verbose: bool, ckpt_mgr=None,
                     start_step: int = 0, health=None, tracer=None,
-                    devtrace=None) -> float:
+                    devtrace=None, on_epoch_start=None,
+                    on_resume=None) -> float:
         """Epoch loop: one compiled train step per batch (a CUDA-graph
         replay on the card), metric sums added up on the device and read
         once per epoch, the ELAPSED TIME / THROUGHPUT report.
@@ -996,9 +1084,13 @@ class FFModel:
         ``start_step``: the first ``start_step`` step slots of the epoch
         grid are skipped at no cost, the slots the checkpoint covers, so
         epochs and batch indices line up with the uninterrupted schedule.
-        After each step ``faults.step_hook`` runs (``FFS_FAULT``), and
-        ``health`` (``runtime_health.RuntimeHealth``) takes the watchdog
-        heartbeat and the preemption check: a pending SIGTERM raises
+        ``on_epoch_start()`` runs before each epoch, and a resumed run
+        calls ``on_resume(start_step)`` once, right before its first step:
+        ``fit_loader`` resets its loaders there and seeks them to the
+        first batch the checkpoint does not cover, fetching none of the
+        covered ones. After each step ``faults.step_hook`` runs
+        (``FFS_FAULT``), and ``health`` (``runtime_health.RuntimeHealth``)
+        takes the watchdog heartbeat and the preemption check: a pending SIGTERM raises
         ``Preempted`` after the in-flight step, and this loop cuts the
         grace-window checkpoint before it propagates. Steps that neither
         save nor stop read nothing from the card.
@@ -1044,6 +1136,8 @@ class FFModel:
         executed = 0
         step_idx = -1  # the global step slot, the --profile-steps index
         for epoch in range(epochs):
+            if on_epoch_start is not None:
+                on_epoch_start()
             self._metrics_acc = PerfMetrics()
             mtotals = None
             loss = None
@@ -1053,6 +1147,10 @@ class FFModel:
                 step_idx += 1
                 if step_idx < start_step:
                     continue  # inside the restored checkpoint
+                if step_idx == start_step and start_step and on_resume:
+                    # after this epoch's on_epoch_start, before the first
+                    # fetch of the resumed run
+                    on_resume(start_step)
                 # devtrace outside tracer.step: the profiler's start and
                 # stop at the window's edges are not step time
                 with devtrace.step(step_idx), tracer.step():
@@ -1210,6 +1308,62 @@ class FFModel:
         self._finalize_trace(tracer, devtrace=devtrace)
         return out
 
+    def fit_loader(self, loaders, epochs: Optional[int] = None,
+                   verbose: bool = True, trace_dir: Optional[str] = None,
+                   profile_steps: Optional[str] = None,
+                   checkpoint_dir: Optional[str] = None,
+                   checkpoint_every: Optional[int] = None,
+                   resume: Optional[bool] = None) -> float:
+        """``fit`` over staged loaders (``dataloader.DataLoaderSet``):
+        each step takes its batch as a slice of the staged dataset, copied
+        into the compiled step's static feeds on the device, so a
+        steady-state step moves no host bytes to the card. The loaders
+        reset at each epoch; every checkpoint's manifest records their
+        cursor (``client_state["loader"]``), and a resume seeks them once
+        to the first batch the checkpoint does not cover. The tracer,
+        health and checkpoint arguments are ``fit``'s."""
+        if self.executor is None:
+            raise ValueError("compile() the model before fit_loader()")
+        epochs = epochs or self.config.epochs
+        bs = loaders.input_loaders[0].batch_size
+        tracer = self._make_tracer(trace_dir, "fit")
+        devtrace = self._make_capture(tracer, profile_steps)
+
+        def next_batch(epoch, b):
+            with tracer.phase("data_load"):
+                return loaders.next_batch()
+
+        def cursor():
+            nb = loaders.num_batches
+            return dict(loader=dict(iteration=int(self._iter),
+                                    epoch=int(self._iter // nb),
+                                    batch=int(self._iter % nb),
+                                    num_batches=int(nb)))
+
+        run_name = tracer.run_name if tracer.active else "fit"
+        health = self._make_health(tracer, devtrace, run_name=run_name)
+        try:
+            if health is not None:
+                health.install()
+            ckpt_mgr, start_step = self._make_checkpointer(
+                checkpoint_dir, checkpoint_every, resume, run_name=run_name,
+                heartbeat=health.heartbeat if health is not None else None,
+                state_provider=cursor)
+            out = self._run_epochs(
+                next_batch, loaders.num_batches, bs, epochs, verbose,
+                ckpt_mgr=ckpt_mgr, start_step=start_step, health=health,
+                tracer=tracer, devtrace=devtrace,
+                on_epoch_start=loaders.reset,
+                on_resume=lambda s: loaders.seek(s % loaders.num_batches))
+        except BaseException:
+            self._finalize_trace(tracer, success=False, devtrace=devtrace)
+            raise
+        finally:
+            if health is not None:
+                health.close()
+        self._finalize_trace(tracer, devtrace=devtrace)
+        return out
+
     def evaluate(self, x=None, y=None, batch_size: Optional[int] = None,
                  trace_dir: Optional[str] = None) -> Dict[str, float]:
         """Loss and metrics over the dataset -> {metric: mean, "loss":
@@ -1253,43 +1407,162 @@ class FFModel:
     # ======================= the reference's step-by-step loop ============
     # set_batch; forward; zero_gradients; backward; update: the original
     # FlexFlow's training loop, as the JAX package keeps it. forward and
-    # backward only mark the step; update runs one whole compiled train
-    # step (fit's) on the staged batch.
+    # backward only mark the step (and its seq_length); update runs one
+    # whole compiled train step (fit's) on the staged batch. A seq_length
+    # below the model's sequence extent runs a BUCKET executor: the same
+    # layer graph materialized at the next power-of-two length, so every
+    # op skips the compute past the active length under a bounded set of
+    # captured shapes.
     def set_batch(self, x, y) -> None:
         if self.executor is None:
             raise ValueError("compile() the model before set_batch()")
         self._current_batch = (self._host_inputs(x), np.asarray(y))
 
-    def _check_seq_length(self, seq_length: Optional[int]) -> None:
-        """A ``seq_length`` below the model's sequence extent runs, in the
-        JAX package, a bucket executor at a shorter length; the port runs
-        full-length steps only (ROADMAP.md Queue 1 item 8)."""
-        declared = self._declared_seq() if seq_length else None
-        if declared is not None and seq_length < declared:
-            raise NotImplementedError(
-                f"seq_length={seq_length} below the model's {declared}: "
-                f"sequence-length buckets come with a later slice of the "
-                f"PyTorch port (ROADMAP.md Queue 1 item 8)")
-
     def forward(self, seq_length: Optional[int] = None) -> None:
+        """Mark the step; ``seq_length`` below the model's sequence extent
+        makes ``update`` run the bucket executor (``_seq_bucket``)."""
         if self._current_batch is None:
             raise ValueError("call set_batch(x, y) before forward()")
-        self._check_seq_length(seq_length)
+        self._iter_seq = seq_length
 
     def zero_gradients(self) -> None:
         """Nothing to clear: every step takes fresh gradients."""
 
     def backward(self, seq_length: Optional[int] = None) -> None:
-        self._check_seq_length(seq_length)
+        if seq_length is not None:
+            self._iter_seq = seq_length
+
+    def _seq_bucket(self, seq_length: Optional[int]) -> Optional[int]:
+        """The bucketed static length of an iteration's ``seq_length``:
+        the next power of two (at least 16), or None where the
+        full-length step applies (no or a full ``seq_length``, no single
+        sequence extent, a graph the search rewrote, a bucket as long as
+        the model, or no input carrying the sequence at dim 1)."""
+        declared = self._declared_seq()
+        if not seq_length or declared is None or seq_length >= declared:
+            return None
+        if isinstance(self.search_info, dict) \
+                and self.search_info.get("rewritten_nodes") is not None:
+            return None  # the strategy is keyed to the rewritten graph
+        if type(self.executor) is not GraphExecutor:
+            return None
+        if not any(len(layer.outputs[0].shape) >= 2
+                   and layer.outputs[0].shape[1] == declared
+                   for layer in self.layers
+                   if layer.op_type == OperatorType.INPUT):
+            return None
+        b = 16
+        while b < seq_length:
+            b *= 2
+        return b if b < declared else None
+
+    def _bucket_executor(self, bucket: int) -> GraphExecutor:
+        """The executor of the layer graph materialized at ``bucket``
+        sequence length, made once a bucket. It shares the parameters,
+        the optimizer state and the op state with the full-length
+        executor (layer names and guids are stable, and no parameter
+        shape depends on the sequence extent) and has its own compiled
+        steps. Raises NotImplementedError for an input carrying the
+        sequence extent on more than one dim, and for an op whose
+        parameter shape changes at the bucket."""
+        ex = self._seq_execs.get(bucket)
+        if ex is not None:
+            return ex
+        from flexflow_tpu_torch.parallel.strategy import _record_strategy
+        declared = self._declared_seq()
+        overrides = {}
+        for layer in self.layers:
+            if layer.op_type != OperatorType.INPUT:
+                continue
+            shp = list(layer.outputs[0].shape)
+            if sum(1 for e in shp[1:] if e == declared) > 1:
+                raise NotImplementedError(
+                    f"seq_length buckets: input '{layer.name}' shape "
+                    f"{tuple(shp)} carries the sequence extent on more "
+                    f"than one dim (e.g. an [B,S,S] mask): ambiguous to "
+                    f"slice")
+            if len(shp) >= 2 and shp[1] == declared:
+                shp[1] = bucket
+                overrides[layer.name] = tuple(shp)
+        nodes, input_names, tensor_ref = self._materialize_nodes(overrides)
+        final_ref = self._select_final_ref(nodes, tensor_ref)
+        full = self.executor
+        full_by_guid = {n.op.guid: n.op for n in full.nodes}
+
+        def shapes(op):
+            try:
+                return {k: tuple(v) for k, v in op.param_shapes().items()}
+            except Exception:
+                return None
+
+        for n in nodes:
+            ref_op = full_by_guid.get(n.op.guid)
+            if ref_op is None:
+                continue
+            mine, ref = shapes(n.op), shapes(ref_op)
+            mismatch = (ref_op.params_elems() != n.op.params_elems()
+                        if mine is None or ref is None else mine != ref)
+            if mismatch:
+                raise NotImplementedError(
+                    f"seq_length buckets: op '{n.op.name}' changes "
+                    f"parameter shape at the bucketed length: an input "
+                    f"whose dim 1 coincides with the sequence extent is "
+                    f"not a sequence; run full-length instead")
+        training = full.comp_mode == CompMode.TRAINING
+        _record_strategy(nodes, self.strategy, self.mesh,
+                         kernels=self._kernel_mode, training=training,
+                         device=self.device)
+        propagate_layouts(nodes, mode=self.config.conv_compute_layout,
+                          on_accelerator=self.device.type == "cuda")
+        ex = GraphExecutor(
+            nodes, input_names, final_ref, self.device,
+            compute_dtype=full.compute_dtype, loss_type=full.loss_type,
+            metrics=full.metrics, optimizer=full.optimizer,
+            final_is_softmax=full.final_is_softmax,
+            kernel_choices=full.kernel_choices, mesh=full.mesh,
+            remat_ops=full.remat_ops, fold_conv_bn=full.fold_conv_bn,
+            weight_update_sharding=full.weight_update_sharding,
+            wus_ops=full.wus_ops, overlap_grad_sync=full.grad_overlap)
+        ex.comp_mode = full.comp_mode
+        self._seq_execs[bucket] = ex
+        return ex
+
+    def _slice_seq(self, arr, bucket: int):
+        """``arr`` cut to ``bucket`` along dim 1 where dim 1 is the
+        model's sequence extent; else as it is."""
+        declared = self._declared_seq()
+        if arr.ndim >= 2 and arr.shape[1] == declared:
+            return arr[:, :bucket]
+        return arr
+
+    def _final_output_has_seq(self) -> bool:
+        """Whether the model output carries a SEQ dim (a token-level
+        model: its labels slice with the sequence; a pooled head keeps
+        them whole)."""
+        from flexflow_tpu_torch.ops.base import DimRole
+        guid, idx = self.executor.final_ref
+        node = next(n for n in self.executor.nodes if n.op.guid == guid)
+        return DimRole.SEQ in node.op.output_dim_roles()[idx]
 
     def update(self) -> None:
         """One compiled train step on the staged batch: parameters,
         optimizer state, ``_last_loss`` and ``_last_metrics`` (the step's
-        metric sums) as ``fit``'s step leaves them."""
+        metric sums) as ``fit``'s step leaves them. Under a shorter
+        ``seq_length`` the step is the bucket executor's, on the batch
+        cut to the bucket (the labels too where the output carries the
+        sequence)."""
         if self._current_batch is None:
             raise ValueError("call set_batch(x, y) before update()")
         inputs, labels = self._current_batch
-        train_step = self.executor.make_train_step()
+        ex = self.executor
+        bucket = self._seq_bucket(self._iter_seq)
+        if bucket is not None:
+            ex = self._bucket_executor(bucket)
+            inputs = {k: self._slice_seq(v, bucket)
+                      for k, v in inputs.items()}
+            if self._final_output_has_seq():
+                labels = self._slice_seq(labels, bucket)
+        train_step = ex.make_train_step()
         self._refresh_compute_params()
         (self.params, self.opt_state, self.state, loss,
          mvals) = train_step(self.params, self.opt_state, self.state,

@@ -132,7 +132,8 @@ class OpRegistry:
                 f"(it ports LINEAR, EMBEDDING, LAYERNORM, RMSNORM, "
                 f"GROUPNORM, BATCHNORM, DROPOUT, MULTIHEAD_ATTENTION, "
                 f"SOFTMAX, CONV2D, POOL2D, FLAT, BATCHMATMUL, the shape, "
-                f"reduction and top-k ops and the elementwise kinds; "
+                f"reduction and top-k ops, the elementwise kinds and the "
+                f"mixture-of-experts ops; "
                 f"ROADMAP.md lists the rest)")
         return cls._by_type[layer.op_type](layer, input_shapes)
 

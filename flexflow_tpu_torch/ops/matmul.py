@@ -5,10 +5,10 @@ b [..., K, N]`` with numpy broadcasting over the leading dims, as
 ``torch.matmul`` in the compute dtype (cuBLAS on the card, f32
 accumulation), the result in the first input's dtype, as
 ``ops/linear.py`` computes its product. ``a_seq_length_dim`` /
-``b_seq_length_dim`` name the dims a shorter ``seq_length`` would slice
-in the JAX package; they are kept as the layer's properties (the search
-metadata), and the port runs the full extent: its steps take no shorter
-``seq_length`` (ROADMAP.md Queue 1 item 8).
+``b_seq_length_dim`` are kept as the layer's properties (the search
+metadata), as in the JAX package: a shorter ``seq_length`` runs the whole
+graph at a bucketed length (``FFModel._bucket_executor``), not a slice
+inside this op.
 """
 
 from __future__ import annotations

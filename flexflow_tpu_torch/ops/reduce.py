@@ -1,10 +1,10 @@
 """ReduceSum, Mean, TopK and ArgTopK.
 
-PyTorch counterpart of ``flexflow_tpu/ops/reduce.py``. TopK runs
-``torch.topk`` (sorted, largest first) where the JAX package runs
-``lax.top_k``: the values agree, and so do the indices wherever the
-input has no ties (the two may order tied entries apart). The indices
-are int64 here, int32 in the JAX package.
+PyTorch counterpart of ``flexflow_tpu/ops/reduce.py``. TopK and ArgTopK
+take ``top_k``: ``lax.top_k``'s order (sorted, largest first, the lower
+index first among equal values), which ``torch.topk`` does not keep on
+tied entries. The MoE ops route through the same rule. The indices are
+int64 here, int32 in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +13,15 @@ import torch
 
 from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops.base import Op, OpContext, register_op
+
+
+def top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries along the last dim,
+    largest first and, among equal values, the lower index first, as
+    ``jax.lax.top_k`` orders them: a stable descending sort, cut to
+    ``k``."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def _reduced_shape(shape, axes, keepdims):
@@ -64,7 +73,7 @@ class TopK(Op):
         return [s, s]
 
     def forward(self, params, inputs, ctx: OpContext):
-        vals, idx = torch.topk(inputs[0], self.k, dim=-1)
+        vals, idx = top_k(inputs[0], self.k)
         return [vals, idx]
 
 
@@ -78,4 +87,4 @@ class ArgTopK(Op):
         return [tuple(self.input_shapes[0][:-1]) + (self.k,)]
 
     def forward(self, params, inputs, ctx: OpContext):
-        return [torch.topk(inputs[0], self.k, dim=-1).indices]
+        return [top_k(inputs[0], self.k)[1]]

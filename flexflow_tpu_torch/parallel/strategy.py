@@ -172,9 +172,15 @@ def _record_strategy(nodes, strategy: Strategy, mesh, kernels: str,
             continue
         node.output_specs = list(st.output_specs)
         node.param_specs = dict(st.param_specs)
+        choice = st.choice or ""
+        # an "_ep" choice shards the stacked experts over the 'expert'
+        # axis (the JAX package's expert_parallel_ffn); such a mesh is
+        # refused before it runs (check_executable)
+        if (hasattr(node.op, "expert_parallel") and "_ep" in choice
+                and axis_sizes.get("expert", 1) > 1):
+            node.op.expert_parallel = "expert"
         if node.op.op_type != OperatorType.MULTIHEAD_ATTENTION:
             continue
-        choice = st.choice or ""
         if "_ring" in choice and axis_sizes.get("seq", 1) > 1:
             node.op.seq_parallel = "seq"
         if kernels == "off":

@@ -30,9 +30,7 @@ edges. With ``--json`` the table lands under ``edge_reshards``; the
 exit code is nonzero whenever an unpriced edge fires FFL205/FFL210.
 
 ``--model all`` / ``--all`` sweeps every zoo model and merges the
-reports into one JSON document keyed by model name. ``moe`` and
-``moe_encoder`` fail to build in the port (ROADMAP.md Queue 1 item 9d)
-and are reported as any build failure is.
+reports into one JSON document keyed by model name.
 """
 
 from __future__ import annotations
@@ -98,10 +96,18 @@ def build_model(name: str, ff_config, device=None):
                             input_features={"dose1": 1, "cell": 24,
                                             "drug_desc": 40}),
             ff_config, device=device), "mse"
-    if name in ("moe", "moe_encoder"):
-        raise NotImplementedError(
-            f"{name}: the mixture-of-experts ops and models come with a "
-            f"later slice of the PyTorch port (ROADMAP.md Queue 1 item 9d)")
+    if name == "moe":
+        from flexflow_tpu_torch.models.moe_model import MoEConfig, create_moe
+        return create_moe(
+            MoEConfig(batch_size=16, input_dim=32, num_exp=4, num_select=2,
+                      hidden_size=16), ff_config, device=device), "cat"
+    if name == "moe_encoder":
+        from flexflow_tpu_torch.models.moe_model import (MoEConfig,
+                                                         create_moe_encoder)
+        return create_moe_encoder(
+            MoEConfig(batch_size=4, num_encoder_layers=2, hidden_size=16,
+                      num_exp=2, num_select=1, seq_length=8, num_classes=5),
+            ff_config, device=device), "mse"
     if name == "transformer":
         from flexflow_tpu_torch.models.transformer import (TransformerConfig,
                                                            create_transformer)

@@ -12,6 +12,7 @@ aggregates) and ``<out>.md`` (the table), and prints one JSON line.
     python -m flexflow_tpu_torch.scripts.roofline --model inception --ab \\
         --batches 8,64
     python -m flexflow_tpu_torch.scripts.roofline --model bert --device cpu
+    python -m flexflow_tpu_torch.scripts.roofline --model moe
 
 ``--layout`` is the conv family's execution layout (``layout.py``:
 "auto" is channels-last on the card, NCHW on the CPU). ``--ab`` also
@@ -91,6 +92,19 @@ def build_model(name, batch, layout, device, image_size=None):
                 xs.append(rs.randn(batch, mc.dense_dim).astype(np.float32))
         y = rs.randint(0, 2, (batch, 1)).astype(np.float32)
         return ff, xs, y
+    if name == "moe":
+        from flexflow_tpu_torch.models.moe_model import MoEConfig, create_moe
+        mc = (MoEConfig(batch_size=batch, input_dim=64, num_exp=4,
+                        num_select=2, hidden_size=32) if on_cpu else
+              MoEConfig(batch_size=batch, input_dim=1024, num_exp=16,
+                        num_select=2, hidden_size=1024, num_classes=1000))
+        ff = create_moe(mc, FFConfig(batch_size=batch, **cfg_kw),
+                        device=device)
+        ff.compile(SGDOptimizer(lr=0.01),
+                   LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [])
+        x = rs.randn(batch, mc.input_dim).astype(np.float32)
+        y = rs.randint(0, mc.num_classes, (batch, 1)).astype(np.int32)
+        return ff, [x], y
     raise SystemExit(f"unknown --model {name!r}")
 
 
@@ -115,7 +129,7 @@ def main(argv=None):
         prog="python -m flexflow_tpu_torch.scripts.roofline",
         description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="inception",
-                    choices=["inception", "bert", "dlrm"])
+                    choices=["inception", "bert", "dlrm", "moe"])
     ap.add_argument("--batch", type=int, default=None,
                     help="batch size (default: 8 on the CPU, 16 on the card)")
     ap.add_argument("--image-size", type=int, default=None)

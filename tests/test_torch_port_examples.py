@@ -1,7 +1,7 @@
 """PyTorch port, the example scripts (``examples_torch/``) against the JAX
 package's (``examples/``).
 
-- Build: each of the ten scripts, run with ``-b 8`` up to its
+- Build: each of the eleven scripts, run with ``-b 8`` up to its
   ``train_synthetic`` call (replaced here by a stop), builds its model at
   its own (the reference's) config; the two packages' models, built from
   one layer counter, have the same op list, shapes and search metadata
@@ -45,7 +45,7 @@ from flexflow_tpu_torch.weights import from_jax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = ["alexnet", "candle_uno", "dlrm", "inception", "llama_lm", "mlp",
-            "resnet", "resnext", "transformer", "xdl"]
+            "moe", "resnet", "resnext", "transformer", "xdl"]
 LOSS_RTOL = 1e-4
 
 
@@ -178,6 +178,7 @@ SMALL = {
     "inception": ("InceptionConfig", lambda: functools.partial(
         PM.InceptionConfig, image_size=75, num_classes=10, reduced=True)),
     "llama_lm": (None, None),  # its default config is already tiny
+    "moe": (None, None),  # so is the MoE classifier's
     "mlp": ("create_mlp", lambda: (
         lambda bs, i, hidden, o, **kw: PM.create_mlp(bs, i, [64] * 4, o,
                                                      **kw))),

@@ -4,11 +4,11 @@ JAX package's ``scripts/fflint.py`` and ``scripts/explain.py``.
 
 - ``fflint --all --json --device cpu``: the port plans each zoo model
   over 8 devices (the JAX package's virtual CPU slice, where its CLI
-  compiles); for every model that is not MoE its ``lint_one`` report,
-  the entry ``--all`` writes, equals the JAX CLI's (models built from
-  one layer counter); the merge, once over a stubbed ``lint_one``: the
-  two MoE entries fail to build, naming ROADMAP.md Queue 1 item 9d, and
-  the exit code is the CLI's build-failure code, 2.
+  compiles); for every model, the two MoE models included, its
+  ``lint_one`` report, the entry ``--all`` writes, equals the JAX CLI's
+  (models built from one layer counter); the merge, once over a stubbed
+  ``lint_one``: the two MoE entries are reports, built and linted, and
+  the exit code is 0.
 - ``--budget 2 --edges``: the searched strategy's report and its per-edge
   reshard rows equal the JAX CLI's.
 - ``explain --model mlp --budget 1``: the three artifacts, with the JAX
@@ -53,6 +53,7 @@ from flexflow_tpu_torch.tensor import Tensor as PTensor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOT_MOE = [m for m in pfflint.ZOO if not m.startswith("moe")]
+MOE = [m for m in pfflint.ZOO if m.startswith("moe")]
 CPU = MachineSpec(chip="cpu-sim")
 
 
@@ -85,7 +86,7 @@ def _settle():
                                                 b._next_guid[0])
 
 
-@pytest.mark.parametrize("name", NOT_MOE)
+@pytest.mark.parametrize("name", NOT_MOE + MOE)
 def test_all_json_entry_equals_the_reference(name):
     """The entry ``--all`` writes for ``name`` is its ``lint_one`` report
     (``test_all_json_moe_entries_name_item_9d`` checks the merge): the
@@ -106,8 +107,9 @@ def test_all_json_entry_equals_the_reference(name):
 def test_all_json_moe_entries_name_item_9d(monkeypatch, capsys):
     """``--all --json``'s merge and exit code, once: every zoo name in
     order, each non-MoE entry the report its ``lint_one`` returned (here
-    the cheap mlp's, built anew for each name), the MoE entries their
-    build failure naming item 9d, exit 2."""
+    the cheap mlp's, built anew for each name), the MoE entries, which
+    raised naming item 9d before the port had the MoE ops, their own
+    reports with no error, exit 0."""
     real = pfflint.lint_one
     reports = {}
 
@@ -125,14 +127,15 @@ def test_all_json_moe_entries_name_item_9d(monkeypatch, capsys):
     doc = json.loads(out)
     _settle()
     assert list(doc) == pfflint.ZOO
-    for name in ("moe", "moe_encoder"):
-        assert "build/compile failed" in doc[name]["error"]
-        assert "item 9d" in doc[name]["error"]
-        assert f"== {name}: build/compile failed" in err
-    assert rc == 2  # the CLI's build-failure exit code
+    for name in MOE:
+        assert "error" not in doc[name]
+        assert doc[name]["context"]["model"] == name
+        assert doc[name]["counts"]["error"] == 0
+        assert "build/compile failed" not in err
+    assert rc == 0
     assert all(doc[m] == reports[m] for m in NOT_MOE)
     assert all(set(doc[m]) == {"context", "passes", "counts",
-                               "diagnostics"} for m in NOT_MOE)
+                               "diagnostics"} for m in pfflint.ZOO)
 
 
 @pytest.mark.parametrize("name", ["mlp", "resnet", "llama"])
@@ -165,9 +168,10 @@ def test_cli_entry_point_exit_codes(tmp_path):
     assert doc["context"]["edge_reshards"] == []
     proc = subprocess.run(
         [sys.executable, "-m", "flexflow_tpu_torch.scripts.fflint",
-         "--model", "moe", "--device", "cpu"],
+         "--model", "nosuchmodel", "--device", "cpu"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 2 and "item 9d" in proc.stderr
+    assert proc.returncode == 1 and "unknown --model 'nosuchmodel'" \
+        in proc.stderr
 
 
 def _explain_asserts(out):

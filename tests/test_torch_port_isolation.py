@@ -85,7 +85,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.analysis.passes.calibration, "
         "flexflow_tpu_torch.analysis.passes.checkpoint, "
         "flexflow_tpu_torch.scripts.fflint, "
-        "flexflow_tpu_torch.scripts.explain\n"
+        "flexflow_tpu_torch.scripts.explain, "
+        "flexflow_tpu_torch.ops.moe, flexflow_tpu_torch.ops.experts, "
+        "flexflow_tpu_torch.models.moe_model, "
+        "flexflow_tpu_torch.dataloader, flexflow_tpu_torch.utils.dot, "
+        "flexflow_tpu_torch.utils.graph_algorithms\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -117,7 +121,7 @@ def test_example_scripts_load_neither_jax_nor_the_jax_package():
     """Each ``examples_torch/`` script, imported as its ``python
     examples_torch/<name>.py`` run does (its folder on the path)."""
     names = sorted(p.stem for p in EXAMPLES.glob("*.py"))
-    assert len(names) == 11  # common and the ten scripts
+    assert len(names) == 12  # common and the eleven scripts
     code = ("import sys\n"
             f"sys.path.insert(0, {str(EXAMPLES)!r})\n"
             + "".join(f"import {n}\n" for n in names)
@@ -164,6 +168,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from flexflow_tpu_torch.serve.loadgen import build_serve_model
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_serve_model("transformer", on_cpu=True)
+
+
+def test_moe_and_fit_loader_raise_without_cuda(monkeypatch):
+    """The MoE builders, and a loader staging onto the card (what
+    ``fit_loader`` on a card's model reads), raise on a machine without
+    a card rather than run on the CPU."""
+    import numpy as np
+
+    from flexflow_tpu_torch import dataloader
+    from flexflow_tpu_torch.models import (MoEConfig, create_moe,
+                                           create_moe_encoder)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_moe(MoEConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_moe_encoder(MoEConfig(num_encoder_layers=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dataloader.stage(np.zeros((4, 2), np.float32), torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dataloader.stage(np.zeros((4, 2), np.float32), None)
 
 
 def test_detect_machine_spec_does_not_fall_back_to_the_cpu(monkeypatch):

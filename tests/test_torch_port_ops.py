@@ -173,11 +173,12 @@ def test_mha_kernel_impl_flash_raises_where_kernel_cannot_run():
 
 
 def test_unported_op_raises():
-    # GROUP_BY stays unported until the MoE slice (ROADMAP.md item 9d)
-    layer = PLayer(pconst.OperatorType.GROUP_BY, "group_by", [])
-    layer.properties.update(n=2, alpha=1.0)
+    # REPARTITION stays unported until the multi-GPU slice (ROADMAP.md
+    # item 3)
+    layer = PLayer(pconst.OperatorType.REPARTITION, "repartition", [])
+    layer.properties.update(dim=0, degree=2, axis="data")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PRegistry.create(layer, [(8, 16), (8, 1)])
+        PRegistry.create(layer, [(8, 16)])
 
 
 @pytest.mark.parametrize("name", ["OperatorType", "DataType", "ActiMode",

@@ -11,10 +11,11 @@ count, dim roles, parameter tree) exactly.
 
 Where the packages part: JAX runs without 64-bit types, so ``cast`` to
 ``DT_INT64`` and the top-k indices are int32 there and int64 here; the
-values are held, not the dtypes. ``lax.top_k`` and ``torch.topk`` may
-order tied entries apart, so the top-k inputs have no ties (random
-normals). An integer output (indices, an int cast) has no gradient: the
-JAX VJP gives zeros and the port's output does not require grad.
+values are held, not the dtypes. Top-k on tied inputs (all-zero rows,
+repeated bf16 values) gives ``lax.top_k``'s indices exactly: the lower
+index first among equal values. An integer output (indices, an int
+cast) has no gradient: the JAX VJP gives zeros and the port's output does
+not require grad.
 """
 
 import jax
@@ -340,3 +341,45 @@ def test_begin_and_end_trace_are_no_ops():
 
     ff = pff.FFModel(pff.FFConfig(batch_size=2), device="cpu")
     assert ff.begin_trace(1) is None and ff.end_trace(1) is None
+
+
+# tied inputs: (name, dtype, rows) where every row holds repeated values
+TIES = {
+    "zeros": ("float32", np.zeros((3, 40), np.float32)),
+    "repeated_bf16": ("bfloat16", np.array(
+        [[0.125, 0.125, 0.25, 0.125, 0.25, 0.0, 0.25, 0.125],
+         [0.1251, 0.1252, 0.1249, 0.125, 0.1248, 0.1253, 0.125, 0.1247],
+         [1.0, 1.0, 1.0, 1.0, 2.0, 2.0, 0.5, 0.5]], np.float32)),
+}
+
+
+@pytest.mark.parametrize("op_type", ["TOPK", "ARG_TOPK"])
+@pytest.mark.parametrize("tie", sorted(TIES))
+def test_top_k_ties_follow_lax_top_k(tie, op_type):
+    """On tied inputs the port's indices are ``lax.top_k``'s exactly (the
+    lower index first among equal values; ``torch.topk`` gives zeros(1,
+    40) at k 4 as [28, 26, 27, 25] on the CPU), and so are the values.
+    The bf16 rows round to a few distinct values near 0.125, as a bf16
+    router's probabilities do."""
+    dname, rows = TIES[tie]
+    k = 4
+    x_np = rows.astype(jnp.bfloat16) if dname == "bfloat16" else rows
+    jl = JLayer(getattr(jconst.OperatorType, op_type), "tk", [])
+    jl.properties.update(k=k)
+    pl = PLayer(getattr(pconst.OperatorType, op_type), "tk", [])
+    pl.properties.update(k=k)
+    jop = JRegistry.create(jl, [rows.shape])
+    pop = PRegistry.create(pl, [rows.shape])
+    want = jop.forward({}, [jnp.asarray(x_np)], JContext())
+    xt = torch.from_numpy(rows).to(getattr(torch, dname))
+    got = pop.forward({}, [xt], PContext())
+    want_idx = np.asarray(want[-1])
+    np.testing.assert_array_equal(got[-1].numpy(), want_idx)
+    if op_type == "TOPK":
+        np.testing.assert_array_equal(
+            got[0].float().numpy(),
+            np.asarray(want[0].astype(jnp.float32)))
+    # a tie the order decides: some row repeats a value among its top k
+    top = np.take_along_axis(np.asarray(
+        jnp.asarray(x_np).astype(jnp.float32)), want_idx, -1)
+    assert any(len(set(r)) < k for r in top)

@@ -226,23 +226,31 @@ def test_loop_step_is_fits_first_step(zoo):
 
 
 def test_loop_refuses_a_shorter_sequence():
-    """A ``seq_length`` below the model's sequence extent (the JAX
-    package's bucket executors) raises; at full length, or on a model
-    without a sequence dim, it is ignored as the reference ignores it."""
+    """A ``seq_length`` below the model's sequence extent runs the JAX
+    package's bucket executor at the next power of two, at least 16
+    (before the port had buckets it raised naming ROADMAP item 8): a
+    seq-16 model has no shorter bucket and runs full length, a seq-64
+    model at ``seq_length=8`` runs the 16 bucket. On a model without a
+    sequence dim it is ignored, as the reference ignores it; ``forward``
+    before ``set_batch`` is refused."""
     from flexflow_tpu_torch.models import TransformerConfig, create_transformer
-    ff = create_transformer(TransformerConfig(num_layers=1, hidden_size=32,
-                                              num_heads=2, seq_length=16,
-                                              batch_size=2), device="cpu")
-    ff.compile(AdamOptimizer(), P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
     rs = np.random.RandomState(0)
-    ff.set_batch(rs.randn(2, 16, 32).astype(np.float32),
-                 rs.randn(2, 16, 1).astype(np.float32))
-    ff.forward(seq_length=16)
-    ff.backward()
-    ff.update()
-    assert np.isfinite(ff._last_loss)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    for seq, want in ((16, []), (64, [16])):
+        ff = create_transformer(TransformerConfig(
+            num_layers=1, hidden_size=32, num_heads=2, seq_length=seq,
+            batch_size=2), device="cpu")
+        ff.compile(AdamOptimizer(), P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+        ff.set_batch(rs.randn(2, seq, 32).astype(np.float32),
+                     rs.randn(2, seq, 1).astype(np.float32))
+        ff.forward(seq_length=seq)
+        ff.backward()
+        ff.update()
+        assert np.isfinite(ff._last_loss)
         ff.forward(seq_length=8)
+        ff.backward()
+        ff.update()
+        assert np.isfinite(ff._last_loss)
+        assert list(ff._seq_execs) == want
     with pytest.raises(ValueError, match="set_batch"):
         fresh = create_dlrm(DLRMConfig(batch_size=2, vocab_size=10,
                                        num_sparse_features=1), device="cpu")
