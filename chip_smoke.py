@@ -393,15 +393,30 @@ package. Phases:
              state; (2) a ``fit_loader`` resume (LOOP_RESUME's depth)
              that seeks once to the cut's batch and ends bit-equal to
              the uninterrupted run.
-19. report — one JSON line ``{"kernels": [...]}``, then the final line
+19. mesh  — [mesh] multi-rank execution (its budget MESH_BUDGET_S): the
+             full-width BERT-proxy on ``{"data": 2, "model": 2}`` as 4
+             ranks (``--mesh-child``) sharing the one card over a gloo
+             group the script names, attention ``dp_head_k:flash`` (K1
+             and K2 on each rank's [B/2, H/2, S, D] = BH 32 block), the
+             dense layers ``dp_col_k:fused`` / ``dp_row_k:fused`` (K4 over
+             each rank's leaves), 3 steps against one rank on one device
+             from the same seed: each rank's K1 / K2 / K4 at its shapes
+             against the plain versions, its launches (12 / 12 / 1 a
+             step), the losses (MESH_LOSS_RTOL), the gathered parameters
+             (MESH_PARAM_ATOL, MESH_UPDATE_RTOL), ``evaluate`` and
+             ``predict``; prints each rank's step p50 (gloo over host
+             copies: not a multi-GPU number), the collectives a step
+             issued by kind, axes and bytes, and each rank's peak memory.
+20. report — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``. Each phase's seconds are
              printed as ``[time]`` lines.
 
 Any failed check exits non-zero without printing the final line.
 
-Two other modes: ``--ckpt-child DIR STRATEGY_DIR STEPS [--resume]`` is
-one child process of the ``[ckpt]`` phase's preemption leg, and
-``--supervise-child FLAGS...`` the supervised child of ``[costmodel]``.
+Three other modes: ``--ckpt-child DIR STRATEGY_DIR STEPS [--resume]``
+is one child process of the ``[ckpt]`` phase's preemption leg,
+``--supervise-child FLAGS...`` the supervised child of ``[costmodel]``,
+and ``--mesh-child RANK WORLD DIR`` one rank of ``[mesh]``.
 """
 
 import json
@@ -1762,13 +1777,14 @@ def training_batch(cfg, seed=0):
 
 
 def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4,
-                         mesh=None, choice_of=None):
+                         mesh=None, choice_of=None, strategy_file=None):
     """The BERT-proxy ``cfg`` on the card, compiled for training as the
     reference's bert_proxy is (Adam alpha 1e-4 with bf16 moments, MSE
     avg-reduce loss, MSE metric); with ``strategy_dir``, through the
     strategy file of path (b) written there (or of ``choice_of``, a
-    choice by op type); over ``mesh`` if given. The weights come from
-    the config's seed, so every call starts from the same weights."""
+    choice by op type); through ``strategy_file`` as it is; over
+    ``mesh`` if given. The weights come from the config's seed, so every
+    call starts from the same weights."""
     import torch
     from flexflow_tpu_torch import FFConfig, LossType, MetricsType
     from flexflow_tpu_torch.models.transformer import create_transformer
@@ -1781,6 +1797,8 @@ def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4,
         path = os.path.join(strategy_dir, "strategy.json")
         write_strategy(ff, path, choice_of or kernel_path())
         ff.config.import_strategy_file = path
+    if strategy_file is not None:
+        ff.config.import_strategy_file = strategy_file
     ff.compile(AdamOptimizer(alpha=alpha, state_dtype=torch.bfloat16),
                LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
                [MetricsType.MEAN_SQUARED_ERROR], mesh=mesh)
@@ -7482,6 +7500,438 @@ def phase_loop(strategy_dir):
     return out
 
 
+# [mesh]: the phase's budget on the card, printed beside its [time] line
+MESH_BUDGET_S = 150.0
+MESH_AXES = {"data": 2, "model": 2}
+MESH_STEPS = 3
+MESH_CHILD_TIMEOUT_S = 130
+# the per-step losses against the one-rank run: the script's plain-path
+# bound (the ranks' bf16 partial sums round where one device's product
+# rounds once)
+MESH_LOSS_RTOL = 2e-2
+# the parameters after MESH_STEPS Adam steps against the one-rank run's
+# (PERF.md section 6): an Adam step moves an element by about
+# alpha at most in these first steps, so two runs whose gradients differ
+# in a sign stay within 2 alpha a step of each other (MESH_PARAM_ATOL,
+# every element); and the whole model's update (after - before) within
+# MESH_UPDATE_RTOL of the one-rank update's norm (relative L2), which a
+# wrong gradient (a missing all-reduce, a misplaced box) takes to ~1
+MESH_ALPHA = 1e-4
+MESH_PARAM_ATOL = 2 * MESH_ALPHA * MESH_STEPS
+MESH_UPDATE_RTOL = 0.25
+
+
+def mesh_strategy(cfg, axes):
+    """The strategy file body of the BERT-proxy ``cfg`` over ``axes``:
+    attention ``dp_head_k:flash`` (wq/wk/wv/wo head-sharded on 'model'),
+    ffn1 ``dp_col_k:fused``, ffn2 ``dp_row_k:fused``, every other op
+    ``dp_k:fused`` (the residual adds ``dp``)."""
+    dp3 = ["data", None, None]
+    ops = {}
+    for i in range(cfg.num_layers):
+        for n in (f"ln1_{i}", f"ln2_{i}"):
+            ops[n] = dict(choice="dp_k:fused", outputs=[dp3], params={})
+        for n in (f"res1_{i}", f"res2_{i}"):
+            ops[n] = dict(choice="dp", outputs=[dp3], params={})
+        ops[f"attn_{i}"] = dict(
+            choice="dp_head_k:flash", outputs=[dp3],
+            params={w: ["model", None, None]
+                    for w in ("wq", "wk", "wv", "wo")})
+        ops[f"ffn1_{i}"] = dict(choice="dp_col_k:fused",
+                                outputs=[["data", None, "model"]],
+                                params=dict(kernel=[None, "model"],
+                                            bias=["model"]))
+        ops[f"ffn2_{i}"] = dict(choice="dp_row_k:fused", outputs=[dp3],
+                                params=dict(kernel=["model", None]))
+    ops["head"] = dict(choice="dp_k:fused", outputs=[dp3], params={})
+    return dict(version=1, mesh=dict(axes), ops=ops)
+
+
+def mesh_kernel_checks(ff):
+    """K1, K2 and K4 at this rank's shapes (attention's local ``[B/dp,
+    H/mp, S, D]`` block; the rank's fused leaves) against their plain
+    versions, before the counted run; -> [name, shape, max_abs_err]."""
+    import torch
+    from flexflow_tpu_torch.ops.flash_attention import (flash_bwd,
+                                                        flash_bwd_reference,
+                                                        flash_fwd,
+                                                        flash_fwd_reference)
+    from flexflow_tpu_torch.ops.fused_update import (fused_adam_multi,
+                                                     fused_adam_reference)
+    from flexflow_tpu_torch.optimizers import AdamOptimizer
+
+    attn = next(n.op for n in ff.executor.nodes
+                if n.op.op_type.name == "MULTIHEAD_ATTENTION")
+    b, s, _ = attn.input_shapes[0]
+    bh = (b // MESH_AXES["data"]) * (attn.num_heads // MESH_AXES["model"])
+    d = attn.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    rows = []
+    o, lse = flash_fwd(q, k, v, False)
+    ro, rlse = flash_fwd_reference(q.float(), k.float(), v.float(), False)
+    err = (o.float() - ro).abs().max().item()
+    err_lse = (lse - rlse).abs().max().item()
+    check(err <= TOL["bfloat16"]["o"] and err_lse <= TOL["bfloat16"]["lse"],
+          f"[mesh] K1 disagrees with its plain version at BH {bh}: o {err}, "
+          f"lse {err_lse}")
+    rows.append(["flash_attn_fwd", [bh, s, d], err])
+    got = flash_bwd(q, k, v, o, lse, do, False)
+    want = flash_bwd_reference(q.float(), k.float(), v.float(), o.float(),
+                               lse, do.float(), False)
+    errs = [(g.float() - w).abs().max().item() / w.abs().max().item()
+            for g, w in zip(got, want)]
+    check(max(errs) <= BWD_TOL["bfloat16"],
+          f"[mesh] K2 disagrees with its plain version at BH {bh}: {errs}")
+    rows.append(["flash_attn_bwd", [bh, s, d], max(errs)])
+    leaves = [ff.params[op][pn] for op in sorted(ff.executor.fused_update_ops)
+              if op in ff.params for pn in sorted(ff.params[op])]
+    ps = [torch.randn(t.shape, generator=gen, device="cuda") for t in leaves]
+    gs = [(torch.randn(t.shape, generator=gen, device="cuda") * 1e-2)
+          .bfloat16() for t in leaves]
+    ms = [(torch.randn(t.shape, generator=gen, device="cuda") * 1e-2)
+          .bfloat16() for t in leaves]
+    vs = [(torch.randn(t.shape, generator=gen, device="cuda") * 1e-2)
+          .pow(2).bfloat16() for t in leaves]
+    _, alpha_t = AdamOptimizer(alpha=MESH_ALPHA).step_scalars(
+        torch.tensor(0, dtype=torch.int32, device="cuda"))
+    want = fused_adam_reference(ps, gs, ms, vs, alpha_t, wd=0.0, **ADAM_KW)
+    kp = [p.clone() for p in ps]
+    fused_adam_multi(kp, gs, ms, vs, alpha_t, wd=0.0, **ADAM_KW)
+    torch.cuda.synchronize()
+    differ = sum(int((a != b).sum()) for got, w in zip(zip(kp, ms, vs), want)
+                 for a, b in zip(got, w))
+    check(differ == 0, f"[mesh] K4 is not bit-equal to its plain version "
+                       f"over this rank's {len(leaves)} leaves")
+    rows.append(["fused_adam", [len(leaves), sum(t.numel() for t in leaves)],
+                 differ])
+    return rows
+
+
+def mesh_kernel_times(one):
+    """K1, K2 and K4 at a [mesh] rank's shapes, timed in this process on
+    the card alone (the ranks share it): K1 and K2 at BH 32 (8/2 x
+    16/2), S 512, D 64, bf16, kernel and library back to back, plain
+    beside; K1's plain version also at BH 16 and 64 (the serving
+    buckets' row); K4 over one rank's fused leaves (``one``'s leaves cut
+    by MESH_AXES' specs), beside ``torch.optim.Adam(fused=True)``. ->
+    {kernel name: entry fields}."""
+    import torch
+    from flexflow_tpu_torch.ops.flash_attention import (flash_bwd,
+                                                        flash_bwd_reference,
+                                                        flash_fwd,
+                                                        flash_fwd_reference)
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.ops.fused_update import (fused_adam_multi,
+                                                     fused_adam_reference)
+
+    attn = next(n.op for n in one.executor.nodes
+                if n.op.op_type.name == "MULTIHEAD_ATTENTION")
+    b, s, _ = attn.input_shapes[0]
+    heads, d = attn.num_heads // MESH_AXES["model"], attn.head_dim
+    b //= MESH_AXES["data"]
+    bh = b * heads
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shape = f"BH={bh} S={s} D={d} bfloat16 causal=False"
+    out = {}
+    fwd_bound, fwd_by = flash_bound(bh, s, d, 2, False, H100_SXM_PEAKS)
+    view = lambda x: x.view(b, heads, s, d)
+    kernel = lambda: flash_fwd(q, k, v, False)
+    lib = lambda: sdpa(view(q), view(k), view(v))
+    # at this size a call takes about as long on the host as on the card:
+    # the profiler's device time beside back to back
+    out["flash_attn_fwd"] = dict(
+        shape=shape, ms=profiled_ms(kernel), b2b_ms=time_ms(kernel),
+        plain_ms=time_ms(lambda: flash_fwd_reference(q, k, v, False)),
+        library_ms=profiled_ms(lib), library_b2b_ms=time_ms(lib),
+        bound_ms=fwd_bound * 1e3, bound_by=fwd_by,
+        timed_by="profiled device time",
+        plain_ms_bh16_bh64=[
+            time_ms(lambda: flash_fwd_reference(x, x, x, False))
+            for x in (torch.randn(n, s, d, generator=gen, device="cuda")
+                      .bfloat16() for n in (16, 64))])
+    o, lse = flash_fwd(q, k, v, False)
+    lq, lk, lv = (view(x).detach().requires_grad_() for x in (q, k, v))
+    node = sdpa(lq, lk, lv).grad_fn
+    bwd_bound_s, bwd_by = bwd_bound(bh, s, d, 2, False, False,
+                                    H100_SXM_PEAKS)
+    kernel = lambda: flash_bwd(q, k, v, o, lse, do, False)
+    lib = lambda: node(view(do))
+    out["flash_attn_bwd"] = dict(
+        shape=shape, ms=profiled_ms(kernel), b2b_ms=time_ms(kernel),
+        plain_ms=time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do,
+                                                     False)),
+        library_ms=profiled_ms(lib), library_b2b_ms=time_ms(lib),
+        bound_ms=bwd_bound_s * 1e3, bound_by=bwd_by,
+        timed_by="profiled device time (back to back through flash_bwd "
+                 "beside)")
+    specs = mesh_strategy(TransformerConfig(), MESH_AXES)["ops"]
+    shapes = []
+    for op in sorted(one.executor.fused_update_ops):
+        for pn, t in sorted(one.params.get(op, {}).items()):
+            spec = specs[op]["params"].get(pn) or []
+            shapes.append(tuple(
+                n // (MESH_AXES[a] if a else 1)
+                for n, a in zip(t.shape, list(spec) + [None] * t.dim())))
+    rnd = lambda shp, k=1.0: torch.randn(shp, generator=gen,
+                                         device="cuda") * k
+    fp = [rnd(x) for x in shapes]
+    fg = [rnd(x, 1e-2).bfloat16() for x in shapes]
+    fm = [rnd(x, 1e-2).bfloat16() for x in shapes]
+    fv = [(rnd(x, 1e-2) ** 2).bfloat16() for x in shapes]
+    alpha_t = torch.tensor(MESH_ALPHA, device="cuda")
+    n = sum(p.numel() for p in fp)
+    lib_params = [torch.nn.Parameter(p.clone()) for p in fp]
+    for lp, g in zip(lib_params, fg):
+        lp.grad = g.float()
+    lib = torch.optim.Adam(lib_params, lr=MESH_ALPHA, fused=True)
+    adam_bound_s, adam_by = adam_bound(n, 2, 2, H100_SXM_PEAKS)
+    out["fused_adam"] = dict(
+        shape=f"{len(shapes)} leaves, {n} elements, p f32, g/m/v bf16",
+        ms=time_ms(lambda: fused_adam_multi(fp, fg, fm, fv, alpha_t, wd=0.0,
+                                            **ADAM_KW)),
+        plain_ms=time_ms(lambda: fused_adam_reference(
+            fp, fg, fm, fv, alpha_t, wd=0.0, **ADAM_KW)),
+        library_ms=time_ms(lib.step), bound_ms=adam_bound_s * 1e3,
+        bound_by=adam_by, timed_by="back to back")
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    for name, e in out.items():
+        b2b = (lambda key: f" (b2b {fmt(e[key])})" if key in e else "")
+        print(f"[mesh] {name} at a rank's shape ({e['shape']}): kernel "
+              f"{fmt(e['ms'])}{b2b('b2b_ms')}, plain {e['plain_ms']:.4f} ms, "
+              f"library {fmt(e['library_ms'])}{b2b('library_b2b_ms')}, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}); {e['timed_by']}")
+    return out
+
+
+def mesh_collective_checks(comm, device="cuda"):
+    """Each collective of ``parallel/comm.py`` once on CUDA tensors over
+    every rank, f32 and bf16, against its known values (small integers,
+    exact in both): whether gloo takes CUDA tensors for it. -> {"<kind>
+    <dtype>": "ok"}; a wrong value or a refusal fails the rank."""
+    import torch
+
+    axes = tuple(a for a in comm.mesh.axis_names if comm.mesh.shape[a] > 1)
+    n, r = comm.size(axes), comm.block(axes)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        mk = lambda v: torch.as_tensor(v, dtype=dt, device=device)
+        cases = {
+            "all-reduce": (lambda: comm.all_reduce(mk([[r + 1.0] * 4] * 4),
+                                                   axes),
+                           mk([[n * (n + 1) / 2] * 4] * 4)),
+            "all-gather": (lambda: comm.all_gather(mk([[r + 1.0] * 4]), axes,
+                                                   0),
+                           mk([[s + 1.0] * 4 for s in range(n)])),
+            "reduce-scatter": (
+                lambda: comm.reduce_scatter(
+                    mk([[float(i)] * 4 for i in range(n)]) * (r + 1), axes,
+                    0),
+                mk([[r * n * (n + 1) / 2] * 4])),
+            "all-to-all": (
+                lambda: comm.all_to_all(
+                    mk([[10.0 * (r + 1) + j] * 4 for j in range(n)]), axes,
+                    0, 0),
+                mk([[10.0 * (s + 1) + r] * 4 for s in range(n)])),
+        }
+        for kind, (fn, want) in cases.items():
+            got = fn()
+            check(got.device == want.device and got.dtype == dt
+                  and torch.equal(got, want),
+                  f"[mesh] {kind} over gloo on CUDA {dt}: {got} != {want}")
+            out[f"{kind} {str(dt)[6:]}"] = "ok"
+    return out
+
+
+def mesh_child(argv):
+    """``chip_smoke.py --mesh-child RANK WORLD DIR``: one rank of the
+    [mesh] phase, over the gloo group the caller names (ranks sharing the
+    one card). Trains the full-width BERT-proxy MESH_STEPS steps on
+    MESH_AXES through ``DIR/strategy.json``, after holding its K1, K2 and
+    K4 at its shapes against their plain versions; rank 0 writes the
+    gathered parameters to ``DIR/final.pt``. Prints one ``[mesh child]``
+    JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.weights import to_jax_params
+
+    rank, world, root = int(argv[0]), int(argv[1]), argv[2]
+    distributed.initialize(store=dist.FileStore(os.path.join(root, "store"),
+                                                world),
+                           world_size=world, rank=rank, backend="gloo",
+                           timeout_s=MESH_CHILD_TIMEOUT_S)
+    try:
+        cfg = TransformerConfig()
+        ff = compile_for_training(cfg, alpha=MESH_ALPHA, strategy_file=(
+            os.path.join(root, "strategy.json")))
+        check(dict(ff.mesh.shape) == MESH_AXES and ff.executor.multi_rank,
+              f"[mesh] rank {rank} runs {ff.mesh.shape}")
+        rows = mesh_kernel_checks(ff)
+        collectives = mesh_collective_checks(ff.executor.comm)
+        x, y = training_batch(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        steps = []
+        for _ in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            ff.fit(x, y, epochs=1, verbose=False)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        launches = read_launches()
+        record = {}
+        for kind, axes, nbytes in ff.executor.comm.step_record:
+            e = record.setdefault(f"{kind} {'+'.join(axes)}", [0, 0])
+            e[0] += 1
+            e[1] += nbytes
+        peak = torch.cuda.max_memory_allocated()
+        ev = ff.evaluate(x, y)["loss"]
+        pred = ff.predict(x)
+        final = to_jax_params(ff)
+        if rank == 0:
+            torch.save(dict(final=final, pred=pred), os.path.join(
+                root, "final.pt"))
+        print("[mesh child] " + json.dumps(dict(
+            rank=rank, losses=list(ff.epoch_losses), steps_s=steps,
+            launches=launches, record=record, peak_bytes=peak,
+            evaluate=ev, kernels=rows, collectives=collectives,
+            local_leaves=sum(t.numel() for sub in ff.params.values()
+                             for t in sub.values()),
+            pred_finite=bool(np.isfinite(pred).all()))), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh(strategy_dir):
+    """[mesh] the full-width BERT-proxy on MESH_AXES = {"data": 2,
+    "model": 2}: 4 ranks (``--mesh-child``) share the one card over a
+    gloo group the script names (NCCL refuses two ranks on one card), so
+    the ranks' kernels and numerics are real and the transport is
+    gloo's host copies, not NVLink. First one rank on one device trains
+    the same MESH_STEPS steps from the same seed through the same
+    kernel choices (train (b)'s file). Checks: every rank's K1, K2 and K4
+    at its shapes against their plain versions; every rank's launches
+    (K1 12, K2 12, K4 1 a step); each rank's losses within MESH_LOSS_RTOL
+    of the one-rank run's and equal across ranks; the gathered
+    parameters (MESH_PARAM_ATOL an element, the update within
+    MESH_UPDATE_RTOL); ``evaluate`` and ``predict`` on the mesh against
+    the one-rank model's. Returns {"launches": [per-rank launches],
+    "kernels": [per-rank checks], ...}."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig()
+    x, y = training_batch(cfg)
+    # the one-rank run, through the kernel path's one-device file
+    one = compile_for_training(cfg, strategy_dir, alpha=MESH_ALPHA)
+    before = {op: {pn: t.detach().float().cpu()
+                   for pn, t in sub.items()} for op, sub in one.params.items()}
+    one.fit(x, y, epochs=MESH_STEPS, verbose=False)
+    one_losses = list(one.epoch_losses)
+    one_eval = one.evaluate(x, y)["loss"]
+    one_pred = one.predict(x)
+    after = {op: {pn: t.detach().float().cpu() for pn, t in sub.items()}
+             for op, sub in one.params.items()}
+    times = mesh_kernel_times(one)
+    del one
+    release()
+    world = math.prod(MESH_AXES.values())
+    with tempfile.TemporaryDirectory(prefix="ff_mesh_") as root:
+        with open(os.path.join(root, "strategy.json"), "w") as f:
+            json.dump(mesh_strategy(cfg, MESH_AXES), f)
+        cmd = [sys.executable, os.path.abspath(__file__), "--mesh-child"]
+        procs = [subprocess.Popen(cmd + [str(r), str(world), root],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MESH_CHILD_TIMEOUT_S))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        children = []
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            lines = [l for l in out.splitlines()
+                     if l.startswith("[mesh child] ")]
+            if p.returncode != 0 or not lines:
+                for line in err.splitlines()[-20:]:
+                    print(f"[mesh rank {r} stderr] {line}")
+            check(p.returncode == 0 and lines,
+                  f"[mesh] rank {r} exited {p.returncode}")
+            children.append(json.loads(lines[-1][len("[mesh child] "):]))
+        final = torch.load(os.path.join(root, "final.pt"),
+                           weights_only=False)
+    want = dict(flash_attn_fwd=12 * MESH_STEPS,
+                flash_attn_bwd=12 * MESH_STEPS, fused_adam=MESH_STEPS)
+    for c in children:
+        got = {k: c["launches"][k] for k in want}
+        check(got == want, f"[mesh] rank {c['rank']} launches {got}, want "
+                           f"{want}")
+        check(c["losses"] == children[0]["losses"],
+              f"[mesh] rank {c['rank']}'s losses differ from rank 0's")
+        check(c["pred_finite"], f"[mesh] rank {c['rank']}: non-finite "
+                                f"predict")
+    rel = [abs(a - b) / abs(b) for a, b in zip(children[0]["losses"],
+                                               one_losses)]
+    ev_rel = abs(children[0]["evaluate"] - one_eval) / abs(one_eval)
+    pred_rel = rel_gap(final["pred"], one_pred)
+    worst = num = den = 0.0
+    for op, sub in after.items():
+        for pn, a in sub.items():
+            got = torch.from_numpy(np.asarray(final["final"][op][pn]))
+            worst = max(worst, float((got - a).abs().max()))
+            num += float(((got - before[op][pn]) - (a - before[op][pn]))
+                         .pow(2).sum())
+            den += float((a - before[op][pn]).pow(2).sum())
+    upd_rel = math.sqrt(num / den)
+    p50 = [statistics.median(c["steps_s"]) * 1e3 for c in children]
+    print(f"[mesh] {nvidia_smi_line()}; {world} ranks on MESH_AXES "
+          f"{MESH_AXES}, one card, gloo: per-step losses "
+          + ", ".join(f"{v:.6f}" for v in children[0]["losses"])
+          + " against one rank's " + ", ".join(f"{v:.6f}" for v in
+                                              one_losses)
+          + f" (worst {max(rel):.3e} relative, tol {MESH_LOSS_RTOL}); "
+          f"evaluate {children[0]['evaluate']:.6f} against {one_eval:.6f} "
+          f"({ev_rel:.3e}); predict within {pred_rel:.3e} of max; "
+          f"parameters after {MESH_STEPS} steps: max |diff| {worst:.3e} "
+          f"(tol {MESH_PARAM_ATOL:.1e}), update within {upd_rel:.3e} "
+          f"relative L2 (tol {MESH_UPDATE_RTOL})")
+    print("[mesh] " + json.dumps(dict(
+        transport="gloo over host copies, 4 ranks sharing one card: not a "
+                  "multi-GPU number",
+        step_p50_ms=p50, steps_s=[c["steps_s"] for c in children],
+        peak_gib=[c["peak_bytes"] / 2**30 for c in children],
+        collectives_a_step=children[0]["record"],
+        launches=[c["launches"] for c in children],
+        kernel_checks=[c["kernels"] for c in children],
+        gloo_cuda_collectives=children[0]["collectives"],
+        local_param_elems=[c["local_leaves"] for c in children])))
+    check(max(rel) <= MESH_LOSS_RTOL, "[mesh] the ranks' losses leave the "
+                                      "one-rank run's")
+    check(ev_rel <= MESH_LOSS_RTOL and pred_rel <= MODEL_RTOL,
+          "[mesh] evaluate or predict leave the one-rank model's")
+    check(worst <= MESH_PARAM_ATOL and upd_rel <= MESH_UPDATE_RTOL,
+          "[mesh] the gathered parameters leave the one-rank run's")
+    return dict(launches=[c["launches"] for c in children],
+                kernels=[c["kernels"] for c in children], times=times)
+
+
 def fusion_model():
     """Two linears on one input, summed, batch 64 x 256 -> 128, on the
     card with a search budget: the substitution engine fuses them into one
@@ -7522,6 +7972,8 @@ def main(argv=None) -> int:
         return ckpt_child(argv[1:])
     if argv[:1] == ["--supervise-child"]:
         return supervise_child(argv[1:])
+    if argv[:1] == ["--mesh-child"]:
+        return mesh_child(argv[1:])
     def run_phase(label, fn, *args, **kw):
         t0 = time.perf_counter()
         result = fn(*args, **kw)
@@ -7598,6 +8050,8 @@ def main(argv=None) -> int:
                                  tmp, lint["fflint_moe"])
             loop = budgeted_phase("loop", LOOP_BUDGET_S, run_phase,
                                   phase_loop, tmp)
+            mesh = budgeted_phase("mesh", MESH_BUDGET_S, run_phase,
+                                  phase_mesh, tmp)
         print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -7658,6 +8112,16 @@ def main(argv=None) -> int:
         moe_train=moe["train"]["fused_adam"],
         loop_fit_loader=loop["launches"]["fused_adam"],
         loop_buckets=loop["bucket_launches"]["fused_adam"])
+    # the [mesh] ranks' launches (each rank's own counters) and their
+    # kernel checks at the per-rank shapes
+    for entry, key in ((fwd, "flash_attn_fwd"), (bwd, "flash_attn_bwd"),
+                       (adam, "fused_adam")):
+        entry["launches_by_path"]["mesh_ranks"] = [
+            r[key] for r in mesh["launches"]]
+        entry["mesh_checks"] = [next(row for row in rank_rows
+                                     if row[0] == key)
+                                for rank_rows in mesh["kernels"]]
+        entry["mesh_rank_shape"] = mesh["times"][key]
     adam["llama_train"] = llama_k4
     adam["launches_by_path"].update(
         {f"zoo_{n}": z["k4"]["launches"] for n, z in zoo.items()})

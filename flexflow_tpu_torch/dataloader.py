@@ -11,9 +11,13 @@ device: ``fit_loader`` moves no host bytes to the card in steady state.
 A pinned batch goes through the step's pinned buffer, one asynchronous
 copy.
 
-One process only: the reference's agreement of ``num_batches`` across
-ranks runs in a process group of more than one rank, which the port
-refuses (multi-GPU execution, ROADMAP.md Queue 1 item 3).
+In a process group of more than one rank every rank stages the whole
+dataset and each step's batch is the global batch, of which the
+executor feeds the rows the rank's mesh position holds
+(``executor.local_feeds``). The ranks agree on ``num_batches`` once, at
+construction (``distributed.allgather_value``; the reference's check),
+so that ranks handed datasets of other lengths fail with a message
+before any of them enters a per-batch collective, instead of hanging.
 """
 
 from __future__ import annotations
@@ -27,16 +31,17 @@ import torch
 DEVICE_SHARE = 0.5
 
 
-def _single_process() -> None:
-    """Raise in a ``torch.distributed`` group of more than one rank."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"a data loader in a process group of {dist.get_world_size()} "
-            f"ranks needs the ranks to agree on num_batches: multi-GPU "
-            f"execution, the multi-GPU slice of the PyTorch port "
-            f"(ROADMAP.md Queue 1 item 3)")
+def _agree_on_batches(num_batches: int) -> None:
+    """Raise unless every rank of the process group computed
+    ``num_batches`` (one collective; nothing without a group)."""
+    from flexflow_tpu_torch import distributed
+    counts = distributed.allgather_value(num_batches)
+    if len(set(counts)) != 1:
+        raise ValueError(
+            f"data loader: the ranks' num_batches disagree {counts} (rank "
+            f"{distributed.process_index()} computed {num_batches}): every "
+            f"rank must stage a dataset of the same length; pad or "
+            f"truncate before making the loader")
 
 
 def stage(arr: np.ndarray, device, on_device: bool = True) -> torch.Tensor:
@@ -66,7 +71,6 @@ class SingleDataLoader:
     def __init__(self, ffmodel, input_name: Optional[str], full_array,
                  batch_size: Optional[int] = None,
                  stage_on_device: bool = True):
-        _single_process()
         self.ff = ffmodel
         self.input_name = input_name  # None: the labels
         arr = np.asarray(full_array)
@@ -82,6 +86,7 @@ class SingleDataLoader:
             raise ValueError(f"dataset of {arr.shape[0]} samples < batch "
                              f"size {bs}")
         self.num_batches = usable // bs
+        _agree_on_batches(self.num_batches)
         self.num_samples = usable
         self.data = stage(arr[:usable], ffmodel.device, stage_on_device)
         self.next_index = 0

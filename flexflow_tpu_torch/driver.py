@@ -7,8 +7,13 @@ remaining argv:
 
     python -m flexflow_tpu_torch.driver -b 64 --budget 30 my_model.py --my-flag
 
-One process drives one card. ``--nodes`` above 1 (a multi-host launch)
-raises: multi-GPU execution is ROADMAP.md Queue 1 item 3.
+One process drives one card. Under torchrun (``torchrun
+--nproc-per-node N -m flexflow_tpu_torch.driver ... script.py``) the
+launcher first starts the process group from torchrun's environment
+(``distributed.initialize_from_config``), so the script's
+``compile`` lays its mesh over the N ranks. ``--nodes`` above 1 (a
+multi-host launch) raises: multi-node runs are ROADMAP.md Queue 1 item
+13, on the multi-rank executor of item 3.
 """
 
 from __future__ import annotations
@@ -43,9 +48,11 @@ def main(argv=None) -> int:
     rest.remove(script)
     if cfg.num_nodes > 1:
         raise NotImplementedError(
-            f"--nodes {cfg.num_nodes}: a multi-host launch needs multi-GPU "
-            f"execution, ROADMAP.md Queue 1 item 3; the port's driver runs "
-            f"one process on one node")
+            f"--nodes {cfg.num_nodes}: a multi-host launch is ROADMAP.md "
+            f"Queue 1 item 13, on the multi-rank executor of item 3; the "
+            f"port's driver runs the ranks of one node")
+    from flexflow_tpu_torch import distributed
+    distributed.initialize_from_config(cfg)
     _config = cfg
     # under ``python -m`` this module runs as __main__, and the script's
     # ``from flexflow_tpu_torch.driver import get_config`` imports a second

@@ -34,7 +34,25 @@ values, never as an attribute set on the op, which a CUDA-graph capture
 would freeze at the captured tensor.
 A mesh reaches the ops through ``OpContext.mesh``: one process runs a
 mesh whose one axis above 1 is ring attention's sequence axis, every ring
-position on this device. Sharding comes with a later slice.
+position on this device.
+
+Over a process group (a data x model mesh, one rank a device; the
+counterpart of the JAX package's GSPMD placement), each rank holds its
+box of every parameter under the node's param spec (the f32 master, the
+compute copy and the optimizer moments alike: ``param_spec``, the
+counterpart of ``param_shardings``), the
+batch rows its position holds (``local_feeds``: the inputs sharded over
+the data axes, ``batch_sharding``; the labels over the model output's
+batch axes, ``label_sharding``), and each op's outputs under their specs.
+Each op runs by its sharded rule (``parallel/sharded.py``) and the
+collectives go through ``parallel/comm.py``. The loss is the mean over
+the global batch (each rank's mean weighted by its share of the rows,
+summed over the batch axes), the metric sums are summed over them, and
+after the backward each gradient is all-reduced over the axes its op's
+batch was split over (``OpNode.grad_axes``: the data-axis sum GSPMD
+emits), in the order the backward finishes them. Such steps run eagerly
+(``StepGraph(capture=False)``), the forward and train step alike; the
+Conv+BN folds and fusions and the channels-last layout stay off there.
 
 Op state (BatchNorm's running statistics, Cache's last input, f32) is
 ``state[op name]`` beside the compute copy: the train step returns it
@@ -116,6 +134,10 @@ class OpNode:
         # per output, and one per parameter name
         self.output_specs: List[Optional[Tuple]] = [None] * len(op.output_shapes)
         self.param_specs: Dict[str, Tuple] = {}
+        # over a process group: the op's sharded rule and the axes its
+        # parameters' gradients are all-reduced over (parallel/sharded.py)
+        self.shard_rule: Optional[str] = None
+        self.grad_axes: Tuple[str, ...] = ()
 
     @property
     def guid(self):
@@ -195,6 +217,17 @@ class GraphExecutor:
             if impl == "fused"}
         # the compiled mesh (machine.Mesh or None), handed to every op
         self.mesh = mesh
+        # a mesh run over a process group, one rank a device; its
+        # collectives (parallel/comm.py MeshComm) are made at first use,
+        # on every rank in one order
+        from flexflow_tpu_torch.parallel.strategy import runs_over_group
+        self.multi_rank = runs_over_group(nodes, mesh)
+        self._comm = None
+        if self.multi_rank:
+            from flexflow_tpu_torch.parallel import sharded
+            for node in nodes:
+                node.shard_rule = sharded.rule_of(node.op)
+                node.grad_axes = sharded.grad_axes(node, mesh)
         # weight-update sharding (WUS) and the comms-compute overlap, as
         # the JAX package decides them: on a data degree above 1 the
         # gradient sync is a reduce-scatter onto data-sharded master
@@ -225,7 +258,7 @@ class GraphExecutor:
         # StepGraph}) and the memory pool their CUDA graphs share
         self.step_graphs: Dict[str, StepGraph] = {}
         self._graph_pool = None
-        self.fold_conv_bn = fold_conv_bn
+        self.fold_conv_bn = fold_conv_bn and not self.multi_rank
         # {id(node list): its drop schedule}: the full graph's, and the
         # folded and fused lists' once made
         self._drops = {id(nodes): drop_schedule(nodes, [self.final_ref])}
@@ -278,7 +311,109 @@ class GraphExecutor:
 
     def _ctx(self, training: bool, rng=None) -> OpContext:
         return OpContext(training=training, compute_dtype=self.compute_dtype,
-                         rng=rng, mesh=self.mesh, device=self.device)
+                         rng=rng, mesh=self.mesh, device=self.device,
+                         comm=self.comm)
+
+    # ---- placement over a process group ------------------------------------
+    @property
+    def comm(self):
+        """The mesh's collectives over the process group
+        (``parallel/comm.py``), or None on one device."""
+        if self.multi_rank and self._comm is None:
+            from flexflow_tpu_torch.parallel.comm import mesh_comm
+            self._comm = mesh_comm(self.mesh)
+            if self._comm is None:
+                raise RuntimeError(
+                    f"mesh {self.mesh.shape} runs over a process group of "
+                    f"{self.mesh.size} ranks; none is initialized "
+                    f"(flexflow_tpu_torch.distributed.initialize)")
+        return self._comm
+
+    def param_spec(self, op_name: str, pname: str, ndim: int):
+        """The normalized spec of a parameter leaf (``parallel/comm.py``
+        ``norm_spec``): the box each rank holds, of the master, the
+        compute copy and the moments alike."""
+        from flexflow_tpu_torch.parallel.comm import norm_spec
+        node = self._by_name.get(op_name)
+        spec = node.param_specs.get(pname) if node is not None else None
+        return norm_spec(spec, ndim, self.mesh)
+
+    def local_box(self, op_name: str, pname: str,
+                  whole: torch.Tensor) -> torch.Tensor:
+        """This rank's box of a whole parameter leaf (itself on one
+        device)."""
+        if not self.multi_rank:
+            return whole
+        for d, axes in enumerate(self.param_spec(op_name, pname,
+                                                 whole.dim())):
+            whole = self.comm.own_block(whole, axes, d)
+        return whole.contiguous()
+
+    def whole_shape(self, op_name: str, pname: str,
+                    local: torch.Tensor) -> Tuple[int, ...]:
+        """The whole shape of a parameter leaf of which ``local`` is this
+        rank's box."""
+        if not self.multi_rank:
+            return tuple(local.shape)
+        spec = self.param_spec(op_name, pname, local.dim())
+        return tuple(n * self.comm.size(axes)
+                     for n, axes in zip(local.shape, spec))
+
+    def whole_leaf(self, op_name: str, pname: str,
+                   local: torch.Tensor) -> torch.Tensor:
+        """The whole parameter leaf on every rank, gathered from each
+        rank's box (itself on one device). Collective."""
+        if not self.multi_rank:
+            return local
+        return self.comm.gather_whole(local, self.param_spec(
+            op_name, pname, local.dim()))
+
+    def _batch_axes_spec(self, spec, ndim):
+        from flexflow_tpu_torch.parallel.comm import norm_spec
+        return (norm_spec(spec, ndim, self.mesh)[0],) + ((),) * (ndim - 1)
+
+    def batch_sharding(self):
+        """The model inputs' sharding: the batch over the data axes (the
+        JAX executor's ``batch_sharding``)."""
+        from flexflow_tpu_torch.distributed import Sharding
+        da = tuple(self.data_axes)
+        return Sharding(self.mesh, (da,) if da else ())
+
+    def label_sharding(self):
+        """The labels' sharding: the batch axes of the model output's
+        spec, the rows the loss meets on each rank."""
+        from flexflow_tpu_torch.distributed import Sharding
+        node = next(n for n in self.nodes if n.guid == self.final_ref[0])
+        spec = node.output_specs[self.final_ref[1]]
+        return Sharding(self.mesh, (spec[0],) if spec else ())
+
+    def local_feeds(self, inputs, labels=None):
+        """The rows of a global batch (host arrays or tensors) this rank
+        feeds: the inputs' under ``batch_sharding``, the labels' under
+        ``label_sharding``. The batch itself on one device."""
+        if not self.multi_rank:
+            return inputs, labels
+        from flexflow_tpu_torch.distributed import local_batch_rows
+
+        def rows(x, sh):
+            n, off = local_batch_rows(sh, x.shape[0], rank=self.comm.rank)
+            return x[off:off + n]
+
+        bsh = self.batch_sharding()
+        inputs = {k: rows(v, bsh) for k, v in inputs.items()}
+        if labels is not None:
+            labels = rows(labels, self.label_sharding())
+        return inputs, labels
+
+    def _input_spec(self, x):
+        from flexflow_tpu_torch.parallel.comm import norm_spec
+        return norm_spec(self.batch_sharding().spec, x.dim(), self.mesh)
+
+    def _final_spec(self, ndim):
+        from flexflow_tpu_torch.parallel.comm import norm_spec
+        node = next(n for n in self.nodes if n.guid == self.final_ref[0])
+        return norm_spec(node.output_specs[self.final_ref[1]], ndim,
+                         self.mesh)
 
     # ---- parameter / state initialization ---------------------------------
     def init_params_and_state(self, generator: torch.Generator
@@ -288,7 +423,11 @@ class GraphExecutor:
         for node in self.nodes:
             ps = node.op.init_params(generator)
             if ps:
-                params[node.op.name] = ps
+                # the whole leaf is drawn on every rank (the one-device
+                # draw, from one seed), then cut to this rank's box
+                params[node.op.name] = {
+                    pn: self.local_box(node.op.name, pn, t)
+                    for pn, t in ps.items()}
             if hasattr(node.op, "init_state"):
                 state[node.op.name] = node.op.init_state(generator.device)
         if self.use_master_copy:
@@ -345,12 +484,36 @@ class GraphExecutor:
                 relayout[k] = to_layout(v, want)
             return relayout[k]
 
+        comm = self.comm if self.multi_rank else None
+        if comm is not None:
+            from flexflow_tpu_torch.parallel.sharded import out_specs
+        # over a process group: each value's spec, as its producer left it
+        spec_of: Dict[Tuple[int, int], Tuple] = {}
         for node, drop in zip(nodes, drops):
             op = node.op
             wants = getattr(node, "input_layouts", None) or \
                 [NCHW] * len(node.input_refs)
             args = [fetch(ref, want)
                     for ref, want in zip(node.input_refs, wants)]
+            if comm is not None:
+                in_specs = [spec_of[(r[1], r[2])] if r[0] == "op"
+                            else self._input_spec(a)
+                            for r, a in zip(node.input_refs, args)]
+                outs, moved, aux = self._sharded_forward(
+                    node, params.get(op.name, {}), args, in_specs, ctx,
+                    state.get(op.name))
+                if moved is not None:
+                    new_state[op.name] = moved
+                if aux is not None:
+                    aux_losses.append(aux)
+                for i, sp in enumerate(out_specs(node, self.mesh)):
+                    spec_of[(op.guid, i)] = sp
+                for i, o in enumerate(outs):
+                    values[(op.guid, i)] = o
+                del args, outs
+                for key in drop:
+                    del values[key]
+                continue
             sources = getattr(op, "param_sources", None)
             if sources is not None:
                 tree = (master if master is not None
@@ -384,12 +547,39 @@ class GraphExecutor:
             values[self.final_ref] = to_layout(values[self.final_ref], NCHW)
         return values, new_state, aux_losses
 
+    def _sharded_forward(self, node, params, args, in_specs, ctx, state):
+        """One op on this rank's shards -> (outputs in their specs, moved
+        op state or None, auxiliary loss or None): its own sharded
+        forward, or its rule's resharding around its plain forward
+        (``parallel/sharded.py``), under a remat checkpoint where the op
+        has one."""
+        from flexflow_tpu_torch.parallel import sharded
+        op, comm, rule = node.op, self.comm, node.shard_rule
+        moved = aux = None
+        if rule == "own":
+            outs = self._op_forward(
+                op, params, args, ctx,
+                call=lambda p, a, c: op.forward_sharded(p, a, in_specs,
+                                                        node, c))
+            return outs, None, None
+        args, params = sharded.prepare(node, rule, comm, args, in_specs,
+                                       params)
+        if hasattr(op, "init_state"):
+            outs, moved = op.forward_with_state(params, args, ctx, state)
+        elif hasattr(op, "forward_with_aux"):
+            outs, aux = op.forward_with_aux(params, args, ctx)
+        else:
+            outs = self._op_forward(op, params, args, ctx)
+        return sharded.finish(node, rule, comm, outs), moved, aux
+
     def _training_nodes(self):
         """The node list the train step runs: the (Conv2D, BatchNorm)
         pairs whose conv chose ``_k:conv_bn_fused`` as one fused node
         (``layout.TrainFusedConvBN``, bit-equal to the pair), the rest the
         full graph. A choice whose pair cannot fuse stays unfused and is
         listed in ``unfused_conv_bn``. Made once."""
+        if self.multi_rank:
+            return self.nodes
         if self._train_nodes is None:
             from flexflow_tpu_torch.layout import fuse_conv_bn_train
             names = {n for n, impl in (self.kernel_choices or {}).items()
@@ -414,7 +604,7 @@ class GraphExecutor:
                 self.nodes, keep_guids={self.final_ref[0]})
         return self._folded_nodes
 
-    def _op_forward(self, op: Op, params, args, ctx: OpContext):
+    def _op_forward(self, op: Op, params, args, ctx: OpContext, call=None):
         """``op.forward``; for a remat op in a forward with grad, under a
         non-reentrant checkpoint (the reentrant form refuses
         ``torch.autograd.grad``). Its parameters and inputs go to the
@@ -422,15 +612,17 @@ class GraphExecutor:
         backward is saved, and seen by saved-tensor hooks, like what any
         op saves. The RNG state is not kept: no op that draws random
         numbers is rematerialized (``remat_refusal``), and reading it
-        would not be legal under a CUDA-graph capture."""
+        would not be legal under a CUDA-graph capture. ``call`` stands
+        for ``op.forward`` (the op's sharded forward)."""
+        call = call or op.forward
         if not (ctx.training and self.remat_ops and op.name in self.remat_ops
                 and torch.is_grad_enabled()):
-            return op.forward(params, args, ctx)
+            return call(params, args, ctx)
         names = list(params)
 
         def interior(*flat):
-            return op.forward(dict(zip(names, flat[:len(names)])),
-                              list(flat[len(names):]), ctx)
+            return call(dict(zip(names, flat[:len(names)])),
+                        list(flat[len(names):]), ctx)
 
         return checkpoint(interior, *params.values(), *args,
                           use_reentrant=False, preserve_rng_state=False)
@@ -452,9 +644,14 @@ class GraphExecutor:
                     return self.run_graph(cparams, inputs, ctx,
                                           state)[0][self.final_ref]
             with torch.inference_mode():
-                return self.run_graph(cparams, inputs, ctx, state,
-                                      self._inference_nodes(),
-                                      master=params)[0][self.final_ref]
+                out = self.run_graph(cparams, inputs, ctx, state,
+                                     self._inference_nodes(),
+                                     master=params)[0][self.final_ref]
+                if self.multi_rank:
+                    # every rank returns the whole output
+                    out = self.comm.gather_whole(out,
+                                                 self._final_spec(out.dim()))
+                return out
 
         return fwd
 
@@ -471,7 +668,8 @@ class GraphExecutor:
                                  donate=False)
 
         def compiled(params, state, inputs, rng=None):
-            return graph((params, state), inputs, rng)[1]
+            return graph((params, state), self.local_feeds(inputs)[0],
+                         rng)[1]
 
         return compiled
 
@@ -484,7 +682,8 @@ class GraphExecutor:
             if self._graph_pool is None and self.device.type == "cuda":
                 self._graph_pool = torch.cuda.graph_pool_handle()
             graph = self.step_graphs[name] = StepGraph(
-                body, self.device, name, donate=donate, pool=self._graph_pool)
+                body, self.device, name, donate=donate, pool=self._graph_pool,
+                capture=not self.multi_rank)
         return graph
 
     def _cast_feeds(self, inputs, labels=None):
@@ -514,6 +713,35 @@ class GraphExecutor:
 
     # ---- training ----------------------------------------------------------
     def _loss_value(self, logits, labels):
+        """The loss over the global batch: on one device the loss of
+        ``logits``; over a process group, each rank's loss on its rows
+        (``logits`` taken to the batch sharding of the output's spec,
+        whole along every other dim) weighted by its share of the batch
+        and summed over the batch axes."""
+        if not self.multi_rank:
+            return self._local_loss(logits, labels)
+        logits, axes = self._rows_of(logits)
+        share = self.comm.size(axes)
+        return self.comm.reduce(self._local_loss(logits, labels) / share,
+                                axes)
+
+    def _rows_of(self, logits):
+        """The model output as this rank's rows, whole along every other
+        dim, and the axes its batch is split over."""
+        have = self._final_spec(logits.dim())
+        want = (have[0],) + ((),) * (logits.dim() - 1)
+        return self.comm.reshard(logits, have, want), have[0]
+
+    def _metric_sums(self, logits, labels):
+        """The metric sums over the global batch (summed over the batch
+        axes over a process group)."""
+        if not self.multi_rank:
+            return self.metrics.compute(logits, labels)
+        logits, axes = self._rows_of(logits)
+        return {k: self.comm.all_reduce(v, axes)
+                for k, v in self.metrics.compute(logits, labels).items()}
+
+    def _local_loss(self, logits, labels):
         fn = get_loss_fn(self.loss_type)
         if self.final_is_softmax and self.loss_type in (
             LossType.CATEGORICAL_CROSSENTROPY,
@@ -585,12 +813,28 @@ class GraphExecutor:
                 loss, [leaves[op][pn] for op, pn in flat], allow_unused=True)
                 if flat else ())
         got = dict(zip(flat, got))
+        if self.multi_rank:
+            got = self._sync_grads(got)
         grads = {op: {pn: (got[(op, pn)].contiguous()
                            if got.get((op, pn)) is not None
                            else torch.zeros_like(t))
                       for pn, t in sub.items()}
                  for op, sub in leaves.items()}
         return loss.detach(), logits.detach(), grads, new_state
+
+    def _sync_grads(self, got):
+        """Each gradient all-reduced over the axes its op's batch was
+        split over (``OpNode.grad_axes``), last op first: the order the
+        backward finishes them."""
+        comm = self.comm
+        for node in reversed(self.nodes):
+            axes = node.grad_axes
+            if not axes:
+                continue
+            for key in [k for k in got if k[0] == node.op.name]:
+                if got[key] is not None:
+                    got[key] = comm.all_reduce(got[key].contiguous(), axes)
+        return got
 
     def saved_bytes_by_op(self, params, state, inputs, labels,
                           rng=None) -> Dict[str, int]:
@@ -621,9 +865,9 @@ class GraphExecutor:
             # keeps the graph alive after the call
             return t.detach()
 
-        def tagged(op, *args):
+        def tagged(op, *args, **kw):
             current[0] = op.name
-            return type(self)._op_forward(self, op, *args)
+            return type(self)._op_forward(self, op, *args, **kw)
 
         # each op's forward tags what it saves, for this call only
         self._op_forward = tagged
@@ -646,6 +890,8 @@ class GraphExecutor:
         opt_state, state, loss, metric sums)``."""
 
         def train_step(params, opt_state, state, inputs, labels, rng=None):
+            if self.multi_rank:
+                self.comm.begin_step()
             loss, logits, grads, moved = self._forward_backward(
                 params, state, inputs, labels, rng)
             with torch.no_grad():
@@ -657,7 +903,9 @@ class GraphExecutor:
                     # the next step's bf16 working copy
                     new_state[COMPUTE_PARAMS_KEY] = \
                         self.cast_compute_copy(new_params)
-                metric_vals = self.metrics.compute(logits, labels)
+                metric_vals = self._metric_sums(logits, labels)
+            if self.multi_rank:
+                self.comm.end_step()
             return new_params, new_opt_state, new_state, loss, metric_vals
 
         return train_step
@@ -680,7 +928,8 @@ class GraphExecutor:
 
         def train_step(params, opt_state, state, inputs, labels, rng=None):
             (params, opt_state, state), (loss, mvals) = graph(
-                (params, opt_state, state), (inputs, labels), rng)
+                (params, opt_state, state), self.local_feeds(inputs, labels),
+                rng)
             return params, opt_state, state, loss, mvals
 
         return train_step
@@ -730,7 +979,7 @@ class GraphExecutor:
                     state.get(COMPUTE_PARAMS_KEY, params), inputs, ctx, state,
                     self._inference_nodes(), master=params)[0][self.final_ref]
                 loss = self._loss_value(logits, labels)
-                return loss, logits, self.metrics.compute(logits, labels)
+                return loss, logits, self._metric_sums(logits, labels)
 
         return eval_step
 
@@ -740,6 +989,7 @@ class GraphExecutor:
         graph = self._step_graph("eval_step", self._eval_body, donate=False)
 
         def eval_step(params, state, inputs, labels):
-            return graph((params, state), (inputs, labels))[1]
+            return graph((params, state),
+                         self.local_feeds(inputs, labels))[1]
 
         return eval_step

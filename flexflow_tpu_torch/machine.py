@@ -9,17 +9,22 @@ joined by a DCN (here InfiniBand). The field names are the reference's,
 because the native search core reads them.
 
 A ``Mesh`` names its axes and their sizes, as the reference's
-``jax.sharding.Mesh`` does; it holds no devices. One process runs a mesh
-whose only axis above 1 is the sequence axis of ring attention: every
-ring position lives on the model's one device
-(``parallel/ring_attention.py``, ``LocalRing``). A mesh with any other
-axis above 1 needs multi-GPU execution (ROADMAP.md Queue 1 items 3 and
-10).
+``jax.sharding.Mesh`` does; it holds no devices. Its ranks are laid out
+as ``jax.sharding.Mesh`` lays ``make_mesh``'s devices: row-major over the
+axes in their order, so that rank r of a process group holds what JAX
+device r holds (``Mesh.coords``, ``Mesh.members``). One process runs a
+mesh whose only axis above 1 is the sequence axis of ring attention:
+every ring position lives on the model's one device
+(``parallel/ring_attention.py``, ``LocalRing``). A data x model mesh
+runs one rank a device over a ``torch.distributed`` group
+(``distributed.py``, ``parallel/comm.py``); ``local_ring_axis`` refuses
+the meshes no slice runs yet, each naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 from typing import Dict, Iterable, Optional, Sequence, Tuple
@@ -379,7 +384,8 @@ def detect_machine_spec(num_devices: Optional[int] = None, slices: int = 1,
 
 
 class Mesh:
-    """Axis names and sizes of a logical device mesh."""
+    """Axis names and sizes of a logical device mesh; rank r sits at the
+    row-major coordinates of r over the axes in their order."""
 
     def __init__(self, axes: Dict[str, int]):
         self.shape: Dict[str, int] = {str(k): int(v) for k, v in axes.items()}
@@ -394,6 +400,46 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.shape.values())
 
+    def coords(self, rank: int) -> Dict[str, int]:
+        """{axis: index} of ``rank``: row-major over the axes, the last
+        axis fastest (``jax.sharding.Mesh`` over ``make_mesh``'s
+        reshaped device list)."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside mesh {self.shape}")
+        out: Dict[str, int] = {}
+        for a in reversed(self.axis_names):
+            rank, out[a] = divmod(rank, self.shape[a])
+        return {a: out[a] for a in self.axis_names}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords.get(a, 0)
+        return r
+
+    def block_index(self, axes: Sequence[str], rank: int) -> int:
+        """Which block of a dim split over ``axes`` (in that order, the
+        first the most significant, as a spec's tuple entry reads) rank
+        ``rank`` holds."""
+        c = self.coords(rank)
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + c[a]
+        return i
+
+    def members(self, axes: Sequence[str], rank: int) -> Tuple[int, ...]:
+        """The ranks that share ``rank``'s coordinates on every axis but
+        ``axes``, ascending: the members of the process group over
+        ``axes`` that ``rank`` belongs to."""
+        c = self.coords(rank)
+        free = [a for a in self.axis_names if a in set(axes)]
+        out = []
+        for idx in itertools.product(*(range(self.shape[a]) for a in free)):
+            cc = dict(c)
+            cc.update(zip(free, idx))
+            out.append(self.rank_of(cc))
+        return tuple(sorted(out))
+
     def __repr__(self):
         return f"Mesh({self.shape})"
 
@@ -401,7 +447,9 @@ class Mesh:
 def make_mesh(num_devices: int, axes: Dict[str, int]) -> Mesh:
     """A named mesh of ``num_devices`` over ``axes`` (axis name -> size),
     whose sizes must multiply to ``num_devices``. Canonical names as in the
-    reference: 'data', 'model', 'seq', 'expert', 'pipe'."""
+    reference: 'data', 'model', 'seq', 'expert', 'pipe'. Over a process
+    group of ``num_devices`` ranks, rank r holds the mesh position JAX's
+    device r holds (``Mesh.coords``)."""
     if math.prod(axes.values()) != num_devices:
         raise ValueError(f"mesh axes {axes} != {num_devices} devices")
     return Mesh(axes)
@@ -410,16 +458,30 @@ def make_mesh(num_devices: int, axes: Dict[str, int]) -> Mesh:
 def local_ring_axis(mesh: Optional[Mesh],
                     seq_axes: Iterable[str] = ("seq",)) -> Optional[str]:
     """The axis of ``mesh`` that one process runs as a ring on one device:
-    the one axis above 1, which must be one of ``seq_axes``; None when no
-    axis is above 1. Raises NotImplementedError for any other mesh."""
-    big = [a for a, n in (mesh.shape if mesh else {}).items() if n > 1]
-    if not big:
-        return None
-    if len(big) > 1 or big[0] not in set(seq_axes):
+    the one axis above 1 when it is one of ``seq_axes``; None when no
+    sequence axis is above 1 (a data x model mesh runs over a process
+    group instead). Raises NotImplementedError, naming the ROADMAP.md
+    item, for the axes no slice runs yet: 'pipe' (item 10), 'expert'
+    (expert parallelism, item 3's second part), and a sequence axis beside
+    another axis above 1 (item 3's {"data", "seq"} rings)."""
+    big = {a: n for a, n in (mesh.shape if mesh else {}).items() if n > 1}
+    if big.get("pipe"):
         raise NotImplementedError(
-            f"mesh {mesh.shape}: one process runs only a mesh whose one axis "
-            f"above 1 is a ring-attention sequence axis {sorted(seq_axes)}; "
-            f"other axes need multi-GPU execution, the multi-GPU slice of "
-            f"the PyTorch port (ROADMAP.md Queue 1 item 3; a 'pipe' axis "
-            f"item 10)")
-    return big[0]
+            f"mesh {mesh.shape}: a 'pipe' axis is pipeline execution, a "
+            f"later multi-GPU slice of the PyTorch port (ROADMAP.md "
+            f"Queue 1 item 10)")
+    if big.get("expert"):
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: an 'expert' axis above 1 is expert "
+            f"parallelism, the second part of the multi-GPU slice of the "
+            f"PyTorch port (ROADMAP.md Queue 1 item 3)")
+    seq = [a for a in big if a in set(seq_axes)]
+    if not seq:
+        return None
+    if len(big) > 1:
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: a ring-attention sequence axis beside "
+            f"another axis above 1 runs the ring over ranks, the rest of "
+            f"the multi-GPU slice of the PyTorch port (ROADMAP.md Queue 1 "
+            f"item 3)")
+    return seq[0]

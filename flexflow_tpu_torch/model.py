@@ -30,16 +30,23 @@ on the card under ``conv_compute_layout="auto"``); then, under
 then the strategy's Graphviz file where
 ``export_strategy_computation_graph_file`` (``--compgraph``) names one
 (``utils/dot.py``).
-The port executes on one device, and a compile prices and lays out one
-device unless ``workers_per_node`` asks for more: a strategy whose mesh
-needs more than one (a mesh axis above 1 other than a ring-attention
-sequence axis) raises after the lint, naming the ROADMAP.md item that
-brings it. ``analysis.orchestrator.plan_model`` stops before that
+Without a process group the port executes on one device, and a compile
+prices and lays out one device unless ``workers_per_node`` asks for
+more. In a ``torch.distributed`` group (``distributed.initialize``, or
+torchrun) a compile lays its mesh over the group's ranks, one a device:
+a searched or imported data x model strategy executes, each rank holding
+its box of every parameter and feeding the batch rows its position
+holds (``executor.py``); rank 0 searches and every rank takes its
+strategy. A strategy no slice executes yet (a 'pipe' or 'expert' axis, a
+ring beside another axis, ``_wus`` / ``_ovl`` choices, a mesh of another
+size than the group) raises after the lint, naming the ROADMAP.md item
+that brings it. ``analysis.orchestrator.plan_model`` stops before that
 refusal, so such a strategy lints without executing.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -66,11 +73,15 @@ from flexflow_tpu_torch.tensor import Tensor
 
 
 def devices_to_run(cfg: FFConfig, device: torch.device) -> int:
-    """The devices a compile prices and lays its mesh over: one, the
-    model's device, unless the caller asks for more with
-    ``workers_per_node`` (``num_devices``), capped at the visible cards.
-    A strategy over more than one then raises at compile, after the
-    lint: multi-GPU execution is ROADMAP.md Queue 1 item 3."""
+    """The devices a compile prices and lays its mesh over: the ranks of
+    the process group when one is initialized (one rank a device);
+    else one, the model's device, unless the caller asks for more with
+    ``workers_per_node`` (``num_devices``), capped at the visible cards,
+    and a strategy over more than one then raises at compile, after the
+    lint, for want of a group."""
+    from flexflow_tpu_torch import distributed
+    if distributed.process_count() > 1:
+        return distributed.process_count()
     if cfg.num_devices <= 0:
         return 1
     avail = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -467,6 +478,33 @@ class FFModel:
             [topk_values, topk_assign, topk_assign, gate] + expert_outs,
             num_exp, lambda_bal, name=f"{name or 'moe'}_aggregate")
 
+    # ---- parallel (resharding) ops: the explicit PCG API -----------------
+    # (ops/parallel_ops.py; over a process group each issues what its
+    # output spec demands)
+    def repartition(self, input: Tensor, dim: int, degree: int,
+                    axis: Optional[str] = None, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.REPARTITION, [input], dict(
+            dim=dim, degree=degree,
+            axis=axis or ("data" if dim == 0 else "model")), name)
+        return self._finish(layer)
+
+    def combine(self, input: Tensor, dim: int, degree: int,
+                name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.COMBINE, [input],
+                                dict(dim=dim, degree=degree), name)
+        return self._finish(layer)
+
+    def replicate(self, input: Tensor, degree: int, name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.REPLICATE, [input],
+                                dict(degree=degree), name)
+        return self._finish(layer)
+
+    def reduction(self, input: Tensor, dim: int, degree: int,
+                  name=None) -> Tensor:
+        layer = self._add_layer(OperatorType.REDUCTION, [input],
+                                dict(dim=dim, degree=degree), name)
+        return self._finish(layer)
+
     # ======================= compile ========================================
     def _materialize_nodes(self, input_shape_overrides=None):
         """Layer -> Op materialization. With ``input_shape_overrides``
@@ -578,7 +616,18 @@ class FFModel:
                                 include_costs=cfg.include_costs_dot_graph,
                                 search_info=self.search_info)
         from flexflow_tpu_torch.parallel.strategy import check_executable
-        check_executable(nodes, self.mesh)
+        check_executable(nodes, self.mesh, self.strategy)
+        if self.executor.multi_rank:
+            # the JAX package's "auto" weight-update sharding (no _wus
+            # choice, check_executable refused those) resolves to a plain
+            # all-reduce until ROADMAP.md Queue 1 item 4 executes it
+            if getattr(cfg, "weight_update_sharding", "auto") == "on":
+                raise NotImplementedError(
+                    "weight_update_sharding='on' over a process group: "
+                    "weight-update sharding is ROADMAP.md Queue 1 item 4")
+            self.executor.weight_update_sharding = False
+            self.executor.grad_overlap = False
+            self._check_ranks_agree(nodes)
 
         self.op_profile = None
         if cfg.profiling:
@@ -695,18 +744,8 @@ class FFModel:
                     nodes, machine_spec=self.machine_spec,
                     device=self.device, dtype=compute_dtype,
                     cache_file=cfg.measured_cache_file)
-            try:
-                mesh_axes, self.strategy, self.search_info = \
-                    unity.graph_optimize(nodes, self.machine_spec, cfg, n_dev,
-                                         measured=measured, batch=batch0,
-                                         final_ref=final_ref,
-                                         device=self.device)
-            except (RuntimeError, OSError) as e:
-                # a requested search never degrades to data parallelism
-                raise RuntimeError(
-                    f"auto-parallelization search was requested "
-                    f"(search_budget={cfg.search_budget}) but failed: {e}. "
-                    f"Drop --budget to run data-parallel.") from e
+            mesh_axes, self.strategy, self.search_info = self._search(
+                nodes, cfg, n_dev, measured, batch0, final_ref)
             self.search_objective = self.search_info.get("objective")
             self.mesh = make_mesh(math.prod(mesh_axes.values()), mesh_axes)
             # the substitution engine may have rewritten the graph: run
@@ -752,8 +791,12 @@ class FFModel:
                                                       self.strategy) or None
         # the conv family's execution layout: channels-last on the card
         # under "auto" (layout.py), NCHW the API boundary either way
+        # over a process group the activations keep NCHW, the layout
+        # their specs name
+        from flexflow_tpu_torch.parallel.strategy import runs_over_group
         self.layout_info = propagate_layouts(
-            nodes, mode=cfg.conv_compute_layout,
+            nodes, mode=("nchw" if runs_over_group(nodes, self.mesh)
+                         else cfg.conv_compute_layout),
             on_accelerator=self.device.type == "cuda")
         final_op = next(n.op for n in nodes if n.guid == final_ref[0])
         final_is_softmax = final_op.op_type == OperatorType.SOFTMAX
@@ -774,6 +817,70 @@ class FFModel:
         self.executor.comp_mode = comp_mode
         self._seq_execs = {}
         return nodes
+
+    def _check_ranks_agree(self, nodes) -> None:
+        """Raise unless every rank of the group holds this strategy (its
+        file body's digest), before any collective of the model runs."""
+        import hashlib
+
+        from flexflow_tpu_torch import distributed
+        from flexflow_tpu_torch.search import unity
+        body = json.dumps(unity.strategy_json(dict(self.mesh.shape),
+                                              self.strategy, nodes),
+                          sort_keys=True, default=str)
+        vals, same = distributed.ranks_agree(
+            int(hashlib.sha256(body.encode()).hexdigest()[:12], 16))
+        if not same:
+            raise RuntimeError(f"the ranks of the process group hold "
+                               f"different strategies (digests {vals})")
+
+    def _search(self, nodes, cfg, n_dev, measured, batch0, final_ref):
+        """The Unity search -> (mesh axes, strategy, search info). In a
+        process group rank 0 searches and broadcasts the strategy as its
+        file body; every rank takes it and the ranks check that they hold
+        the same one before any collective of the model runs."""
+        from flexflow_tpu_torch import distributed
+        from flexflow_tpu_torch.search import unity
+
+        multi = distributed.process_count() > 1
+        result = error = None
+        if not multi or distributed.process_index() == 0:
+            try:
+                result = unity.graph_optimize(
+                    nodes, self.machine_spec, cfg, n_dev, measured=measured,
+                    batch=batch0, final_ref=final_ref, device=self.device)
+            except (RuntimeError, OSError) as e:
+                error = e
+            if (result is not None and multi
+                    and result[2].get("rewritten_nodes") is not None):
+                error = RuntimeError(
+                    "the search rewrote the graph, and a rewritten graph "
+                    "is not carried to the other ranks of a process group "
+                    "(ROADMAP.md Queue 1 item 3); pass --disable-substitution")
+        if multi:
+            payload = None
+            if distributed.process_index() == 0:
+                payload = (dict(error=str(error)) if error is not None else
+                           dict(body=unity.strategy_json(
+                               result[0], result[1], nodes,
+                               objective=result[2].get("objective")),
+                               info={k: v for k, v in result[2].items()
+                                     if k not in ("rewritten_nodes",
+                                                  "final_ref")}))
+            payload = distributed.broadcast_object(payload)
+            if "error" in payload:
+                error = error or RuntimeError(payload["error"])
+            else:
+                mesh_axes, strategy = unity.strategy_from_json(
+                    payload["body"], nodes)
+                result = (mesh_axes, strategy, payload["info"])
+        if error is not None:
+            # a requested search never degrades to data parallelism
+            raise RuntimeError(
+                f"auto-parallelization search was requested "
+                f"(search_budget={cfg.search_budget}) but failed: {error}. "
+                f"Drop --budget to run data-parallel.") from error
+        return result
 
     def _weight_update_sharding(self, nodes, comp_mode):
         """(wus, wus_ops, overlap): the JAX package's decision of
@@ -1588,6 +1695,12 @@ class FFModel:
         ``start=True`` also starts its background serving thread."""
         if self.executor is None:
             raise ValueError("compile() the model before serve()")
+        if self.executor.multi_rank:
+            raise NotImplementedError(
+                f"serve() over the mesh {self.mesh.shape}: serving a model "
+                f"sharded over a process group is the rest of the "
+                f"multi-GPU slice of the PyTorch port (ROADMAP.md Queue 1 "
+                f"item 3)")
         from flexflow_tpu_torch.serve import ServingEngine
         engine = ServingEngine(self, batch_buckets=batch_buckets,
                                max_wait_ms=max_wait_ms,
@@ -1621,17 +1734,24 @@ class FFModel:
 
     # ---- weight I/O --------------------------------------------------------
     def get_parameter(self, layer_name: str, param_name: str = "kernel") -> np.ndarray:
-        return host_copy(self.params[layer_name][param_name],
-                         self.params[layer_name][param_name].dtype)
+        """The whole parameter leaf, on every rank of a process group (a
+        collective there: every rank calls it)."""
+        t = self.params[layer_name][param_name]
+        return host_copy(self.executor.whole_leaf(layer_name, param_name, t),
+                         t.dtype)
 
     def set_parameter(self, layer_name: str, value: np.ndarray,
                       param_name: str = "kernel") -> None:
+        """Write the whole leaf ``value``; over a process group each rank
+        keeps its box of it."""
         old = self.params[layer_name][param_name]
-        if tuple(old.shape) != tuple(value.shape):
+        whole = torch.tensor(np.asarray(value), dtype=old.dtype)
+        box = self.executor.local_box(layer_name, param_name, whole)
+        if tuple(old.shape) != tuple(box.shape):
             raise ValueError(f"shape mismatch {tuple(old.shape)} vs "
                              f"{tuple(value.shape)}")
         with torch.no_grad():
-            old.copy_(torch.tensor(np.asarray(value), dtype=old.dtype))
+            old.copy_(box)
         # defer the compute-copy re-cast: per-weight import loops would
         # otherwise cast the whole tree once per weight
         self._compute_params_dirty = True

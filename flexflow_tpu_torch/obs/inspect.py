@@ -22,10 +22,15 @@ from what the port has:
   (the reference's sense: all but the arguments, activations included)
   the footprint less the arguments. A model on the CPU has no device
   allocator: its peak, footprint, temp and pool are null.
-- ``collectives``: ``{}`` with ``collectives_source: "nccl"``. The port
-  runs one card; ring attention's hops on one card are copies, not
-  collectives. A census of NCCL calls comes with multi-GPU execution
-  (ROADMAP.md Queue 1 item 3).
+- ``collectives``: over a process group, the last train step's record
+  of ``parallel/comm.py`` (``MeshComm.census``: each call's kind and
+  output bytes, HLO's convention), with ``collectives_source``
+  ``"process_group:<backend>"``; on one card ``{}`` with
+  ``collectives_source: "nccl"`` (ring attention's hops on one card are
+  copies, not collectives). The port issues one collective where GSPMD
+  may combine several (XLA's all-reduce combiner) or pick another kind,
+  so counts compare with the JAX package's HLO census by kind, not one
+  for one.
 
 ``collective_census`` and ``census_totals`` read HLO text and census
 dicts as the JAX package's do, so that tools holding either package's
@@ -169,7 +174,8 @@ def inspect_compiled(ff) -> Dict[str, Any]:
         # the step's staged batch (static feed buffers) within arguments
         feed_bytes=feeds,
     )
-    census: Dict[str, Dict[str, float]] = {}
+    comm = getattr(ff.executor, "_comm", None)
+    census: Dict[str, Dict[str, float]] = comm.census() if comm else {}
     return dict(
         flops=train_step_flops(ff),
         bytes_accessed=None,
@@ -178,7 +184,8 @@ def inspect_compiled(ff) -> Dict[str, Any]:
         collectives=census,
         collectives_total=census_totals(census),
         collectives_min_bytes=0.0,
-        collectives_source="nccl",
+        collectives_source=(f"process_group:{comm.backend}" if comm
+                            else "nccl"),
         fusions=None,
     )
 

@@ -7,8 +7,8 @@ family's CONV2D, POOL2D, BATCHNORM, GROUPNORM and FLAT, DROPOUT, the
 SPLIT the search's linear fusion emits, and the tensor-op surface the
 frontends import graphs into (BATCHMATMUL, the shape ops, the reductions
 and top-k), and the mixture-of-experts ops (GROUP_BY, AGGREGATE,
-AGGREGATE_SPEC, CACHE, EXPERTS); ROADMAP.md lists the rest (the parallel
-ops).
+AGGREGATE_SPEC, CACHE, EXPERTS), and the parallel ops (REPARTITION,
+COMBINE, REPLICATE, REDUCTION, FUSED_PARALLEL).
 """
 
 from flexflow_tpu_torch.ops.base import Op, OpRegistry, register_op
@@ -23,5 +23,6 @@ import flexflow_tpu_torch.ops.matmul  # noqa: F401
 import flexflow_tpu_torch.ops.reduce  # noqa: F401
 import flexflow_tpu_torch.ops.moe  # noqa: F401
 import flexflow_tpu_torch.ops.experts  # noqa: F401
+import flexflow_tpu_torch.ops.parallel_ops  # noqa: F401
 
 __all__ = ["Op", "OpRegistry", "register_op"]

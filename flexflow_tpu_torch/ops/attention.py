@@ -123,9 +123,8 @@ class MultiHeadAttention(Op):
         # sequence parallelism: run the core as ring attention over this
         # mesh axis when the compiled mesh has it above 1
         self.seq_parallel = p.get("seq_parallel", None)
-        # head-parallel mesh axis (the reference's search sets it); the
-        # ring keeps heads on it, so a mesh with it above 1 needs more
-        # than one device (ROADMAP.md Queue 1 item 3)
+        # head-parallel mesh axis (a "head" choice sets it); the ring
+        # keeps heads on it
         self.head_parallel = p.get("head_parallel", None)
         self._warned_dropout = False
         # None = availability-based pick; "flash" asks for the kernel;
@@ -164,6 +163,77 @@ class MultiHeadAttention(Op):
 
     def forward(self, params, inputs, ctx: OpContext):
         query, key, value = (inputs * 3)[:3] if len(inputs) == 1 else inputs
+        y = self._attend(params, query, key, value, ctx)
+        if self.use_bias:
+            y = y + params["bo"].float()
+        return [y.to(query.dtype)]
+
+    def forward_sharded(self, params, inputs, in_specs, node, ctx):
+        """``forward`` on this rank's shards over ``ctx.comm``, the
+        counterpart of ``flash_attention_sharded``: the inputs take the
+        output's batch sharding (``dp``: 'data'; ``sample2``: data x
+        model) and are whole along sequence and features. A ``head``
+        choice shards wq / wo (and wk / wv where the kv-head count divides
+        the axis: the GQA rule) on their head dim, so the core runs on
+        the local ``[B/dp, H/mp, S, D]`` block; replicated wk / wv give
+        every kv head, of which the rank keeps those its query heads
+        read. The output projection's partial sums are all-reduced over
+        the head axes, then the bias is added once."""
+        from flexflow_tpu_torch.parallel.comm import norm_spec
+        comm, mesh = ctx.comm, ctx.mesh
+        out_spec = norm_spec(node.output_specs[0], 3, mesh)
+        batch = out_spec[0]
+        pspec = lambda n, nd: norm_spec(node.param_specs.get(n), nd, mesh)
+        heads = pspec("wq", 3)[0]
+        kv_heads = pspec("wk", 3)[0]
+        if pspec("wo", 3)[0] != heads or pspec("wv", 3)[0] != kv_heads or \
+                kv_heads not in ((), heads) or set(heads) & set(batch):
+            raise ValueError(
+                f"attention '{self.name}': param specs "
+                f"{dict(node.param_specs)} with output {out_spec}: the head "
+                f"axes of wq/wo and of wk/wv must agree (wk/wv may stay "
+                f"replicated) and differ from the batch axes")
+        # self-attention's one input (given once or three times) is
+        # resharded, and its gradient summed, once
+        self_attn = all(x is inputs[0] for x in inputs)
+        if self_attn:
+            args = [comm.reshard(inputs[0], in_specs[0], (batch, (), ()))] * 3
+        else:
+            args = [comm.reshard(x, s, (batch, (), ()))
+                    for x, s in zip(inputs, in_specs)]
+        local = dict(params)
+        for n in ("bq", "bk", "bv"):
+            if n in local:  # per-head biases follow their weight's heads
+                w = "wq" if n == "bq" else "wk"
+                local[n] = comm.reshard(local[n], pspec(n, 2),
+                                        (pspec(w, 3)[0], ()))
+        query, key, value = args
+        # each rank's heads read the whole input: its gradient sums over
+        # the ranks of the head axes
+        q_in = comm.copy_to(query, heads)
+        kv_in = [q_in if self_attn and kv_heads == heads
+                 else comm.copy_to(x, kv_heads) for x in (key, value)]
+        keep = None
+        if heads and not kv_heads:
+            keep = lambda t: comm.scatter(t, heads, 1)
+        y = self._attend(local, q_in, *kv_in, ctx, kv_heads_of=keep)
+        y = comm.reduce(y, heads)
+        if self.use_bias:
+            y = y + comm.reshard(params["bo"], pspec("bo", 1),
+                                 ((),)).float()
+        return [comm.reshard(y.to(inputs[0].dtype), (batch, (), ()),
+                             out_spec)]
+
+    def sharded_grad_axes(self, node, mesh):
+        from flexflow_tpu_torch.parallel.comm import norm_spec
+        return norm_spec(node.output_specs[0], 3, mesh)[0]
+
+    def _attend(self, params, query, key, value, ctx: OpContext,
+                kv_heads_of=None):
+        """The attention without the output bias: projections, core and
+        output projection, f32 ``[B, Sq, E]``. ``kv_heads_of`` keeps the
+        heads of the expanded k and v this rank's query heads read (a
+        head-parallel op whose wk / wv are replicated)."""
         cd = ctx.compute_dtype
         proj = lambda x, w: torch.einsum("bse,hed->bhsd", x.to(cd),
                                          params[w].to(cd))
@@ -175,10 +245,12 @@ class MultiHeadAttention(Op):
         if self.rope:
             q = rotary_embedding(q, theta=self.rope_theta)
             k = rotary_embedding(k, theta=self.rope_theta)
-        if self.num_kv_heads != self.num_heads:
+        if k.shape[1] != q.shape[1] or kv_heads_of is not None:
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
+            if kv_heads_of is not None:
+                k, v = kv_heads_of(k), kv_heads_of(v)
         # the core consumes q/k/v in the compute dtype
         q, k, v = q.to(cd), k.to(cd), v.to(cd)
         dropout = self.dropout if ctx.training else 0.0
@@ -210,10 +282,8 @@ class MultiHeadAttention(Op):
                 q, k, v, causal=self.causal, dropout_rate=dropout,
                 rng=ctx.next_rng() if dropout > 0 else None,
                 compute_dtype=cd)
-        y = torch.einsum("bhsd,hde->bse", o.to(cd), params["wo"].to(cd)).float()
-        if self.use_bias:
-            y = y + params["bo"].float()
-        return [y.to(query.dtype)]
+        return torch.einsum("bhsd,hde->bse", o.to(cd),
+                            params["wo"].to(cd)).float()
 
     def decode_forward(self, params, inputs, ctx: OpContext,
                        k_cache, v_cache, pos):

@@ -36,19 +36,23 @@ class OpContext:
     dtype, the ``torch.Generator`` that training-time randomness (Dropout
     and attention-prob dropout) draws from, the mesh the model was
     compiled on (``machine.Mesh`` or None), whose axes decide whether
-    attention runs as a ring (the reference's ``ctx.mesh``), and the
+    attention runs as a ring (the reference's ``ctx.mesh``), the
     device the graph runs on, where an op with no input (a constant)
-    puts its output (None: the CPU)."""
+    puts its output (None: the CPU), and over a process group the mesh's
+    collectives (``parallel/comm.py`` ``MeshComm``; None on one
+    device), which an op with a sharded rule of its own issues
+    (``forward_sharded``)."""
 
     def __init__(self, training: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
                  rng: Optional[torch.Generator] = None, mesh=None,
-                 device=None):
+                 device=None, comm=None):
         self.training = training
         self.compute_dtype = compute_dtype
         self.rng = rng
         self.mesh = mesh
         self.device = device
+        self.comm = comm
 
     def next_rng(self) -> torch.Generator:
         """The generator a random draw takes its numbers from. Where the
@@ -66,6 +70,10 @@ class OpContext:
 
 class Op:
     op_type: OperatorType = OperatorType.NOOP
+    # how the op runs on its rank's shards over a process group when it
+    # has no ``forward_sharded`` of its own (parallel/sharded.py):
+    # "elementwise", "per_sample" or "whole"
+    shard_rule: str = "whole"
 
     def __init__(self, layer: Layer, input_shapes: Sequence[Tuple[int, ...]]):
         self.layer = layer

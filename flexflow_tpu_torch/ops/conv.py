@@ -52,6 +52,8 @@ class Conv2D(Op):
     """x [N, C, H, W] * kernel [Cout, Cin/groups, KH, KW] -> [N, Cout, H',
     W']."""
 
+    shard_rule = "per_sample"
+
     def __init__(self, layer, input_shapes):
         p = layer.properties
         self.out_channels = p["out_channels"]
@@ -118,6 +120,8 @@ class Conv2D(Op):
 
 @register_op(OperatorType.POOL2D)
 class Pool2D(Op):
+    shard_rule = "per_sample"
+
     def __init__(self, layer, input_shapes):
         p = layer.properties
         self.kernel = (p["kernel_h"], p["kernel_w"])
@@ -211,6 +215,8 @@ class BatchNorm(Op):
 @register_op(OperatorType.FLAT)
 class Flat(Op):
     """NCHW -> [N, C*H*W]."""
+
+    shard_rule = "per_sample"
 
     def compute_output_shapes(self):
         shp = self.input_shapes[0]

@@ -49,6 +49,8 @@ _SCALAR_FNS = {
 
 
 class ElementUnary(Op):
+    shard_rule = "elementwise"
+
     def __init__(self, layer, input_shapes):
         self.scalar = layer.get_property("scalar")
         self.inplace = layer.get_property("inplace", False)
@@ -69,6 +71,8 @@ class ElementUnary(Op):
 
 
 class ElementBinary(Op):
+    shard_rule = "elementwise"
+
     def compute_output_shapes(self):
         a, b = self.input_shapes
         return [tuple(torch.broadcast_shapes(a, b))]

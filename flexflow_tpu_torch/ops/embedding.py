@@ -51,6 +51,48 @@ class Embedding(Op):
             emb = torch.mean(emb, dim=-2)
         return [emb]
 
+    def forward_sharded(self, params, inputs, in_specs, node, ctx):
+        """``forward`` on this rank's table box over ``ctx.comm``: a table
+        sharded on its columns (``col``, the (None, "model") kernel) looks
+        up its columns; one sharded on its rows (vocabulary-parallel,
+        ``row``) looks up the ids it holds, zeros the rest and all-reduces
+        the partial rows; the output then takes its spec."""
+        from flexflow_tpu_torch.parallel.comm import norm_spec
+        comm, mesh = ctx.comm, ctx.mesh
+        (ids,) = inputs
+        out_spec = norm_spec(node.output_specs[0], len(self.output_shapes[0]),
+                             mesh)
+        k_rows, k_cols = norm_spec(node.param_specs.get("kernel"), 2, mesh)
+        if self.aggr == AggrMode.AGGR_MODE_NONE:
+            want = out_spec[:-1]
+        else:
+            want = out_spec[:1] + ((),) * (ids.dim() - 1)
+        ids = comm.reshard(ids, in_specs[0], want).long()
+        table = params["kernel"]
+        if k_rows:
+            n = table.shape[0]
+            local = ids - comm.block(k_rows) * n
+            held = (local >= 0) & (local < n)
+            emb = table[local.clamp(0, n - 1)] * held[..., None].to(
+                table.dtype)
+        else:
+            emb = table[ids]
+        if self.aggr == AggrMode.AGGR_MODE_SUM:
+            emb = torch.sum(emb, dim=-2)
+        elif self.aggr == AggrMode.AGGR_MODE_AVG:
+            emb = torch.mean(emb, dim=-2)
+        emb = comm.reduce(emb, k_rows)
+        have = (want if self.aggr == AggrMode.AGGR_MODE_NONE
+                else want[:1]) + (k_cols,)
+        return [comm.reshard(emb, have, out_spec)]
+
+    def sharded_grad_axes(self, node, mesh):
+        from flexflow_tpu_torch.parallel.comm import norm_spec, spec_axes
+        spec = norm_spec(node.output_specs[0], len(self.output_shapes[0]),
+                         mesh)
+        return (spec_axes(spec[:-1]) if self.aggr == AggrMode.AGGR_MODE_NONE
+                else spec[0])
+
     def output_dim_roles(self):
         # the token-position dim of a [B, S, E] output is a sequence dim
         # (each position's lookup stands alone)

@@ -22,6 +22,12 @@ from flexflow_tpu_torch.ops.elementwise import _elementwise_roles
 
 @register_op(OperatorType.LAYERNORM)
 class LayerNorm(Op):
+    @property
+    def shard_rule(self):
+        nd = len(self.input_shapes[0])
+        return ("whole" if 0 in {a % nd for a in self.axes}
+                else "per_sample")
+
     def __init__(self, layer, input_shapes):
         self.axes = tuple(layer.get_property("axes", (-1,)))
         self.elementwise_affine = layer.get_property("elementwise_affine", True)
@@ -77,6 +83,8 @@ class GroupNorm(Op):
     """``nn.GroupNorm`` for NCHW / NC inputs: each of ``groups`` channel
     groups normalized over (C/G, *spatial), a per-channel affine."""
 
+    shard_rule = "per_sample"
+
     def __init__(self, layer, input_shapes):
         self.groups = layer.get_property("groups", 1)
         self.eps = layer.get_property("eps", 1e-5)
@@ -130,6 +138,8 @@ class RMSNorm(Op):
     """Root-mean-square normalization over the last dim (the Llama
     family): y = x / rms(x) * scale, computed in f32."""
 
+    shard_rule = "per_sample"
+
     def __init__(self, layer, input_shapes):
         self.eps = layer.get_property("eps", 1e-6)
         super().__init__(layer, input_shapes)
@@ -164,6 +174,11 @@ class RMSNorm(Op):
 
 @register_op(OperatorType.SOFTMAX)
 class Softmax(Op):
+    @property
+    def shard_rule(self):
+        return ("whole" if self.axis % len(self.input_shapes[0]) == 0
+                else "per_sample")
+
     def __init__(self, layer, input_shapes):
         self.axis = layer.get_property("axis", -1)
         super().__init__(layer, input_shapes)
@@ -188,6 +203,8 @@ class Dropout(Op):
     """Zeroes each element with probability ``rate`` in training and
     scales the rest by ``1 / (1 - rate)``; the identity outside training
     and at rate 0. The mask keeps x's memory format."""
+
+    shard_rule = "elementwise"
 
     def __init__(self, layer, input_shapes):
         self.rate = layer.get_property("rate", 0.5)

@@ -124,6 +124,8 @@ class Reverse(Op):
 
 @register_op(OperatorType.CAST)
 class Cast(Op):
+    shard_rule = "elementwise"
+
     def __init__(self, layer, input_shapes):
         self.target_dtype: DataType = layer.get_property("dtype")
         super().__init__(layer, input_shapes)

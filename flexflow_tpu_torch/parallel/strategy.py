@@ -6,17 +6,19 @@ parameter, plus the searched choice name. A spec is a tuple with one
 entry per dim, as ``jax.sharding.PartitionSpec`` is in the JAX package:
 an axis name, a tuple of names, or None (replicated).
 
-``apply_strategy`` records the specs on the nodes and holds the whole
-rule that turns a choice into the kernel an op runs. The port executes a
-strategy on
-one process's device: a mesh whose only axis above 1 is a ring-attention
-sequence axis (``machine.local_ring_axis``); any other mesh raises
-(``check_executable``), and executing it is the multi-GPU slice
-(ROADMAP.md Queue 1 items 3 and 10). ``FFModel.compile`` records the
-specs first and refuses after its lint, so such a strategy still lints.
-The port has no manual parallel ops (Repartition, Combine, ...) yet, so
-the reference's propagation of their forced layouts has no counterpart
-here.
+``apply_strategy`` records the specs on the nodes, propagates the
+layouts the manual parallel ops force (``ops/parallel_ops.py``; the
+reference's Repartition changes the layout every consumer then sees),
+and holds the whole rule that turns a choice into the kernel an op runs.
+The port executes a strategy on one process's device when no axis but a
+ring-attention sequence axis is above 1, and a data x model mesh over a
+process group of one rank a device (``executor.py``, ``parallel/comm.py``).
+``check_executable`` refuses the rest, each naming its ROADMAP.md item:
+a 'pipe' axis (item 10), an 'expert' axis and a sequence ring beside
+another axis (item 3's second part, ``machine.local_ring_axis``), a
+mesh larger than the process group, and a ``_wus`` or ``_ovl`` choice on
+a data degree above 1 (item 4). ``FFModel.compile`` records the specs
+first and refuses after its lint, so such a strategy still lints.
 """
 
 from __future__ import annotations
@@ -27,6 +29,20 @@ from typing import Dict, List, Optional, Tuple
 from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.machine import local_ring_axis
 from flexflow_tpu_torch.ops.base import DimRole
+
+# ops that keep their input's shape and follow its sharding: a manual
+# parallel op's layout propagates through these until the next layout- or
+# value-changing op (the reference's Repartition changes the
+# ParallelTensor layout every consumer then sees)
+_FOLLOW_OPS = frozenset({
+    OperatorType.RELU, OperatorType.GELU, OperatorType.SIGMOID,
+    OperatorType.TANH, OperatorType.ELU, OperatorType.EXP, OperatorType.SIN,
+    OperatorType.COS, OperatorType.POW, OperatorType.RSQRT,
+    OperatorType.IDENTITY, OperatorType.SCALAR_MULTIPLY,
+    OperatorType.SCALAR_ADD, OperatorType.SCALAR_SUB,
+    OperatorType.SCALAR_TRUE_DIV, OperatorType.DROPOUT, OperatorType.CAST,
+    OperatorType.SOFTMAX, OperatorType.LAYERNORM, OperatorType.RMSNORM,
+})
 
 Spec = Tuple  # entries: axis name, tuple of names, or None
 
@@ -69,7 +85,8 @@ def data_parallel_strategy(nodes, mesh) -> Strategy:
 
 def tensor_parallel_overrides(nodes, mesh, strategy: Strategy) -> Strategy:
     """Shard weight-heavy ops on the 'model' axis: Linear column-parallel
-    (kernel [in, out] -> out sharded), attention head-parallel."""
+    (kernel [in, out] -> out sharded), attention head-parallel, embedding
+    columns."""
     mp = mesh.shape.get("model", 1)
     if mp <= 1:
         return strategy
@@ -90,6 +107,8 @@ def tensor_parallel_overrides(nodes, mesh, strategy: Strategy) -> Strategy:
             if op.num_kv_heads % mp == 0:
                 st.param_specs.update(wk=("model", None, None),
                                       wv=("model", None, None))
+        elif op.op_type == OperatorType.EMBEDDING and op.out_dim % mp == 0:
+            st.param_specs["kernel"] = (None, "model")
     return strategy
 
 
@@ -123,7 +142,8 @@ def apply_strategy(nodes, strategy: Strategy, mesh, kernels: str = "chosen",
     attention op's core), or None under ``kernels="off"``.
 
     A ``_ring`` choice on a mesh with 'seq' above 1 puts an attention op
-    on the ring. ``kernels`` says how choices pick kernels:
+    on the ring; a ``head`` choice on a 'model' axis above 1 records the
+    head-sharded axis. ``kernels`` says how choices pick kernels:
 
     - ``"off"``: the kernel dimension is switched off, or never ran (no
       search, no ``_k:`` choice), or the mesh pipelines: every pin is
@@ -139,22 +159,77 @@ def apply_strategy(nodes, strategy: Strategy, mesh, kernels: str = "chosen",
       pinned to the einsum core where flash would run on ``device`` in
       this mode: the search priced flash there and rejected it.
 
-    Raises NotImplementedError (``machine.local_ring_axis``) on a mesh one
-    process cannot run."""
+    Raises NotImplementedError (``check_executable``) on a mesh this
+    process group cannot run."""
     if kernels not in KERNEL_MODES:
         raise ValueError(f"kernels={kernels!r}: one of {KERNEL_MODES}")
-    check_executable(nodes, mesh)
+    check_executable(nodes, mesh, strategy)
     return _record_strategy(nodes, strategy, mesh, kernels=kernels,
                             training=training, device=device)
 
 
-def check_executable(nodes, mesh) -> None:
-    """Raise NotImplementedError (``machine.local_ring_axis``) unless one
-    process runs ``mesh``: no axis above 1, or one ring-attention
-    sequence axis ('seq', or an attention op's ``seq_parallel``)."""
-    local_ring_axis(mesh, {"seq"} | {
-        n.op.seq_parallel for n in nodes
-        if getattr(n.op, "seq_parallel", None)})
+def executes_on_ranks(nodes, mesh) -> bool:
+    """Whether ``mesh`` needs a process group (an axis above 1 that is not
+    a one-process ring's), as opposed to one device."""
+    big = [a for a, n in (mesh.shape if mesh else {}).items() if n > 1]
+    return bool(big) and not (len(big) == 1 and big[0] in _seq_axes(nodes))
+
+
+def runs_over_group(nodes, mesh) -> bool:
+    """Whether this process runs ``mesh`` as one rank of a process group
+    of its size (else the mesh is a plan, or refused at compile)."""
+    from flexflow_tpu_torch import distributed
+    return (executes_on_ranks(nodes, mesh)
+            and distributed.process_count() == mesh.size)
+
+
+def _seq_axes(nodes):
+    return {"seq"} | {n.op.seq_parallel for n in nodes
+                      if getattr(n.op, "seq_parallel", None)}
+
+
+def check_executable(nodes, mesh, strategy: Optional[Strategy] = None
+                     ) -> None:
+    """Raise NotImplementedError unless this process, or its process
+    group, runs ``mesh``: no axis above 1, one ring-attention sequence
+    axis on one device (``machine.local_ring_axis``, which also refuses
+    'pipe', 'expert' and a ring beside another axis), or a mesh of as
+    many positions as the group has ranks, without a ``_wus`` / ``_ovl``
+    choice on a data degree above 1 (weight-update sharding and the
+    comms overlap are ROADMAP.md Queue 1 item 4; the port does not run
+    them as a plain all-reduce)."""
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.executor import data_degree
+
+    local_ring_axis(mesh, _seq_axes(nodes))
+    if not executes_on_ranks(nodes, mesh):
+        return
+    world = distributed.process_count()
+    if world != mesh.size:
+        raise NotImplementedError(
+            f"mesh {mesh.shape} runs one rank a device over a process group "
+            f"of {mesh.size} ranks, and this process "
+            + (f"is one of {world}" if world > 1 else "has no such group")
+            + ": start one with flexflow_tpu_torch.distributed.initialize "
+            f"(or torchrun), the multi-GPU slice of the PyTorch port "
+            f"(ROADMAP.md Queue 1 item 3)")
+    if data_degree(mesh) > 1:
+        for st in (strategy or {}).values():
+            choice = getattr(st, "choice", None) or ""
+            if "_wus" in choice or "_ovl" in choice:
+                raise NotImplementedError(
+                    f"choice {choice!r} on mesh {mesh.shape}: weight-update "
+                    f"sharding and the comms-compute overlap are ROADMAP.md "
+                    f"Queue 1 item 4; export the strategy with "
+                    f"weight_update_sharding='off' and "
+                    f"overlap_bucket_mb='off'")
+
+
+def _axis_entry_valid(entry, valid_axes) -> bool:
+    if entry is None:
+        return True
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    return all(a in valid_axes for a in axes)
 
 
 def _record_strategy(nodes, strategy: Strategy, mesh, kernels: str,
@@ -166,12 +241,14 @@ def _record_strategy(nodes, strategy: Strategy, mesh, kernels: str,
                                                  kernel_choice_of)
 
     axis_sizes = mesh.shape
+    by_guid = {n.op.guid: n for n in nodes}
+    # guid -> spec entries forced by an upstream manual parallel op
+    forced: Dict[int, List] = {}
     for node in nodes:
+        _force_layout(node, by_guid, forced, axis_sizes, strategy)
         st = strategy.get(node.op.guid)
         if st is None:
             continue
-        node.output_specs = list(st.output_specs)
-        node.param_specs = dict(st.param_specs)
         choice = st.choice or ""
         # an "_ep" choice shards the stacked experts over the 'expert'
         # axis (the JAX package's expert_parallel_ffn); such a mesh is
@@ -183,6 +260,8 @@ def _record_strategy(nodes, strategy: Strategy, mesh, kernels: str,
             continue
         if "_ring" in choice and axis_sizes.get("seq", 1) > 1:
             node.op.seq_parallel = "seq"
+        if "head" in choice and axis_sizes.get("model", 1) > 1:
+            node.op.head_parallel = "model"
         if kernels == "off":
             node.op.kernel_impl = None
             continue
@@ -197,3 +276,51 @@ def _record_strategy(nodes, strategy: Strategy, mesh, kernels: str,
         return None
     return executed_kernel_choices(nodes, strategy, axis_sizes,
                                    training=training, device=device)
+
+
+def _force_layout(node, by_guid, forced, axis_sizes, strategy) -> None:
+    """Record ``node``'s strategy specs, then the layout a manual parallel
+    op forces (``preferred_spec_update`` on its input's entries) and its
+    propagation through the shape-keeping ops of ``_FOLLOW_OPS``: the
+    reference's ``apply_strategy`` rule, with its two refusals (a
+    Repartition degree that is not its axis's size, one axis on two
+    dims)."""
+    op = node.op
+    st = strategy.get(op.guid)
+    if st is not None:
+        node.output_specs = list(st.output_specs)
+        node.param_specs = dict(st.param_specs)
+    is_par = getattr(op, "is_parallel_op", False)
+    follows = (op.op_type in _FOLLOW_OPS and node.input_refs
+               and node.input_refs[0][0] == "op"
+               and node.input_refs[0][1] in forced)
+    if not ((is_par and hasattr(op, "preferred_spec_update")) or follows):
+        return
+    ref = node.input_refs[0]
+    nd = len(op.output_shapes[0])
+    if ref[0] == "op" and ref[1] in forced:
+        src = forced[ref[1]]
+    elif ref[0] == "op" and ref[1] in by_guid:
+        src = by_guid[ref[1]].output_specs[ref[2]]
+    else:
+        src = None
+    entries = (list(src) + [None] * nd)[:nd] if src else [None] * nd
+    if is_par:
+        if (op.op_type == OperatorType.REPARTITION
+                and op.axis in axis_sizes
+                and op.repartition_degree != axis_sizes[op.axis]):
+            raise ValueError(
+                f"repartition degree {op.repartition_degree} != mesh axis "
+                f"'{op.axis}' size {axis_sizes[op.axis]}: the degree must "
+                f"equal the axis extent")
+        entries = op.preferred_spec_update(entries)
+    entries = [e if _axis_entry_valid(e, axis_sizes) else None
+               for e in entries]
+    used = [e for e in entries if e is not None]
+    if len(used) != len(set(used)):
+        raise ValueError(
+            f"parallel op '{op.name}' would shard two dims over the same "
+            f"mesh axis ({entries}); repartition a dim that is not "
+            f"already sharded on that axis")
+    node.output_specs = [tuple(entries)] + list(node.output_specs[1:])
+    forced[op.guid] = entries

@@ -515,7 +515,13 @@ def import_strategy_file(path: str, nodes
     strategy) for the ops of ``nodes`` the file names, for a mesh of any
     size; ``FFModel.compile`` refuses what it cannot run."""
     with open(path) as f:
-        data = json.load(f)
+        return strategy_from_json(json.load(f), nodes)
+
+
+def strategy_from_json(data: Dict[str, Any], nodes
+                       ) -> Tuple[Dict[str, int], Strategy]:
+    """A strategy file's body (``strategy_json``) -> (mesh axes,
+    strategy) for the ops of ``nodes`` it names."""
     mesh_axes = {k: int(v) for k, v in data["mesh"].items()}
     strategy: Strategy = {}
     for node in nodes:

@@ -38,7 +38,10 @@ every later call replays the graph. A capture that fails raises with its
 cause: nothing falls back to the eager body on CUDA. On the CPU there is
 nothing to capture: every call runs the same body eagerly over the same
 static buffers and static outputs, so an aliasing mistake that a replay
-would make shows in the CPU tests too.
+would make shows in the CPU tests too. A step made with ``capture=False``
+runs that eager path on the card as well: the executor's steps over a
+process group of more than one rank, whose collectives (gloo's host
+copies among them) a capture cannot hold.
 
 The kernel wrappers count their launches in Python, which a replay does
 not run, and count nothing while a capture records them (a capture
@@ -246,9 +249,11 @@ class StepGraph:
     "thread_local" mode: other threads may use the card meanwhile."""
 
     def __init__(self, body: Callable, device: torch.device, name: str, *,
-                 donate: bool, pool=None):
+                 donate: bool, pool=None, capture: bool = True):
         self._body = weakref.WeakMethod(body)
         self.device = torch.device(device)
+        # False: every call runs the body eagerly, on the card too
+        self.capture = capture
         self.name = name
         self.donate = donate
         self.pool = pool
@@ -287,7 +292,7 @@ class StepGraph:
             self._entries[key] = e
             self.captures += 1
             get_registry().inc(f"executor.{self.name}_jits")
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and self.capture:
                 return self._warm_and_capture(key, e, feed_leaves, rng)
         self._take_carry(e, carry_leaves)
         self._take_feeds(e, feed_leaves)

@@ -9,7 +9,10 @@ layouts are identical by construction (dense ``kernel [in, out]`` and
 both packages) and ``bias [Cout]``, BatchNorm and GroupNorm
 ``scale``/``bias [C]``), so the copy is a cast and a device move. Op state
 (BatchNorm's running ``mean``/``var``) carries across the same way
-(``from_jax_state``).
+(``from_jax_state``). Over a process group each rank keeps its box of
+every leaf, cut from the whole array by the leaf's spec (the box JAX's
+device of the same index holds), and ``to_jax_params`` gathers the
+whole arrays back on every rank.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ def from_jax_params(params: Mapping[str, Mapping[str, np.ndarray]],
                          f"extra {extra}")
     for layer, sub in params.items():
         for name, arr in sub.items():
-            want = tuple(ours[layer][name].shape)
+            want = model.executor.whole_shape(layer, name,
+                                              ours[layer][name])
             if tuple(np.shape(arr)) != want:
                 raise ValueError(f"{layer}/{name}: shape {np.shape(arr)}, "
                                  f"port expects {want}")
@@ -132,3 +136,11 @@ def from_jax_opt_state(opt_state: Mapping, model) -> Dict:
                     for l, sub in val.items()}
     model.opt_state = new
     return new
+
+
+def to_jax_params(model) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of ``from_jax_params``: the model's parameter tree as
+    whole f32 numpy arrays, ``{layer_name: {param_name: array}}``, on
+    every rank of a process group (a collective there)."""
+    return {layer: {name: model.get_parameter(layer, name) for name in sub}
+            for layer, sub in model.params.items()}

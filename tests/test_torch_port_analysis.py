@@ -269,31 +269,21 @@ class TestShardingLegality:
         assert "FFL105" in rules(rep.errors)
 
     def test_repartition_axis_mismatch_fires_ffl104(self, mlp):
-        # the packages part here: the port has no repartition op yet
-        # (ROADMAP.md Queue 1 items 3 and 10), so the port's context holds
-        # a stand-in node with the reference op's attributes, and the
-        # FFL104 diagnostic must equal the JAX model's
-        jff = J.FFModel(J.FFConfig(batch_size=8))
-        t = jff.create_tensor((8, 64))
-        t = jff.repartition(t, dim=1, degree=4, axis="model")
-        t = jff.dense(t, 10)
-        _j_compile(jff)
+        # a repartition over 'model' on a data-only mesh: both packages
+        # plan the same graph (the port has the parallel ops since its
+        # multi-rank slice), and the FFL104 diagnostic must equal the JAX
+        # model's
+        def build(M, dev):
+            ff = M.FFModel(M.FFConfig(batch_size=8), **dev)
+            t = ff.create_tensor((8, 64))
+            t = ff.repartition(t, dim=1, degree=4, axis="model")
+            ff.dense(t, 10)
+            return ff
+        jff, pff = twins(lambda: build(J, {}),
+                         lambda: build(P, dict(device="cpu")))
         jrep = j_run_passes(jctx_of(jff), [jsh.ShardingLegalityPass()])
-        jpar = next(n for n in jff.executor.nodes
-                    if getattr(n.op, "is_parallel_op", False))
-        assert not hasattr(P.FFModel, "repartition")
-        op = types.SimpleNamespace(
-            op_type=P.OperatorType.REPARTITION, is_parallel_op=True,
-            axis=jpar.op.axis, repartition_degree=jpar.op.repartition_degree,
-            name=jpar.op.name, guid=jpar.op.guid,
-            output_shapes=list(jpar.op.output_shapes),
-            input_shapes=list(jpar.op.input_shapes))
-        node = types.SimpleNamespace(op=op, input_refs=list(jpar.input_refs),
-                                     output_specs=list(jpar.output_specs),
-                                     param_specs={})
-        ctx = LintContext(nodes=[node], mesh=make_mesh(DEVICES,
-                                                       {"data": DEVICES}))
-        prep = run_passes(ctx, [psh.ShardingLegalityPass()])
+        prep = run_passes(pctx_of(pff),
+                          [psh.ShardingLegalityPass()])
         jhits = [d.to_json() for d in jrep.diagnostics if d.rule == "FFL104"]
         phits = [d.to_json() for d in prep.diagnostics if d.rule == "FFL104"]
         assert phits and phits == jhits

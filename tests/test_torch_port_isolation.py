@@ -89,7 +89,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.ops.moe, flexflow_tpu_torch.ops.experts, "
         "flexflow_tpu_torch.models.moe_model, "
         "flexflow_tpu_torch.dataloader, flexflow_tpu_torch.utils.dot, "
-        "flexflow_tpu_torch.utils.graph_algorithms\n"
+        "flexflow_tpu_torch.utils.graph_algorithms, "
+        "flexflow_tpu_torch.distributed, flexflow_tpu_torch.parallel.comm, "
+        "flexflow_tpu_torch.parallel.sharded, "
+        "flexflow_tpu_torch.parallel.pcg, "
+        "flexflow_tpu_torch.ops.parallel_ops, flexflow_tpu_torch.driver\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -6,7 +6,7 @@ length buckets of the ``set_batch`` / ``forward`` / ``backward`` /
   device; the CPU here), ``next_batch`` slices it and wraps at the end
   of an epoch, ``seek`` positions it and refuses a batch outside the
   epoch, integer inputs take the input's declared dtype, a process group
-  of more than one rank is refused naming ROADMAP item 3, and the
+  whose ranks disagree on num_batches is refused, and the
   package root exports the reference's three names.
 - ``fit_loader`` against ``fit`` on the same batches: the epoch losses
   and every leaf bit for bit (the same compiled step over other feeds);
@@ -167,11 +167,15 @@ def test_integer_inputs_take_the_declared_dtype():
 
 
 def test_a_process_group_of_two_ranks_is_refused(monkeypatch):
+    """Two ranks whose datasets give other batch counts are refused at
+    the loader's construction (the reference's num_batches agreement),
+    before any per-batch collective could hang."""
+    from flexflow_tpu_torch import distributed
     ff = port_mlp()
     x, y = blobs()
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    monkeypatch.setattr(distributed, "allgather_value",
+                        lambda n: [n, n + 1])
+    with pytest.raises(ValueError, match="num_batches disagree"):
         P.create_data_loaders(ff, x, y)
 
 

@@ -173,10 +173,9 @@ def test_mha_kernel_impl_flash_raises_where_kernel_cannot_run():
 
 
 def test_unported_op_raises():
-    # REPARTITION stays unported until the multi-GPU slice (ROADMAP.md
-    # item 3)
-    layer = PLayer(pconst.OperatorType.REPARTITION, "repartition", [])
-    layer.properties.update(dim=0, degree=2, axis="data")
+    # an operator type with no op in either package (the reference's
+    # ALLREDUCE is a runtime task, not a graph op) names what is ported
+    layer = PLayer(pconst.OperatorType.ALLREDUCE, "allreduce", [])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PRegistry.create(layer, [(8, 16)])
 

@@ -204,15 +204,23 @@ def test_ring_of_one_is_plain_attention():
 
 
 def test_meshes_one_process_refuses():
-    """A mesh with any axis above 1 other than the ring's raises, naming
-    the multi-GPU item; sizes must multiply to the device count."""
+    """The meshes no slice runs yet raise, each naming its ROADMAP item:
+    a ring beside another axis above 1 and an 'expert' axis (item 3's
+    rest), a 'pipe' axis (item 10). A data x model mesh is no ring: it
+    runs over a process group. Sizes must multiply to the device
+    count."""
     with pytest.raises(ValueError, match="devices"):
         make_mesh(4, {"seq": 2})
     assert local_ring_axis(make_mesh(4, {"data": 1, "seq": 4})) == "seq"
     assert local_ring_axis(None) is None
     assert local_ring_axis(make_mesh(1, {"data": 1})) is None
-    for axes in ({"data": 2, "seq": 2}, {"model": 2}, {"data": 4}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    for axes in ({"model": 2}, {"data": 4}, {"data": 4, "model": 2}):
+        assert local_ring_axis(Mesh(axes)) is None
+    for axes, item in (({"data": 2, "seq": 2}, "Queue 1 item 3"),
+                       ({"model": 2, "seq": 2}, "Queue 1 item 3"),
+                       ({"expert": 2}, "Queue 1 item 3"),
+                       ({"data": 2, "pipe": 2}, "Queue 1 item 10")):
+        with pytest.raises(NotImplementedError, match=item):
             local_ring_axis(Mesh(axes))
     q = torch.zeros(2, 2, 8, 8)
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
@@ -277,10 +285,14 @@ def test_kernels_of_the_compiled_path():
 
 
 def test_compile_refuses_meshes_one_process_cannot_run():
+    """Still refused at compile: a ring beside a data axis (item 3's
+    rest), and a data x model mesh in a process with no group of its
+    size to run it over."""
     cfg = TransformerConfig(num_layers=1, hidden_size=64, num_heads=2,
                             seq_length=32, batch_size=2, seq_parallel="seq")
-    for axes, n in (({"data": 2, "seq": 2}, 4), ({"model": 2}, 2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    for axes, n, match in (({"data": 2, "seq": 2}, 4, "Queue 1 item 3"),
+                           ({"model": 2}, 2, "process group of 2 ranks")):
+        with pytest.raises(NotImplementedError, match=match):
             compile_transformer(cfg, mesh=make_mesh(n, axes), device="cpu")
     with pytest.raises(TypeError, match="make_mesh"):
         compile_transformer(cfg, mesh=j_make_mesh(4, {"seq": 4}),

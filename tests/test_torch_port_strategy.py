@@ -208,7 +208,7 @@ def test_heuristic_strategies_match_jax(axes):
             == {k: _as_lists(v) for k, v in want[g].param_specs.items()}
 
 
-def test_apply_strategy_pins_and_refuses():
+def test_apply_strategy_pins_and_refuses(monkeypatch):
     _, pff = _pair()
     nodes, _ = _graph(pff)
     mesh = pmachine.make_mesh(1, {"data": 1})
@@ -220,9 +220,22 @@ def test_apply_strategy_pins_and_refuses():
     pstrategy.apply_strategy(nodes, st, mesh)
     assert [n.op.kernel_impl for n in attn] == ["flash", "einsum"]
     assert attn[1].output_specs == [("data",)]
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    # still refused, each naming its item: a pipe axis (item 10), an
+    # expert axis (item 3's rest), a _wus choice over a group (item 4)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         pstrategy.apply_strategy(nodes, st, pmachine.make_mesh(
             4, {"data": 2, "pipe": 2}))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        pstrategy.apply_strategy(nodes, st, pmachine.make_mesh(
+            2, {"expert": 2}))
+    from flexflow_tpu_torch import distributed
+    mesh2 = pmachine.make_mesh(2, {"data": 2})
+    with pytest.raises(NotImplementedError, match="process group"):
+        pstrategy.apply_strategy(nodes, st, mesh2)
+    st[attn[1].guid].choice = "dp_wus_k:einsum"
+    monkeypatch.setattr(distributed, "process_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        pstrategy.apply_strategy(nodes, st, mesh2)
 
 
 def _attention_pair(choices):
@@ -404,8 +417,9 @@ def test_strategy_files_cross_both_ways(tmp_path, n, machine, training):
 
 
 def test_multi_device_import_raises_at_execution(tmp_path):
-    """A 4-device file imports; compiling it raises, naming the multi-GPU
-    items; on one device a remat choice compiles into a remat op."""
+    """A 4-device file imports; compiling it without a process group of
+    4 ranks raises, naming the multi-GPU item; on one device a remat
+    choice compiles into a remat op."""
     jff, pff = _pair()
     jn, jmesh, jst, jinfo = _search(
         jff, junity, jmachine.MachineSpec(chip="cpu-sim", chips_per_slice=4),
@@ -415,7 +429,9 @@ def test_multi_device_import_raises_at_execution(tmp_path):
     mesh, st = unity.import_strategy_file(str(path), _graph(pff)[0])
     assert mesh == {"data": 4} and len(st) == len(jst)
     pff.config.import_strategy_file = str(path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    # no process group of 4 ranks to run it over
+    with pytest.raises(NotImplementedError,
+                       match="process group of 4 ranks.*Queue 1 item 3"):
         pff.compile(AdamOptimizer(), P.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
     data = json.loads(path.read_text())
     data["mesh"] = {"data": 1}
