@@ -1777,21 +1777,24 @@ def training_batch(cfg, seed=0):
 
 
 def compile_for_training(cfg, strategy_dir=None, mixed=True, alpha=1e-4,
-                         mesh=None, choice_of=None, strategy_file=None):
+                         mesh=None, choice_of=None, strategy_file=None,
+                         **cfg_kw):
     """The BERT-proxy ``cfg`` on the card, compiled for training as the
     reference's bert_proxy is (Adam alpha 1e-4 with bf16 moments, MSE
     avg-reduce loss, MSE metric); with ``strategy_dir``, through the
     strategy file of path (b) written there (or of ``choice_of``, a
     choice by op type); through ``strategy_file`` as it is; over
-    ``mesh`` if given. The weights come from the config's seed, so every
-    call starts from the same weights."""
+    ``mesh`` if given; ``cfg_kw`` are further ``FFConfig`` fields. The
+    weights come from the config's seed, so every call starts from the
+    same weights."""
     import torch
     from flexflow_tpu_torch import FFConfig, LossType, MetricsType
     from flexflow_tpu_torch.models.transformer import create_transformer
     from flexflow_tpu_torch.optimizers import AdamOptimizer
 
     ff = create_transformer(cfg, FFConfig(batch_size=cfg.batch_size,
-                                          allow_mixed_precision=mixed),
+                                          allow_mixed_precision=mixed,
+                                          **cfg_kw),
                             device="cuda")
     if strategy_dir is not None:
         path = os.path.join(strategy_dir, "strategy.json")
@@ -5493,7 +5496,9 @@ def phase_obs(strategy_dir, analytic_predicted_s, trace_root=None):
                   f" by label "
                   + ", ".join(f"{k} {v['time_s'] * 1e3:.3f} ms/{v['count']}"
                               for k, v in sorted(row["per_label"].items()))
-                  + f"; launches {row['launches']}")
+                  + f"; launches {row['launches']}; launch calls in "
+                  f"its window and the device events linked to them "
+                  f"{dv['launch_calls'].get(str(row['step']))}")
             check(abs(parts - row["wall_s"]) <= OBS_SUM_RTOL * row["wall_s"],
                   f"step {row['step']}: the buckets do not sum to its window")
             for lab in ("flash_attn_fwd", "flash_attn_bwd", "fused_adam"):
@@ -5515,7 +5520,11 @@ def phase_obs(strategy_dir, analytic_predicted_s, trace_root=None):
                               for a, b in spans)]
         print(f"[obs]   {len(lanes)} device lane events rebased by "
               f"{dv['clock_shift_us']:.1f} us; outside every step: "
-              f"{len(outside)}")
+              f"{len(outside)}; linked to their launch: "
+              f"{dv['launch_linked']} of {dv['device_events']}, of them "
+              f"{dv['moved_by_launch']} starting outside the window of the "
+              f"step that launched them; least start after launch "
+              f"{dv['launch_to_start_min_us']} us")
         check(lanes and not outside, f"device lanes outside their steps: "
               f"{outside[:3]}")
         drift = json.load(open(paths["drift.json"]))
@@ -7547,10 +7556,11 @@ def mesh_strategy(cfg, axes):
     return dict(version=1, mesh=dict(axes), ops=ops)
 
 
-def mesh_kernel_checks(ff):
+def mesh_kernel_checks(ff, axes=MESH_AXES, label="[mesh]"):
     """K1, K2 and K4 at this rank's shapes (attention's local ``[B/dp,
-    H/mp, S, D]`` block; the rank's fused leaves) against their plain
-    versions, before the counted run; -> [name, shape, max_abs_err]."""
+    H/mp, S, D]`` block over ``axes``; the rank's fused leaves, under
+    weight-update sharding its shards) against their plain versions,
+    before the counted run; -> [name, shape, max_abs_err]."""
     import torch
     from flexflow_tpu_torch.ops.flash_attention import (flash_bwd,
                                                         flash_bwd_reference,
@@ -7563,7 +7573,7 @@ def mesh_kernel_checks(ff):
     attn = next(n.op for n in ff.executor.nodes
                 if n.op.op_type.name == "MULTIHEAD_ATTENTION")
     b, s, _ = attn.input_shapes[0]
-    bh = (b // MESH_AXES["data"]) * (attn.num_heads // MESH_AXES["model"])
+    bh = (b // axes.get("data", 1)) * (attn.num_heads // axes.get("model", 1))
     d = attn.head_dim
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -7575,7 +7585,7 @@ def mesh_kernel_checks(ff):
     err = (o.float() - ro).abs().max().item()
     err_lse = (lse - rlse).abs().max().item()
     check(err <= TOL["bfloat16"]["o"] and err_lse <= TOL["bfloat16"]["lse"],
-          f"[mesh] K1 disagrees with its plain version at BH {bh}: o {err}, "
+          f"{label} K1 disagrees with its plain version at BH {bh}: o {err}, "
           f"lse {err_lse}")
     rows.append(["flash_attn_fwd", [bh, s, d], err])
     got = flash_bwd(q, k, v, o, lse, do, False)
@@ -7584,7 +7594,7 @@ def mesh_kernel_checks(ff):
     errs = [(g.float() - w).abs().max().item() / w.abs().max().item()
             for g, w in zip(got, want)]
     check(max(errs) <= BWD_TOL["bfloat16"],
-          f"[mesh] K2 disagrees with its plain version at BH {bh}: {errs}")
+          f"{label} K2 disagrees with its plain version at BH {bh}: {errs}")
     rows.append(["flash_attn_bwd", [bh, s, d], max(errs)])
     leaves = [ff.params[op][pn] for op in sorted(ff.executor.fused_update_ops)
               if op in ff.params for pn in sorted(ff.params[op])]
@@ -7603,7 +7613,7 @@ def mesh_kernel_checks(ff):
     torch.cuda.synchronize()
     differ = sum(int((a != b).sum()) for got, w in zip(zip(kp, ms, vs), want)
                  for a, b in zip(got, w))
-    check(differ == 0, f"[mesh] K4 is not bit-equal to its plain version "
+    check(differ == 0, f"{label} K4 is not bit-equal to its plain version "
                        f"over this rank's {len(leaves)} leaves")
     rows.append(["fused_adam", [len(leaves), sum(t.numel() for t in leaves)],
                  differ])
@@ -7844,6 +7854,15 @@ def phase_mesh(strategy_dir):
     one_pred = one.predict(x)
     after = {op: {pn: t.detach().float().cpu() for pn, t in sub.items()}
              for op, sub in one.params.items()}
+    # each leaf's master, m and v bytes on the one device ([wus] holds a
+    # rank's shards against them)
+    one_bytes = {f"{op}/{pn}": [t.numel() * t.element_size()
+                                for t in (one.params[op][pn],
+                                          one.opt_state["m"][op][pn],
+                                          one.opt_state["v"][op][pn])]
+                 for op, sub in one.params.items() for pn in sub}
+    leaf_shapes = {op: [tuple(t.shape) for _, t in sorted(sub.items())]
+                   for op, sub in one.params.items()}
     times = mesh_kernel_times(one)
     del one
     release()
@@ -7929,7 +7948,372 @@ def phase_mesh(strategy_dir):
     check(worst <= MESH_PARAM_ATOL and upd_rel <= MESH_UPDATE_RTOL,
           "[mesh] the gathered parameters leave the one-rank run's")
     return dict(launches=[c["launches"] for c in children],
-                kernels=[c["kernels"] for c in children], times=times)
+                kernels=[c["kernels"] for c in children], times=times,
+                one=dict(losses=one_losses, before=before, after=after,
+                         bytes=one_bytes, leaf_shapes=leaf_shapes))
+
+
+# [wus]: the phase's budget on the card, printed beside its [time] line
+WUS_BUDGET_S = 150.0
+WUS_AXES = {"data": 4}
+WUS_STEPS = MESH_STEPS
+WUS_BUCKET_MB = 2
+WUS_CHILD_TIMEOUT_S = 140
+# the search a user with a budget runs in the group ([search train]'s)
+WUS_SEARCH_BUDGET = SEARCH_BUDGET
+
+
+def wus_strategy(cfg):
+    """The strategy file body of the pick of the port's own search for
+    the full-width BERT-proxy on 4 H100s (``graph_optimize`` on
+    ``MachineSpec(chip="h100-sxm", chips_per_slice=4)``, substitutions
+    and pipelines off): ``{"data": 4}``, the attentions
+    ``dp_wus_ovl_k:flash``, the FFN dense layers ``dp_wus_ovl_k:fused``,
+    the LayerNorms, residual adds and head ``dp``."""
+    dp3 = ["data", None, None]
+    ops = {}
+    for i in range(cfg.num_layers):
+        for n in (f"ln1_{i}", f"ln2_{i}", f"res1_{i}", f"res2_{i}"):
+            ops[n] = dict(choice="dp", outputs=[dp3], params={})
+        ops[f"attn_{i}"] = dict(choice="dp_wus_ovl_k:flash", outputs=[dp3],
+                                params={})
+        for n in (f"ffn1_{i}", f"ffn2_{i}"):
+            ops[n] = dict(choice="dp_wus_ovl_k:fused", outputs=[dp3],
+                          params={})
+    ops["head"] = dict(choice="dp", outputs=[dp3], params={})
+    return dict(version=1, mesh=dict(WUS_AXES), ops=ops)
+
+
+def wus_shard_shape(shape, degree):
+    """A leaf's WUS shard over ``degree`` data ranks on a strategy that
+    shards no parameter: its first dim the degree divides, cut."""
+    for d, n in enumerate(shape):
+        if n % degree == 0:
+            return shape[:d] + (n // degree,) + shape[d + 1:]
+    return shape
+
+
+def wus_k4_times(fused_shapes):
+    """K4 over a [wus] rank's shards of the leaves its ``_k:fused`` ops
+    update (``fused_shapes``, their whole shapes), timed in this process
+    on the card alone (the ranks share it): profiled device time and
+    back to back, beside its plain version, its bound and
+    ``torch.optim.Adam(fused=True)`` on the same shards back to back
+    (f32 moments and grads: not the same function; the profiler saw
+    less device time for its step than its own bytes need)."""
+    import torch
+    from flexflow_tpu_torch.ops.fused_update import (fused_adam_multi,
+                                                     fused_adam_reference)
+
+    shapes = [wus_shard_shape(s, WUS_AXES["data"]) for s in fused_shapes]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rnd = lambda shp, k=1.0: torch.randn(shp, generator=gen,
+                                         device="cuda") * k
+    fp = [rnd(x) for x in shapes]
+    fg = [rnd(x, 1e-2).bfloat16() for x in shapes]
+    fm = [rnd(x, 1e-2).bfloat16() for x in shapes]
+    fv = [(rnd(x, 1e-2) ** 2).bfloat16() for x in shapes]
+    alpha_t = torch.tensor(MESH_ALPHA, device="cuda")
+    n = sum(p.numel() for p in fp)
+    lib_params = [torch.nn.Parameter(p.clone()) for p in fp]
+    for lp, g in zip(lib_params, fg):
+        lp.grad = g.float()
+    lib = torch.optim.Adam(lib_params, lr=MESH_ALPHA, fused=True)
+    bound_s, bound_by = adam_bound(n, 2, 2, H100_SXM_PEAKS)
+    kernel = lambda: fused_adam_multi(fp, fg, fm, fv, alpha_t, wd=0.0,
+                                      **ADAM_KW)
+    out = dict(
+        shape=f"{len(shapes)} leaves, {n} elements, p f32, g/m/v bf16",
+        elements=n, leaves=len(shapes), ms=profiled_ms(kernel),
+        b2b_ms=time_ms(kernel),
+        plain_ms=time_ms(lambda: fused_adam_reference(
+            fp, fg, fm, fv, alpha_t, wd=0.0, **ADAM_KW)),
+        library_ms=time_ms(lib.step), bound_ms=bound_s * 1e3,
+        bound_by=bound_by,
+        timed_by="profiled device time (back to back beside); library "
+                 "back to back")
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    print(f"[wus] fused_adam at a rank's shards ({out['shape']}): kernel "
+          f"{fmt(out['ms'])} device (b2b {fmt(out['b2b_ms'])}), plain "
+          f"{out['plain_ms']:.4f} ms, library {out['library_ms']:.4f} ms "
+          f"b2b, bound {out['bound_ms']:.4f} ms ({bound_by})")
+    return out
+
+
+def wus_state(ff):
+    """{op/param: [master, m, v bytes on this rank, whether WUS shards
+    the leaf]}."""
+    ex = ff.executor
+    wus = ex.wus_leaves()
+    return {f"{op}/{pn}": [t.numel() * t.element_size()
+                           for t in (ff.params[op][pn],
+                                     ff.opt_state["m"][op][pn],
+                                     ff.opt_state["v"][op][pn])]
+            + [(op, pn) in wus]
+            for op, sub in ff.params.items() for pn in sub}
+
+
+def wus_child(argv):
+    """``chip_smoke.py --wus-child RANK WORLD DIR``: one rank of the [wus]
+    phase, over the gloo group the caller names (ranks sharing the one
+    card). (a) compiles the full-width BERT-proxy with a search budget
+    (rank 0 searches on the machine of ``devices_to_run``, every rank
+    takes the pick; graph rewrites and pipelines, which later slices
+    execute over ranks, off) and takes one step; (b) trains WUS_STEPS steps through
+    ``DIR/strategy.json`` with weight-update sharding and the overlap at
+    WUS_BUCKET_MB, after holding K1, K2 and K4 at its shapes (K4 on its
+    shards) against their plain versions; (c) the same without the
+    overlap. Rank 0 writes (b)'s gathered parameters to ``DIR/final.pt``.
+    Prints one ``[wus child]`` JSON line."""
+    import collections
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.weights import to_jax_params
+
+    rank, world, root = int(argv[0]), int(argv[1]), argv[2]
+    distributed.initialize(store=dist.FileStore(os.path.join(root, "store"),
+                                                world),
+                           world_size=world, rank=rank, backend="gloo",
+                           timeout_s=WUS_CHILD_TIMEOUT_S)
+    try:
+        cfg = TransformerConfig()
+        x, y = training_batch(cfg)
+        # (a) the port's own search in the group
+        t0 = time.perf_counter()
+        ff = compile_for_training(cfg, alpha=MESH_ALPHA,
+                                  search_budget=WUS_SEARCH_BUDGET,
+                                  enable_substitution=False,
+                                  enable_pipeline_parallel=False)
+        ex = ff.executor
+        searched = dict(
+            compile_s=time.perf_counter() - t0, mesh=dict(ff.mesh.shape),
+            choices=dict(collections.Counter(
+                ff.strategy[n.op.guid].choice for n in ex.nodes)),
+            overlap_info=(ff.search_info or {}).get("overlap"),
+            wus=ex.weight_update_sharding, overlap=ex.grad_overlap,
+            bucket_bytes=ex.overlap_bucket_bytes,
+            wus_ops=len(ex.wus_ops) if ex.wus_ops is not None else None)
+        ff.fit(x, y, epochs=1, verbose=False)
+        searched["loss"] = ff._last_loss
+        check(np.isfinite(searched["loss"]),
+              f"[wus] rank {rank}: the searched strategy's step is not "
+              f"finite")
+        del ff, ex
+        release()
+        # (b) the file's strategy, overlapped
+        path = os.path.join(root, "strategy.json")
+        ff = compile_for_training(cfg, alpha=MESH_ALPHA, strategy_file=path,
+                                  overlap_bucket_mb=str(WUS_BUCKET_MB))
+        ex = ff.executor
+        check(dict(ff.mesh.shape) == WUS_AXES and ex.multi_rank
+              and ex.weight_update_sharding and ex.grad_overlap
+              and ex.overlap_bucket_bytes == WUS_BUCKET_MB * 10**6,
+              f"[wus] rank {rank} runs {ff.mesh.shape}, WUS "
+              f"{ex.weight_update_sharding}, overlap {ex.grad_overlap} "
+              f"({ex.overlap_bucket_bytes} bytes)")
+        rows = mesh_kernel_checks(ff, WUS_AXES, "[wus]")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        steps = []
+        for _ in range(WUS_STEPS):
+            t0 = time.perf_counter()
+            ff.fit(x, y, epochs=1, verbose=False)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        record = {}
+        for kind, axes, nbytes in ex.comm.step_record:
+            e = record.setdefault(f"{kind} {'+'.join(axes)}", [0, 0])
+            e[0] += 1
+            e[1] += nbytes
+        wus = ex.wus_leaves()
+        # the all-reduces a step issues without one of a WUS leaf: the
+        # loss, each metric and each leaf WUS leaves whole
+        plain = [k for k in ex._leaf_layout() if k not in wus]
+        want_ar = 1 + len(ff.metrics) + sum(
+            1 for op, _ in plain if ex._by_name[op].grad_axes)
+        state = wus_state(ff)
+        losses = list(ff.epoch_losses)
+        shards = [t.clone() for sub in ff.params.values()
+                  for t in sub.values()]
+        overlap_record = list(ex.overlap_record)
+        final = to_jax_params(ff)
+        if rank == 0:
+            torch.save(dict(final=final), os.path.join(root, "final.pt"))
+        del ff, ex, final
+        release()
+        # (c) the same without the overlap: bit for bit
+        ff = compile_for_training(cfg, alpha=MESH_ALPHA, strategy_file=path,
+                                  overlap_bucket_mb="off")
+        check(ff.executor.weight_update_sharding
+              and not ff.executor.grad_overlap,
+              f"[wus] rank {rank}: overlap_bucket_mb='off' left the overlap "
+              f"on")
+        ff.fit(x, y, epochs=WUS_STEPS, verbose=False)
+        sync_same = (list(ff.epoch_losses) == losses and all(
+            torch.equal(a, b) for a, b in zip(
+                shards, [t for sub in ff.params.values()
+                         for t in sub.values()])))
+        print("[wus child] " + json.dumps(dict(
+            rank=rank, searched=searched, losses=losses, steps_s=steps,
+            launches=launches, record=record, want_all_reduces=want_ar,
+            peak_bytes=peak, kernels=rows, state=state,
+            overlap_record=overlap_record, sync_losses=list(
+                ff.epoch_losses), sync_same=sync_same)), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_wus(one):
+    """[wus] weight-update sharding and the comms-compute overlap: 4 ranks
+    (``--wus-child``) share the one card over a gloo group the script
+    names, as in [mesh], and train the full-width BERT-proxy through the
+    strategy file of the port's own pick for 4 H100s (``wus_strategy``)
+    with 2-MB overlap buckets, beside [mesh]'s one-rank run (``one``, the
+    same seed and batch). Checks: the pick of a search in the group
+    compiles and steps; every rank's K1, K2 and K4 at its shapes (K4 on
+    its shards) against their plain versions and its launches (K1 12, K2
+    12, K4 1 a step); each rank's losses within MESH_LOSS_RTOL of one
+    rank's and equal across ranks; the gathered parameters (MESH_PARAM_
+    ATOL an element, the update within MESH_UPDATE_RTOL); the master
+    and moment bytes of every WUS leaf at a quarter of one rank's; the
+    step's record (reduce-scatters and all-gathers over 'data', no
+    all-reduce of a WUS leaf); the overlap off bit-equal to it on.
+    Returns {"launches": [per-rank launches], "kernels": [per-rank
+    checks], "k4": K4's times at a rank's shards, ...}."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig()
+    body = wus_strategy(cfg)
+    k4 = wus_k4_times([shp for op, o in body["ops"].items()
+                       if o["choice"].endswith("_k:fused")
+                       for shp in one["leaf_shapes"][op]])
+    release()
+    world = math.prod(WUS_AXES.values())
+    with tempfile.TemporaryDirectory(prefix="ff_wus_") as root:
+        with open(os.path.join(root, "strategy.json"), "w") as f:
+            json.dump(body, f)
+        cmd = [sys.executable, os.path.abspath(__file__), "--wus-child"]
+        procs = [subprocess.Popen(cmd + [str(r), str(world), root],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=WUS_CHILD_TIMEOUT_S))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        children = []
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            lines = [l for l in out.splitlines()
+                     if l.startswith("[wus child] ")]
+            if p.returncode != 0 or not lines:
+                for line in err.splitlines()[-20:]:
+                    print(f"[wus rank {r} stderr] {line}")
+            check(p.returncode == 0 and lines,
+                  f"[wus] rank {r} exited {p.returncode}")
+            children.append(json.loads(lines[-1][len("[wus child] "):]))
+        final = torch.load(os.path.join(root, "final.pt"),
+                           weights_only=False)["final"]
+    c0 = children[0]
+    s = c0["searched"]
+    print(f"[wus] the search in the group ({WUS_SEARCH_BUDGET} budget, "
+          f"{s['compile_s']:.1f} s to compile) picks mesh {s['mesh']}, "
+          f"choices {s['choices']}, overlap {s['overlap_info']}: WUS "
+          f"{s['wus']} ({s['wus_ops']} ops), overlap {s['overlap']} "
+          f"({s['bucket_bytes']} bytes); its step's loss {s['loss']:.6f}")
+    want = dict(flash_attn_fwd=12 * WUS_STEPS,
+                flash_attn_bwd=12 * WUS_STEPS, fused_adam=WUS_STEPS)
+    for c in children:
+        got = {k: c["launches"][k] for k in want}
+        check(got == want, f"[wus] rank {c['rank']} launches {got}, want "
+                           f"{want}")
+        check(c["losses"] == c0["losses"],
+              f"[wus] rank {c['rank']}'s losses differ from rank 0's")
+        check(c["sync_same"], f"[wus] rank {c['rank']}: the overlap off is "
+                              f"not bit-equal to it on")
+        check(c["searched"]["mesh"] == s["mesh"]
+              and c["searched"]["choices"] == s["choices"],
+              f"[wus] rank {c['rank']} took another pick than rank 0")
+    rel = [abs(a - b) / abs(b) for a, b in zip(c0["losses"], one["losses"])]
+    worst = num = den = 0.0
+    for op, sub in one["after"].items():
+        for pn, a in sub.items():
+            b = one["before"][op][pn]
+            got = torch.from_numpy(np.asarray(final[op][pn]))
+            worst = max(worst, float((got - a).abs().max()))
+            num += float(((got - b) - (a - b)).pow(2).sum())
+            den += float((a - b).pow(2).sum())
+    upd_rel = math.sqrt(num / den)
+    # each WUS leaf's master, m and v bytes against one rank's
+    quarter = [leaf for leaf, (*nb, sharded) in c0["state"].items()
+               if sharded and [n * world for n in nb] == one["bytes"][leaf]]
+    sharded = [leaf for leaf, e in c0["state"].items() if e[3]]
+    whole = [leaf for leaf, e in c0["state"].items() if not e[3]]
+    rank_bytes = sum(sum(e[:3]) for e in c0["state"].values())
+    one_bytes = sum(sum(v) for v in one["bytes"].values())
+    rec = c0["record"]
+    n_ar = sum(v[0] for k, v in rec.items() if k.startswith("all-reduce"))
+    print(f"[wus] {nvidia_smi_line()}; {world} ranks on {WUS_AXES}, one "
+          f"card, gloo, bucket {WUS_BUCKET_MB} MB: per-step losses "
+          + ", ".join(f"{v:.6f}" for v in c0["losses"])
+          + " against one rank's " + ", ".join(f"{v:.6f}" for v in
+                                              one["losses"])
+          + f" (worst {max(rel):.3e} relative, tol {MESH_LOSS_RTOL}); "
+          f"parameters after {WUS_STEPS} steps: max |diff| {worst:.3e} (tol "
+          f"{MESH_PARAM_ATOL:.1e}), update within {upd_rel:.3e} relative L2 "
+          f"(tol {MESH_UPDATE_RTOL}); overlap off bit-equal on every rank: "
+          f"{all(c['sync_same'] for c in children)}; master + moments "
+          f"{rank_bytes} bytes a rank against one rank's {one_bytes} "
+          f"({len(quarter)} of {len(sharded)} WUS leaves at a quarter, "
+          f"{len(whole)} leaves whole: {whole}); all-reduces a step "
+          f"{n_ar} (the loss, the metric and the whole leaves': "
+          f"{c0['want_all_reduces']})")
+    print("[wus] " + json.dumps(dict(
+        transport="gloo over host copies, 4 ranks sharing one card: not a "
+                  "multi-GPU number",
+        step_p50_ms=[statistics.median(c["steps_s"]) * 1e3
+                     for c in children],
+        steps_s=[c["steps_s"] for c in children],
+        peak_gib=[c["peak_bytes"] / 2**30 for c in children],
+        collectives_a_step=rec, overlap_buckets=c0["overlap_record"],
+        launches=[c["launches"] for c in children],
+        kernel_checks=[c["kernels"] for c in children],
+        master_moment_bytes_a_rank=rank_bytes,
+        master_moment_bytes_one_rank=one_bytes, k4_at_a_rank=k4)))
+    check(s["mesh"] and np.isfinite(s["loss"]),
+          "[wus] the searched strategy did not step")
+    check(max(rel) <= MESH_LOSS_RTOL,
+          "[wus] the ranks' losses leave the one-rank run's")
+    check(worst <= MESH_PARAM_ATOL and upd_rel <= MESH_UPDATE_RTOL,
+          "[wus] the gathered parameters leave the one-rank run's")
+    check(sharded and len(quarter) == len(sharded),
+          "[wus] a WUS leaf's master or moments are not a quarter of one "
+          "rank's")
+    check(rec.get("reduce-scatter data", [0])[0] == len(sharded)
+          and rec.get("all-gather data", [0])[0] == len(sharded)
+          and n_ar == c0["want_all_reduces"],
+          f"[wus] the step's record {rec}: want {len(sharded)} "
+          f"reduce-scatters and all-gathers over 'data' and "
+          f"{c0['want_all_reduces']} all-reduces")
+    return dict(launches=[c["launches"] for c in children],
+                kernels=[c["kernels"] for c in children], k4=k4,
+                searched=s)
 
 
 def fusion_model():
@@ -7974,6 +8358,8 @@ def main(argv=None) -> int:
         return supervise_child(argv[1:])
     if argv[:1] == ["--mesh-child"]:
         return mesh_child(argv[1:])
+    if argv[:1] == ["--wus-child"]:
+        return wus_child(argv[1:])
     def run_phase(label, fn, *args, **kw):
         t0 = time.perf_counter()
         result = fn(*args, **kw)
@@ -8052,6 +8438,8 @@ def main(argv=None) -> int:
                                   phase_loop, tmp)
             mesh = budgeted_phase("mesh", MESH_BUDGET_S, run_phase,
                                   phase_mesh, tmp)
+            wus = budgeted_phase("wus", WUS_BUDGET_S, run_phase, phase_wus,
+                                 mesh.pop("one"))
         print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -8122,6 +8510,13 @@ def main(argv=None) -> int:
                                      if row[0] == key)
                                 for rank_rows in mesh["kernels"]]
         entry["mesh_rank_shape"] = mesh["times"][key]
+        # the [wus] ranks' (K1 and K2 at [mesh]'s BH 32; K4 on shards)
+        entry["launches_by_path"]["wus_ranks"] = [
+            r[key] for r in wus["launches"]]
+        entry["wus_checks"] = [next(row for row in rank_rows
+                                    if row[0] == key)
+                               for rank_rows in wus["kernels"]]
+    adam["wus_rank_shards"] = wus["k4"]
     adam["llama_train"] = llama_k4
     adam["launches_by_path"].update(
         {f"zoo_{n}": z["k4"]["launches"] for n, z in zoo.items()})

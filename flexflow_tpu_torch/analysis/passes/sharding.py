@@ -228,7 +228,8 @@ class ShardingLegalityPass:
         """Verify the data-sharded master-param/optimizer-state layout
         the executor derived for weight-update sharding (the specs the
         f32 master, Adam moments, and the reduce-scattered gradients
-        actually live on)."""
+        live on: over a process group each rank holds exactly these
+        shards, ``executor.master_spec``)."""
         ex = getattr(ctx.ff, "executor", None) if ctx.ff is not None else None
         if ex is None or not getattr(ex, "weight_update_sharding", False):
             return []

@@ -54,6 +54,21 @@ emits), in the order the backward finishes them. Such steps run eagerly
 (``StepGraph(capture=False)``), the forward and train step alike; the
 Conv+BN folds and fusions and the channels-last layout stay off there.
 
+Weight-update sharding (WUS, the JAX executor's ``wus_spec`` and
+``param_shardings(master=True)``): the f32 master copy of a leaf and its
+optimizer moments are further cut over the data axes, on the first dim
+of the leaf's spec that is free and that the data degree divides
+(``wus_spec``, ``master_spec``). Its gradient is reduce-scattered along
+that dim (``_wus_reduce``) instead of all-reduced, the optimizer (K4 for
+``_k:fused`` ops) updates the rank's shard, and the next step's working
+copy is the shard cast and all-gathered over the data axes
+(``cast_compute_copy``). The forward reads that working copy in the f32
+regime too (``keeps_compute_copy``). Under the overlap (``_Overlap``)
+the gradient reduce-scatters are issued bucket by bucket from gradient
+hooks while the backward runs; each leaf keeps one collective of its
+own size, so the values are those of the synchronous sync, bit for
+bit. The gathers run in forward op order either way.
+
 Op state (BatchNorm's running statistics, Cache's last input, f32) is
 ``state[op name]`` beside the compute copy: the train step returns it
 moved, the eval and forward steps read it. It is never cast,
@@ -82,6 +97,7 @@ the captured graph of a compiled step).
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -190,7 +206,8 @@ class GraphExecutor:
                  fold_conv_bn: bool = True,
                  weight_update_sharding: bool = False,
                  wus_ops: Optional[set] = None,
-                 overlap_grad_sync: bool = False):
+                 overlap_grad_sync: bool = False,
+                 overlap_bucket_bytes: int = 4_000_000):
         self.nodes = nodes
         self.input_names = input_names
         # (guid, out_idx) of the user-designated model output
@@ -231,16 +248,26 @@ class GraphExecutor:
         # weight-update sharding (WUS) and the comms-compute overlap, as
         # the JAX package decides them: on a data degree above 1 the
         # gradient sync is a reduce-scatter onto data-sharded master
-        # parameters and moments. The port executes one device, where the
-        # data degree is 1 and both stay off; over a planned multi-device
-        # mesh (analysis.orchestrator.plan_model) they are the record the
-        # lint and the simulator replay read (wus_param_specs).
+        # parameters and moments, and the next step's compute copy is
+        # all-gathered from the updated shards; under the overlap the
+        # reduce-scatters issue bucket by bucket (overlap_bucket_bytes of
+        # gradient each, reverse op order) while the backward still
+        # runs. Over a planned mesh (analysis.orchestrator.plan_model)
+        # they are the record the lint and the simulator replay read
+        # (wus_param_specs).
         self.data_axes = data_axes_of(mesh)
         self.weight_update_sharding = bool(
             weight_update_sharding and data_degree(mesh) > 1)
         self.wus_ops = set(wus_ops) if wus_ops is not None else None
         self.grad_overlap = bool(overlap_grad_sync
                                  and self.weight_update_sharding)
+        self.overlap_bucket_bytes = max(1, int(overlap_bucket_bytes))
+        # the last train step's gradient buckets under the overlap: one
+        # {"bucket", "leaves", "bytes", "pending"} each ("bytes" of the
+        # whole leaves' gradients, the partition's measure; "pending" the
+        # step's leaves whose gradient was still to come at its issue)
+        self.overlap_record: List[Dict[str, int]] = []
+        self._leaves = None
         self._by_name = {n.op.name: n for n in nodes}
         # names of the ops whose forward runs under a checkpoint in
         # training (their "_r" choices); None = no remat
@@ -267,7 +294,16 @@ class GraphExecutor:
         # not eligible): they run unfused, as in the reference
         self.unfused_conv_bn: List[str] = []
 
-    # ---- weight-update sharding (the planning record) ---------------------
+    @property
+    def keeps_compute_copy(self) -> bool:
+        """Whether the forward reads a working copy of the parameters
+        (the state's ``COMPUTE_PARAMS_KEY``): the compute-dtype copy
+        under the master-weight regime, and under WUS the gathered boxes
+        of the sharded master (in f32 where the master is the compute
+        dtype)."""
+        return self.use_master_copy or self.weight_update_sharding
+
+    # ---- weight-update sharding (WUS) --------------------------------------
     def _wus_axis_entry(self):
         da = tuple(self.data_axes)
         return da[0] if len(da) == 1 else da
@@ -309,6 +345,67 @@ class GraphExecutor:
                     out.setdefault(node.op.name, {})[pname] = spec
         return out
 
+    def _leaf_layout(self) -> Dict[Tuple[str, str],
+                                   Tuple[Tuple[int, ...], Optional[int]]]:
+        """{(op name, param name): (whole shape, WUS dim or None)} of
+        every parameter leaf, in graph order (each op's leaves in its
+        ``param_shapes`` order). Made once."""
+        if self._leaves is None:
+            from flexflow_tpu_torch.search.unity import _param_shapes
+            out = {}
+            for node in self.nodes:
+                for pname, shp in _param_shapes(node.op).items():
+                    shp = tuple(shp)
+                    spec = self.wus_spec(node.op.name, pname, shp)
+                    dim = None
+                    if spec is not None:
+                        base = node.param_specs.get(pname, ())
+                        base = (list(base) + [None] * len(shp))[:len(shp)]
+                        dim = next(d for d, (a, b) in enumerate(
+                            zip(base, spec)) if a != b)
+                    out[(node.op.name, pname)] = (shp, dim)
+            self._leaves = out
+        return self._leaves
+
+    def wus_leaves(self) -> Dict[Tuple[str, str], int]:
+        """{(op name, param name): dim} of every leaf whose master copy,
+        moments and gradient WUS shards over the data axes along
+        ``dim``; empty with WUS off."""
+        if not self.weight_update_sharding:
+            return {}
+        return {k: dim for k, (_, dim) in self._leaf_layout().items()
+                if dim is not None}
+
+    def _wus_axes(self) -> Tuple[str, ...]:
+        """The data axes a WUS shard splits over (those above 1)."""
+        return tuple(a for a in self.data_axes if self.mesh.shape[a] > 1)
+
+    def _wus_order(self, keys, reverse: bool) -> List[Tuple[str, str]]:
+        """``keys`` in graph op order (``reverse``: the backward's
+        completion order the gradient buckets follow), each op's leaves
+        in their own order: ``_bucket_order`` of the JAX executor."""
+        keys = set(keys)
+        nodes = reversed(self.nodes) if reverse else self.nodes
+        return [k for node in nodes for k in self._leaf_layout()
+                if k[0] == node.op.name and k in keys]
+
+    def _buckets(self, order, itemsize: int) -> List[List[Tuple[str, str]]]:
+        """``order`` cut into buckets of ``overlap_bucket_bytes``: a
+        bucket closes once its leaves' whole gradients, at ``itemsize``
+        bytes an element, reach it (the JAX executor's
+        ``_chain_constrained`` partition)."""
+        layout = self._leaf_layout()
+        buckets, cur, size = [], [], 0
+        for key in order:
+            cur.append(key)
+            size += math.prod(layout[key][0]) * itemsize
+            if size >= self.overlap_bucket_bytes:
+                buckets.append(cur)
+                cur, size = [], 0
+        if cur:
+            buckets.append(cur)
+        return buckets
+
     def _ctx(self, training: bool, rng=None) -> OpContext:
         return OpContext(training=training, compute_dtype=self.compute_dtype,
                          rng=rng, mesh=self.mesh, device=self.device,
@@ -338,23 +435,38 @@ class GraphExecutor:
         spec = node.param_specs.get(pname) if node is not None else None
         return norm_spec(spec, ndim, self.mesh)
 
+    def master_spec(self, op_name: str, pname: str,
+                    shape: Tuple[int, ...]):
+        """The normalized spec of the master copy of a parameter leaf of
+        whole ``shape``, and so of its optimizer moments: its WUS shard
+        where WUS shards it, else ``param_spec`` (the JAX executor's
+        ``param_shardings(master=True)``)."""
+        from flexflow_tpu_torch.parallel.comm import norm_spec
+        spec = self.wus_spec(op_name, pname, tuple(shape))
+        if spec is None:
+            return self.param_spec(op_name, pname, len(shape))
+        return norm_spec(spec, len(shape), self.mesh)
+
     def local_box(self, op_name: str, pname: str,
                   whole: torch.Tensor) -> torch.Tensor:
-        """This rank's box of a whole parameter leaf (itself on one
-        device)."""
+        """This rank's box of a whole parameter leaf under its master
+        spec (itself on one device)."""
         if not self.multi_rank:
             return whole
-        for d, axes in enumerate(self.param_spec(op_name, pname,
-                                                 whole.dim())):
+        for d, axes in enumerate(self.master_spec(op_name, pname,
+                                                  tuple(whole.shape))):
             whole = self.comm.own_block(whole, axes, d)
         return whole.contiguous()
 
     def whole_shape(self, op_name: str, pname: str,
                     local: torch.Tensor) -> Tuple[int, ...]:
         """The whole shape of a parameter leaf of which ``local`` is this
-        rank's box."""
+        rank's master box."""
         if not self.multi_rank:
             return tuple(local.shape)
+        known = self._leaf_layout().get((op_name, pname))
+        if known is not None:
+            return known[0]
         spec = self.param_spec(op_name, pname, local.dim())
         return tuple(n * self.comm.size(axes)
                      for n, axes in zip(local.shape, spec))
@@ -362,11 +474,11 @@ class GraphExecutor:
     def whole_leaf(self, op_name: str, pname: str,
                    local: torch.Tensor) -> torch.Tensor:
         """The whole parameter leaf on every rank, gathered from each
-        rank's box (itself on one device). Collective."""
+        rank's master box (itself on one device). Collective."""
         if not self.multi_rank:
             return local
-        return self.comm.gather_whole(local, self.param_spec(
-            op_name, pname, local.dim()))
+        return self.comm.gather_whole(local, self.master_spec(
+            op_name, pname, self.whole_shape(op_name, pname, local)))
 
     def _batch_axes_spec(self, spec, ndim):
         from flexflow_tpu_torch.parallel.comm import norm_spec
@@ -424,23 +536,37 @@ class GraphExecutor:
             ps = node.op.init_params(generator)
             if ps:
                 # the whole leaf is drawn on every rank (the one-device
-                # draw, from one seed), then cut to this rank's box
+                # draw, from one seed), then cut to this rank's master
+                # box (its WUS shard under weight-update sharding)
                 params[node.op.name] = {
                     pn: self.local_box(node.op.name, pn, t)
                     for pn, t in ps.items()}
             if hasattr(node.op, "init_state"):
                 state[node.op.name] = node.op.init_state(generator.device)
-        if self.use_master_copy:
+        if self.keeps_compute_copy:
             state[COMPUTE_PARAMS_KEY] = self.cast_compute_copy(params)
         return params, state
 
     def cast_compute_copy(self, params):
         """Compute-dtype copy of the float parameter leaves (the forward's
-        working set under the master-weight regime)."""
-        return {op: {pn: (a.to(self.compute_dtype)
-                          if a.is_floating_point() else a)
-                     for pn, a in sub.items()}
-                for op, sub in params.items()}
+        working set). Under WUS each sharded leaf's cast is all-gathered
+        over the data axes onto the strategy's box, one collective a
+        leaf in forward op order, the order the JAX executor chains its
+        gathers in under the overlap (``cast_compute_copy`` and
+        ``_constrain_compute`` there). Collective under WUS: every rank
+        calls it."""
+        out = {op: {pn: (a.to(self.compute_dtype)
+                         if a.is_floating_point() else a)
+                    for pn, a in sub.items()}
+               for op, sub in params.items()}
+        wus = {k: d for k, d in self.wus_leaves().items()
+               if k[0] in out and k[1] in out[k[0]]}
+        if not wus:
+            return out
+        axes, comm = self._wus_axes(), self.comm
+        for op, pn in self._wus_order(wus, reverse=False):
+            out[op][pn] = comm.all_gather(out[op][pn], axes, wus[(op, pn)])
+        return out
 
     # ---- forward graph traversal ------------------------------------------
     def run_graph(self, params, inputs: Dict[str, torch.Tensor],
@@ -778,9 +904,9 @@ class GraphExecutor:
 
     def _grad_leaves(self, params, state):
         """The leaves an autograd graph of one step starts from: fresh
-        tensors over the parameters the forward reads (the compute copy,
-        under the master-weight regime), floating ones requiring grad."""
-        cparams = (state[COMPUTE_PARAMS_KEY] if self.use_master_copy
+        tensors over the parameters the forward reads (the working copy,
+        where the executor keeps one), floating ones requiring grad."""
+        cparams = (state[COMPUTE_PARAMS_KEY] if self.keeps_compute_copy
                    else params)
         return {op: {pn: t.detach().requires_grad_(t.is_floating_point())
                      for pn, t in sub.items()}
@@ -802,6 +928,8 @@ class GraphExecutor:
         flat = [(op, pn) for op, sub in leaves.items() for pn, t in sub.items()
                 if t.requires_grad]
         ctx = self._ctx(True, rng)
+        overlap = (self._Overlap(self, leaves, flat)
+                   if self.multi_rank and self.grad_overlap else None)
         with torch.enable_grad():
             values, new_state, aux = self.run_graph(
                 leaves, inputs, ctx, state, self._training_nodes())
@@ -814,27 +942,124 @@ class GraphExecutor:
                 if flat else ())
         got = dict(zip(flat, got))
         if self.multi_rank:
-            got = self._sync_grads(got)
+            got = self._sync_grads(got, overlap)
+        # a leaf no gradient reached takes zeros of its master box
         grads = {op: {pn: (got[(op, pn)].contiguous()
                            if got.get((op, pn)) is not None
-                           else torch.zeros_like(t))
+                           else t.new_zeros(params[op][pn].shape))
                       for pn, t in sub.items()}
                  for op, sub in leaves.items()}
         return loss.detach(), logits.detach(), grads, new_state
 
-    def _sync_grads(self, got):
-        """Each gradient all-reduced over the axes its op's batch was
-        split over (``OpNode.grad_axes``), last op first: the order the
-        backward finishes them."""
+    def _wus_reduce(self, key, g, async_op: bool = False):
+        """The data-axis part of the sync of WUS leaf ``key``'s gradient
+        ``g`` (this rank's box): a reduce-scatter along its WUS dim where
+        the op's batch is split over every data axis; else the sum over
+        the data axes it is split over, then this rank's block. ->
+        the shard, or with ``async_op`` a ``Pending`` of it."""
+        from flexflow_tpu_torch.parallel.comm import Pending
+        comm, axes = self.comm, self._wus_axes()
+        dim = self.wus_leaves()[key]
+        have = self._by_name[key[0]].grad_axes
+        if all(a in have for a in axes):
+            return comm.reduce_scatter(g, axes, dim, async_op=async_op)
+        part = tuple(a for a in axes if a in have)
+        if part:
+            g = comm.all_reduce(g, part)
+        out = comm.own_block(g, axes, dim)
+        return Pending(None, out) if async_op else out
+
+    def _wus_finish(self, key, shard):
+        """A WUS gradient shard summed over the axes its op's batch is
+        split over beyond the data axes (``model`` under ``sample2``)."""
+        axes = self._wus_axes()
+        rest = tuple(a for a in self._by_name[key[0]].grad_axes
+                     if a not in axes)
+        return self.comm.all_reduce(shard, rest) if rest else shard
+
+    def _sync_grads(self, got, overlap=None):
+        """Each gradient summed over the axes its op's batch was split
+        over (``OpNode.grad_axes``), last op first: the order the
+        backward finishes them. A WUS leaf's becomes its shard
+        (``_wus_reduce``, ``_wus_finish``), issued by ``overlap``'s
+        buckets where given; every other leaf's is all-reduced."""
         comm = self.comm
+        wus = self.wus_leaves()
+        shards = overlap.wait(got) if overlap is not None else {}
         for node in reversed(self.nodes):
-            axes = node.grad_axes
-            if not axes:
-                continue
             for key in [k for k in got if k[0] == node.op.name]:
-                if got[key] is not None:
-                    got[key] = comm.all_reduce(got[key].contiguous(), axes)
+                g = got[key]
+                if g is None:
+                    continue
+                if key in wus:
+                    shard = (shards[key] if key in shards
+                             else self._wus_reduce(key, g.contiguous()))
+                    got[key] = self._wus_finish(key, shard)
+                elif node.grad_axes:
+                    got[key] = comm.all_reduce(g.contiguous(),
+                                               node.grad_axes)
         return got
+
+    class _Overlap:
+        """The bucketed gradient reduce-scatters of one train step. The
+        WUS leaves, in reverse op order, are cut into buckets of
+        ``overlap_bucket_bytes`` (``_buckets``); a gradient hook on each
+        fresh leaf notes its gradient when the backward has made it,
+        and the buckets are issued in order, each without waiting, as
+        soon as every leaf of it and of the buckets before it has its
+        gradient. Each leaf is one reduce-scatter of the size it has
+        without the overlap, so the values are the same bit for bit;
+        only the time of issue moves. ``wait`` issues what the backward
+        left (leaves no gradient reached are skipped, as without the
+        overlap) and waits on every bucket. Each bucket's issue is noted
+        in the executor's ``overlap_record`` with the step's leaves
+        whose gradient was still to come."""
+
+        def __init__(self, ex, leaves, flat):
+            self.ex, self.n_leaves = ex, len(flat)
+            sharded = ex.wus_leaves()
+            wus = [k for k in flat if k in sharded]
+            self.itemsize = (leaves[wus[0][0]][wus[0][1]].element_size()
+                             if wus else 1)
+            self.buckets = ex._buckets(ex._wus_order(wus, reverse=True),
+                                       self.itemsize)
+            self.grads: Dict[Tuple[str, str], torch.Tensor] = {}
+            self.pending: Dict[Tuple[str, str], Any] = {}
+            self.next = 0
+            ex.overlap_record = []
+            for key in flat:
+                leaves[key[0]][key[1]].register_hook(self._hook(key))
+
+        def _hook(self, key):
+            def note(g):
+                self.grads[key] = g
+                self._issue(final=False)
+            return note
+
+        def _issue(self, final: bool) -> None:
+            while self.next < len(self.buckets):
+                bucket = self.buckets[self.next]
+                if not final and any(k not in self.grads for k in bucket):
+                    return
+                for key in bucket:
+                    g = self.grads.get(key)
+                    if g is not None:
+                        self.pending[key] = self.ex._wus_reduce(
+                            key, g.contiguous(), async_op=True)
+                self.ex.overlap_record.append(dict(
+                    bucket=self.next, leaves=len(bucket),
+                    bytes=sum(math.prod(self.ex._leaf_layout()[k][0])
+                              for k in bucket) * self.itemsize,
+                    pending=self.n_leaves - len(self.grads)))
+                self.next += 1
+
+        def wait(self, got) -> Dict[Tuple[str, str], torch.Tensor]:
+            """{WUS leaf: its data-reduced shard}, once all are done."""
+            for key, g in got.items():
+                if g is not None:
+                    self.grads.setdefault(key, g)
+            self._issue(final=True)
+            return {k: p.wait() for k, p in self.pending.items()}
 
     def saved_bytes_by_op(self, params, state, inputs, labels,
                           rng=None) -> Dict[str, int]:
@@ -899,8 +1124,9 @@ class GraphExecutor:
                     grads, opt_state, params)
                 new_state = dict(state)
                 new_state.update(moved)
-                if self.use_master_copy:
-                    # the next step's bf16 working copy
+                if self.keeps_compute_copy:
+                    # the next step's working copy (under WUS gathered
+                    # from the updated shards)
                     new_state[COMPUTE_PARAMS_KEY] = \
                         self.cast_compute_copy(new_params)
                 metric_vals = self._metric_sums(logits, labels)

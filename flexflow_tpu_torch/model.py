@@ -616,17 +616,8 @@ class FFModel:
                                 include_costs=cfg.include_costs_dot_graph,
                                 search_info=self.search_info)
         from flexflow_tpu_torch.parallel.strategy import check_executable
-        check_executable(nodes, self.mesh, self.strategy)
+        check_executable(nodes, self.mesh)
         if self.executor.multi_rank:
-            # the JAX package's "auto" weight-update sharding (no _wus
-            # choice, check_executable refused those) resolves to a plain
-            # all-reduce until ROADMAP.md Queue 1 item 4 executes it
-            if getattr(cfg, "weight_update_sharding", "auto") == "on":
-                raise NotImplementedError(
-                    "weight_update_sharding='on' over a process group: "
-                    "weight-update sharding is ROADMAP.md Queue 1 item 4")
-            self.executor.weight_update_sharding = False
-            self.executor.grad_overlap = False
             self._check_ranks_agree(nodes)
 
         self.op_profile = None
@@ -802,8 +793,8 @@ class FFModel:
         final_is_softmax = final_op.op_type == OperatorType.SOFTMAX
         self._final_is_softmax = final_is_softmax
 
-        wus, wus_ops, overlap = self._weight_update_sharding(nodes,
-                                                             comp_mode)
+        wus, wus_ops, overlap, bucket_mb = self._weight_update_sharding(
+            nodes, comp_mode)
         self.executor = GraphExecutor(
             nodes, input_names, final_ref, self.device,
             compute_dtype=compute_dtype, loss_type=loss_type,
@@ -813,21 +804,30 @@ class FFModel:
             kernel_choices=self.kernel_choices, mesh=self.mesh,
             remat_ops=self.remat_ops, fold_conv_bn=cfg.fold_conv_bn,
             weight_update_sharding=wus, wus_ops=wus_ops,
-            overlap_grad_sync=overlap)
+            overlap_grad_sync=overlap,
+            # MB (1e6), the native bucket sweep's wire-byte unit
+            overlap_bucket_bytes=int(bucket_mb * 1e6))
         self.executor.comp_mode = comp_mode
         self._seq_execs = {}
         return nodes
 
     def _check_ranks_agree(self, nodes) -> None:
         """Raise unless every rank of the group holds this strategy (its
-        file body's digest), before any collective of the model runs."""
+        file body's digest) and resolved weight-update sharding, the
+        overlap and its bucket size alike, before any collective of the
+        model runs."""
         import hashlib
 
         from flexflow_tpu_torch import distributed
         from flexflow_tpu_torch.search import unity
-        body = json.dumps(unity.strategy_json(dict(self.mesh.shape),
-                                              self.strategy, nodes),
-                          sort_keys=True, default=str)
+        ex = self.executor
+        body = json.dumps(dict(
+            strategy=unity.strategy_json(dict(self.mesh.shape),
+                                         self.strategy, nodes),
+            wus=ex.weight_update_sharding,
+            wus_ops=sorted(ex.wus_ops) if ex.wus_ops is not None else None,
+            overlap=ex.grad_overlap, bucket=ex.overlap_bucket_bytes),
+            sort_keys=True, default=str)
         vals, same = distributed.ranks_agree(
             int(hashlib.sha256(body.encode()).hexdigest()[:12], 16))
         if not same:
@@ -883,12 +883,18 @@ class FFModel:
         return result
 
     def _weight_update_sharding(self, nodes, comp_mode):
-        """(wus, wus_ops, overlap): the JAX package's decision of
-        weight-update sharding and the comms-compute overlap for this
-        strategy. 'auto' follows the search's per-op '_wus'/'_ovl'
-        choices when it ran, and engages WUS at a data degree of 4 or
-        more otherwise. The executor keeps them as its planning record;
-        on one device (data degree 1) it turns both off."""
+        """(wus, wus_ops, overlap, bucket_mb): the JAX package's decision
+        of weight-update sharding and the comms-compute overlap for this
+        strategy (``flexflow_tpu/model.py`` compile). 'off' and inference
+        keep WUS off, 'on' turns it on at a data degree above 1, 'auto'
+        follows the search's '_wus' choices when it ran (``wus_ops``: the
+        ops that chose it) and engages at a data degree of 4 or more
+        otherwise. The overlap: 'auto' follows the searched '_ovl'
+        choices and bucket size, or WUS on a strategy not searched, at 4
+        MB; N forces N-MB buckets; 'off' or '0' disables it. The
+        executor turns WUS off on a data degree of 1."""
+        from flexflow_tpu_torch.search.unity import (overlap_choice_of,
+                                                     wus_choice_of)
         cfg = self.config
         data_deg = data_degree(self.mesh)
         wus_mode = getattr(cfg, "weight_update_sharding", "auto")
@@ -896,9 +902,11 @@ class FFModel:
             raise ValueError(f"weight_update_sharding expects auto|on|off, "
                              f"got {wus_mode!r}")
         searched = isinstance(self.search_info, dict)
-        choices = [getattr(st, "choice", None) or ""
-                   for st in (self.strategy or {}).values()]
-        searched_wus = searched and any("_wus" in c for c in choices)
+        choice_of = {n.op.guid: getattr((self.strategy or {}).get(n.op.guid),
+                                        "choice", None) for n in nodes}
+        searched_wus = searched and any(
+            wus_choice_of(getattr(st, "choice", None))
+            for st in (self.strategy or {}).values())
         if comp_mode == CompMode.INFERENCE or wus_mode == "off":
             wus = False
         elif wus_mode == "on":
@@ -907,19 +915,23 @@ class FFModel:
             wus = searched_wus if searched else data_deg >= 4
         wus_ops = None
         if wus and wus_mode == "auto" and searched and searched_wus:
-            wus_ops = {
-                n.op.name for n in nodes
-                if "_wus" in (getattr((self.strategy or {}).get(n.op.guid),
-                                      "choice", None) or "")}
+            wus_ops = {n.op.name for n in nodes
+                       if wus_choice_of(choice_of[n.op.guid])}
         ovl_raw = str(getattr(cfg, "overlap_bucket_mb", "auto")).lower()
+        searched_ovl = searched and any(
+            overlap_choice_of(getattr(st, "choice", None))
+            for st in (self.strategy or {}).values())
+        searched_bucket = ((self.search_info or {}).get("overlap") or {}).get(
+            "bucket_mb") if searched else None
         if ovl_raw in ("0", "off"):
-            overlap = False
+            overlap, bucket_mb = False, 4.0
         elif ovl_raw == "auto":
-            overlap = (any("_ovl" in c for c in choices) if searched
-                       else wus)
+            overlap = searched_ovl if searched else wus
+            bucket_mb = float(searched_bucket or 4.0)
         else:
-            overlap = int(ovl_raw) > 0
-        return wus, wus_ops, overlap
+            bucket_mb = float(int(ovl_raw))
+            overlap = bucket_mb > 0
+        return wus, wus_ops, overlap, bucket_mb
 
     def _profile_ops(self, nodes, compute_dtype) -> Dict[str, float]:
         from flexflow_tpu_torch.search.profile import (executed_impl,
@@ -1629,7 +1641,8 @@ class FFModel:
             kernel_choices=full.kernel_choices, mesh=full.mesh,
             remat_ops=full.remat_ops, fold_conv_bn=full.fold_conv_bn,
             weight_update_sharding=full.weight_update_sharding,
-            wus_ops=full.wus_ops, overlap_grad_sync=full.grad_overlap)
+            wus_ops=full.wus_ops, overlap_grad_sync=full.grad_overlap,
+            overlap_bucket_bytes=full.overlap_bucket_bytes)
         ex.comp_mode = full.comp_mode
         self._seq_execs[bucket] = ex
         return ex
@@ -1735,7 +1748,9 @@ class FFModel:
     # ---- weight I/O --------------------------------------------------------
     def get_parameter(self, layer_name: str, param_name: str = "kernel") -> np.ndarray:
         """The whole parameter leaf, on every rank of a process group (a
-        collective there: every rank calls it)."""
+        collective there: every rank calls it), gathered from each
+        rank's master box (its WUS shard under weight-update
+        sharding)."""
         t = self.params[layer_name][param_name]
         return host_copy(self.executor.whole_leaf(layer_name, param_name, t),
                          t.dtype)
@@ -1743,7 +1758,8 @@ class FFModel:
     def set_parameter(self, layer_name: str, value: np.ndarray,
                       param_name: str = "kernel") -> None:
         """Write the whole leaf ``value``; over a process group each rank
-        keeps its box of it."""
+        keeps its master box of it (its WUS shard under weight-update
+        sharding)."""
         old = self.params[layer_name][param_name]
         whole = torch.tensor(np.asarray(value), dtype=old.dtype)
         box = self.executor.local_box(layer_name, param_name, whole)
@@ -1764,18 +1780,24 @@ class FFModel:
         if not getattr(self, "_compute_params_dirty", False):
             return
         self._compute_params_dirty = False
-        if self.executor is None or not self.executor.use_master_copy:
+        if self.executor is None or not self.executor.keeps_compute_copy:
             return
         copy = self.state.get(COMPUTE_PARAMS_KEY)
         if copy is None:
             self.state[COMPUTE_PARAMS_KEY] = \
                 self.executor.cast_compute_copy(self.params)
             return
+        if self.executor.weight_update_sharding:
+            # the shards gathered anew (a collective: every rank writes
+            # its parameters before the next forward)
+            fresh = self.executor.cast_compute_copy(self.params)
+        else:
+            fresh = self.params
         with torch.no_grad():
             for op, sub in copy.items():
                 for pn, t in sub.items():
-                    if t.is_floating_point():
-                        t.copy_(self.params[op][pn])
+                    if t.is_floating_point() and t is not fresh[op][pn]:
+                        t.copy_(fresh[op][pn])
 
     def get_layer_names(self) -> List[str]:
         return [n.op.name for n in (self.executor.nodes if self.executor else [])]

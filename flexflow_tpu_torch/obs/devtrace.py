@@ -25,9 +25,15 @@ GEMMs, copies, other; ``kernel_kind``) and ``launches`` (kernel events
 of each registered launch counter, ``step_graph.launch_counters``: one
 event a launch, so these equal the wrappers' counters over the same
 steps). Times are clipped to the step's window; an event is counted in
-the step it starts in. The step window is the annotation's host span; a traced step
-fences on its loss (``device_wait``), so the step's kernels end inside
-it. A step inside the window that captured a CUDA graph ran the eager
+the step whose host window holds the runtime call that launched it (the
+``cuda_runtime`` event of its ``args.correlation``: ``cudaLaunchKernel``,
+or the ``cudaGraphLaunch`` of a replayed step), and in the step it
+starts in where the trace links no launch. The device timestamps are
+converted to the host's timebase by the profiler and can land a
+kernel's start outside the window of the step that launched it; the
+launch's host time cannot. The step window is the annotation's host
+span; a traced step fences on its loss (``device_wait``), so the
+step's kernels end inside it. A step inside the window that captured a CUDA graph ran the eager
 warm-up and the capture, not the replay the other steps run: it is
 left out of the attribution and named in ``refused_steps``. The session
 starts one step before the window where there is one: a session
@@ -63,6 +69,13 @@ STEP_ANNOTATION = "ff_step"
 # that are transfers rather than compute
 KERNEL_CATEGORY = "kernel"
 HOST_CATEGORIES = ("gpu_memcpy", "gpu_memset")
+# the host-side runtime calls a device event's ``args.correlation`` links
+# it to (the launch that enqueued it)
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+# of those, the calls that launch kernels (a replayed step's graph, an
+# eager kernel, a Triton kernel through the driver)
+_LAUNCH_CALL_RE = re.compile(
+    r"^(cudaGraphLaunch|cudaLaunchKernel|cuLaunchKernel)")
 
 # NCCL kernel names -> the census vocabulary of obs/inspect.py
 _NCCL_RE = re.compile(
@@ -207,11 +220,29 @@ def locate_profile_traces(profile_dir: str) -> List[str]:
                   + glob.glob(os.path.join(profile_dir, "*.json.gz")))
 
 
+def _correlation(e: Dict[str, Any]) -> Optional[int]:
+    try:
+        return int((e.get("args") or {})["correlation"])
+    except (KeyError, TypeError, ValueError):
+        return None
+
+
 def extract_device_events(trace: Dict[str, Any]) -> List[Dict[str, Any]]:
     """Device events of a torch.profiler Chrome trace: Kineto's
     ``kernel``, ``gpu_memcpy`` and ``gpu_memset`` complete events. Host
     ops, runtime calls and annotations are dropped. Returns rows
-    ``{name, ts, dur, bucket, kind, label}`` (µs)."""
+    ``{name, ts, dur, bucket, kind, label, launch_ts}`` (µs):
+    ``launch_ts`` is the host start of the runtime call that enqueued
+    the event (``cudaLaunchKernel``, ``cudaGraphLaunch``,
+    ``cudaMemcpyAsync``, ...: the ``cuda_runtime`` or ``cuda_driver``
+    event of the same ``args.correlation``), None where the trace links
+    none."""
+    launch_at: Dict[int, float] = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATEGORIES:
+            corr = _correlation(e)
+            if corr is not None:
+                launch_at[corr] = float(e.get("ts", 0.0))
     out: List[Dict[str, Any]] = []
     for e in trace.get("traceEvents", []):
         if e.get("ph") != "X":
@@ -221,9 +252,48 @@ def extract_device_events(trace: Dict[str, Any]) -> List[Dict[str, Any]]:
             continue
         name = e.get("name") or ""
         bucket, kind = classify_kernel(e)
+        corr = _correlation(e)
         out.append(dict(name=name, ts=float(e.get("ts", 0.0)),
                         dur=float(e.get("dur", 0.0)), bucket=bucket,
-                        kind=kind, label=kernel_kind(name)))
+                        kind=kind, label=kernel_kind(name),
+                        launch_ts=launch_at.get(corr), correlation=corr))
+    return out
+
+
+def extract_launch_calls(trace: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """The kernel-launching runtime calls of a trace (``cudaGraphLaunch``,
+    ``cudaLaunchKernel``, ``cuLaunchKernel`` and their variants): rows
+    ``{name, ts, correlation}`` (µs, host start)."""
+    return [dict(name=e["name"], ts=float(e.get("ts", 0.0)),
+                 correlation=_correlation(e))
+            for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATEGORIES
+            and _LAUNCH_CALL_RE.match(e.get("name") or "")]
+
+
+def launch_calls_by_step(calls: List[Dict[str, Any]],
+                         device_events: List[Dict[str, Any]],
+                         step_windows: Dict[int, Tuple[float, float]]
+                         ) -> Dict[int, Dict[str, int]]:
+    """Per step: the launch calls its host window holds (``calls``), the
+    device events linked to them (``device_events``), and the calls the
+    trace links no device event to (``calls_without_device_event``):
+    beside the step's kernel counts by name, a device event the
+    profiler dropped shows as fewer device events than the calls made,
+    where one counted in another step shows as a call outside it."""
+    linked: Dict[int, int] = {}
+    for ev in device_events:
+        if ev.get("correlation") is not None:
+            linked[ev["correlation"]] = linked.get(ev["correlation"], 0) + 1
+    out = {}
+    for step, (t0, t1) in sorted(step_windows.items()):
+        mine = [c for c in calls if t0 <= c["ts"] < t1]
+        out[step] = dict(
+            calls=len(mine),
+            device_events=sum(linked.get(c["correlation"], 0)
+                              for c in mine),
+            calls_without_device_event=sum(
+                not linked.get(c["correlation"]) for c in mine))
     return out
 
 
@@ -272,6 +342,19 @@ def _launch_tests():
             for fn, attr, test in launch_counters()]
 
 
+def _owning_step(ev: Dict[str, Any],
+                 step_windows: Dict[int, Tuple[float, float]]
+                 ) -> Optional[int]:
+    """The step whose host window holds the event's launch (its
+    ``launch_ts``), or, where the trace links no launch, its start."""
+    at = ev.get("launch_ts")
+    at = ev["ts"] if at is None else at
+    for step, (t0, t1) in step_windows.items():
+        if t0 <= at < t1:
+            return step
+    return None
+
+
 def attribute_steps(device_events: List[Dict[str, Any]],
                     step_windows: Dict[int, Tuple[float, float]]
                     ) -> List[Dict[str, Any]]:
@@ -279,6 +362,7 @@ def attribute_steps(device_events: List[Dict[str, Any]],
     module docstring). Times in seconds."""
     tests = _launch_tests()
     rows: List[Dict[str, Any]] = []
+    owner = [_owning_step(ev, step_windows) for ev in device_events]
     for step in sorted(step_windows):
         t0, t1 = step_windows[step]
         compute_iv: List[Tuple[float, float]] = []
@@ -288,7 +372,17 @@ def attribute_steps(device_events: List[Dict[str, Any]],
         kind_count: Dict[str, int] = {}
         per_label: Dict[str, Dict[str, float]] = {}
         launches = {key: 0 for key, _ in tests}
-        for ev in device_events:
+        for ev, own in zip(device_events, owner):
+            # time clipped to the window; events and launches counted in
+            # the step that launched them
+            owned = own == step
+            if owned:
+                lab = per_label.setdefault(ev.get("label") or "other",
+                                           dict(time_s=0.0, count=0))
+                lab["count"] += 1
+                for key, test in tests:
+                    if test(ev["name"]):
+                        launches[key] += 1
             s = max(ev["ts"], t0)
             e = min(ev["ts"] + ev["dur"], t1)
             if e <= s:
@@ -301,16 +395,9 @@ def attribute_steps(device_events: List[Dict[str, Any]],
                 host_iv.append((s, e))
             else:
                 compute_iv.append((s, e))
-            # time clipped to the window; events and launches counted in
-            # the step they start in
-            starts = t0 <= ev["ts"] < t1
             lab = per_label.setdefault(ev.get("label") or "other",
                                        dict(time_s=0.0, count=0))
             lab["time_s"] += (e - s) / 1e6
-            lab["count"] += int(starts)
-            for key, test in tests:
-                if starts and test(ev["name"]):
-                    launches[key] += 1
         compute_u = merge_intervals(compute_iv)
         comms_u = merge_intervals(comms_iv)
         compute_s = interval_total(compute_u) / 1e6
@@ -385,11 +472,12 @@ def aggregate_attribution(per_step: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 def _parse_traces(trace_paths: List[str],
                   annotation: str = STEP_ANNOTATION):
-    """(device_events, step_windows) pooled over a capture's Chrome-trace
-    files (an unreadable file is skipped: a half-written profile must not
-    kill the report)."""
+    """(device_events, step_windows, launch_calls) pooled over a capture's
+    Chrome-trace files (an unreadable file is skipped: a half-written
+    profile must not kill the report)."""
     events: List[Dict[str, Any]] = []
     windows: Dict[int, Tuple[float, float]] = {}
+    calls: List[Dict[str, Any]] = []
     for p in trace_paths:
         try:
             trace = load_chrome_trace(p)
@@ -397,7 +485,8 @@ def _parse_traces(trace_paths: List[str],
             continue
         events += extract_device_events(trace)
         windows.update(extract_step_windows(trace, annotation))
-    return events, windows
+        calls += extract_launch_calls(trace)
+    return events, windows, calls
 
 
 def attribution_report(trace_paths: List[str],
@@ -406,7 +495,7 @@ def attribution_report(trace_paths: List[str],
 
     Returns ``{per_step, steps, totals, collectives, labels, launches,
     device_events}``."""
-    events, windows = _parse_traces(trace_paths, annotation)
+    events, windows, _ = _parse_traces(trace_paths, annotation)
     per_step = attribute_steps(events, windows)
     return dict(per_step=per_step, device_events=len(events),
                 **aggregate_attribution(per_step))
@@ -596,7 +685,7 @@ class DeviceTraceCapture:
             self._stop()
         if not self.captured:
             return None
-        events, all_windows = _parse_traces(self.trace_paths)
+        events, all_windows, calls = _parse_traces(self.trace_paths)
         windows = {s: w for s, w in all_windows.items()
                    if s not in self.refused_steps}
         per_step = attribute_steps(events, windows)
@@ -607,6 +696,21 @@ class DeviceTraceCapture:
                          for p in self.trace_paths],
             per_step=per_step,
             device_events=len(events),
+            # events linked to their launch, and those of them whose
+            # device start lies in another step's window (or none)
+            launch_linked=sum(ev["launch_ts"] is not None for ev in events),
+            moved_by_launch=sum(
+                _owning_step(ev, windows)
+                != _owning_step(dict(ev, launch_ts=None), windows)
+                for ev in events),
+            # the least device start after its launch's host start (µs):
+            # below 0, the profiler's clocks place a kernel before the
+            # call that launched it
+            launch_to_start_min_us=min(
+                (ev["ts"] - ev["launch_ts"] for ev in events
+                 if ev["launch_ts"] is not None), default=None),
+            launch_calls={str(k): v for k, v in launch_calls_by_step(
+                calls, events, windows).items()},
             refused_steps={str(k): v for k, v in
                            sorted(self.refused_steps.items())},
             **aggregate_attribution(per_step),

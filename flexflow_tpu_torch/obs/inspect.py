@@ -20,12 +20,17 @@ from what the port has:
   ``footprint_bytes``, what the step holds on the card, is the peak
   less the pool's live bytes plus its reservation, and ``temp_bytes``
   (the reference's sense: all but the arguments, activations included)
-  the footprint less the arguments. A model on the CPU has no device
+  the footprint less the arguments. A step over a process group runs
+  eagerly (no pool): its footprint is the peak, and its arguments are
+  the rank's own, so under weight-update sharding the master copy and
+  moments count at the rank's shards. A model on the CPU has no device
   allocator: its peak, footprint, temp and pool are null.
 - ``collectives``: over a process group, the last train step's record
   of ``parallel/comm.py`` (``MeshComm.census``: each call's kind and
   output bytes, HLO's convention), with ``collectives_source``
-  ``"process_group:<backend>"``; on one card ``{}`` with
+  ``"process_group:<backend>"`` (under weight-update sharding the
+  gradient reduce-scatters and the compute copy's all-gathers over the
+  data axes); on one card ``{}`` with
   ``collectives_source: "nccl"`` (ring attention's hops on one card are
   copies, not collectives). The port issues one collective where GSPMD
   may combine several (XLA's all-reduce combiner) or pick another kind,
@@ -139,8 +144,12 @@ def step_footprint_bytes(ff, peak: Optional[float]) -> Optional[float]:
     """What the compiled train step holds on the card: ``peak``, the
     allocator's peak over replayed steps, less the CUDA-graph pool's live
     blocks plus the pool's reservation (a replay's activations live in
-    the pool's free blocks, which the peak does not count). None on the
-    CPU, before any capture, or without a peak."""
+    the pool's free blocks, which the peak does not count); over a
+    process group, where the step runs eagerly, the peak itself. None
+    on the CPU, before any capture, or without a peak."""
+    if peak is not None and ff.device.type == "cuda" \
+            and ff.executor.multi_rank:
+        return float(peak)
     segs = _graph_pool_segments(ff)
     if peak is None or segs is None:
         return None

@@ -16,6 +16,12 @@ so the fused update is bit-equal to ``optimizer.update`` on the same
 leaves: the choice moves launches, never values. An unknown optimizer
 class takes the whole-tree ``optimizer.update``.
 
+Under weight-update sharding the leaves are each rank's master shards,
+their gradients the reduce-scattered shards and their moments the
+shards' (``executor.py``): the leaf table is built from those pointers
+and sizes, and a leaf the kernel cannot take (dtype, contiguity,
+device) raises as any other would.
+
 ``fused_adam_multi`` on CUDA tensors launches the kernel or raises; on CPU
 tensors it runs ``fused_adam_reference``, the plain version, which is also
 what the card's kernel is held against. ``fused_adam_multi.launches``

@@ -12,6 +12,11 @@ Adam kernel's plain version also run. ``update`` is functional (it
 returns new tensors and leaves its inputs as they were); the fused
 ``_k:fused`` path is the one that updates in place.
 
+The state follows the parameter tree it is made from: under
+weight-update sharding each rank's parameters are its master shards
+(``executor.py``), so ``init`` makes its moments at those shards and
+``update`` runs on them.
+
 Adam's step count ``t`` is an int32 device tensor and its bias-corrected
 ``alpha_t`` is computed from it in f32 on the device, exactly as the JAX
 package computes it, so a step neither rounds through Python doubles nor

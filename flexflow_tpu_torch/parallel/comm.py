@@ -14,9 +14,13 @@ rank, so each collective places blocks by ``Mesh.block_index``.
 
 Four collectives (sum reductions): all-reduce, all-gather along a dim,
 reduce-scatter along a dim and all-to-all (one dim's sharding moved to
-another). ``record`` keeps each call's kind, axes and output bytes; the
-executor starts a fresh list each step (``begin_step``) and the last
-step's is ``step_record``, the census ``obs/inspect.py`` reads.
+another). Reduce-scatter also has an asynchronous form
+(``async_op=True``): the call is issued and returns a ``Pending`` whose
+``wait()`` gives the result: the executor's weight-update sharding
+issues its gradient reduce-scatters while the backward still runs.
+``record`` keeps each call's kind, axes and output bytes; the executor
+starts a fresh list each step (``begin_step``) and the last step's is
+``step_record``, the census ``obs/inspect.py`` reads.
 
 Transport: each call hands its tensor to the group's backend as it is:
 NCCL for CUDA tensors, gloo for CPU tensors, or gloo with CUDA tensors
@@ -79,6 +83,23 @@ def replicated(ndim: int) -> NormSpec:
 
 def spec_axes(spec: NormSpec) -> AxisTuple:
     return tuple(a for e in spec for a in e)
+
+
+class Pending:
+    """An issued asynchronous collective: ``wait()`` blocks until it has
+    completed (on a CUDA tensor: the current stream waits for it) and
+    returns its result. The work and its buffers are held until then;
+    with no work (a collective over no axis) the result is already
+    there."""
+
+    def __init__(self, work, out: torch.Tensor, *buffers):
+        self._work, self._out, self._buffers = work, out, buffers
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = self._buffers = None
+        return self._out
 
 
 class MeshComm:
@@ -194,13 +215,13 @@ class MeshComm:
                              f"split over {axes} ({n} blocks)")
         return t.chunk(n, dim=dim)[self.block(axes)].contiguous()
 
-    def reduce_scatter(self, t: torch.Tensor, axes: Sequence[str],
-                       dim: int) -> torch.Tensor:
+    def reduce_scatter(self, t: torch.Tensor, axes: Sequence[str], dim: int,
+                       async_op: bool = False):
         """This rank's block, along ``dim``, of the sum of ``t`` over the
-        ranks of ``axes``."""
+        ranks of ``axes``; with ``async_op`` a ``Pending`` of it."""
         axes = tuple(axes)
         if not axes:
-            return t
+            return Pending(None, t) if async_op else t
         n = self.size(axes)
         if t.shape[dim] % n:
             raise ValueError(f"reduce-scatter: dim {dim} of size "
@@ -211,9 +232,9 @@ class MeshComm:
         ins = torch.cat([chunks[self.mesh.block_index(axes, m)].contiguous()
                          for m in members], dim=0)
         out = torch.empty_like(chunks[0], memory_format=torch.contiguous_format)
-        _REDUCE_SCATTER(out, ins, group=group)
+        work = _REDUCE_SCATTER(out, ins, group=group, async_op=async_op)
         self._note("reduce-scatter", axes, out)
-        return out
+        return Pending(work, out, ins) if async_op else out
 
     def all_to_all(self, t: torch.Tensor, axes: Sequence[str],
                    split_dim: int, concat_dim: int) -> torch.Tensor:

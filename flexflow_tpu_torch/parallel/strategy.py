@@ -13,12 +13,14 @@ and holds the whole rule that turns a choice into the kernel an op runs.
 The port executes a strategy on one process's device when no axis but a
 ring-attention sequence axis is above 1, and a data x model mesh over a
 process group of one rank a device (``executor.py``, ``parallel/comm.py``).
+Over a process group the ``_wus`` and ``_ovl`` choices run too: the
+executor shards the master copy and moments over the data axes and
+issues the gradient reduce-scatters bucket by bucket (``executor.py``).
 ``check_executable`` refuses the rest, each naming its ROADMAP.md item:
 a 'pipe' axis (item 10), an 'expert' axis and a sequence ring beside
-another axis (item 3's second part, ``machine.local_ring_axis``), a
-mesh larger than the process group, and a ``_wus`` or ``_ovl`` choice on
-a data degree above 1 (item 4). ``FFModel.compile`` records the specs
-first and refuses after its lint, so such a strategy still lints.
+another axis (item 3's second part, ``machine.local_ring_axis``), and a
+mesh larger than the process group. ``FFModel.compile`` records the
+specs first and refuses after its lint, so such a strategy still lints.
 """
 
 from __future__ import annotations
@@ -163,7 +165,7 @@ def apply_strategy(nodes, strategy: Strategy, mesh, kernels: str = "chosen",
     process group cannot run."""
     if kernels not in KERNEL_MODES:
         raise ValueError(f"kernels={kernels!r}: one of {KERNEL_MODES}")
-    check_executable(nodes, mesh, strategy)
+    check_executable(nodes, mesh)
     return _record_strategy(nodes, strategy, mesh, kernels=kernels,
                             training=training, device=device)
 
@@ -188,18 +190,14 @@ def _seq_axes(nodes):
                       if getattr(n.op, "seq_parallel", None)}
 
 
-def check_executable(nodes, mesh, strategy: Optional[Strategy] = None
-                     ) -> None:
+def check_executable(nodes, mesh) -> None:
     """Raise NotImplementedError unless this process, or its process
     group, runs ``mesh``: no axis above 1, one ring-attention sequence
     axis on one device (``machine.local_ring_axis``, which also refuses
     'pipe', 'expert' and a ring beside another axis), or a mesh of as
-    many positions as the group has ranks, without a ``_wus`` / ``_ovl``
-    choice on a data degree above 1 (weight-update sharding and the
-    comms overlap are ROADMAP.md Queue 1 item 4; the port does not run
-    them as a plain all-reduce)."""
+    many positions as the group has ranks (whatever its choices'
+    ``_wus`` / ``_ovl`` flags)."""
     from flexflow_tpu_torch import distributed
-    from flexflow_tpu_torch.executor import data_degree
 
     local_ring_axis(mesh, _seq_axes(nodes))
     if not executes_on_ranks(nodes, mesh):
@@ -213,16 +211,6 @@ def check_executable(nodes, mesh, strategy: Optional[Strategy] = None
             + ": start one with flexflow_tpu_torch.distributed.initialize "
             f"(or torchrun), the multi-GPU slice of the PyTorch port "
             f"(ROADMAP.md Queue 1 item 3)")
-    if data_degree(mesh) > 1:
-        for st in (strategy or {}).values():
-            choice = getattr(st, "choice", None) or ""
-            if "_wus" in choice or "_ovl" in choice:
-                raise NotImplementedError(
-                    f"choice {choice!r} on mesh {mesh.shape}: weight-update "
-                    f"sharding and the comms-compute overlap are ROADMAP.md "
-                    f"Queue 1 item 4; export the strategy with "
-                    f"weight_update_sharding='off' and "
-                    f"overlap_bucket_mb='off'")
 
 
 def _axis_entry_valid(entry, valid_axes) -> bool:

@@ -238,14 +238,16 @@ class _GraphLoop:
     compiled steps' replays do."""
 
     def __init__(self, iteration, n, device, stream, generator):
-        from flexflow_tpu_torch.step_graph import (kernel_node_names,
+        from flexflow_tpu_torch.step_graph import (collector_paused,
+                                                   kernel_node_names,
                                                    launch_counters)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None and hasattr(self.graph,
                                              "register_generator_state"):
             self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="thread_local"):
+        with collector_paused(), torch.cuda.graph(
+                self.graph, stream=stream,
+                capture_error_mode="thread_local"):
             for i in range(n):
                 iteration(i)
         names = kernel_node_names(self.graph)
@@ -479,8 +481,9 @@ def measure_runtime_constants(device=None) -> Dict[str, float]:
         with torch.cuda.stream(side):
             x.add_(1.0)
         torch.cuda.current_stream(dev).wait_stream(side)
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
+        from flexflow_tpu_torch.step_graph import collector_paused
+        with collector_paused(), torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
             x.add_(1.0)
 
         def chain_time(n):

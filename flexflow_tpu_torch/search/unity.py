@@ -107,6 +107,23 @@ def kernel_choice_of(choice: Optional[str]) -> Optional[str]:
     return impl or None
 
 
+def _choice_flags(choice: Optional[str]) -> str:
+    """A choice name's part before its ``_k:`` suffix: its base and its
+    ``_wus`` / ``_ovl`` flags (``base[_wus][_ovl][_k:impl][_r]``)."""
+    return (choice or "").split("_k:", 1)[0]
+
+
+def wus_choice_of(choice: Optional[str]) -> bool:
+    """Whether a choice name selects weight-update sharding (``_wus``)."""
+    return "_wus" in _choice_flags(choice)
+
+
+def overlap_choice_of(choice: Optional[str]) -> bool:
+    """Whether a choice name selects the comms-compute overlap
+    (``_ovl``)."""
+    return "_ovl" in _choice_flags(choice)
+
+
 def remat_choice_of(choice: Optional[str]) -> bool:
     """Whether a choice name selects the rematerialized (``_r``) twin."""
     return bool(choice) and choice.endswith("_r")

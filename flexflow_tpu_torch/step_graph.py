@@ -34,7 +34,13 @@ On CUDA the first call for a signature runs the body eagerly on a side
 stream: that is the call's step, and the warm-up that PyTorch's capture
 recipe asks for (cuBLAS handles and workspaces, the kernels' first-use
 attributes, the fused Adam leaf table). Then it captures the body, and
-every later call replays the graph. A capture that fails raises with its
+every later call replays the graph. Python's cyclic garbage collector
+is paused during the capture: a collection there can destroy a dead
+object that still holds another CUDA graph (a model freed earlier,
+caught in a reference cycle), which CUDA refuses inside a capture and
+which invalidates it; PyTorch's own capture no longer collects first,
+and collecting before every capture costs the per-op profile seconds.
+A capture that fails raises with its
 cause: nothing falls back to the eager body on CUDA. On the CPU there is
 nothing to capture: every call runs the same body eagerly over the same
 static buffers and static outputs, so an aliasing mistake that a replay
@@ -62,7 +68,9 @@ goes, and its graphs, their memory and the tables they read with it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -85,6 +93,19 @@ def register_launch_counter(wrapper, attr: str,
     ``is_kernel(name)`` is true for the name, mangled or demangled, of
     the one kernel that each of its launches runs once."""
     _COUNTERS.append((wrapper, attr, is_kernel))
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Python's cyclic garbage collector paused around a CUDA-graph
+    capture (the module docstring says why)."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def register_capture_hook(hook: Callable[[bool], list]) -> None:
@@ -394,8 +415,9 @@ class StepGraph:
                     f"(CUDAGraph.register_generator_state)")
             graph.register_generator_state(rng)
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=side,
-                                  capture_error_mode="thread_local"):
+            with collector_paused(), torch.cuda.graph(
+                    graph, pool=self.pool, stream=side,
+                    capture_error_mode="thread_local"):
                 captured = self._step(e, rng)
         except Exception as exc:
             for hook in _CAPTURE_HOOKS:

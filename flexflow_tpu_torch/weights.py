@@ -10,8 +10,10 @@ both packages) and ``bias [Cout]``, BatchNorm and GroupNorm
 ``scale``/``bias [C]``), so the copy is a cast and a device move. Op state
 (BatchNorm's running ``mean``/``var``) carries across the same way
 (``from_jax_state``). Over a process group each rank keeps its box of
-every leaf, cut from the whole array by the leaf's spec (the box JAX's
-device of the same index holds), and ``to_jax_params`` gathers the
+every leaf, cut from the whole array by the leaf's master spec (the box
+JAX's device of the same index holds: under weight-update sharding the
+rank's shard of the master copy, as of the Adam moments that
+``from_jax_opt_state`` carries), and ``to_jax_params`` gathers the
 whole arrays back on every rank.
 """
 
@@ -89,17 +91,21 @@ def from_jax_state(state: Mapping[str, Mapping[str, np.ndarray]], model
     return ours
 
 
-def _tensor_like(arr, like: torch.Tensor, where: str) -> torch.Tensor:
+def _tensor_like(arr, like: torch.Tensor, where: str,
+                 cut=None) -> torch.Tensor:
     """A numpy array (bf16 arrays as ``ml_dtypes.bfloat16``) as a tensor of
-    ``like``'s dtype and device, bit for bit: the dtypes must agree."""
+    ``like``'s dtype and device, bit for bit: the dtypes must agree.
+    ``cut`` takes the whole tensor to the part ``like`` holds."""
     arr = np.asarray(arr)
-    if tuple(arr.shape) != tuple(like.shape):
-        raise ValueError(f"{where}: shape {arr.shape}, port expects "
-                         f"{tuple(like.shape)}")
     if arr.dtype.name == "bfloat16":
         src = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         src = torch.from_numpy(arr.copy())
+    if cut is not None:
+        src = cut(src)
+    if tuple(src.shape) != tuple(like.shape):
+        raise ValueError(f"{where}: shape {arr.shape}, port expects "
+                         f"{tuple(like.shape)}")
     if src.dtype != like.dtype:
         raise ValueError(f"{where}: dtype {arr.dtype}, port state is "
                          f"{like.dtype}")
@@ -113,7 +119,10 @@ def from_jax_opt_state(opt_state: Mapping, model) -> Dict:
     SGD ``{"v": tree}`` / ``{}``, every leaf a numpy array (``np.asarray``
     of the JAX leaves). m and v keep their bits (bf16 moments stay bf16)
     and ``t`` becomes the port's int32 device counter, so bias correction
-    resumes at the same step. Returns ``model.opt_state``."""
+    resumes at the same step. Over a process group each leaf (whole,
+    as ``np.asarray`` gathers a JAX array) is cut to the rank's box of
+    its master spec (``executor.local_box``: the WUS shard under
+    weight-update sharding). Returns ``model.opt_state``."""
     ours = model.opt_state
     if ours is None:
         raise ValueError("the model has no optimizer state: compile it with "
@@ -131,7 +140,9 @@ def from_jax_opt_state(opt_state: Mapping, model) -> Dict:
         if {l: set(sub) for l, sub in val.items()} != \
                 {l: set(sub) for l, sub in tree.items()}:
             raise ValueError(f"optimizer state {key!r}: trees differ")
-        new[key] = {l: {n: _tensor_like(a, tree[l][n], f"{key}/{l}/{n}")
+        new[key] = {l: {n: _tensor_like(a, tree[l][n], f"{key}/{l}/{n}",
+                                        cut=lambda t, l=l, n=n:
+                                        model.executor.local_box(l, n, t))
                         for n, a in sub.items()}
                     for l, sub in val.items()}
     model.opt_state = new

@@ -267,6 +267,76 @@ def test_step_buckets_by_hand():
             == pytest.approx(row["wall_s"])
 
 
+def test_a_kernel_counts_in_the_step_that_launched_it():
+    """A kernel linked (``args.correlation``) to a launch inside step 2's
+    host window counts there, in its launches and its label's events,
+    even where its device start lies before that window or after it
+    closed; its time stays clipped to the windows it overlaps. A kernel
+    the trace links to no launch counts where it starts."""
+    corr = lambda n: dict(correlation=n)
+    trace = dict(traceEvents=[
+        _x("ff_step#2", "user_annotation", 1000.0, 1000.0),
+        _x("ff_step#3", "user_annotation", 2000.0, 1000.0),
+        _x("cudaGraphLaunch", "cuda_runtime", 1020.0, 10.0, args=corr(7)),
+        _x("cudaLaunchKernel", "cuda_runtime", 1900.0, 5.0, args=corr(8)),
+        _x("cudaLaunchKernel", "cuda_runtime", 2100.0, 5.0, args=corr(9)),
+        # launched in step 2, started before its window (the device
+        # clock's conversion), 60 of its 100 µs inside it
+        _x(K1, "kernel", 960.0, 100.0, args=corr(7)),
+        # launched in step 2, started after its window closed
+        _x(K1, "kernel", 2050.0, 100.0, args=corr(8)),
+        # launched in step 3, inside it
+        _x(K1, "kernel", 2200.0, 100.0, args=corr(9)),
+        # no launch in the trace: where it starts, step 3
+        _x(K4, "kernel", 2400.0, 100.0),
+    ])
+    events = pdev.extract_device_events(trace)
+    assert [e["launch_ts"] for e in events] == [1020.0, 1900.0, 2100.0,
+                                                None]
+    s2, s3 = pdev.attribute_steps(events, pdev.extract_step_windows(trace))
+    assert s2["launches"]["flash_fwd.launches"] == 2
+    assert s3["launches"]["flash_fwd.launches"] == 1
+    assert s3["launches"]["fused_adam_multi.launches"] == 1
+    assert s2["per_label"]["flash_attn_fwd"] == pytest.approx(
+        dict(time_s=60e-6, count=2))
+    assert s3["per_label"]["flash_attn_fwd"] == pytest.approx(
+        dict(time_s=200e-6, count=1))
+    assert s2["compute_s"] == pytest.approx(60e-6)
+    assert s3["compute_s"] == pytest.approx(300e-6)
+
+
+def test_launch_calls_by_step_count_calls_beside_their_device_events():
+    """Each step's kernel-launching runtime calls (a memcpy call is not
+    one), the device events linked to them, and the calls the trace
+    links no device event to (a dropped device record)."""
+    corr = lambda n: dict(correlation=n)
+    trace = dict(traceEvents=[
+        _x("ff_step#2", "user_annotation", 1000.0, 1000.0),
+        _x("ff_step#3", "user_annotation", 2000.0, 1000.0),
+        _x("cudaGraphLaunch", "cuda_runtime", 1020.0, 10.0, args=corr(7)),
+        _x("cudaMemcpyAsync", "cuda_runtime", 1500.0, 5.0, args=corr(6)),
+        _x("cudaLaunchKernel", "cuda_runtime", 1900.0, 5.0, args=corr(8)),
+        _x("cuLaunchKernel", "cuda_driver", 2100.0, 5.0, args=corr(9)),
+        _x("cudaLaunchKernel", "cuda_runtime", 2300.0, 5.0, args=corr(10)),
+        # the graph's two kernels, one after step 2's window closed
+        _x(K1, "kernel", 1100.0, 100.0, args=corr(7)),
+        _x(K1, "kernel", 2050.0, 100.0, args=corr(7)),
+        _x("Memcpy DtoH", "gpu_memcpy", 1510.0, 5.0, args=corr(6)),
+        _x(K1, "kernel", 1950.0, 10.0, args=corr(8)),
+        _x(K4, "kernel", 2200.0, 100.0, args=corr(9)),
+        # correlation 10's kernel is missing from the trace
+    ])
+    calls = pdev.extract_launch_calls(trace)
+    assert [c["name"] for c in calls] == [
+        "cudaGraphLaunch", "cudaLaunchKernel", "cuLaunchKernel",
+        "cudaLaunchKernel"]
+    got = pdev.launch_calls_by_step(calls, pdev.extract_device_events(trace),
+                                    pdev.extract_step_windows(trace))
+    assert got == {
+        2: dict(calls=2, device_events=3, calls_without_device_event=0),
+        3: dict(calls=2, device_events=1, calls_without_device_event=1)}
+
+
 def test_aggregate_and_report(tmp_path):
     path = tmp_path / "trace.json"
     path.write_text(json.dumps(synthetic_trace()))

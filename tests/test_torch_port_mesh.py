@@ -24,9 +24,9 @@ Cases:
   asymmetric ``{"data": 4, "model": 2}``, with its collective census
   against the JAX package's HLO census by kind;
 - (e) the same model under the strategy the port's search picks at 8
-  devices with parameter parallelism on (weight-update sharding, the
-  overlap and the pipeline axis, which later slices execute, off; it
-  picks ``{"data": 4, "model": 2}``), executed on 8
+  devices with parameter parallelism on (weight-update sharding and the
+  overlap, which ``tests/test_torch_port_wus.py`` covers, and the
+  pipeline axis off; it picks ``{"data": 4, "model": 2}``), executed on 8
   ranks and by the JAX package from the same strategy file;
 - (g) the BERT-proxy under the choices (d) leaves out: ``head``,
   ``col`` and ``row`` on replicated rows, ``dp_mp_last`` and
@@ -61,8 +61,8 @@ LOSS_RTOL = 1e-4
 PARAM_ATOL, PARAM_RTOL = 2e-5, 1e-4
 BERT = dict(num_layers=2, hidden_size=64, num_heads=4, seq_length=32,
             batch_size=8)
-# (e)'s search: parameter parallelism on; weight-update sharding, the
-# overlap, graph rewrites and pipelines (which later slices execute) off
+# (e)'s search: parameter parallelism on; weight-update sharding and the
+# overlap (tests/test_torch_port_wus.py), graph rewrites and pipelines off
 SEARCH_CFG = dict(weight_update_sharding="off", overlap_bucket_mb="off",
                   enable_substitution=False, enable_pipeline_parallel=False,
                   enable_parameter_parallel=True)
@@ -228,9 +228,12 @@ def _case_b(payload):
     from_jax_params(payload["init"], ff)
     specs = {n.op.name: dict(n.param_specs) for n in ff.executor.nodes}
     out = _result(ff, _train(ff, *payload["data"]), specs=specs)
+    # the master box: the leaf's WUS shard where weight-update sharding
+    # cuts it (data degree 4 under "auto"), else its strategy box
+    master = ff.executor.wus_spec("d1", "kernel", (8, 16)) or \
+        specs["d1"]["kernel"]
     out["host"] = distributed.all_gather_host(
-        ff.params["d1"]["kernel"],
-        distributed.Sharding(ff.mesh, specs["d1"]["kernel"]))
+        ff.params["d1"]["kernel"], distributed.Sharding(ff.mesh, master))
     out["rows"] = distributed.local_batch_rows(
         ff.executor.batch_sharding(), 64)
     return out
