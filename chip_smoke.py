@@ -236,18 +236,21 @@ package. Phases:
              within DROPOUT_SIGMAS binomial deviations of 0.5 and its
              kept values scaled exactly; ``predict`` with dropout the
              identity; 3 ``fit`` steps finite.
-12. ckpt    — [ckpt] the full-width BERT-proxy through train (b)'s
-             strategy file (K1, K2, K4 every step): (a) 2 x CKPT_N
-             uninterrupted steps against CKPT_N steps saved with
-             ``checkpoint_every`` and a fresh model resumed with
-             ``fit(resume=True)``: losses and every leaf (parameters, m,
-             v, t) bit for bit, the resumed steps' launches (K1 and K2 12
-             a step, K4 1) one capture then replays; bytes written, the
-             snapshot's stall against the step, the writer's seconds and
-             GB/s, the restore, goodput. (b) a child (``--ckpt-child``)
-             preempted by ``FFS_FAULT=sigterm`` exits PREEMPTED_EXIT with
-             a verified grace checkpoint; a second child resumes it to
-             (a)'s losses bit for bit, its kernels already built. (c)
+12. ckpt    — [ckpt] the BERT-proxy's width at CKPT_LAYERS layers
+             through train (b)'s kernel choices (K1, K2, K4 every
+             step): (a) 2 x CKPT_N uninterrupted steps against CKPT_N
+             steps saved with ``checkpoint_every`` and a fresh model
+             resumed with ``fit(resume=True)``: losses and every leaf
+             (parameters, m, v, t) bit for bit, the resumed steps'
+             launches (K1 and K2 one a layer a step, K4 1) one capture
+             then replays; bytes written, the snapshot's stall against
+             the step, the writer's seconds and GB/s, the restore,
+             goodput. (b) ``supervise`` over a child
+             (``--ckpt-child``): preempted by ``FFS_FAULT=sigterm``, it
+             exits PREEMPTED_EXIT with a verified grace checkpoint; the
+             restart with ``--resume`` continues it to (a)'s losses bit
+             for bit, its kernels already built; ``ckpt_inspect`` on the
+             directory (exit 0). (c)
              ``load_for_serving`` on (a)'s checkpoint: ``predict`` equal
              to a training model's after ``load_checkpoint`` and
              ``serve()``'s rows equal to ``predict``. [ckpt zoo]:
@@ -298,11 +301,8 @@ package. Phases:
              trace dir, every row printed with the card; the search's
              ``_memory_correction()`` is the rows' median ``mem_ratio``; a
              memory-capped compile divides its threshold by it, beside
-             the measured peak of 2 steps; (e) ``supervise`` over a
-             2-layer child (``--supervise-child``) preempted by
-             ``FFS_FAULT`` (exit 78, a resumed attempt, exit 0) and
-             ``ckpt_inspect`` on its checkpoint (exit 0). Nothing is
-             written into the tree.
+             the measured peak of 2 steps. Nothing is written into the
+             tree.
 15. frontends — [frontends] models written elsewhere, imported into the
              port and run on the card: (a) the BERT-proxy written in
              PyTorch (``nn.TransformerEncoder`` of 12 pre-norm
@@ -349,7 +349,7 @@ package. Phases:
              ``torch.cuda.memory_allocated()`` unchanged; (4) ``python -m
              flexflow_tpu_torch.scripts.fflint --model <m> --json`` for
              the twelve zoo models (exit 0, one device; [moe] (c) reads
-             the two MoE reports) and
+             the two MoE reports) and, started with them,
              ``explain --model transformer --budget 2 --measure-ops
              --trace-dir`` [obs]'s dir: the three artifacts, the merged
              trace with ``sim:*`` and ``device:*`` lanes.
@@ -407,16 +407,32 @@ package. Phases:
              ``predict``; prints each rank's step p50 (gloo over host
              copies: not a multi-GPU number), the collectives a step
              issued by kind, axes and bytes, and each rank's peak memory.
-20. report — one JSON line ``{"kernels": [...]}``, then the final line
+20. wus   — [wus] weight-update sharding, the overlap and checkpoints
+             over ranks (its budget WUS_BUDGET_S): 4 ranks
+             (``--wus-child``) on ``{"data": 4}`` beside [mesh]'s one-rank
+             run (``phase_wus``); (b)'s fit checkpoints at step
+             WUS_SAVE_STEP (each rank its quarter of the master and
+             moments, rank 0 the commit), a fresh model in the same
+             processes resumes it bit-equal to the uninterrupted step
+             WUS_STEPS with K1 / K2 / K4 launched after the restore, and
+             the lowest WUS_ELASTIC_RANKS of them, in a group of their
+             own, resume it after a search in that group (plan
+             ``research``, every restored leaf bit-equal to the
+             checkpoint at the pick's boxes, loss within MESH_LOSS_RTOL of
+             one rank's); prints each rank's
+             bytes written and read and the snapshot, write, commit and
+             restore seconds.
+21. report — one JSON line ``{"kernels": [...]}``, then the final line
              ``{"ok": true, "device": {...}}``. Each phase's seconds are
              printed as ``[time]`` lines.
 
 Any failed check exits non-zero without printing the final line.
 
-Three other modes: ``--ckpt-child DIR STRATEGY_DIR STEPS [--resume]``
-is one child process of the ``[ckpt]`` phase's preemption leg,
-``--supervise-child FLAGS...`` the supervised child of ``[costmodel]``,
-and ``--mesh-child RANK WORLD DIR`` one rank of ``[mesh]``.
+Other modes: ``--ckpt-child DIR STRATEGY_DIR STEPS [--resume]`` is one
+child process of the ``[ckpt]`` phase's preemption leg,
+``--mesh-child RANK WORLD DIR`` one rank of ``[mesh]``, and
+``--wus-child RANK WORLD DIR`` one rank of ``[wus]``'s 4-rank world (the
+lowest ranks go on to its elastic group).
 """
 
 import json
@@ -4784,11 +4800,14 @@ def phase_zoo_bn(strategy_dir):
     return out
 
 
-# [ckpt]: the BERT-proxy's checkpoint, resume, preemption and deploy. The
+# [ckpt]: the BERT-proxy's checkpoint, resume, preemption and deploy, at
+# its full width and CKPT_LAYERS of its 12 layers (depth only scales the
+# bytes and compiles: [wus] saves and restores all 12 over 4 ranks). The
 # uninterrupted run takes 2 * CKPT_N steps; the interrupted one saves at
 # step CKPT_N and a fresh model resumes it. The preempted child raises
 # SIGTERM on itself after step slot CKPT_SIGTERM_SLOT (FFS_FAULT), so its
 # grace checkpoint holds step CKPT_SIGTERM_SLOT + 1, inside CKPT_GRACE_S.
+CKPT_LAYERS = 4
 CKPT_N = 3
 CKPT_SIGTERM_SLOT = 1
 CKPT_GRACE_S = 300.0
@@ -4873,10 +4892,21 @@ def obs_since(name, before):
     return now[0] - before[0], now[1] - before[1]
 
 
+def quiet(fn, *args):
+    """(what ``fn(*args)`` returns, what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
 def ckpt_child(argv):
     """``chip_smoke.py --ckpt-child DIR STRATEGY_DIR STEPS [--resume]``:
     one process of the [ckpt] phase's preemption leg. Trains the
-    full-width BERT-proxy through ``fit(epochs=STEPS)`` with
+    BERT-proxy at full width and CKPT_LAYERS layers through
+    ``fit(epochs=STEPS)`` with
     ``checkpoint_dir=DIR`` and a grace window (``FFS_FAULT`` comes from
     the environment); prints one ``[ckpt child]`` JSON line with its
     losses, launches and whether the kernels were built before it
@@ -4892,7 +4922,7 @@ def ckpt_child(argv):
     torch.backends.cudnn.allow_tf32 = False
     names = ["flash_attn_fwd", "flash_attn_bwd", "fused_adam"]
     prebuilt = {n: cuda_build._paths(n)[1].exists() for n in names}
-    cfg = TransformerConfig()
+    cfg = TransformerConfig(num_layers=CKPT_LAYERS)
     ff = compile_for_training(cfg, strategy_dir)
     ff.config.grace_window_s = CKPT_GRACE_S
     x, y = training_batch(cfg)
@@ -4902,42 +4932,30 @@ def ckpt_child(argv):
         ff.fit(x, y, epochs=steps, verbose=False, checkpoint_dir=ckpt_dir,
                resume=resume)
     finally:
-        print("[ckpt child] " + json.dumps(dict(
+        record = json.dumps(dict(
             losses=list(ff.epoch_losses), iteration=ff._iter,
             launches=read_launches(), prebuilt=prebuilt,
-            fit_s=time.perf_counter() - t0)), flush=True)
+            fit_s=time.perf_counter() - t0))
+        print("[ckpt child] " + record, flush=True)
+        with open(ckpt_child_record(ckpt_dir, resume), "w") as f:
+            f.write(record)
     return 0
 
 
-def run_ckpt_child(ckpt_dir, strategy_dir, steps, resume, fault=None):
-    """One ``--ckpt-child`` process -> (exit code, its JSON line, its
-    seconds); stdout and stderr go to the caller's."""
-    env = dict(os.environ)
-    env.pop("FFS_FAULT", None)
-    if fault:
-        env["FFS_FAULT"] = fault
-    cmd = [sys.executable, os.path.abspath(__file__), "--ckpt-child",
-           ckpt_dir, strategy_dir, str(steps)] + (["--resume"] if resume
-                                                  else [])
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                          timeout=CKPT_CHILD_TIMEOUT_S)
-    secs = time.perf_counter() - t0
-    for line in proc.stderr.splitlines()[-12:]:
-        print(f"[ckpt child stderr] {line}")
-    lines = [l for l in proc.stdout.splitlines()
-             if l.startswith("[ckpt child] ")]
-    out = json.loads(lines[-1][len("[ckpt child] "):]) if lines else None
-    return proc.returncode, out, secs
+def ckpt_child_record(ckpt_dir, resume):
+    """The file a ``--ckpt-child`` leaves its JSON line in, beside its
+    checkpoint directory (the supervisor does not read its output)."""
+    return ckpt_dir + (".resumed.json" if resume else ".first.json")
 
 
 def phase_ckpt(strategy_dir):
-    """[ckpt] the BERT-proxy at full width through train (b)'s strategy
-    file (K1, K2, K4 in every step): (a) 2N uninterrupted steps against N
+    """[ckpt] the BERT-proxy at full width and CKPT_LAYERS layers
+    through train (b)'s kernel choices (K1, K2, K4 in every step): (a) 2N uninterrupted steps against N
     steps saved with ``checkpoint_every=N`` and a fresh model resumed by
     ``fit(resume=True)``, bit for bit, the resumed steps' launches and
-    replays counted; (b) a child preempted by SIGTERM, its grace
-    checkpoint, and a second child resuming it bit-equal to (a); (c)
+    replays counted; (b) ``supervise`` over a child preempted by
+    SIGTERM: its grace checkpoint, the restart resuming it bit-equal to
+    (a), and ``ckpt_inspect`` on the directory; (c)
     ``load_for_serving`` on (a)'s checkpoint against a training model's
     ``load_checkpoint``, ``predict`` and ``serve()`` bit for bit. Returns
     the resumed steps' launches and the figures."""
@@ -4951,9 +4969,11 @@ def phase_ckpt(strategy_dir):
     from flexflow_tpu_torch.models.transformer import (TransformerConfig,
                                                        create_transformer)
     from flexflow_tpu_torch.obs.registry import get_registry
+    from flexflow_tpu_torch.scripts import ckpt_inspect as inspect_cli
+    from flexflow_tpu_torch.scripts import supervise as supervise_cli
     from flexflow_tpu_torch.serve import load_for_serving
 
-    cfg = TransformerConfig()
+    cfg = TransformerConfig(num_layers=CKPT_LAYERS)
     x, y = training_batch(cfg)
     n = CKPT_N
     reg = get_registry()
@@ -5092,29 +5112,45 @@ def phase_ckpt(strategy_dir):
                         crc_s=crc_s, read_s=read_s, load_s=load_s,
                         launches=launches)
 
-        # (b) a child preempted by SIGTERM, then a child resuming it
+        # (b) ``supervise`` over a child preempted by SIGTERM: its grace
+        # checkpoint, then the restart with --resume continuing it
         d2 = os.path.join(root, "b")
+        os.makedirs(d2)
         k = CKPT_SIGTERM_SLOT
-        rc, first_out, secs = run_ckpt_child(
-            d2, strategy_dir, 2 * n, False, fault=f"sigterm:0@step:{k}")
-        print(f"[ckpt] (b) preempted child: exit {rc} in {secs:.1f} s: "
-              f"{first_out}")
-        check(rc == PREEMPTED_EXIT,
-              f"the preempted child exited {rc}, not {PREEMPTED_EXIT}")
+        state_path = os.path.join(d2, mf.SUPERVISOR_NAME)
+        cmd = ["timeout", "-k", "10", str(CKPT_CHILD_TIMEOUT_S),
+               sys.executable, os.path.abspath(__file__), "--ckpt-child",
+               d2, strategy_dir, str(2 * n)]
+        os.environ["FFS_FAULT"] = f"sigterm:0@step:{k}"
+        t0 = time.perf_counter()
+        try:
+            rc = supervise_cli.main(["--max-restarts", "2", "--backoff-base",
+                                     "0.5", "--state", state_path, "--"]
+                                    + cmd)
+        finally:
+            del os.environ["FFS_FAULT"]
+        sup_s = time.perf_counter() - t0
+        with open(state_path) as f:
+            history = json.load(f)["history"]
+        print(f"[ckpt] (b) supervise: exit {rc} in {sup_s:.1f} s; attempts "
+              + ", ".join(f"{h['outcome']}({h['code']}, "
+                          f"{h['duration_s']:.1f} s)" for h in history))
+        check(rc == 0 and [h["code"] for h in history]
+              == [PREEMPTED_EXIT, 0], f"supervise: {history}")
+        first_out, second = (json.load(open(ckpt_child_record(d2, r)))
+                             for r in (False, True))
+        print(f"[ckpt] (b) preempted child: {first_out}")
+        print(f"[ckpt] (b) resuming child: {second}")
         steps = [(s_, ok) for s_, _, ok in list_steps(d2)]
-        step, sdir = latest_complete(d2) or (None, None)
-        rep = verify_step_dir(sdir) if sdir else {"complete": False,
-                                                  "errors": ["none"]}
-        check(step == k + 1 and rep["complete"],
+        grace = [sd for s_, sd, ok in list_steps(d2) if s_ == k + 1 and ok]
+        rep = verify_step_dir(grace[0]) if grace else {
+            "complete": False, "errors": ["none"]}
+        check(rep["complete"],
               f"grace checkpoint: steps {steps}, {rep['errors']}")
         # one batch an epoch: the preempted slot's epoch reads no loss
         check(first_out["losses"] == ref_losses[:k]
               and first_out["iteration"] == k + 1,
               "the preempted child's losses differ from (a)'s")
-        rc, second, secs2 = run_ckpt_child(d2, strategy_dir, 2 * n, True)
-        print(f"[ckpt] (b) resuming child: exit {rc} in {secs2:.1f} s: "
-              f"{second}")
-        check(rc == 0, f"the resuming child exited {rc}")
         check(second["losses"] == ref_losses[k + 1:],
               "the resumed child's losses differ from the uninterrupted "
               "run's")
@@ -5125,8 +5161,13 @@ def phase_ckpt(strategy_dir):
               and second["launches"]["flash_attn_fwd"] ==
               cfg.num_layers * rest,
               f"the resumed child's launches: {second['launches']}")
+        rc, text = quiet(inspect_cli.main, [d2])
+        for line in text.splitlines():
+            print(f"[ckpt] (b) ckpt_inspect: {line}")
+        check(rc == 0, f"ckpt_inspect exited {rc}")
         out["b"] = dict(exit=PREEMPTED_EXIT, grace_step=k + 1,
-                        child_s=[secs, secs2])
+                        child_s=[h["duration_s"] for h in history],
+                        supervise=[h["code"] for h in history])
 
         # (c) deploy (a)'s checkpoint
         manifest = load_manifest(d)
@@ -5598,7 +5639,9 @@ def phase_obs(strategy_dir, analytic_predicted_s, trace_root=None):
 # [costmodel]: the corpus fits' model (the BERT-proxy's width, 2 layers)
 # at distinct (batch, seq) shapes, the full-width shape (batch 8, seq 512)
 # held out of the corpus
-COSTMODEL_LAYERS = 2
+# one layer: the corpus dedups rows by (class, shape, choice), so equal
+# layers add no row; a second layer only added time
+COSTMODEL_LAYERS = 1
 COSTMODEL_SHAPES = [(b, s) for b in (2, 4, 8, 16) for s in (128, 256)]
 COSTMODEL_HELD_OUT = (8, 512)
 COSTMODEL_STEPS = 3
@@ -5610,43 +5653,6 @@ COSTMODEL_CLASSES = ("LINEAR", "LAYERNORM", "MULTIHEAD_ATTENTION:flash",
 # least twice the uncapped prediction times the correction, so that the
 # divided threshold stays feasible
 COSTMODEL_MEMORY_MB = 16384
-# the supervised child: 2 layers, SUPERVISE_STEPS fit steps of one batch,
-# SIGTERM after slot SUPERVISE_SIGTERM_STEP on the first attempt
-SUPERVISE_STEPS = 6
-SUPERVISE_FAULT = "sigterm:0@step:3"
-
-
-def supervise_child(argv):
-    """``chip_smoke.py --supervise-child FLAGS...``: the training child of
-    ``[costmodel]`` (e). A 2-layer BERT-proxy (the full model's width)
-    ``fit`` for SUPERVISE_STEPS steps under the ``FFConfig`` flags it is
-    given (``--checkpoint-dir``, ``--checkpoint-every``, ``--grace-window``,
-    and ``--resume`` from the supervisor's restart); a SIGTERM from
-    ``FFS_FAULT`` exits PREEMPTED_EXIT. Prints one ``[supervise child]``
-    JSON line."""
-    import torch
-    from flexflow_tpu_torch import FFConfig, LossType, MetricsType
-    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
-                                                       create_transformer)
-    from flexflow_tpu_torch.optimizers import AdamOptimizer
-
-    cfg = TransformerConfig(num_layers=COSTMODEL_LAYERS)
-    fcfg = FFConfig(batch_size=cfg.batch_size)
-    check(fcfg.parse_args(list(argv)) == [], f"unread flags in {argv}")
-    ff = create_transformer(cfg, fcfg, device="cuda")
-    ff.compile(AdamOptimizer(alpha=1e-4, state_dtype=torch.bfloat16),
-               LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
-               [MetricsType.MEAN_SQUARED_ERROR])
-    x, y = training_batch(cfg)
-    try:
-        ff.fit(x, y, epochs=SUPERVISE_STEPS, verbose=False)
-    finally:
-        print("[supervise child] " + json.dumps(dict(
-            resumed=fcfg.resume, iteration=ff._iter,
-            losses=list(ff.epoch_losses))), flush=True)
-    return 0
-
-
 def phase_costmodel(obs_trace_dir):
     """[costmodel] measure, learn, search, calibrate (``costmodel/``,
     ``flexflow_tpu_torch/scripts``). (a) Traced ``fit``s of the
@@ -5664,14 +5670,10 @@ def phase_costmodel(obs_trace_dir):
     ``--ingest-drift`` of [obs]'s trace dir; the search's memory
     correction is the rows' median ``mem_ratio``; a memory-capped compile
     divides its threshold by it, beside the measured peak of 2 steps.
-    (e) ``supervise`` over a 2-layer child preempted by ``FFS_FAULT``
-    (exit 78, a resume, exit 0) and ``ckpt_inspect`` on its checkpoint.
     Nothing is written into the tree. Returns the launches of (a) and
     (c)."""
-    import contextlib
     import gc
     import glob
-    import io
 
     import numpy as np
     import torch
@@ -5683,10 +5685,8 @@ def phase_costmodel(obs_trace_dir):
     from flexflow_tpu_torch.obs.inspect import step_footprint_bytes
     from flexflow_tpu_torch.optimizers import AdamOptimizer
     from flexflow_tpu_torch.scripts import calibrate as calibrate_cli
-    from flexflow_tpu_torch.scripts import ckpt_inspect as inspect_cli
     from flexflow_tpu_torch.scripts import costmodel as costmodel_cli
     from flexflow_tpu_torch.scripts import obs_report as obs_report_cli
-    from flexflow_tpu_torch.scripts import supervise as supervise_cli
     from flexflow_tpu_torch.search import native, profile, unity
 
     card = nvidia_smi_line()
@@ -5718,12 +5718,6 @@ def phase_costmodel(obs_trace_dir):
         check(len(found) == 1, f"{pattern}: {found}")
         with open(found[0]) as f:
             return json.load(f)
-
-    def quiet(fn, *args):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = fn(*args)
-        return rc, buf.getvalue()
 
     try:
         with tempfile.TemporaryDirectory(prefix="ff_costmodel_") as tmp:
@@ -6032,35 +6026,6 @@ def phase_costmodel(obs_trace_dir):
                                  peak=peak, footprint=held)
             del ff
             torch.cuda.empty_cache()
-
-            # ---- (e) the operator tools -----------------------------------
-            ckpt = os.path.join(tmp, "supervised")
-            cmd = [sys.executable, os.path.abspath(__file__),
-                   "--supervise-child", "--checkpoint-dir", ckpt,
-                   "--checkpoint-every", "1", "--grace-window",
-                   str(CKPT_GRACE_S)]
-            os.environ["FFS_FAULT"] = SUPERVISE_FAULT
-            t0 = time.perf_counter()
-            try:
-                rc = supervise_cli.main(["--max-restarts", "2",
-                                         "--backoff-base", "0.5", "--"]
-                                        + cmd)
-            finally:
-                del os.environ["FFS_FAULT"]
-            with open(os.path.join(ckpt, "SUPERVISOR.json")) as f:
-                state = json.load(f)
-            print(f"[costmodel] (e) supervise: exit {rc} in "
-                  f"{time.perf_counter() - t0:.1f} s; attempts "
-                  + ", ".join(f"{h['outcome']}({h['code']})"
-                              for h in state["history"])
-                  + f"; downtime {state['downtime_s']:.2f} s")
-            check(rc == 0 and [h["code"] for h in state["history"]]
-                  == [PREEMPTED_EXIT, 0], f"supervise: {state['history']}")
-            rc, text = quiet(inspect_cli.main, [ckpt])
-            for line in text.splitlines():
-                print(f"[costmodel] (e) ckpt_inspect: {line}")
-            check(rc == 0, f"ckpt_inspect exited {rc}")
-            out["supervise"] = [h["code"] for h in state["history"]]
     finally:
         for k, v in env_before.items():
             if v is None:
@@ -6792,43 +6757,48 @@ def phase_lint(strategy_dir, obs_trace_dir, costmodel_files):
     del mlp
 
     # ---- (4) the CLIs on the card ---------------------------------------
+    # the twelve fflint runs and explain, all started together
     models = list(fflint_cli.ZOO)
+    out_dir = os.path.join(work, "explain")
     t0 = time.perf_counter()
     procs = {m: subprocess.Popen(
         [sys.executable, "-m", "flexflow_tpu_torch.scripts.fflint",
          "--model", m, "--json"], cwd=root, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for m in models}
-    docs = {}
+    procs["explain"] = subprocess.Popen(
+        [sys.executable, "-m", "flexflow_tpu_torch.scripts.explain",
+         "--model", "transformer", "--budget", "2", "--measure-ops",
+         "--trace-dir", obs_trace_dir, "--out-dir", out_dir],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    texts = {}
     try:
         for m, p in procs.items():
-            so, se = p.communicate(timeout=LINT_CLI_TIMEOUT_S)
-            check(p.returncode == 0, f"(4) fflint --model {m} exited "
-                  f"{p.returncode}: {se[-2000:]}")
-            docs[m] = json.loads(so)
+            texts[m] = p.communicate(timeout=LINT_CLI_TIMEOUT_S)
+            if m in models:
+                fflint_s = time.perf_counter() - t0
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    explain_s = time.perf_counter() - t0
+    docs = {}
+    for m in models:
+        so, se = texts[m]
+        check(procs[m].returncode == 0, f"(4) fflint --model {m} exited "
+              f"{procs[m].returncode}: {se[-2000:]}")
+        docs[m] = json.loads(so)
     for m, d in docs.items():
         print(f"[lint] (4) fflint --model {m} --json: mesh "
               f"{d['context']['mesh_axes']}, {d['context']['num_ops']} ops, "
               f"{d['counts']}")
         check(d["context"]["mesh_axes"] == {"data": 1},
               f"(4) fflint {m} planned {d['context']['mesh_axes']}")
-    print(f"[lint] (4) the {len(models)} fflint runs (in parallel) in "
-          f"{time.perf_counter() - t0:.1f} s ({card})")
-    out_dir = os.path.join(work, "explain")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "flexflow_tpu_torch.scripts.explain",
-         "--model", "transformer", "--budget", "2", "--measure-ops",
-         "--trace-dir", obs_trace_dir, "--out-dir", out_dir],
-        cwd=root, capture_output=True, text=True,
-        timeout=LINT_CLI_TIMEOUT_S)
-    explain_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"(4) explain exited {proc.returncode}: "
-          f"{proc.stderr[-3000:]}")
+    print(f"[lint] (4) the {len(models)} fflint runs (in parallel, beside "
+          f"explain) in {fflint_s:.1f} s ({card})")
+    explain_out, explain_err = texts["explain"]
+    check(procs["explain"].returncode == 0, f"(4) explain exited "
+          f"{procs['explain'].returncode}: {explain_err[-3000:]}")
     st_path = os.path.join(out_dir, "SEARCH_TRACE.json")
     with open(st_path) as f:
         st = json.load(f)
@@ -6848,7 +6818,7 @@ def phase_lint(strategy_dir, obs_trace_dir, costmodel_files):
     flash_rows = [r["guid"] for r in att if f"{r['guid']}:fwd:flash" in m]
     print(f"[lint] (4) explain --model transformer --budget 2 --measure-ops "
           f"--trace-dir [obs]: {explain_s:.1f} s with the process's start; "
-          f"{proc.stdout.strip()}; {len(st['corpus'])} corpus rows; merged "
+          f"{explain_out.strip()}; {len(st['corpus'])} corpus rows; merged "
           f"lanes {labels}; attention einsum rows "
           f"{[m[str(r['guid']) + ':fwd'] for r in att]} s, flash rows "
           f"{[m[str(g) + ':fwd:flash'] for g in flash_rows]} s (the zoo "
@@ -7759,6 +7729,43 @@ def mesh_collective_checks(comm, device="cuda"):
     return out
 
 
+def rank_world(flag, world, root, label, timeout, also=None,
+               also_ranks=0):
+    """Start ``world`` ranks of this script's ``flag`` mode over ``root``
+    and wait for them; -> each rank's last ``[label child]`` JSON line,
+    and with ``also`` a pair of those and the last ``[also child]`` line
+    of each of the lowest ``also_ranks`` ranks. Fails the run if a rank
+    exits non-zero or prints none of its lines."""
+    cmd = [sys.executable, os.path.abspath(__file__), flag]
+    procs = [subprocess.Popen(cmd + [str(r), str(world), root],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    children, more = [], []
+    tag, also_tag = f"[{label} child] ", f"[{also} child] "
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [l for l in out.splitlines() if l.startswith(tag)]
+        extra = [l for l in out.splitlines() if l.startswith(also_tag)]
+        ok = p.returncode == 0 and lines and (extra or r >= also_ranks)
+        if not ok:
+            for line in err.splitlines()[-20:]:
+                print(f"[{label} rank {r} stderr] {line}")
+        check(ok, f"[{label}] rank {r} exited {p.returncode}")
+        children.append(json.loads(lines[-1][len(tag):]))
+        if r < also_ranks:
+            more.append(json.loads(extra[-1][len(also_tag):]))
+    return (children, more) if also else children
+
+
 def mesh_child(argv):
     """``chip_smoke.py --mesh-child RANK WORLD DIR``: one rank of the
     [mesh] phase, over the gloo group the caller names (ranks sharing the
@@ -7870,30 +7877,8 @@ def phase_mesh(strategy_dir):
     with tempfile.TemporaryDirectory(prefix="ff_mesh_") as root:
         with open(os.path.join(root, "strategy.json"), "w") as f:
             json.dump(mesh_strategy(cfg, MESH_AXES), f)
-        cmd = [sys.executable, os.path.abspath(__file__), "--mesh-child"]
-        procs = [subprocess.Popen(cmd + [str(r), str(world), root],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for r in range(world)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=MESH_CHILD_TIMEOUT_S))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        children = []
-        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-            lines = [l for l in out.splitlines()
-                     if l.startswith("[mesh child] ")]
-            if p.returncode != 0 or not lines:
-                for line in err.splitlines()[-20:]:
-                    print(f"[mesh rank {r} stderr] {line}")
-            check(p.returncode == 0 and lines,
-                  f"[mesh] rank {r} exited {p.returncode}")
-            children.append(json.loads(lines[-1][len("[mesh child] "):]))
+        children = rank_world("--mesh-child", world, root, "mesh",
+                              MESH_CHILD_TIMEOUT_S)
         final = torch.load(os.path.join(root, "final.pt"),
                            weights_only=False)
     want = dict(flash_attn_fwd=12 * MESH_STEPS,
@@ -7954,11 +7939,16 @@ def phase_mesh(strategy_dir):
 
 
 # [wus]: the phase's budget on the card, printed beside its [time] line
-WUS_BUDGET_S = 150.0
+WUS_BUDGET_S = 270.0
 WUS_AXES = {"data": 4}
 WUS_STEPS = MESH_STEPS
 WUS_BUCKET_MB = 2
-WUS_CHILD_TIMEOUT_S = 140
+WUS_CHILD_TIMEOUT_S = 220
+# the checkpoint leg: (b)'s fit saves at this step (checkpoint_every), a
+# fresh model resumes it in the same processes and steps to WUS_STEPS, and
+# a world of WUS_ELASTIC_RANKS resumes it after a search in its group
+WUS_SAVE_STEP = 2
+WUS_ELASTIC_RANKS = 2
 # the search a user with a budget runs in the group ([search train]'s)
 WUS_SEARCH_BUDGET = SEARCH_BUDGET
 
@@ -8054,6 +8044,221 @@ def wus_state(ff):
             for op, sub in ff.params.items() for pn in sub}
 
 
+def wus_leaves_of(ff):
+    """Clones of every tensor leaf of a model's parameters and optimizer
+    state (this rank's shards), in tree order."""
+    import torch
+    from flexflow_tpu_torch.ckpt.tree import flatten_tree
+
+    return [v.detach().clone() for _, v in flatten_tree(
+        (ff.params, ff.opt_state)) if isinstance(v, torch.Tensor)]
+
+
+def wus_box_bytes(ff):
+    """(bytes of every box this rank holds, of the boxes it writes, of
+    its WUS shards' master and moments) of the saved state."""
+    from flexflow_tpu_torch.ckpt.sharded import (_capture_state, _rank_boxes,
+                                                 flatten_tree)
+    boxes = _rank_boxes(ff)
+    held = written = 0
+    for key, v in flatten_tree(_capture_state(ff)):
+        if key in boxes:
+            n = v.numel() * v.element_size()
+            held += n
+            written += n if boxes[key][3] else 0
+    wus = ff.executor.wus_leaves()
+    shards = sum(t.numel() * t.element_size()
+                 for op, pn in wus for t in (ff.params[op][pn],
+                                             ff.opt_state["m"][op][pn],
+                                             ff.opt_state["v"][op][pn]))
+    return held, written, shards
+
+
+def wus_save_record(ff):
+    """The [wus] save's figures on this rank from the registry: the
+    snapshot (the training thread's stall), the writer's shard and index
+    files, the commit (the wait for every rank's index and the manifest),
+    the writer's whole time, and the bytes written beside the bytes of
+    the boxes it writes."""
+    from flexflow_tpu_torch.obs.registry import get_registry
+
+    d = get_registry().to_dict()
+    obs = d["observations"]
+    held, written, shards = wus_box_bytes(ff)
+    return dict(
+        snapshot_s=obs["fit/ckpt_save_stall_s"]["sum"],
+        write_s=obs["ckpt/shard_write_s"]["sum"],
+        commit_s=obs["ckpt/commit_s"]["sum"],
+        writer_s=obs["fit/ckpt_async_write_s"]["sum"],
+        bytes_written=d["counters"]["fit/ckpt_bytes_written"],
+        box_bytes_written=written, box_bytes_held=held,
+        wus_shard_bytes=shards)
+
+
+def wus_resume(cfg, x, y, strategy_path, ck, uninterrupted, losses):
+    """[wus]'s resume leg on this rank: a fresh model compiled in the
+    same process through (b)'s file resumes (b)'s checkpoint of step
+    WUS_SAVE_STEP through ``fit(resume=True)`` and steps to WUS_STEPS;
+    its parameters and moments against (b)'s after WUS_STEPS, bit for
+    bit; its launches (K1, K2 and K4 on the shards) after the restore;
+    then K1, K2 and K4 at its shapes against their plain versions."""
+    import torch
+    from flexflow_tpu_torch.obs.registry import get_registry
+
+    reg = get_registry()
+    t0 = time.perf_counter()
+    ff = compile_for_training(cfg, alpha=MESH_ALPHA,
+                              strategy_file=strategy_path,
+                              overlap_bucket_mb=str(WUS_BUCKET_MB))
+    compile_s = time.perf_counter() - t0
+    read0 = reg.get("ckpt/restore_read_bytes")
+    skipped0 = reg.get("ckpt/restore_skipped_bytes")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ff.fit(x, y, epochs=WUS_STEPS, verbose=False, checkpoint_dir=ck,
+           resume=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    got = wus_leaves_of(ff)
+    differ = sum(int(not torch.equal(a, b))
+                 for a, b in zip(got, uninterrupted))
+    held, _, shards = wus_box_bytes(ff)
+    rows = mesh_kernel_checks(ff, WUS_AXES, "[wus resume]")
+    return dict(
+        compile_s=compile_s, fit_s=fit_s,
+        restore_s=reg.get("fit/ckpt_restore_s"),
+        read_bytes=reg.get("ckpt/restore_read_bytes") - read0,
+        skipped_bytes=reg.get("ckpt/restore_skipped_bytes") - skipped0,
+        box_bytes_held=held, wus_shard_bytes=shards, launches=launches,
+        losses=list(ff.epoch_losses), want_losses=losses[WUS_SAVE_STEP:],
+        leaves=len(got), leaves_differ=differ
+        + abs(len(got) - len(uninterrupted)), kernels=rows,
+        iteration=ff._iter)
+
+
+def restored_differ(ff, step_dir):
+    """(leaves compared, keys of those that differ): this rank's
+    parameters, Adam's m and v and its step count, bit for bit, against
+    the checkpoint under ``step_dir`` put together whole from every
+    rank's shard rows and cut by the executor's own placement
+    (``local_box``, the cut of the weights at compile time). A restore
+    that put a re-cut leaf in another box, or left a moment at zero,
+    shows here before any step reads it."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.ckpt import manifest as mf
+    from flexflow_tpu_torch.ckpt.sharded import read_shard_row
+
+    manifest = mf.read_json(os.path.join(step_dir, mf.MANIFEST_NAME))
+    rows = {}
+    for name in manifest["index_files"]:
+        index = mf.read_json(os.path.join(step_dir, name))
+        for key, rs in index["shards"].items():
+            rows.setdefault(key, []).extend((index["shards_file"], r)
+                                            for r in rs)
+    files = {f: np.load(os.path.join(step_dir, f))
+             for f in {f for rs in rows.values() for f, _ in rs}}
+
+    def saved(key):
+        meta = manifest["leaves"][key]
+        whole = np.empty(meta["shape"], np.dtype(meta["saved_dtype"]))
+        for f, r in rows[key]:
+            whole[tuple(slice(a, b) for a, b in r["index"])] = \
+                read_shard_row(files[f], r, verify=False)
+        # same-width signed ints: torch cuts them as any tensor
+        return torch.from_numpy(whole.view(f"int{8 * whole.itemsize}"))
+
+    def same(live, want):
+        return torch.equal(live.detach().cpu().reshape(-1)
+                           .view(torch.uint8),
+                           want.contiguous().reshape(-1).view(torch.uint8))
+
+    ex, opt = ff.executor, ff.opt_state
+    differ, compared = [], 0
+    try:
+        for op, leaves in ff.params.items():
+            for pn, t in leaves.items():
+                for key, live in ((f"params/{op}/{pn}", t),
+                                  (f"opt_state/m/{op}/{pn}",
+                                   opt["m"][op][pn]),
+                                  (f"opt_state/v/{op}/{pn}",
+                                   opt["v"][op][pn])):
+                    compared += 1
+                    if not same(live, ex.local_box(op, pn, saved(key))):
+                        differ.append(key)
+        compared += 1
+        if not same(opt["t"], saved("opt_state/t")):
+            differ.append("opt_state/t")
+    finally:
+        for f in files.values():
+            f.close()
+    return compared, differ
+
+
+def wus_elastic(rank, world, root):
+    """[wus]'s elastic leg on rank ``rank`` of ``world``, run by the
+    lowest ranks of the 4-rank world once they have left its group: a
+    group of ``world`` over a new FileStore plans the resume of the
+    4-rank checkpoint of step WUS_SAVE_STEP under ``DIR/ckpt``, compiles
+    the full-width BERT-proxy with a search in the group, restores the
+    checkpoint onto the boxes of its pick (``restored_differ`` holds each
+    leaf to the checkpoint) and takes the step after it. Prints one
+    ``[wus elastic child]`` JSON line."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.ckpt import load_manifest, plan_resume
+    from flexflow_tpu_torch.ckpt import manifest as mf
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.obs.registry import get_registry
+
+    t_world = time.perf_counter()
+    distributed.initialize(store=dist.FileStore(os.path.join(
+        root, "store_elastic"), world), world_size=world, rank=rank,
+        backend="gloo", timeout_s=WUS_CHILD_TIMEOUT_S)
+    try:
+        reg = get_registry()
+        read0 = reg.get("ckpt/restore_read_bytes")
+        skipped0 = reg.get("ckpt/restore_skipped_bytes")
+        cfg = TransformerConfig()
+        x, y = training_batch(cfg)
+        step_dir = os.path.join(root, "ckpt",
+                                mf.step_dir_name(WUS_SAVE_STEP))
+        plan = plan_resume(load_manifest(step_dir),
+                           distributed.process_count())
+        t0 = time.perf_counter()
+        ff = compile_for_training(cfg, alpha=MESH_ALPHA,
+                                  search_budget=WUS_SEARCH_BUDGET,
+                                  enable_substitution=False,
+                                  enable_pipeline_parallel=False)
+        compile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        it = ff.load_checkpoint(step_dir)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        compared, differ = restored_differ(ff, step_dir)
+        reset_launches()
+        ff.fit(x, y, epochs=1, verbose=False)
+        launches = read_launches()
+        print("[wus elastic child] " + json.dumps(dict(
+            rank=rank, plan=plan, iteration=it, mesh=dict(ff.mesh.shape),
+            choices=dict(collections.Counter(
+                ff.strategy[n.op.guid].choice for n in ff.executor.nodes)),
+            wus=ff.executor.weight_update_sharding, compile_s=compile_s,
+            restore_s=restore_s, leaves=compared, leaves_differ=differ,
+            read_bytes=reg.get("ckpt/restore_read_bytes") - read0,
+            skipped_bytes=reg.get("ckpt/restore_skipped_bytes") - skipped0,
+            loss=ff._last_loss, launches=launches,
+            world_s=time.perf_counter() - t_world)), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 def wus_child(argv):
     """``chip_smoke.py --wus-child RANK WORLD DIR``: one rank of the [wus]
     phase, over the gloo group the caller names (ranks sharing the one
@@ -8063,9 +8268,13 @@ def wus_child(argv):
     execute over ranks, off) and takes one step; (b) trains WUS_STEPS steps through
     ``DIR/strategy.json`` with weight-update sharding and the overlap at
     WUS_BUCKET_MB, after holding K1, K2 and K4 at its shapes (K4 on its
-    shards) against their plain versions; (c) the same without the
-    overlap. Rank 0 writes (b)'s gathered parameters to ``DIR/final.pt``.
-    Prints one ``[wus child]`` JSON line."""
+    shards) against their plain versions, its step WUS_SAVE_STEP's fit
+    checkpointing into ``DIR/ckpt``; (r) a fresh model resumes that
+    checkpoint and steps to WUS_STEPS (``wus_resume``); (c) the same as
+    (b) without the overlap. Rank 0 writes (b)'s gathered parameters to
+    ``DIR/final.pt``. Prints one ``[wus child]`` JSON line; then the
+    ranks below WUS_ELASTIC_RANKS run the elastic leg (``wus_elastic``)
+    in a group of their own."""
     import collections
 
     import numpy as np
@@ -8073,6 +8282,7 @@ def wus_child(argv):
     import torch.distributed as dist
     from flexflow_tpu_torch import distributed
     from flexflow_tpu_torch.models.transformer import TransformerConfig
+    from flexflow_tpu_torch.parallel import comm
     from flexflow_tpu_torch.weights import to_jax_params
 
     rank, world, root = int(argv[0]), int(argv[1]), argv[2]
@@ -8121,11 +8331,18 @@ def wus_child(argv):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         steps = []
-        for _ in range(WUS_STEPS):
+        ck = os.path.join(root, "ckpt")
+        for i in range(WUS_STEPS):
+            # the step WUS_SAVE_STEP's fit checkpoints through its manager
+            # (every rank its shards, rank 0 the commit) before it returns
+            kw = (dict(checkpoint_dir=ck, checkpoint_every=WUS_SAVE_STEP)
+                  if i + 1 == WUS_SAVE_STEP else {})
             t0 = time.perf_counter()
-            ff.fit(x, y, epochs=1, verbose=False)
+            ff.fit(x, y, epochs=1, verbose=False, **kw)
             torch.cuda.synchronize()
             steps.append(time.perf_counter() - t0)
+            if kw:
+                save = wus_save_record(ff)
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         record = {}
@@ -8147,7 +8364,11 @@ def wus_child(argv):
         final = to_jax_params(ff)
         if rank == 0:
             torch.save(dict(final=final), os.path.join(root, "final.pt"))
+        uninterrupted = wus_leaves_of(ff)
         del ff, ex, final
+        release()
+        resumed = wus_resume(cfg, x, y, path, ck, uninterrupted, losses)
+        del uninterrupted
         release()
         # (c) the same without the overlap: bit for bit
         ff = compile_for_training(cfg, alpha=MESH_ALPHA, strategy_file=path,
@@ -8166,10 +8387,18 @@ def wus_child(argv):
             launches=launches, record=record, want_all_reduces=want_ar,
             peak_bytes=peak, kernels=rows, state=state,
             overlap_record=overlap_record, sync_losses=list(
-                ff.epoch_losses), sync_same=sync_same)), flush=True)
+                ff.epoch_losses), sync_same=sync_same, save=save,
+            resumed=resumed)), flush=True)
+        del ff, shards
+        release()
         dist.barrier()
     finally:
         dist.destroy_process_group()
+    # the elastic leg: the lowest ranks leave the 4-rank group and form
+    # a smaller one, the others stop
+    comm._COMMS.clear()
+    if rank < WUS_ELASTIC_RANKS:
+        wus_elastic(rank, WUS_ELASTIC_RANKS, root)
     return 0
 
 
@@ -8187,9 +8416,15 @@ def phase_wus(one):
     ATOL an element, the update within MESH_UPDATE_RTOL); the master
     and moment bytes of every WUS leaf at a quarter of one rank's; the
     step's record (reduce-scatters and all-gathers over 'data', no
-    all-reduce of a WUS leaf); the overlap off bit-equal to it on.
+    all-reduce of a WUS leaf); the overlap off bit-equal to it on. The
+    checkpoint leg (``wus_checkpoint_checks``): (b)'s fit saves at step
+    WUS_SAVE_STEP, a fresh model in the same 4 processes resumes it and
+    steps on bit-equal; then the lowest WUS_ELASTIC_RANKS of the
+    processes leave the group, form one of their own and resume it after
+    a search in that group (``wus_elastic``).
     Returns {"launches": [per-rank launches], "kernels": [per-rank
-    checks], "k4": K4's times at a rank's shards, ...}."""
+    checks], "k4": K4's times at a rank's shards, "ckpt": the leg's
+    figures, ...}."""
     import numpy as np
     import torch
     from flexflow_tpu_torch.models.transformer import TransformerConfig
@@ -8204,30 +8439,12 @@ def phase_wus(one):
     with tempfile.TemporaryDirectory(prefix="ff_wus_") as root:
         with open(os.path.join(root, "strategy.json"), "w") as f:
             json.dump(body, f)
-        cmd = [sys.executable, os.path.abspath(__file__), "--wus-child"]
-        procs = [subprocess.Popen(cmd + [str(r), str(world), root],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for r in range(world)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=WUS_CHILD_TIMEOUT_S))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        children = []
-        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-            lines = [l for l in out.splitlines()
-                     if l.startswith("[wus child] ")]
-            if p.returncode != 0 or not lines:
-                for line in err.splitlines()[-20:]:
-                    print(f"[wus rank {r} stderr] {line}")
-            check(p.returncode == 0 and lines,
-                  f"[wus] rank {r} exited {p.returncode}")
-            children.append(json.loads(lines[-1][len("[wus child] "):]))
+        # the elastic leg's lines come from the lowest ranks
+        children, elastic = rank_world("--wus-child", world, root, "wus",
+                                       WUS_CHILD_TIMEOUT_S,
+                                       also="wus elastic",
+                                       also_ranks=WUS_ELASTIC_RANKS)
+        elastic_s = max(e["world_s"] for e in elastic)
         final = torch.load(os.path.join(root, "final.pt"),
                            weights_only=False)["final"]
     c0 = children[0]
@@ -8311,9 +8528,95 @@ def phase_wus(one):
           f"[wus] the step's record {rec}: want {len(sharded)} "
           f"reduce-scatters and all-gathers over 'data' and "
           f"{c0['want_all_reduces']} all-reduces")
+    ckpt = wus_checkpoint_checks(children, elastic, elastic_s, one)
     return dict(launches=[c["launches"] for c in children],
                 kernels=[c["kernels"] for c in children], k4=k4,
-                searched=s)
+                searched=s, ckpt=ckpt)
+
+
+def wus_checkpoint_checks(children, elastic, elastic_s, one):
+    """[wus]'s checkpoint leg, from the 4 ranks' and the elastic ranks'
+    lines: each rank wrote the boxes it owns (its quarter of every WUS
+    leaf's master and moments) and read back its own on the resume; the
+    resumed parameters and moments bit-equal to the uninterrupted run's
+    at step WUS_STEPS, its loss equal; K1 12, K2 12 and K4 1 launched
+    after the restore (K4 on the shards) and each held against its plain
+    version; the elastic plan ``research``, every restored parameter,
+    m, v and step count bit-equal to the checkpoint at the pick's boxes
+    (``restored_differ``), and its step's loss within MESH_LOSS_RTOL of
+    one rank's. Prints the seconds of each part."""
+    card = nvidia_smi_line()
+    want = dict(flash_attn_fwd=12, flash_attn_bwd=12, fused_adam=1)
+    for c in children:
+        sv, rs = c["save"], c["resumed"]
+        got = {k: rs["launches"][k] for k in want}
+        print(f"[wus ckpt] rank {c['rank']} ({card}): save at step "
+              f"{WUS_SAVE_STEP}: snapshot {sv['snapshot_s']:.3f} s, shard + "
+              f"index write {sv['write_s']:.3f} s, commit "
+              f"{sv['commit_s']:.3f} s (writer {sv['writer_s']:.3f} s), "
+              f"{int(sv['bytes_written'])} bytes written against its WUS "
+              f"shards' {sv['wus_shard_bytes']} (a quarter of the master and "
+              f"moments) and its owned boxes' {sv['box_bytes_written']}; "
+              f"resume: compile {rs['compile_s']:.1f} s, restore "
+              f"{rs['restore_s']:.3f} s, {int(rs['read_bytes'])} bytes read "
+              f"against its boxes' {rs['box_bytes_held']} "
+              f"({int(rs['skipped_bytes'])} skipped), step {WUS_STEPS} "
+              f"loss {rs['losses']} against {rs['want_losses']}, "
+              f"{rs['leaves_differ']} of {rs['leaves']} leaves differ, "
+              f"launches after the restore {got}")
+        # a rank writes the boxes it owns: its WUS shards, and on rank 0
+        # the replicated leaves too (Adam's step count)
+        check(sv["bytes_written"] == sv["box_bytes_written"]
+              and (sv["box_bytes_written"] >= sv["wus_shard_bytes"]
+                   if c["rank"] == 0 else
+                   sv["box_bytes_written"] == sv["wus_shard_bytes"]),
+              f"[wus] rank {c['rank']} wrote {sv['bytes_written']} bytes, "
+              f"not its quarter {sv['wus_shard_bytes']}")
+        check(rs["read_bytes"] == rs["box_bytes_held"]
+              and rs["skipped_bytes"] > 0,
+              f"[wus] rank {c['rank']} read {rs['read_bytes']} bytes on the "
+              f"resume, not its own boxes' {rs['box_bytes_held']}")
+        check(rs["iteration"] == WUS_STEPS and rs["leaves_differ"] == 0
+              and rs["losses"] == rs["want_losses"],
+              f"[wus] rank {c['rank']}: the resumed run is not the "
+              f"uninterrupted one at step {WUS_STEPS}")
+        check(got == want, f"[wus] rank {c['rank']}: launches after the "
+                           f"restore {got}, want {want}")
+    e0 = elastic[0]
+    one_loss = one["losses"][WUS_STEPS - 1]
+    rel = abs(e0["loss"] - one_loss) / abs(one_loss)
+    print(f"[wus ckpt] elastic ({card}): {WUS_ELASTIC_RANKS} ranks plan "
+          f"{e0['plan']}; the search in their group picks mesh "
+          f"{e0['mesh']} ({e0['choices']}, WUS {e0['wus']}) in "
+          f"{e0['compile_s']:.1f} s; restore "
+          + ", ".join(f"{e['restore_s']:.3f} s ({int(e['read_bytes'])} bytes "
+                      f"read, {int(e['skipped_bytes'])} skipped)"
+                      for e in elastic)
+          + "; leaves differing from the checkpoint (parameters, m, v, t "
+          "at the pick's boxes): " + ", ".join(
+              f"{len(e['leaves_differ'])} of {e['leaves']}" for e in elastic)
+          + f"; step {WUS_STEPS} loss {e0['loss']:.6f} against one rank's "
+          f"{one_loss:.6f} ({rel:.3e} relative, tol {MESH_LOSS_RTOL}); "
+          f"launches {e0['launches']}; the group {elastic_s:.1f} s")
+    for e in elastic:
+        check(e["plan"]["action"] == "research"
+              and e["plan"]["saved_devices"] == math.prod(WUS_AXES.values())
+              and e["plan"]["num_devices"] == WUS_ELASTIC_RANKS
+              and e["iteration"] == WUS_SAVE_STEP
+              and math.prod(e["mesh"].values()) == WUS_ELASTIC_RANKS
+              and e["loss"] == e0["loss"],
+              f"[wus] elastic rank {e['rank']}: plan {e['plan']}, iteration "
+              f"{e['iteration']}, mesh {e['mesh']}, loss {e['loss']}")
+        check(e["leaves"] == 1 + 3 * len(children[0]["state"])
+              and not e["leaves_differ"],
+              f"[wus] elastic rank {e['rank']}: {len(e['leaves_differ'])} "
+              f"of {e['leaves']} restored leaves differ from the "
+              f"checkpoint: {e['leaves_differ'][:6]}")
+    check(rel <= MESH_LOSS_RTOL, "[wus] the elastic resume's loss leaves "
+                                 "one rank's")
+    return dict(ranks=[dict(save=c["save"], resumed=c["resumed"])
+                       for c in children], elastic=elastic,
+                elastic_s=elastic_s)
 
 
 def fusion_model():
@@ -8354,8 +8657,6 @@ def main(argv=None) -> int:
         return 1
     if argv[:1] == ["--ckpt-child"]:
         return ckpt_child(argv[1:])
-    if argv[:1] == ["--supervise-child"]:
-        return supervise_child(argv[1:])
     if argv[:1] == ["--mesh-child"]:
         return mesh_child(argv[1:])
     if argv[:1] == ["--wus-child"]:
@@ -8515,7 +8816,16 @@ def main(argv=None) -> int:
             r[key] for r in wus["launches"]]
         entry["wus_checks"] = [next(row for row in rank_rows
                                     if row[0] == key)
-                               for rank_rows in wus["kernels"]]
+                               for rank_rows in wus["kernels"]
+                               + [r["resumed"]["kernels"]
+                                  for r in wus["ckpt"]["ranks"]]]
+        # [wus]'s checkpoint leg: the step after the restore on each of
+        # the 4 ranks (each also held against its plain version), and on
+        # each rank of the elastic group
+        entry["launches_by_path"]["wus_resume_ranks"] = [
+            r["resumed"]["launches"][key] for r in wus["ckpt"]["ranks"]]
+        entry["launches_by_path"]["wus_elastic_ranks"] = [
+            e["launches"][key] for e in wus["ckpt"]["elastic"]]
     adam["wus_rank_shards"] = wus["k4"]
     adam["llama_train"] = llama_k4
     adam["launches_by_path"].update(

@@ -1,9 +1,11 @@
 """Preemption-aware elastic resume planning.
 
-PyTorch counterpart of ``flexflow_tpu/ckpt/elastic.py``. The port runs
-one device: a plan for more than one raises (multi-GPU execution is
-ROADMAP.md Queue 1 item 3), and a checkpoint saved over a larger mesh
-plans a re-search, which the port's 1-device compile carries out.
+PyTorch counterpart of ``flexflow_tpu/ckpt/elastic.py``: the same plan
+for the same manifest and device count. The port's devices are the ranks
+of its process group (one rank a device), so a resume on the saving rank
+count reuses the recorded strategy, and one on another count compiles
+with a search in the group (rank 0 searches, every rank takes its pick)
+before ``load_sharded`` re-cuts every leaf onto the new boxes.
 
 The PCG + strategy decode make resume onto a DIFFERENT topology cheap
 for this framework: the checkpoint stores logically-global arrays (a
@@ -68,14 +70,7 @@ def plan_resume(manifest: Dict[str, Any],
     resumes WITHOUT ``--slices`` — so the re-search runs on the
     surviving slice topology rather than an arbitrary device count.
     Any other mismatch classifies as ``topology="device_change"``.
-    ``num_devices`` above 1 raises NotImplementedError: the port executes
-    one device.
     """
-    if int(num_devices) > 1:
-        raise NotImplementedError(
-            f"resuming onto {num_devices} devices: multi-GPU execution "
-            f"comes with a later slice of the PyTorch port (ROADMAP.md "
-            f"Queue 1 item 3)")
     saved_mesh = {k: int(v) for k, v in (manifest.get("mesh") or {}).items()}
     saved_devices = int(manifest.get("num_devices") or
                         _prod(saved_mesh.values()))

@@ -4,6 +4,12 @@ PyTorch counterpart of ``flexflow_tpu/ckpt/manager.py``, with the same
 registry names. The writer thread touches host numpy only, never a CUDA
 tensor: the snapshot hands it host copies.
 
+Over a process group every rank runs its own manager on the same
+directory: each writes its own shards and index, rank 0 commits the
+manifest once every index is visible and alone writes the progress
+heartbeat and collects garbage (after its commit), and ``resume`` agrees
+across ranks before any rank diverges.
+
 The training loop's one checkpoint object (``fit(checkpoint_dir=...)``
 builds it). Split of labor per save:
 
@@ -72,7 +78,7 @@ class CheckpointManager:
         self._pending: Optional[threading.Thread] = None
         self._writer_error: Optional[BaseException] = None
         self._last_progress = 0.0
-        self._rank = sharded.process_index_count()[0]
+        self._rank, self._count = sharded.process_index_count()
         os.makedirs(self.directory, exist_ok=True)
 
     # ---- resume ------------------------------------------------------------
@@ -86,9 +92,18 @@ class CheckpointManager:
         an empty directory an error."""
         t0 = time.perf_counter()
         has_steps = bool(mf.list_steps(self.directory))
+        if self._count > 1:
+            # the fresh-start decision comes from each rank's own view of
+            # the filesystem, so the ranks agree on it BEFORE any of them
+            # takes the load path or trains: if ANY rank sees steps,
+            # every rank loads, and the load's own agreement fails fast
+            # on the ranks that cannot see them
+            from flexflow_tpu_torch import distributed
+            seen, _ = distributed.ranks_agree(1 if has_steps else 0)
+            has_steps = any(seen)
         if not has_steps and not require:
             return 0  # fresh start (every rank sees an empty directory)
-        # missing/partial fails fast (load_sharded)
+        # missing/partial fails fast on every rank (load_sharded agrees)
         it = sharded.load_sharded(self.directory, self.ff)
         self._last_saved_iter = it
         reg = get_registry()

@@ -21,13 +21,20 @@ The reference's manifest ``rng`` is a JAX key; the port writes
 ``torch.Generator`` state under ``torch_generator``, so that dropout masks
 resume bit for bit.
 
-One process holds every leaf whole, so each leaf is one shard box, its
-whole shape. Restore still reassembles any shard set: a checkpoint the
-JAX package wrote over its 8-device mesh (data-sharded moments among
-them) loads into the port's one device, each leaf put together from the
-saved boxes (the elastic path; the port's 1-device compile is its
-re-placement). A ``torch.distributed`` group of more than one process is
-refused: multi-rank checkpoints come with ROADMAP.md Queue 1 item 3.
+Over a ``torch.distributed`` group (one rank a device, rank r at JAX's
+device r of the mesh) each rank holds its box of every leaf: its block of
+a parameter under the node's spec, of the f32 master and the moments
+under the master spec (its weight-update-sharding shard), every other
+leaf whole. Each rank writes only the boxes it is the lowest rank of its
+replica group for (the counterpart of the reference's ``replica_id ==
+0``), so every box lands once across the group and the boxes are the
+ones the JAX package writes for the same strategy on the same mesh; rank
+0 commits the manifest once every rank's index is visible. A load agrees
+across ranks on the newest complete step before any rank reads, and each
+rank reads only the saved boxes that meet its own: exactly its box where
+the saving mesh cut the leaf the same way (rank-local), else the saved
+rows over its box (elastic: another mesh or rank count). A checkpoint the
+JAX package wrote over its 8-device mesh loads so on 8 ranks or on one.
 
 The snapshot is the one part of a save on the training thread: every
 tensor leaf is copied device→host into pinned memory on the current
@@ -55,17 +62,10 @@ GENERATOR_KEY = "torch_generator"
 
 
 def process_index_count() -> Tuple[int, int]:
-    """(this process's index, the process count): (0, 1) unless a
-    ``torch.distributed`` group of more than one process is initialised,
-    which raises: multi-rank checkpoints are ROADMAP.md Queue 1 item 3."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "checkpoints across more than one process come with a later "
-            "slice of the PyTorch port (ROADMAP.md Queue 1 item 3)")
-    return 0, 1
+    """(this process's rank, the group's size): ``(0, 1)`` without a
+    ``torch.distributed`` group."""
+    from flexflow_tpu_torch import distributed
+    return distributed.process_index(), distributed.process_count()
 
 
 def _retry_io(what: str, fn, heartbeat=None):
@@ -170,6 +170,12 @@ def saved_array(t: torch.Tensor) -> Tuple[np.ndarray, str, str]:
     return arr, dtype_name(t.dtype), str(arr.dtype)
 
 
+def saved_dtype_name(dtype: torch.dtype) -> str:
+    """The manifest's name of the dtype a leaf of ``dtype`` is stored
+    as (``saved_array``)."""
+    return "uint16" if dtype == torch.bfloat16 else dtype_name(dtype)
+
+
 def tensor_of(arr: np.ndarray, true_dtype: str) -> torch.Tensor:
     """A stored array as a CPU tensor of its true dtype, bit for bit."""
     # (np.ascontiguousarray would make a 0-d array 1-d)
@@ -221,6 +227,62 @@ def whole_box(shape) -> List[List[int]]:
     return [[0, int(d)] for d in shape]
 
 
+def writes_box(spec, mesh, rank: int) -> bool:
+    """Whether ``rank`` writes its box of a leaf under ``spec``: it is
+    the lowest rank of the ranks holding that box (coordinate 0 on every
+    mesh axis the spec does not split), the counterpart of JAX's
+    ``replica_id == 0``."""
+    split = {a for axes in spec for a in axes}
+    coords = mesh.coords(rank)
+    return all(coords[a] == 0 for a in mesh.axis_names
+               if mesh.shape[a] > 1 and a not in split)
+
+
+def _mirrors(slot, params) -> bool:
+    """Whether an optimizer-state subtree holds one leaf per parameter
+    (Adam's m and v, SGD's momentum): a slot of the parameter tree."""
+    return (isinstance(slot, dict) and set(slot) == set(params)
+            and all(isinstance(slot[op], dict)
+                    and set(slot[op]) == set(params[op]) for op in params))
+
+
+def _rank_boxes(ffmodel) -> Dict[str, Tuple[Tuple[int, ...], Tuple, List,
+                                            bool]]:
+    """{leaf key: (whole shape, normalized spec, this rank's box, whether
+    it writes that box)} of every tensor leaf of the saved state. Over a
+    process group a parameter, and each optimizer slot of the parameter
+    tree at the same position, takes the executor's master box of the
+    parameter (``executor.master_box``: its WUS shard where weight-update
+    sharding cuts it); every other leaf (op state, Adam's step count) is
+    whole and replicated, as is every leaf on one process."""
+    rank, count = process_index_count()
+    ex = ffmodel.executor
+    state = _capture_state(ffmodel)
+    out = {}
+    for key, v in flatten_tree(state):
+        if isinstance(v, torch.Tensor):
+            shape = tuple(int(d) for d in v.shape)
+            out[key] = (shape, ((),) * len(shape), whole_box(shape),
+                        rank == 0)
+    if count <= 1 or ex is None or not ex.multi_rank:
+        return out
+
+    def cut(prefix: str, tree) -> None:
+        for op, leaves in tree.items():
+            for pn, t in leaves.items():
+                shape, spec, box = ex.master_box(op, pn, t)
+                out[f"{prefix}{op}/{pn}"] = (shape, spec, box,
+                                             writes_box(spec, ex.mesh, rank))
+
+    params = state["params"]
+    cut("params/", params)
+    opt = state["opt_state"]
+    for slot, sub in (opt.items() if isinstance(opt, dict) else ()):
+        if _mirrors(sub, params):
+            cut(f"opt_state/{slot}/", sub)
+    return out
+
+
 def generator_record(ffmodel) -> Dict[str, Any]:
     gen = ffmodel._generator
     return dict(device=gen.device.type,
@@ -261,28 +323,32 @@ class ShardSnapshot:
 
 def snapshot(ffmodel, step: Optional[int] = None,
              client_state: Optional[Dict[str, Any]] = None) -> ShardSnapshot:
-    """Blocking device→host copy of every leaf (the only part of a save
-    that runs on the training thread: the next step rewrites the buffers
-    read here). ``client_state`` is a JSON-able dict recorded verbatim in
-    the manifest."""
+    """Blocking device→host copy of the boxes this rank writes (the only
+    part of a save that runs on the training thread: the next step
+    rewrites the buffers read here). Every rank records every leaf's
+    whole shape and dtypes. ``client_state`` is a JSON-able dict
+    recorded verbatim in the manifest."""
     pidx, pcnt = process_index_count()
     step = int(ffmodel._iter if step is None else step)
     state = _capture_state(ffmodel)
     flat = flatten_tree(state)
-    keys = [k for k, v in flat if isinstance(v, torch.Tensor)]
-    hosts = dict(zip(keys, host_copies(
-        [v for _, v in flat if isinstance(v, torch.Tensor)])))
+    boxes = _rank_boxes(ffmodel)
+    mine = [(k, v) for k, v in flat if k in boxes and boxes[k][3]]
+    hosts = dict(zip((k for k, _ in mine),
+                     host_copies([v for _, v in mine])))
     shards: Dict[str, List[Tuple[List[List[int]], np.ndarray]]] = {}
     leaves: Dict[str, Dict[str, Any]] = {}
     scalars: Dict[str, Any] = {}
     for key, v in flat:
-        if key in hosts:
-            saved, true, saved_dt = saved_array(hosts[key])
-            shards[key] = [(whole_box(saved.shape), saved)]
-            leaves[key] = dict(shape=[int(d) for d in saved.shape],
-                               dtype=true, saved_dtype=saved_dt)
-        else:
+        if key not in boxes:
             scalars[key] = v
+            continue
+        shape, _, box, _ = boxes[key]
+        if key in hosts:
+            saved, _, _ = saved_array(hosts[key])
+            shards[key] = [(box, saved)]
+        leaves[key] = dict(shape=list(shape), dtype=dtype_name(v.dtype),
+                           saved_dtype=saved_dtype_name(v.dtype))
 
     # strategy + mesh travel in the manifest: a resume on the same
     # topology can reuse the recorded strategy verbatim (ckpt/elastic.py)
@@ -312,10 +378,13 @@ def write_snapshot(directory: str, snap: ShardSnapshot,
     """Write this process's shard + index files and run the commit
     protocol (the manifest last, once every process's index is visible;
     return only once the manifest exists). Safe on a background thread:
-    host arrays and the filesystem only. Transient write errors retry
-    with backoff (``_retry_io``). ``heartbeat`` (when the run carries a
-    watchdog) marks each completed file as writer progress. Returns this
-    process's payload bytes."""
+    host arrays and the filesystem only, no collective. Observes
+    ``ckpt/shard_write_s`` (this rank's shards and index) and
+    ``ckpt/commit_s`` (from its index to the manifest's appearance).
+    Transient write errors retry with backoff (``_retry_io``).
+    ``heartbeat`` (when the run carries a watchdog) marks each completed
+    file as writer progress. Returns this process's payload bytes."""
+    t_write = time.perf_counter()
     step_dir = os.path.join(directory, mf.step_dir_name(snap.step))
     os.makedirs(step_dir, exist_ok=True)
     plan = faults.get_plan()
@@ -388,6 +457,9 @@ def write_snapshot(directory: str, snap: ShardSnapshot,
               heartbeat=heartbeat)
     if heartbeat is not None:
         heartbeat(f"ckpt index step {snap.step}")
+    t_commit = time.perf_counter()
+    reg = get_registry()
+    reg.observe("ckpt/shard_write_s", t_commit - t_write)
 
     index_files = [mf.index_name(h) for h in range(snap.process_count)]
     if snap.process_index == 0:
@@ -409,6 +481,7 @@ def write_snapshot(directory: str, snap: ShardSnapshot,
                   heartbeat=heartbeat)
     mf.wait_for_files([os.path.join(step_dir, mf.MANIFEST_NAME)],
                       fs_timeout, "the checkpoint manifest")
+    reg.observe("ckpt/commit_s", time.perf_counter() - t_commit)
     return snap.payload_bytes
 
 
@@ -440,14 +513,6 @@ def _boxes_intersect(a, b) -> bool:
     return True
 
 
-def _live_boxes(ffmodel) -> Dict[str, Optional[List[List[List[int]]]]]:
-    """The regions of each live leaf this process restores: its whole
-    box (one process holds every leaf whole)."""
-    return {key: [whole_box(v.shape)] if isinstance(v, torch.Tensor)
-            else None
-            for key, v in flatten_tree(_capture_state(ffmodel))}
-
-
 def _select_rows(entries, needed):
     """The read plan for one leaf: ``(selected, skipped, want_elements,
     rank_local)``. Rank-local mode engages only when every saved box
@@ -472,13 +537,44 @@ def _select_rows(entries, needed):
 
 
 def _gather_agree(value: int, what: str) -> int:
-    """Fail-fast agreement on a value across processes; with one process
-    a negative value raises FileNotFoundError. More than one process is
-    ROADMAP.md Queue 1 item 3 (``process_index_count`` raises)."""
-    process_index_count()
-    if value < 0:
+    """Fail-fast agreement on a value across ranks: every rank must see
+    the same non-negative value, or every rank raises the same
+    ``FileNotFoundError`` (a checkpoint one rank cannot see must never
+    leave the others waiting in a collective). Unanimous absence is a
+    wrong or never-saved directory and says only ``what``."""
+    from flexflow_tpu_torch import distributed
+    if distributed.process_count() <= 1:
+        if value < 0:
+            raise FileNotFoundError(what)
+        return value
+    seen, agree = distributed.ranks_agree(value)
+    if all(v < 0 for v in seen):
         raise FileNotFoundError(what)
-    return value
+    if any(v < 0 for v in seen) or not agree:
+        bad = [r for r, v in enumerate(seen) if v < 0]
+        raise FileNotFoundError(
+            f"{what} (per-rank view: {seen}"
+            + (f"; ranks {bad} cannot see it — the checkpoint "
+               f"must be on a filesystem shared by every host" if bad
+               else "; the ranks see different checkpoints there — it "
+               "must be on a filesystem shared by every host")
+            + ")")
+    return seen[0]
+
+
+def check_whole_shape(leaf_key: str, saved, live) -> None:
+    """Refuse a saved leaf whose whole shape is not the live model's (a
+    cut of a wider leaf would fill this rank's box without a gap)."""
+    if tuple(int(d) for d in saved) != tuple(live):
+        raise ValueError(
+            f"checkpoint shape {tuple(int(d) for d in saved)} != live "
+            f"{tuple(live)} for leaf '{leaf_key}'")
+
+
+def _meet(a, b) -> Optional[List[List[int]]]:
+    """The intersection of two boxes, None when empty ([] for 0-d)."""
+    out = [[max(s1, s2), min(e1, e2)] for (s1, e1), (s2, e2) in zip(a, b)]
+    return None if any(e <= s for s, e in out) else out
 
 
 def load_sharded(path: str, ffmodel, verify: bool = True,
@@ -487,12 +583,18 @@ def load_sharded(path: str, ffmodel, verify: bool = True,
     """Restore a v2 per-shard checkpoint onto the live model, in place.
 
     ``path`` is a checkpoint root (the newest complete step is taken) or
-    a specific ``step_*`` directory. Each leaf is reassembled from the
-    shard index, whatever boxes the saving processes wrote, and copied
-    into the live tensor. A missing or partial checkpoint raises.
-    ``include_opt_state=False`` skips the optimizer-state leaves entirely
-    (an INFERENCE compile has none). Returns the restored iteration
-    counter."""
+    a specific ``step_*`` directory. The ranks first agree on that step
+    (``_gather_agree``): a missing or partial checkpoint, or one some
+    rank cannot see, raises on every rank. Each rank then fills its own
+    box of every leaf from the saved boxes, whatever mesh and rank count
+    wrote them: with ``rank_local`` (default) a leaf whose saved boxes
+    each equal this rank's box or miss it is read box for box, the
+    others skipped; otherwise (the saving mesh cut the leaf another way)
+    every saved row that meets this rank's box is read. The per-rank
+    byte split lands in ``ckpt/restore_read_bytes`` and
+    ``ckpt/restore_skipped_bytes``. ``include_opt_state=False`` skips
+    the optimizer-state leaves entirely (an INFERENCE compile has none).
+    Returns the restored iteration counter."""
 
     def _wanted(leaf_key: str) -> bool:
         return include_opt_state or not (
@@ -500,29 +602,37 @@ def load_sharded(path: str, ffmodel, verify: bool = True,
 
     step_dir = mf.resolve_step_dir(path)
     local = -1 if step_dir is None else _read_step(step_dir)
-    _gather_agree(
+    step = _gather_agree(
         local,
         f"no complete checkpoint under '{path}' — a checkpoint is only "
         f"complete once its {mf.MANIFEST_NAME} commit record exists "
         f"(a save interrupted mid-write leaves none)")
+    if step_dir is None or _read_step(step_dir) != step:
+        # unreachable on one process; a split view raised above
+        raise FileNotFoundError(f"checkpoint step mismatch under {path}")
     manifest = mf.read_json(os.path.join(step_dir, mf.MANIFEST_NAME))
 
+    # the region of each live leaf this rank restores: its own box
+    boxes = _rank_boxes(ffmodel)
+    live = {k: box for k, (_, _, box, _) in boxes.items()}
     flat: Dict[str, Any] = dict(manifest.get("scalars", {}))
     pending: Dict[str, np.ndarray] = {}
+    region: Dict[str, List[List[int]]] = {}
     filled: Dict[str, int] = {}
-    want: Dict[str, int] = {}
-    local_mode: Dict[str, bool] = {}
     for leaf_key, meta in manifest["leaves"].items():
         if not _wanted(leaf_key):
             continue
-        pending[leaf_key] = np.empty([int(d) for d in meta["shape"]],
-                                     dtype=np.dtype(meta["saved_dtype"]))
+        shape = [int(d) for d in meta["shape"]]
+        if leaf_key in boxes:
+            check_whole_shape(leaf_key, shape, boxes[leaf_key][0])
+        # a leaf the live model lacks is read whole: place_tree names it
+        region[leaf_key] = live.get(leaf_key, whole_box(shape))
+        pending[leaf_key] = np.empty(
+            [e - s for s, e in region[leaf_key]],
+            dtype=np.dtype(meta["saved_dtype"]))
         filled[leaf_key] = 0
-        want[leaf_key] = (int(np.prod(meta["shape"]))
-                          if meta["shape"] else 1)
-        local_mode[leaf_key] = False
 
-    # every process's index rows BEFORE any shard bytes, so the planner
+    # every rank's index rows BEFORE any shard bytes, so the planner
     # sees each leaf's complete saved shard set
     rows_by_leaf: Dict[str, List] = {k: [] for k in pending}
     for idx_file in manifest["index_files"]:
@@ -538,19 +648,20 @@ def load_sharded(path: str, ffmodel, verify: bool = True,
             rows_by_leaf.setdefault(leaf_key, []).extend(
                 (index["shards_file"], row) for row in rows)
 
-    live = _live_boxes(ffmodel) if rank_local else {}
     reg = get_registry()
     read_bytes = skipped_bytes = 0
     # plan per leaf, then read file-major: one shards file open at a time
     reads_by_file: Dict[str, List] = {}
     for leaf_key, entries in rows_by_leaf.items():
-        selected, skipped, leaf_want, is_local = _select_rows(
-            entries, live.get(leaf_key))
-        if is_local:
-            want[leaf_key] = leaf_want
-            local_mode[leaf_key] = True
-            skipped_bytes += sum(int(row.get("bytes", 0))
-                                 for _, row in skipped)
+        selected, skipped, _, is_local = _select_rows(
+            entries, [region[leaf_key]] if rank_local else None)
+        if not is_local:
+            # another cut of the leaf: the saved rows over this box
+            selected, skipped = [], []
+            for e in entries:
+                meets = _meet(e[1]["index"], region[leaf_key]) is not None
+                (selected if meets else skipped).append(e)
+        skipped_bytes += sum(int(row.get("bytes", 0)) for _, row in skipped)
         for shards_file, row in selected:
             reads_by_file.setdefault(shards_file, []).append(
                 (leaf_key, row))
@@ -558,7 +669,6 @@ def load_sharded(path: str, ffmodel, verify: bool = True,
         npz = np.load(os.path.join(step_dir, shards_file))
         try:
             for leaf_key, row in rows:
-                dest = pending[leaf_key]
                 try:
                     data = read_shard_row(npz, row, verify=verify)
                 except ValueError as e:  # stored-CRC mismatch
@@ -571,15 +681,20 @@ def load_sharded(path: str, ffmodel, verify: bool = True,
                         f"'{leaf_key}' is unreadable ({e}) — on-disk "
                         f"corruption; refusing to restore") from e
                 read_bytes += int(row.get("bytes", data.nbytes))
-                box = row["index"]
-                if box:
-                    sl = tuple(slice(b[0], b[1]) for b in box)
-                    dest[sl] = data
-                    filled[leaf_key] += int(
-                        np.prod([b[1] - b[0] for b in box]))
-                else:
-                    dest[...] = data
+                box, reg_box = row["index"], region[leaf_key]
+                if not box:
+                    pending[leaf_key][...] = data
                     filled[leaf_key] += 1
+                    continue
+                meet = _meet(box, reg_box)
+                if meet is None:
+                    continue
+                src = tuple(slice(s - b[0], e - b[0])
+                            for (s, e), b in zip(meet, box))
+                dst = tuple(slice(s - r[0], e - r[0])
+                            for (s, e), r in zip(meet, reg_box))
+                pending[leaf_key][dst] = data[src]
+                filled[leaf_key] += _box_volume(meet)
         finally:
             npz.close()
     reg.inc("ckpt/restore_read_bytes", read_bytes)
@@ -587,14 +702,14 @@ def load_sharded(path: str, ffmodel, verify: bool = True,
     for leaf_key, meta in manifest["leaves"].items():
         if leaf_key not in pending:
             continue  # opt-state leaf skipped by include_opt_state=False
-        if filled[leaf_key] != want[leaf_key]:
-            scope = ("this host's live shard boxes"
-                     if local_mode[leaf_key] else "the global shape")
+        want = _box_volume(region[leaf_key])
+        if filled[leaf_key] != want:
+            scope = ("this rank's live shard box" if leaf_key in live
+                     else "the global shape")
             raise ValueError(
                 f"checkpoint {step_dir}: leaf '{leaf_key}' reassembled "
-                f"{filled[leaf_key]}/{want[leaf_key]} elements of "
-                f"{scope} — incomplete shard set; refusing a partial "
-                f"restore")
+                f"{filled[leaf_key]}/{want} elements of {scope} — "
+                f"incomplete shard set; refusing a partial restore")
         flat[leaf_key] = tensor_of(pending[leaf_key], meta["dtype"])
 
     if include_opt_state:

@@ -23,7 +23,10 @@ Entry points:
     ``FLEXFLOW_COORDINATOR`` / ``FLEXFLOW_NODE_RANK`` /
     ``FLEXFLOW_NUM_PROCESSES``).
   * ``allgather_value`` / ``ranks_agree``: every rank's copy of a host
-    scalar, checked before the first per-batch collective.
+    scalar, checked before the first per-batch collective (and before a
+    checkpoint load or fresh start diverges the ranks); ``barrier``.
+  * ``process_index`` / ``process_count``: the group's (rank, world),
+    ``(0, 1)`` without a group.
   * ``local_batch_rows(sharding, global_rows)``: the rows of a batch this
     rank feeds, and at which offset.
   * ``all_gather_host(local, sharding)``: the whole array on every rank.
@@ -162,6 +165,14 @@ def ranks_agree(value) -> Tuple[list, bool]:
     """(per-rank values, all equal?) for a host-side integer."""
     vals = allgather_value(value)
     return vals, len(set(vals)) == 1
+
+
+def barrier() -> None:
+    """Every rank waits here until all have arrived (one collective);
+    nothing without a group. Never called from the checkpoint writer's
+    thread: its barrier is the filesystem's (``ckpt/manifest.py``)."""
+    if process_count() > 1:
+        _dist().barrier()
 
 
 def broadcast_object(obj, src: int = 0):

@@ -458,6 +458,17 @@ class GraphExecutor:
             whole = self.comm.own_block(whole, axes, d)
         return whole.contiguous()
 
+    def master_box(self, op_name: str, pname: str, local: torch.Tensor):
+        """(whole shape, normalized master spec, this rank's box) over the
+        process group of a parameter leaf, or of an optimizer slot of it,
+        of which ``local`` is this rank's master box: the block
+        ``local_box`` cuts on each dim."""
+        shape = self.whole_shape(op_name, pname, local)
+        spec = self.master_spec(op_name, pname, shape)
+        box = [list(self.comm.block_range(n, axes, d))
+               for d, (n, axes) in enumerate(zip(shape, spec))]
+        return shape, spec, box
+
     def whole_shape(self, op_name: str, pname: str,
                     local: torch.Tensor) -> Tuple[int, ...]:
         """The whole shape of a parameter leaf of which ``local`` is this

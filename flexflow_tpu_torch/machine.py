@@ -462,8 +462,8 @@ def local_ring_axis(mesh: Optional[Mesh],
     sequence axis is above 1 (a data x model mesh runs over a process
     group instead). Raises NotImplementedError, naming the ROADMAP.md
     item, for the axes no slice runs yet: 'pipe' (item 10), 'expert'
-    (expert parallelism, item 3's second part), and a sequence axis beside
-    another axis above 1 (item 3's {"data", "seq"} rings)."""
+    (expert parallelism, item 3.4), and a sequence axis beside another
+    axis above 1 (the multi-rank ring, item 3.5)."""
     big = {a: n for a, n in (mesh.shape if mesh else {}).items() if n > 1}
     if big.get("pipe"):
         raise NotImplementedError(
@@ -473,15 +473,15 @@ def local_ring_axis(mesh: Optional[Mesh],
     if big.get("expert"):
         raise NotImplementedError(
             f"mesh {mesh.shape}: an 'expert' axis above 1 is expert "
-            f"parallelism, the second part of the multi-GPU slice of the "
-            f"PyTorch port (ROADMAP.md Queue 1 item 3)")
+            f"parallelism, a later multi-GPU slice of the PyTorch port "
+            f"(ROADMAP.md Queue 1 item 3.4)")
     seq = [a for a in big if a in set(seq_axes)]
     if not seq:
         return None
     if len(big) > 1:
         raise NotImplementedError(
             f"mesh {mesh.shape}: a ring-attention sequence axis beside "
-            f"another axis above 1 runs the ring over ranks, the rest of "
-            f"the multi-GPU slice of the PyTorch port (ROADMAP.md Queue 1 "
-            f"item 3)")
+            f"another axis above 1 runs the ring over ranks, a later "
+            f"multi-GPU slice of the PyTorch port (ROADMAP.md Queue 1 "
+            f"item 3.5)")
     return seq[0]

@@ -856,7 +856,7 @@ class FFModel:
                 error = RuntimeError(
                     "the search rewrote the graph, and a rewritten graph "
                     "is not carried to the other ranks of a process group "
-                    "(ROADMAP.md Queue 1 item 3); pass --disable-substitution")
+                    "(ROADMAP.md Queue 1 item 3.6); pass --disable-substitution")
         if multi:
             payload = None
             if distributed.process_index() == 0:
@@ -1158,7 +1158,12 @@ class FFModel:
         loop how many step slots to skip; an empty directory is a fresh
         launch, so one command line serves the first start and every
         restart. ``state_provider()`` gives the JSON-able client state
-        each manifest records (``fit_loader``'s loader cursor)."""
+        each manifest records (``fit_loader``'s loader cursor). Over a
+        process group every rank makes its own manager on the one
+        directory: each saves its boxes (its WUS shards of the master
+        and moments), and the restore writes each rank's boxes into its
+        shard buffers and gathers the working copy anew; the ranks agree
+        on a fresh start or a load before either."""
         cfg = self.config
         cdir = checkpoint_dir or cfg.checkpoint_dir
         do_resume = resume if resume is not None else cfg.resume
@@ -1713,7 +1718,7 @@ class FFModel:
                 f"serve() over the mesh {self.mesh.shape}: serving a model "
                 f"sharded over a process group is the rest of the "
                 f"multi-GPU slice of the PyTorch port (ROADMAP.md Queue 1 "
-                f"item 3)")
+                f"item 3.3)")
         from flexflow_tpu_torch.serve import ServingEngine
         engine = ServingEngine(self, batch_buckets=batch_buckets,
                                max_wait_ms=max_wait_ms,

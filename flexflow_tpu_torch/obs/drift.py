@@ -111,7 +111,7 @@ def predicted_comm_time(ff, census: Dict[str, Dict[str, float]]
         if n_chips > 1:
             raise NotImplementedError(
                 "pricing a collective census over more than one device: "
-                "multi-GPU execution is ROADMAP.md Queue 1 item 3")
+                "multi-GPU execution is ROADMAP.md Queue 1 item 3.2")
         t = 0.0
         row = dict(entry, predicted_s=t)
         # when a measured correction is already applied to this spec,

@@ -88,8 +88,8 @@ class Experts(Op):
             raise NotImplementedError(
                 f"{self.name}: experts over the mesh axis {axis!r} "
                 f"({ctx.mesh_axes[axis]} devices) need multi-GPU "
-                f"execution, the multi-GPU slice of the PyTorch port "
-                f"(ROADMAP.md Queue 1 item 3)")
+                f"execution: expert parallelism, ROADMAP.md Queue 1 item "
+                f"3.4")
         b = x.shape[0]
         values, assign = top_k(gate, self.k)
         cap = expert_capacity(b, self.k, self.n_experts, self.alpha)

@@ -202,18 +202,26 @@ class MeshComm:
         self._note("all-gather", axes, out)
         return out
 
+    def block_range(self, length: int, axes: Sequence[str],
+                    dim: int = 0) -> Tuple[int, int]:
+        """[start, stop) of this rank's block of a dim of ``length``
+        split over ``axes`` (dim ``dim``, for the message)."""
+        axes = tuple(axes)
+        n = self.size(axes)
+        if length % n:
+            raise ValueError(f"dim {dim} of size {length} does not "
+                             f"split over {axes} ({n} blocks)")
+        b = self.block(axes) if axes else 0
+        return b * (length // n), (b + 1) * (length // n)
+
     def own_block(self, t: torch.Tensor, axes: Sequence[str],
                   dim: int) -> torch.Tensor:
         """This rank's block of ``t`` split along ``dim`` over ``axes``
         (no communication)."""
-        axes = tuple(axes)
         if not axes:
             return t
-        n = self.size(axes)
-        if t.shape[dim] % n:
-            raise ValueError(f"dim {dim} of size {t.shape[dim]} does not "
-                             f"split over {axes} ({n} blocks)")
-        return t.chunk(n, dim=dim)[self.block(axes)].contiguous()
+        start, stop = self.block_range(t.shape[dim], axes, dim)
+        return t.narrow(dim, start, stop - start).contiguous()
 
     def reduce_scatter(self, t: torch.Tensor, axes: Sequence[str], dim: int,
                        async_op: bool = False):

@@ -145,7 +145,7 @@ class ProcessGroupRing:
             raise NotImplementedError(
                 "ring attention over a process group inside a CUDA graph: "
                 "its NCCL hop comes with the multi-GPU slice of the "
-                "PyTorch port (ROADMAP.md Queue 1 item 3)")
+                "PyTorch port (ROADMAP.md Queue 1 item 3.5)")
         return _RingHop.apply(k, v, self) if self.size > 1 else (k, v)
 
     def anchor(self, o: torch.Tensor, k: torch.Tensor,

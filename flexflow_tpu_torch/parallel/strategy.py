@@ -210,7 +210,7 @@ def check_executable(nodes, mesh) -> None:
             + (f"is one of {world}" if world > 1 else "has no such group")
             + ": start one with flexflow_tpu_torch.distributed.initialize "
             f"(or torchrun), the multi-GPU slice of the PyTorch port "
-            f"(ROADMAP.md Queue 1 item 3)")
+            f"(ROADMAP.md Queue 1 item 3.8)")
 
 
 def _axis_entry_valid(entry, valid_axes) -> bool:

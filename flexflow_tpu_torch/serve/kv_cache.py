@@ -28,7 +28,7 @@ the CPU the same body runs eagerly over the same static buffers.
 The reference shards the cache over a mesh (``cache_partition_spec``:
 heads under model parallelism, the sequence over a ring axis); one device
 has no such layout, and a session on a mesh with an axis above 1 raises
-(ROADMAP.md Queue 1 item 3).
+(ROADMAP.md Queue 1 item 3.3).
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def _refuse_mesh(ff) -> None:
         raise NotImplementedError(
             f"KV-cache decode runs on one device; the model's mesh {big} "
             f"would shard the cache, which comes with multi-GPU execution "
-            f"(ROADMAP.md Queue 1 item 3)")
+            f"(ROADMAP.md Queue 1 item 3.3)")
 
 
 def init_kv_cache(ff, batch: Optional[int] = None,

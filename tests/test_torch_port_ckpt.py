@@ -59,10 +59,11 @@ def blobs(n=256, d=16, classes=4, seed=0):
     return x, y.astype(np.int32).reshape(-1, 1)
 
 
-def port_mlp(state_dtype=torch.bfloat16, alpha=0.01, dropout=False):
+def port_mlp(state_dtype=torch.bfloat16, alpha=0.01, dropout=False,
+             hidden=32):
     ff = P.FFModel(P.FFConfig(batch_size=64), device="cpu")
     t = ff.create_tensor((64, 16))
-    h = ff.dense(t, 32, activation=ActiMode.AC_MODE_RELU, name="h1")
+    h = ff.dense(t, hidden, activation=ActiMode.AC_MODE_RELU, name="h1")
     if dropout:
         h = ff.dropout(h, 0.5, name="drop")
     ff.softmax(ff.dense(h, 4, name="out"))
@@ -529,6 +530,25 @@ def test_missing_checkpoint_fails_fast(tmp_path):
         ff.load_checkpoint(str(tmp_path / "nowhere_v1"))
 
 
+@pytest.mark.parametrize("fmt", ["v1", "v2"])
+def test_a_wider_checkpoint_is_refused(tmp_path, fmt):
+    """A checkpoint of a wider model is refused, not loaded as a crop of
+    each leaf: every saved whole shape must be the live one."""
+    wide = port_mlp(hidden=64)
+    path = str(tmp_path / "wide")
+    if fmt == "v1":
+        wide.save_checkpoint(path)
+    else:
+        save_sharded(path, wide)
+    ff = port_mlp()
+    before = {k: bits(v).copy() for k, v in leaves(ff).items()}
+    with pytest.raises(ValueError, match=r"checkpoint shape \(.*\) != "
+                                         r"live \(.*\) for leaf"):
+        ff.load_checkpoint(path)
+    for k, v in leaves(ff).items():
+        np.testing.assert_array_equal(bits(v), before[k], err_msg=k)
+
+
 def test_resume_without_dir_rejected():
     x, y = blobs()
     with pytest.raises(ValueError, match="no checkpoint directory"):
@@ -608,8 +628,11 @@ def test_plan_resume_and_saved_strategy(tmp_path):
     _saved(tmp_path)
     manifest = load_manifest(str(tmp_path))
     assert plan_resume(manifest, 1)["action"] == "reuse"
-    with pytest.raises(NotImplementedError, match="item 3"):
-        plan_resume(manifest, 2)
+    # another device count re-searches, the JAX package's plan
+    from flexflow_tpu.ckpt import plan_resume as j_plan_resume
+    assert plan_resume(manifest, 2) == j_plan_resume(manifest, 2) == dict(
+        action="research", saved_mesh=manifest["mesh"], saved_devices=1,
+        num_devices=2, topology="device_change")
     path = write_saved_strategy(manifest, str(tmp_path / "s.json"))
     with open(path) as f:
         assert set(json.load(f)["ops"]) >= {"h1", "out"}

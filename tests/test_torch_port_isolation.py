@@ -93,7 +93,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "flexflow_tpu_torch.distributed, flexflow_tpu_torch.parallel.comm, "
         "flexflow_tpu_torch.parallel.sharded, "
         "flexflow_tpu_torch.parallel.pcg, "
-        "flexflow_tpu_torch.ops.parallel_ops, flexflow_tpu_torch.driver\n"
+        "flexflow_tpu_torch.ops.parallel_ops, flexflow_tpu_torch.driver, "
+        "flexflow_tpu_torch.multihost_dryrun\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -192,6 +193,19 @@ def test_moe_and_fit_loader_raise_without_cuda(monkeypatch):
         dataloader.stage(np.zeros((4, 2), np.float32), torch.device("cuda"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dataloader.stage(np.zeros((4, 2), np.float32), None)
+
+
+@pytest.mark.parametrize("leg", ["run_ckpt_failfast_dryrun",
+                                 "run_elastic_dryrun",
+                                 "run_preemption_dryrun"])
+def test_dryrun_legs_raise_without_cuda(monkeypatch, leg):
+    """The multi-process dryrun's workers run on the card unless the
+    caller names the CPU: without one each leg raises before it starts a
+    process."""
+    from flexflow_tpu_torch import multihost_dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(multihost_dryrun, leg)()
 
 
 def test_detect_machine_spec_does_not_fall_back_to_the_cpu(monkeypatch):

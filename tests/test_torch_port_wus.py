@@ -150,8 +150,8 @@ def _case_flags(payload):
 def _case_mlp(payload):
     """Each MLP mesh under MLP_MODES: losses, whole parameters, the
     rank's state elements, the step's collectives; and under WUS
-    ``evaluate``, ``predict``, a parameter round trip and a refused
-    save."""
+    ``evaluate``, ``predict``, a parameter round trip and a v1 save
+    round trip."""
     from flexflow_tpu_torch.weights import from_jax_params, to_jax_params
     out = {}
     x, y = payload["data"]
@@ -171,11 +171,14 @@ def _case_mlp(payload):
                 ff.set_parameter("d0", w)
                 run["roundtrip"] = bool(np.array_equal(
                     ff.get_parameter("d0"), w))
-                try:
-                    ff.save_checkpoint(payload["root"] + f"/ck{mesh}")
-                    run["save"] = "saved"
-                except NotImplementedError as e:
-                    run["save"] = str(e)
+                stem = payload["root"] + f"/ck{mesh}"
+                ff.save_checkpoint(stem)
+                back = _port_mlp(MLP_MESHES[mesh], wus, ovl)
+                run["save"] = dict(iteration=back.load_checkpoint(stem),
+                                   same=all(torch.equal(a, b) for a, b in zip(
+                                       _flat((ff.params, ff.opt_state)),
+                                       _flat((back.params,
+                                              back.opt_state)))))
             out[(mesh, wus, ovl)] = run
     # a leaf no dim of which the data degree divides stays replicated
     tiny = _port_mlp(MLP_MESHES["d8"], "on", width=12, hidden=0)
@@ -560,15 +563,15 @@ def test_indivisible_leaves_stay_replicated(runs):
 def test_evaluate_predict_and_parameters_gather_the_shards(runs):
     """``evaluate`` and ``predict`` read the gathered working copy;
     ``set_parameter`` cuts each rank's shard and ``get_parameter``
-    gathers it back; a save over the ranks is refused, naming its
-    item."""
+    gathers it back; a v1 save over the ranks restores every rank's
+    shards bit for bit."""
     jres, ranks = runs
     got = _port(ranks, "mlp")[("d8", "on", "1")]
     assert np.isfinite(got["evaluate"])
     assert got["predict"].shape == (BATCH, 64)
     assert np.isfinite(got["predict"]).all()
     assert got["roundtrip"]
-    assert "Queue 1 item 3" in got["save"]
+    assert got["save"] == dict(iteration=STEPS, same=True)
 
 
 def test_fused_update_is_the_plain_one_on_shards(runs):
